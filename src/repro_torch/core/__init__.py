@@ -1,0 +1,67 @@
+"""repro_torch.core -- batch-parallel adaptive ODE solving in PyTorch.
+
+The port of the JAX package's ``repro.core``, slice by slice.  Two API levels:
+
+  - one-call wrappers: ``solve_ivp`` / ``make_solver``
+  - composable components: ``AutoDiffAdjoint(Stepper("tsit5"),
+    pid_controller()).solve(f, y0, t_eval)``
+
+Every entry point runs on the CUDA device unless the caller passes
+``device="cpu"``.
+"""
+
+from .controller import (
+    ControllerState,
+    FixedController,
+    PIDController,
+    integral_controller,
+    pi_controller,
+    pid_controller,
+)
+from .drivers import AutoDiffAdjoint, BacksolveAdjoint, ScanAdjoint
+from .loop import make_solver, solve_ivp
+from .solution import Solution, Status
+from .step import LoopState, StepContext, StepFunction
+from .stepper import (
+    AbstractStepper,
+    ExplicitRK,
+    Stepper,
+    StepResult,
+    initial_step_size,
+    rk_step,
+)
+from .tableau import TABLEAUS, ButcherTableau, get_tableau
+from .terms import ODETerm, RaveledState, as_term, ravel_state, ravel_term
+
+__all__ = [
+    "AbstractStepper",
+    "ExplicitRK",
+    "Stepper",
+    "StepResult",
+    "initial_step_size",
+    "rk_step",
+    "ControllerState",
+    "FixedController",
+    "PIDController",
+    "integral_controller",
+    "pi_controller",
+    "pid_controller",
+    "AutoDiffAdjoint",
+    "BacksolveAdjoint",
+    "ScanAdjoint",
+    "make_solver",
+    "solve_ivp",
+    "Solution",
+    "Status",
+    "LoopState",
+    "StepContext",
+    "StepFunction",
+    "TABLEAUS",
+    "ButcherTableau",
+    "get_tableau",
+    "ODETerm",
+    "RaveledState",
+    "as_term",
+    "ravel_state",
+    "ravel_term",
+]

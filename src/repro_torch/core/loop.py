@@ -1,0 +1,131 @@
+"""One-call wrappers over the componentized solver core.
+
+``solve_ivp`` and ``make_solver`` keep the JAX package's signatures, plus the
+explicit ``device`` of ``solve_ivp``.  New code may compose the components
+directly::
+
+    solver = AutoDiffAdjoint(Stepper("tsit5"), pid_controller())
+    sol = solver.solve(f, y0, t_eval, args=args)
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any
+
+from .drivers import AutoDiffAdjoint
+from .solution import Solution
+from .step import StepFunction
+from .stepper import AbstractStepper
+from .terms import as_term
+
+
+def make_solver(
+    f,
+    *,
+    method: str = "dopri5",
+    rtol=1e-3,
+    atol=1e-6,
+    controller=None,
+    max_steps: int = 10_000,
+    batched_term: bool = True,
+    dense: bool = True,
+    dense_window: int = 0,
+    events=None,
+    event_bisect_iters: int = 30,
+    fused: bool = False,
+):
+    """Build (init_fn, body_fn, finish_fn) for a caller-owned loop.
+
+    ``max_steps`` is accepted for signature stability only: the *caller*
+    owns the loop, so a non-default value warns instead of being silently
+    ignored.  The caller places ``y0`` (and tolerance vectors) on the device.
+
+    On the card ``step`` writes the dense output into the ``ys`` of the state
+    it is given and returns that buffer in the new state (see
+    ``StepFunction``): clone ``state.ys`` before the call to keep an old
+    state intact.  On the CPU the old state is left as it was.
+    """
+    if max_steps != 10_000:
+        warnings.warn(
+            "make_solver ignores max_steps: it returns (init, step, finish) and "
+            "the iteration bound belongs to the caller's loop. Bound your own "
+            "loop, or use solve_ivp / AutoDiffAdjoint(max_steps=...) which own "
+            "their loop.",
+            UserWarning,
+            stacklevel=2,
+        )
+    del max_steps
+    step_fn = StepFunction(
+        as_term(f, batched=batched_term),
+        AbstractStepper.coerce(method),
+        controller,
+        rtol=rtol,
+        atol=atol,
+        dense=dense,
+        dense_window=dense_window,
+        events=events,
+        event_bisect_iters=event_bisect_iters,
+        fused=fused,
+    )
+    return step_fn.init, step_fn.step, step_fn.finish
+
+
+def solve_ivp(
+    f,
+    y0,
+    t_eval=None,
+    *,
+    t_start=None,
+    t_end=None,
+    method: str = "dopri5",
+    rtol=1e-3,
+    atol=1e-6,
+    controller=None,
+    dt0=None,
+    max_steps: int = 10_000,
+    args: Any = None,
+    batched_term: bool = True,
+    dense: bool = True,
+    dense_window: int = 0,
+    events=None,
+    event_bisect_iters: int = 30,
+    fused: bool = False,
+    device=None,
+) -> Solution:
+    """Solve a batch of IVPs in parallel with independent per-instance state.
+
+    y0:     (batch, features) initial conditions, or any structure (dicts,
+            lists, tuples) whose tensor leaves carry the batch as their
+            leading axis (ravelled at the term boundary; the vector field then
+            receives per-instance structures)
+    t_eval: (n,) shared or (batch, n) per-instance evaluation points, or None to
+            track only the final state
+    t_start/t_end: scalars or (batch,) vectors; default to t_eval boundaries.
+            Integration ranges may differ per instance, including direction.
+    method: an explicit tableau name ("dopri5", "tsit5", "bosh3", "heun",
+            "euler", "midpoint", "rk4").  Implicit methods are not ported yet.
+    rtol/atol: scalars shared by the batch, per-instance (b,) or full (b, f).
+    events / fused: refused (NotImplementedError) until their slices are
+            ported (ROADMAP A-9, A-8).
+    device: where to solve.  ``None`` means the CUDA device, and raises when
+            there is none; pass ``device="cpu"`` to solve on the CPU with the
+            plain ops.  Inputs are moved to this device.
+
+    Returns a ``Solution`` with per-instance status and statistics.
+    """
+    driver = AutoDiffAdjoint(
+        AbstractStepper.coerce(method),
+        controller,
+        rtol=rtol,
+        atol=atol,
+        max_steps=max_steps,
+        dense=dense,
+        dense_window=dense_window,
+        batched_term=batched_term,
+        events=events,
+        event_bisect_iters=event_bisect_iters,
+        fused=fused,
+    )
+    return driver.solve(f, y0, t_eval, t_start=t_start, t_end=t_end, dt0=dt0, args=args,
+                        device=device)

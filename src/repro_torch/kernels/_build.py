@@ -1,0 +1,105 @@
+"""Build and load the CUDA kernels in ``csrc/``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, loaded with ``ctypes``.  The build happens at first
+use, into ``build/repro_torch_kernels/`` at the repository root, under a file
+name keyed by a hash of the sources: an edited source builds anew, an
+unchanged one is loaded from the previous build.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc was not found or refused the sources; the message carries its stderr."""
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = pathlib.Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise KernelBuildError(
+        "nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels"
+    )
+
+
+def library_path() -> pathlib.Path:
+    digest = hashlib.sha256()
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"solver_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the sources unless a library for this source hash exists.
+    Returns its path.  With ``verbose`` nvcc also reports each kernel's
+    registers and spills (``-Xptxas -v``), printed to stdout."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build under a temporary name and rename: concurrent builds never load
+    # a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *[str(s) for s in sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, path)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i, i64, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+        dp = ctypes.POINTER(ctypes.c_double)
+        lib.rt_max_stages.argtypes = []
+        lib.rt_max_stages.restype = i
+        lib.rt_error_string.argtypes = [i]
+        lib.rt_error_string.restype = ctypes.c_char_p
+        lib.rt_stage_accum.argtypes = [i, p, p, p, dp, i, p, i64, i64, p]
+        lib.rt_fused_update.argtypes = [i, p, p, p, dp, dp, i, p, p, i64, i64, p]
+        lib.rt_error_norm.argtypes = [i, p, p, p, p, d, i64, i64, p, d, i64, i64, p,
+                                      i64, i64, p]
+        lib.rt_interp_eval.argtypes = [i, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
+        for name in ("rt_stage_accum", "rt_fused_update", "rt_error_norm", "rt_interp_eval"):
+            getattr(lib, name).restype = i
+        _lib = lib
+    return _lib

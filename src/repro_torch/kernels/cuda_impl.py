@@ -1,0 +1,189 @@
+"""Wrappers around the CUDA kernels in ``csrc/solver_kernels.cu``.
+
+Each wrapper checks device, dtype (float32 or float64), shape and
+contiguity, allocates its outputs with ``torch.empty``, launches on
+``torch.cuda.current_stream()`` and raises when the launch reports an error.
+It never falls back to the plain version: a tensor the kernel does not take
+is an error.  ``launches[name]`` counts the launches of each kernel, and
+nothing else adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval": 0}
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def _check(name, dtype, *tensors):
+    for t in tensors:
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                             f"{getattr(t, 'device', type(t).__name__)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{name}: the CUDA kernel has no backward yet (ROADMAP A-11); "
+                "solve under torch.no_grad() or on the CPU to differentiate"
+            )
+
+
+def _dtype_code(name, t):
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, got {t.dtype}")
+    return _DTYPES[t.dtype]
+
+
+def _same_device(name, *tensors):
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors lie on several devices {sorted(map(str, devices))}")
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(name, code):
+    if code != 0:
+        msg = _build.load().rt_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}: {msg}")
+
+
+def _coeff_array(name, values, lib):
+    vals = np.asarray(values, dtype=np.float64).reshape(-1).tolist()
+    limit = lib.rt_max_stages()
+    if len(vals) > limit:
+        raise ValueError(f"{name}: at most {limit} coefficients, got {len(vals)}")
+    return (ctypes.c_double * max(len(vals), 1))(*vals), len(vals)
+
+
+def stage_accum(y, dt, K, coeffs):
+    """CUDA ``stage_accum``: y + dt[:, None] * sum_j coeffs[j] * K[j]."""
+    code = _dtype_code("stage_accum", y)
+    _check("stage_accum", y.dtype, y, dt, K)
+    _same_device("stage_accum", y, dt, K)
+    b, f = y.shape
+    lib = _build.load()
+    arr, nj = _coeff_array("stage_accum", coeffs, lib)
+    if dt.shape != (b,) or K.ndim != 3 or K.shape[1:] != (b, f) or K.shape[0] != nj:
+        raise ValueError(f"stage_accum: shapes y {tuple(y.shape)}, dt {tuple(dt.shape)}, "
+                         f"K {tuple(K.shape)}, {nj} coefficients do not agree")
+    out = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        rc = lib.rt_stage_accum(code, y.data_ptr(), dt.data_ptr(), K.data_ptr(), arr, nj,
+                                out.data_ptr(), b, f, _stream(y.device))
+    _raise_on("stage_accum", rc)
+    launches["stage_accum"] += 1
+    return out
+
+
+def fused_update(y, K, dt, b_sol, b_err):
+    """CUDA ``fused_update``: returns (y + dt * (b_sol . K), dt * (b_err . K))."""
+    code = _dtype_code("fused_update", y)
+    _check("fused_update", y.dtype, y, K, dt)
+    _same_device("fused_update", y, K, dt)
+    b, f = y.shape
+    lib = _build.load()
+    bs, ns = _coeff_array("fused_update", b_sol, lib)
+    be, ne = _coeff_array("fused_update", b_err, lib)
+    if ne != ns or dt.shape != (b,) or K.ndim != 3 or K.shape != (ns, b, f):
+        raise ValueError(f"fused_update: shapes y {tuple(y.shape)}, K {tuple(K.shape)}, "
+                         f"dt {tuple(dt.shape)}, {ns}/{ne} weights do not agree")
+    y1 = torch.empty_like(y)
+    err = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        rc = lib.rt_fused_update(code, y.data_ptr(), K.data_ptr(), dt.data_ptr(), bs, be, ns,
+                                 y1.data_ptr(), err.data_ptr(), b, f, _stream(y.device))
+    _raise_on("fused_update", rc)
+    launches["fused_update"] += 1
+    return y1, err
+
+
+def _tolerance(name, tol, b, f, like):
+    """(pointer, value, row stride, column stride) of a scalar, (b,) or (b, f)
+    tolerance.  A Python number rides by value; a tensor is addressed through
+    its broadcast strides (0 on a broadcast axis)."""
+    if not isinstance(tol, torch.Tensor):
+        return None, float(tol), 0, 0
+    _check(name, like.dtype, tol)
+    _same_device(name, tol, like)
+    if tol.ndim == 1:
+        tol = tol[:, None]
+    try:
+        view = tol.expand(b, f)
+    except RuntimeError:
+        raise ValueError(f"{name}: tolerance of shape {tuple(tol.shape)} does not "
+                         f"broadcast to ({b}, {f})") from None
+    return view.data_ptr(), 0.0, view.stride(0), view.stride(1)
+
+
+def error_norm(err, y0, y1, atol, rtol):
+    """CUDA ``error_norm``: per-row WRMS of err / (atol + rtol * max(|y0|, |y1|))."""
+    code = _dtype_code("error_norm", err)
+    _check("error_norm", err.dtype, err, y0, y1)
+    _same_device("error_norm", err, y0, y1)
+    if err.ndim != 2 or y0.shape != err.shape or y1.shape != err.shape:
+        raise ValueError(f"error_norm: shapes {tuple(err.shape)}, {tuple(y0.shape)}, "
+                         f"{tuple(y1.shape)} do not agree")
+    b, f = err.shape
+    ap, av, ars, acs = _tolerance("error_norm", atol, b, f, err)
+    rp, rv, rrs, rcs = _tolerance("error_norm", rtol, b, f, err)
+    out = torch.empty((b,), dtype=err.dtype, device=err.device)
+    lib = _build.load()
+    with torch.cuda.device(err.device):
+        rc = lib.rt_error_norm(code, err.data_ptr(), y0.data_ptr(), y1.data_ptr(),
+                               ap, av, ars, acs, rp, rv, rrs, rcs, out.data_ptr(), b, f,
+                               _stream(err.device))
+    _raise_on("error_norm", rc)
+    launches["error_norm"] += 1
+    return out
+
+
+def interp_eval(coeffs, x, mask, out, cursor=None):
+    """CUDA ``interp_eval``: writes p(x) into the masked cells of ``out`` IN
+    PLACE and returns ``out`` (the unmasked cells are neither read nor
+    written; the port updates the dense-output buffer in place to save the
+    (b, n, f) round trip).  With ``cursor`` (b,) int64, ``x``/``mask`` are a
+    (b, W) window addressing ``out[row, cursor[row] + w]``; the cursor lives
+    on the device, so it is not checked here, and a window cell that would
+    fall outside ``out`` is left unwritten."""
+    c0, c1, c2, c3 = coeffs
+    code = _dtype_code("interp_eval", out)
+    _check("interp_eval", out.dtype, c0, c1, c2, c3, x, out)
+    b, n, f = out.shape
+    nw = x.shape[1] if x.ndim == 2 else -1
+    if (any(c.shape != (b, f) for c in coeffs) or x.shape != (b, nw)
+            or mask.shape != (b, nw) or (cursor is None and nw != n) or nw > n):
+        raise ValueError(f"interp_eval: shapes coeffs {[tuple(c.shape) for c in coeffs]}, "
+                         f"x {tuple(x.shape)}, mask {tuple(mask.shape)}, "
+                         f"out {tuple(out.shape)} do not agree")
+    if mask.dtype != torch.bool or mask.device != out.device or not mask.is_contiguous():
+        raise TypeError("interp_eval: mask must be a contiguous bool tensor on the "
+                        "device of out")
+    cursor_ptr = None
+    if cursor is not None:
+        if (cursor.dtype != torch.int64 or cursor.shape != (b,)
+                or cursor.device != out.device or not cursor.is_contiguous()):
+            raise TypeError("interp_eval: cursor must be a contiguous (b,) int64 tensor "
+                            "on the device of out")
+        cursor_ptr = cursor.data_ptr()
+    _same_device("interp_eval", c0, c1, c2, c3, x, out)
+    lib = _build.load()
+    with torch.cuda.device(out.device):
+        rc = lib.rt_interp_eval(code, c0.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+                                c3.data_ptr(), x.data_ptr(), mask.data_ptr(), cursor_ptr,
+                                out.data_ptr(), b, nw, n, f, _stream(out.device))
+    _raise_on("interp_eval", rc)
+    launches["interp_eval"] += 1
+    return out

@@ -1,0 +1,68 @@
+"""Dispatch layer over the solver's hot-spot ops, by the device of the data.
+
+The op names are the JAX package's registry names (``kernels/ops.py`` there).
+There is no backend switch: a tensor that lies on the CPU goes to the plain
+version in ``ref.py``; a CUDA tensor goes to the hand-written CUDA kernel in
+``cuda_impl.py``, or the call raises.  Nothing gives way to the plain version
+on the card.  ``launches`` counts the CUDA launches of each kernel.
+
+The solver core (``core/stepper.py`` for the stage math, ``core/step.py`` for
+the error norm and dense-output writes) imports its ops only from here.
+"""
+
+from __future__ import annotations
+
+from . import cuda_impl, ref
+
+launches = cuda_impl.launches
+
+
+def _on_cuda(name, t):
+    kind = t.device.type
+    if kind == "cpu":
+        return False
+    if kind == "cuda":
+        return True
+    raise ValueError(f"{name}: no implementation for tensors on {t.device}")
+
+
+def stage_accum(y, dt, K, coeffs):
+    if _on_cuda("stage_accum", y):
+        return cuda_impl.stage_accum(y, dt, K, coeffs)
+    return ref.stage_accum(y, dt, K, coeffs)
+
+
+def fused_update(y, K, dt, b_sol, b_err):
+    if _on_cuda("fused_update", y):
+        return cuda_impl.fused_update(y, K, dt, b_sol, b_err)
+    return ref.fused_update(y, K, dt, b_sol, b_err)
+
+
+def error_norm(err, y0, y1, atol, rtol):
+    if _on_cuda("error_norm", err):
+        return cuda_impl.error_norm(err, y0, y1, atol, rtol)
+    return ref.error_norm(err, y0, y1, atol, rtol)
+
+
+def interp_eval(coeffs, x, mask, out, cursor=None):
+    """Masked dense-output write.  Returns the updated (b, n, f) buffer; on
+    the card the kernel updates ``out`` in place and returns it, so callers
+    always use the returned buffer.  With ``cursor``, ``x``/``mask`` are a
+    (b, W) window starting at each row's cursor (``ref.interp_eval_window``)."""
+    if _on_cuda("interp_eval", out):
+        return cuda_impl.interp_eval(coeffs, x, mask, out, cursor)
+    if cursor is None:
+        return ref.interp_eval(coeffs, x, mask, out)
+    return ref.interp_eval_window(coeffs, x, mask, out, cursor)
+
+
+for _op in (stage_accum, fused_update, error_norm):
+    _op.__doc__ = getattr(ref, _op.__name__).__doc__
+del _op
+
+# Plain torch on every device, as they are plain jnp in the JAX package: no
+# Pallas kernel exists for them.
+hermite_coeffs = ref.hermite_coeffs
+rms_norm = ref.rms_norm
+broadcast_tolerances = ref.broadcast_tolerances
+pid_update = ref.pid_update

@@ -1,0 +1,126 @@
+"""Where one solver step's time goes on the card, for the two main-path
+workloads of ``chip_smoke.py`` (``tools/workloads.py``).
+
+    PYTHONPATH=src python -m repro_torch.tools.profile_step
+
+Prints one JSON line per workload (dopri5, float32):
+
+- ``ms_per_step``: a whole solve's wall time over its loop iterations, the
+  driver's per-step host sync (``running.any()``) included;
+- ``ms_per_step_no_sync``: the same number of steps issued back to back
+  through ``make_solver`` without the sync, then one synchronize;
+- ``pid_update_ms``, ``hermite_coeffs_ms``: one call of each plain-torch op
+  of the step (host clock, synchronized after 200 calls) -- the ops the
+  slice-2 ``fused_step`` kernel folds into one launch;
+- ``profile``: from ``torch.profiler`` over the no-sync steps, the device
+  operations per step, the device busy time per step, the device idle share
+  of that profiled run, the busy time of the four CUDA kernels, and the top
+  device operations by time.
+  ``null`` when the profiler reports no device activity.
+
+It needs a CUDA device and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..core import make_solver, solve_ivp
+from ..kernels import ops
+from . import workloads
+
+KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
+           "interp_eval_kernel")
+
+
+def _sync_ms(fn, reps=1):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def _steps_without_sync(vf, y0, t_eval, kw, iters, device):
+    kw = dict(kw)
+    args = kw.pop("args")
+    kw.pop("max_steps", None)
+    init, step, _ = make_solver(vf, **kw)
+    state, consts = init(torch.as_tensor(y0, device=device), t_eval, args=args)
+
+    def run():
+        s = state
+        for _ in range(iters):
+            s = step(s, consts, args)
+        return s
+
+    return run
+
+
+def _profile(run, iters):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = _sync_ms(run)
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    busy_us = sum(t for _, t in kernels)
+    by_name: dict[str, float] = {}
+    for name, t in kernels:
+        by_name[name] = by_name.get(name, 0.0) + t
+    ours = sum(t for name, t in by_name.items() if any(k in name for k in KERNELS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ops_per_step=len(kernels) / iters,
+                device_busy_ms_per_step=busy_us / 1e3 / iters,
+                device_idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
+                cuda_kernels_busy_ms_per_step=ours / 1e3 / iters,
+                top_kernels_ms_per_step={k[:80]: v / 1e3 / iters for k, v in top})
+
+
+def profile_workload(name, vf, y0, t_eval, kw, device):
+    solve_ivp(vf, y0, t_eval, device=device, **kw)  # warm-up
+    wall, sol = _sync_ms(lambda: solve_ivp(vf, y0, t_eval, device=device, **kw))
+    iters = int(sol.stats["n_steps"].max())
+    run = _steps_without_sync(vf, y0, t_eval, kw, iters, device)
+    run()
+    nosync, _ = _sync_ms(run)
+    b, f = y0.shape
+    g = torch.Generator(device="cpu").manual_seed(0)
+    err, dt = torch.rand(b, generator=g).to(device), torch.rand(b, generator=g).to(device)
+    one = torch.ones(b, device=device)
+    pid, _ = _sync_ms(lambda: ops.pid_update(err, dt, one, one, b1=0.2, b2=0.0, b3=0.0,
+                                             safety=0.9, factor_min=0.2, factor_max=10.0,
+                                             dt_min=0.0, dt_max=float("inf")), reps=200)
+    y = torch.rand(b, f, generator=g).to(device)
+    herm, _ = _sync_ms(lambda: ops.hermite_coeffs(y, y, y, y, dt), reps=200)
+    return dict(workload=name, b=b, f=f, iterations=iters, wall_ms=wall,
+                ms_per_step=wall / iters, ms_per_step_no_sync=nosync / iters,
+                sync_ms_per_step=(wall - nosync) / iters,
+                pid_update_ms=pid, hermite_coeffs_ms=herm,
+                profile=_profile(run, iters))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    vf, y0, te, kw = workloads.vdp_table3(np.float32)
+    print(json.dumps(profile_workload("vdp_table3", vf, y0, te, {**kw, "method": "dopri5"},
+                                      device)), flush=True)
+    vf, y0, te, kw = workloads.full_width(device)
+    print(json.dumps(profile_workload("full_width", vf, y0, te, kw, device)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
