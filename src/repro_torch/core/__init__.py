@@ -21,7 +21,7 @@ from .controller import (
 from .drivers import AutoDiffAdjoint, BacksolveAdjoint, ScanAdjoint
 from .loop import make_solver, solve_ivp
 from .solution import Solution, Status
-from .step import LoopState, StepContext, StepFunction
+from .step import FusedFallbackReason, LoopState, StepContext, StepFunction
 from .stepper import (
     AbstractStepper,
     ExplicitRK,
@@ -31,7 +31,15 @@ from .stepper import (
     rk_step,
 )
 from .tableau import TABLEAUS, ButcherTableau, get_tableau
-from .terms import ODETerm, RaveledState, as_term, ravel_state, ravel_term
+from .terms import (
+    ODETerm,
+    PolynomialTerm,
+    RaveledState,
+    as_term,
+    polynomial_term,
+    ravel_state,
+    ravel_term,
+)
 
 __all__ = [
     "AbstractStepper",
@@ -53,6 +61,7 @@ __all__ = [
     "solve_ivp",
     "Solution",
     "Status",
+    "FusedFallbackReason",
     "LoopState",
     "StepContext",
     "StepFunction",
@@ -60,8 +69,10 @@ __all__ = [
     "ButcherTableau",
     "get_tableau",
     "ODETerm",
+    "PolynomialTerm",
     "RaveledState",
     "as_term",
+    "polynomial_term",
     "ravel_state",
     "ravel_term",
 ]

@@ -69,6 +69,13 @@ class PIDController(_ControllerStats):
         b3 = self.dcoeff / k
         return b1, b2, b3
 
+    def filter_params(self, k: int) -> tuple[float, ...]:
+        """The controller's coefficient tuple ``(b1, b2, b3, safety,
+        factor_min, factor_max, dt_min, dt_max)`` -- the constants the fused
+        step kernel takes by value for its accept/next-dt tail."""
+        return (*self.betas(k), self.safety, self.factor_min, self.factor_max,
+                self.dt_min, self.dt_max)
+
     def __call__(
         self,
         err_ratio: torch.Tensor,  # (b,) weighted RMS error ratio of this step
@@ -113,6 +120,13 @@ class FixedController(_ControllerStats):
     def init(self, batch: int, dtype, device=None) -> ControllerState:
         one = torch.ones((batch,), dtype=dtype, device=device)
         return ControllerState(one, one)
+
+    def filter_params(self, k: int) -> tuple[float, ...]:
+        """No filter coefficients: the fused step runs with
+        ``ctrl_mode="fixed"`` instead -- accept everything that is running,
+        keep the standing dt proposal and pass the history through, exactly
+        what ``__call__`` and the loop's masked commit compute unfused."""
+        return ()
 
     def __call__(self, err_ratio, dt, state, k):
         accept = torch.ones(dt.shape, dtype=torch.bool, device=dt.device)

@@ -7,8 +7,9 @@ condition synchronizes host and device once per step (ROADMAP A-16 removes
 that sync with CUDA graphs).  On the CPU the loop is differentiable through
 torch autograd; the CUDA kernels have no backward yet (ROADMAP A-11).
 
-``ScanAdjoint`` and ``BacksolveAdjoint`` keep their names and refuse to
-construct until gradients are ported (ROADMAP A-11).
+``fused=True`` runs each step attempt through the fused step kernel (see
+``StepFunction``).  ``ScanAdjoint`` and ``BacksolveAdjoint`` keep their names
+and refuse to construct until gradients are ported (ROADMAP A-11).
 
 All drivers accept structured initial states: ravel/unravel happens at the
 term boundary (``terms.ravel_state`` / ``terms.ravel_term``), and the
@@ -77,10 +78,10 @@ class _Driver:
     events: dataclasses.InitVar[Any] = None
     event_bisect_iters: dataclasses.InitVar[int] = 30
     extra_stats: tuple = ()
-    fused: dataclasses.InitVar[bool] = False
+    fused: bool = False
 
-    def __post_init__(self, events, event_bisect_iters, fused):
-        refuse_unported(events, fused)
+    def __post_init__(self, events, event_bisect_iters):
+        refuse_unported(events)
         object.__setattr__(self, "stepper", AbstractStepper.coerce(self.stepper))
         object.__setattr__(self, "extra_stats", tuple(self.extra_stats))
 
@@ -103,6 +104,7 @@ class _Driver:
             dense=self.dense,
             dense_window=self.dense_window,
             extra_stats=self.extra_stats,
+            fused=self.fused,
         )
         return step_fn, y0_flat, raveled
 

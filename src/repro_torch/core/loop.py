@@ -106,8 +106,15 @@ def solve_ivp(
     method: an explicit tableau name ("dopri5", "tsit5", "bosh3", "heun",
             "euler", "midpoint", "rk4").  Implicit methods are not ported yet.
     rtol/atol: scalars shared by the batch, per-instance (b,) or full (b, f).
-    events / fused: refused (NotImplementedError) until their slices are
-            ported (ROADMAP A-9, A-8).
+    fused:  run each step attempt through the fused step kernel: one
+            ``fused_step`` launch after the stage sweep, or for a
+            ``polynomial_term`` one ``fused_step_poly`` launch and no vf
+            launch.  Engages for ``ExplicitRK`` with ``PIDController`` or
+            ``FixedController``; otherwise the unfused path runs and
+            ``stats["fused_fallback_reason"]`` says why.  Same results as
+            unfused (bitwise on the CPU).
+    events: refused (NotImplementedError) until its slice is ported
+            (ROADMAP A-9).
     device: where to solve.  ``None`` means the CUDA device, and raises when
             there is none; pass ``device="cpu"`` to solve on the CPU with the
             plain ops.  Inputs are moved to this device.

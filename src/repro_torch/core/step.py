@@ -22,21 +22,53 @@ and advances them in ``update_stats(stats, ctx) -> dict``, where ``ctx`` is a
 ``StepContext`` describing the step just taken.  The stepper records
 ``n_f_evals``, the controller ``n_accepted``, the step function itself
 ``n_steps`` and ``n_initialized``; user code can register additional
-contributors through ``extra_stats``.
+contributors through ``extra_stats``.  With ``fused=True`` the step function
+also records ``fused_fallback_reason`` (whether the fused path engaged, and if
+not why) and, when it engaged, ``n_fused_steps``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Any, NamedTuple
 
 import torch
 
 from ..kernels import ops
-from .controller import ControllerState, FixedController, _ControllerStats, integral_controller
+from .controller import (
+    ControllerState,
+    FixedController,
+    PIDController,
+    _ControllerStats,
+    integral_controller,
+)
 from .solution import Solution, Status
-from .stepper import AbstractStepper
-from .terms import ODETerm, as_term
+from .stepper import AbstractStepper, ExplicitRK, _tableau_arrays
+from .terms import ODETerm, PolynomialTerm, as_term
+
+
+class FusedFallbackReason(enum.IntEnum):
+    """Why the ``fused=True`` fast path did or did not engage.
+
+    Recorded per instance in ``Solution.stats["fused_fallback_reason"]``
+    whenever ``fused=True`` was requested (ENGAGED means it ran).  The codes
+    are static properties of the configuration: every instance in a batch
+    carries the same value.
+    """
+
+    ENGAGED = 0
+    # The stepper is not exactly ExplicitRK: a subclass may override the
+    # stage recursion the fused path bakes in.
+    NOT_EXPLICIT_RK = 1
+    # The controller is not exactly PIDController or FixedController: the
+    # kernel bakes in those two accept/next-dt programs only, and a subclass
+    # may override ``__call__``.
+    UNSUPPORTED_CONTROLLER = 2
+    # A DiagonallyImplicitRK subclass.  Kept so that the codes are the JAX
+    # package's; nothing reports it until the implicit steppers are ported
+    # (ROADMAP A-10).
+    UNSUPPORTED_IMPLICIT = 3
 
 
 class LoopState(NamedTuple):
@@ -63,14 +95,13 @@ class StepContext(NamedTuple):
     err_ratio: torch.Tensor  # (b,) weighted RMS error ratio of this step
 
 
-def refuse_unported(events, fused) -> None:
-    """Raise for the features whose slices are not ported yet; they stay in
-    the signatures for parity with the JAX package."""
+def refuse_unported(events) -> None:
+    """Raise for events, whose slice is not ported yet; they stay in the
+    signatures for parity with the JAX package.  (Implicit steppers are
+    refused by ``AbstractStepper.coerce``.)"""
     if events is not None and events != ():
-        raise NotImplementedError("events are not ported yet (ROADMAP A-9)")
-    if fused:
         raise NotImplementedError(
-            "fused=True (the fused_step kernel) is not ported yet (ROADMAP A-8, B-5)"
+            "events are not ported yet (ROADMAP A-9; kernels B-7, B-8, B-9)"
         )
 
 
@@ -118,9 +149,17 @@ class StepFunction:
     ``ys`` first.  On the CPU ``step`` returns a new buffer and leaves the old
     state's ``ys`` as it was.
 
-    ``events``, ``event_bisect_iters`` and ``fused`` stay in the signature
-    for parity with the JAX package: events and ``fused=True`` are refused
-    until their slices are ported.
+    ``fused=True`` asks for the fused fast path: after the stage sweep one
+    ``ops.fused_step`` launch per step attempt does the combine, the error
+    norm, the controller decision, the masked commit and the Hermite
+    coefficients; for a ``PolynomialTerm`` one ``ops.fused_step_poly`` launch
+    does the whole attempt, stages included.  It engages for exactly
+    ``ExplicitRK`` driven by exactly ``PIDController`` or ``FixedController``;
+    anything else solves through the unfused path and says why in
+    ``stats["fused_fallback_reason"]``.
+
+    ``events`` and ``event_bisect_iters`` stay in the signature for parity
+    with the JAX package: events are refused until their slice is ported.
     """
 
     term: ODETerm
@@ -134,16 +173,34 @@ class StepFunction:
     events: dataclasses.InitVar[Any] = None
     event_bisect_iters: dataclasses.InitVar[int] = 30
     extra_stats: tuple = ()
-    fused: dataclasses.InitVar[bool] = False
+    fused: bool = False
     stat_contributors: tuple = dataclasses.field(init=False, repr=False)
+    # Derived from the configuration: the fused kernel's controller program
+    # ("pid", "fixed", or None when the fused path is off) and the
+    # FusedFallbackReason code.
+    fused_mode: str | None = dataclasses.field(init=False, repr=False)
+    fused_fallback: int = dataclasses.field(init=False, repr=False)
 
-    def __post_init__(self, events, event_bisect_iters, fused):
-        refuse_unported(events, fused)
+    def __post_init__(self, events, event_bisect_iters):
+        refuse_unported(events)
         stepper = AbstractStepper.coerce(self.stepper)
         controller = self.controller
         if controller is None:
             controller = integral_controller() if stepper.is_adaptive else FixedController()
         extra_stats = tuple(self.extra_stats)
+        # Exact-type checks, not isinstance: a subclass may override the
+        # stage recursion or ``__call__`` with a program the kernel does not
+        # bake in.  Everything else falls back to the unfused path, with the
+        # same results.
+        mode, why = None, FusedFallbackReason.ENGAGED
+        if type(stepper) is not ExplicitRK:
+            why = FusedFallbackReason.NOT_EXPLICIT_RK
+        elif type(controller) is PIDController:
+            mode = "pid"
+        elif type(controller) is FixedController:
+            mode = "fixed"
+        else:
+            why = FusedFallbackReason.UNSUPPORTED_CONTROLLER
         # Registry order: component contributions first, loop bookkeeping last.
         # Duck-typed controllers without the registry hooks still get
         # n_accepted recorded.
@@ -154,13 +211,25 @@ class StepFunction:
             ("controller", controller),
             ("extra_stats", extra_stats),
             ("stat_contributors", (stepper, controller_stats, self, *extra_stats)),
+            ("fused", bool(self.fused)),
+            ("fused_mode", mode if self.fused else None),
+            ("fused_fallback", int(why)),
         ):
             object.__setattr__(self, name, value)
 
     # --- the step function's own statistics contribution ---
     def init_stats(self, batch: int) -> dict[str, torch.Tensor]:
         zeros = torch.zeros((batch,), dtype=torch.int32)
-        return {"n_steps": zeros, "n_initialized": zeros.clone()}
+        out = {"n_steps": zeros, "n_initialized": zeros.clone()}
+        if self.fused:
+            out["fused_fallback_reason"] = torch.full(
+                (batch,), self.fused_fallback, dtype=torch.int32
+            )
+        if self.fused_mode is not None:
+            # Steps taken through the fused kernel; equals n_steps while the
+            # fast path is engaged.
+            out["n_fused_steps"] = zeros.clone()
+        return out
 
     def update_stats(self, stats: dict, ctx: StepContext) -> dict:
         return {
@@ -293,55 +362,40 @@ class StepFunction:
             n_written = mask.sum(dim=1).to(torch.int32)
         return ys, n_written
 
-    def step(self, state: LoopState, consts, args) -> LoopState:
-        term, stepper, controller = self.term, self.stepper, self.controller
-        k = stepper.error_order
-        t_eval, t_start, t_end, direction = consts
+    def _attempt(self, state: LoopState, consts):
+        """The step attempt of every instance, clamped so the final step lands
+        exactly on t_end.  Returns ``(will_finish, safe_dt, t_new, window)``:
+        ``safe_dt`` is the signed step the stages use, ``t_new`` the time
+        reached if accepted, ``window`` the ``(cursor, t_win, W)`` of
+        ``_propose``."""
+        t_end = consts[2]
         finfo = torch.finfo(state.y.dtype)
-        atol, rtol = self._tolerances(state.y)
-
-        any_running = state.running.any()
-
-        dt_prop, cursor, t_win, W = self._propose(state, consts)
-
-        # --- clamp the attempt so the final step lands exactly on t_end ---
+        dt_prop, *window = self._propose(state, consts)
         rem = t_end - state.t
         will_finish = torch.abs(dt_prop) >= torch.abs(rem)
         dt_used = torch.where(will_finish, rem, dt_prop)
         safe_dt = torch.where(torch.abs(dt_used) > finfo.tiny, dt_used, 1.0)
-
-        # --- one RK step for the whole batch ---
-        res = stepper.step(term, state.t, safe_dt, state.y, state.f0, args)
-        err_ratio = ops.error_norm(res.err, state.y, res.y1, atol, rtol)
-
-        # --- per-instance accept/reject + next step proposal ---
-        accept, dt_next, cstate_new = controller(err_ratio, state.dt, state.cstate, k)
-        accept = accept & state.running
-
         t_new = torch.where(will_finish, t_end, state.t + dt_used)
-        done_now = accept & will_finish
+        return will_finish, safe_dt, t_new, window
 
-        # step-size floor: instances whose step collapses are stopped
+    def _advance(self, state: LoopState, consts, committed: LoopState, *, y1, accept,
+                 will_finish, t_new, safe_dt, window, coeffs, n_f_evals, err_ratio):
+        """The new loop state, from the masked commit of ``(t, dt, y, f0,
+        cstate)`` in ``committed``: stop instances that finished or whose
+        step collapsed, write the dense output, advance the statistics."""
+        t_eval, t_start, t_end, direction = consts
+        finfo = torch.finfo(state.y.dtype)
+        any_running = state.running.any()
+        done_now = accept & will_finish
+        # step-size floor: instances whose step collapses are stopped (where
+        # ``running`` holds, the committed dt is the controller's dt_next)
         dt_floor = 8.0 * finfo.eps * torch.maximum(torch.abs(state.t), torch.abs(t_end))
-        nonfinite_y = ~torch.all(torch.isfinite(res.y1), dim=-1)
-        stopped = state.running & ~accept & (torch.abs(dt_next) <= dt_floor)
+        nonfinite_y = ~torch.all(torch.isfinite(y1), dim=-1)
+        stopped = state.running & ~accept & (torch.abs(committed.dt) <= dt_floor)
 
         # --- dense output: write every eval point passed by this step ---
-        dense_now = self.dense and t_eval is not None
-        coeffs = (
-            stepper.interp_coeffs(state.y, res.y1, state.f0, res.f1, safe_dt)
-            if dense_now else None
-        )
-        ys, n_written = self._write_dense(
-            state, consts, coeffs, accept, t_new, safe_dt, cursor, t_win, W
-        )
-
-        # --- masked commit ---
-        acc_f = accept[:, None]
-        y = torch.where(acc_f, res.y1, state.y)
-        f0 = torch.where(acc_f, res.f1, state.f0)
-        t = torch.where(accept, t_new, state.t)
-        dt = torch.where(state.running, dt_next, state.dt)
+        ys, n_written = self._write_dense(state, consts, coeffs, accept, t_new, safe_dt,
+                                          *window)
 
         running = state.running & ~done_now & ~stopped
         status = torch.where(
@@ -359,26 +413,118 @@ class StepFunction:
             running=state.running,
             accept=accept,
             step_active=inc,
-            n_f_evals=res.n_f_evals,
+            n_f_evals=n_f_evals,
             n_written=n_written,
             err_ratio=err_ratio,
         )
         stats = self._apply_stat_updates(dict(state.stats), ctx)
+        if self.fused_mode is not None:
+            stats["n_fused_steps"] = (
+                stats["n_fused_steps"] + inc * state.running.to(torch.int32)
+            )
+        return committed._replace(running=running, status=status, stats=stats, ys=ys,
+                                  it=state.it + inc)
 
-        return LoopState(
-            t=t,
-            dt=dt,
-            y=y,
-            f0=f0,
+    def step(self, state: LoopState, consts, args) -> LoopState:
+        if self.fused_mode is not None:
+            return self._step_fused(state, consts, args)
+        stepper = self.stepper
+        atol, rtol = self._tolerances(state.y)
+        will_finish, safe_dt, t_new, window = self._attempt(state, consts)
+
+        # --- one RK step for the whole batch ---
+        res = stepper.step(self.term, state.t, safe_dt, state.y, state.f0, args)
+        err_ratio = ops.error_norm(res.err, state.y, res.y1, atol, rtol)
+
+        # --- per-instance accept/reject + next step proposal ---
+        accept, dt_next, cstate_new = self.controller(
+            err_ratio, state.dt, state.cstate, stepper.error_order
+        )
+        accept = accept & state.running
+
+        dense_now = self.dense and consts[0] is not None
+        coeffs = (
+            stepper.interp_coeffs(state.y, res.y1, state.f0, res.f1, safe_dt)
+            if dense_now else None
+        )
+
+        # --- masked commit ---
+        acc_f = accept[:, None]
+        committed = state._replace(
+            t=torch.where(accept, t_new, state.t),
+            dt=torch.where(state.running, dt_next, state.dt),
+            y=torch.where(acc_f, res.y1, state.y),
+            f0=torch.where(acc_f, res.f1, state.f0),
             # Every controller returns its own next state, so the loop
             # threads it uniformly.
             cstate=cstate_new,
-            running=running,
-            status=status,
-            stats=stats,
-            ys=ys,
-            it=state.it + inc,
         )
+        return self._advance(state, consts, committed, y1=res.y1, accept=accept,
+                             will_finish=will_finish, t_new=t_new, safe_dt=safe_dt,
+                             window=window, coeffs=coeffs, n_f_evals=res.n_f_evals,
+                             err_ratio=err_ratio)
+
+    def _step_fused(self, state: LoopState, consts, args) -> LoopState:
+        """The fused fast path: everything between the stage evaluations and
+        the loop-state rebuild -- b_sol/b_err combine, WRMS error norm,
+        controller decision, masked commit of (t, y, f, dt) under ``running``
+        and the Hermite coefficients -- is one ``ops.fused_step``.  For a
+        ``PolynomialTerm`` the stage evaluations fuse too
+        (``ops.fused_step_poly``): one launch per attempt, no vf launch.
+
+        Mirrors ``step`` expression for expression: on the CPU the ops are
+        composed of the same plain primitives in the same order, so fused and
+        unfused solves are bitwise equal; on the card the kernels share their
+        arithmetic with the unfused ones (``csrc/solver_common.cuh``).
+        Non-FSAL tableaus evaluate the trailing derivative f(t + dt, y1) on
+        every attempt, as ``rk_step`` does: by one more Horner pass inside
+        ``fused_step_poly``, or by one vf call between the stage sweep and
+        ``fused_step`` for a general term.
+        """
+        term, stepper = self.term, self.stepper
+        atol, rtol = self._tolerances(state.y)
+        will_finish, safe_dt, t_new, window = self._attempt(state, consts)
+
+        tab = stepper.tableau
+        # Fixed-step tableaus have no embedded estimate: zero error weights
+        # (the in-kernel norm is then 0, as on the unfused path).
+        a, c, b_sol, b_err = _tableau_arrays(tab, state.y.dtype)
+        common = (
+            state.t, t_new, state.dt, safe_dt, state.running,
+            state.cstate.prev_inv_ratio, state.cstate.prev2_inv_ratio, atol, rtol,
+        )
+        kw = dict(b_sol=b_sol, b_err=b_err,
+                  ctrl=self.controller.filter_params(stepper.error_order),
+                  want_coeffs=self.dense and consts[0] is not None,
+                  ctrl_mode=self.fused_mode)
+        if isinstance(term, PolynomialTerm) and term.poly_coeffs:
+            out = ops.fused_step_poly(state.y, state.f0, *common, a=a, c=c,
+                                      poly=term.poly_coeffs, fsal=tab.fsal, **kw)
+            # The in-kernel stage evaluations count as the vf calls they
+            # replace (non-FSAL: one more for the trailing evaluation).
+            n_f_evals = tab.stages - 1 + (0 if tab.fsal else 1)
+        else:
+            K, n_f_evals = stepper.stage_derivatives(
+                term, state.t, safe_dt, state.y, state.f0, args
+            )
+            if tab.fsal:
+                f1 = K[-1]
+            else:
+                f1, extra = stepper.trailing_derivative(
+                    term, state.t, safe_dt, state.y, K, args
+                )
+                n_f_evals += extra
+            out = ops.fused_step(state.y, K, f1, *common, **kw)
+        (y1, err_ratio, accept, y_out, f_out, t_out, dt_out,
+         new_inv, new_inv2, coeffs) = out
+
+        # The masked commit is done in-kernel.
+        committed = state._replace(t=t_out, dt=dt_out, y=y_out, f0=f_out,
+                                   cstate=ControllerState(new_inv, new_inv2))
+        return self._advance(state, consts, committed, y1=y1, accept=accept,
+                             will_finish=will_finish, t_new=t_new, safe_dt=safe_dt,
+                             window=window, coeffs=coeffs, n_f_evals=n_f_evals,
+                             err_ratio=err_ratio)
 
     def finish(self, state: LoopState, consts) -> Solution:
         t_eval, t_start, t_end, direction = consts

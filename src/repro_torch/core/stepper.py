@@ -8,7 +8,10 @@ contribute to the statistics registry (``init_stats``/``update_stats``).
 ``ExplicitRK`` is the tableau + FSAL explicit path (``Stepper`` is an alias).
 One ``step`` computes all stage derivatives, the solution update and the
 embedded error estimate through the ops in ``repro_torch.kernels.ops``:
-``s - 1`` ``stage_accum`` launches, then one ``fused_update``.
+``s - 1`` ``stage_accum`` launches, then one ``fused_update``.  The fused step
+path (``StepFunction(fused=True)``) takes the stages alone
+(``stage_derivatives``, plus ``trailing_derivative`` for non-FSAL tableaus)
+and hands them to ``ops.fused_step``.
 
 The diagonally implicit steppers are not ported yet (ROADMAP A-10).
 """
@@ -58,20 +61,8 @@ def rk_step(
     f0: torch.Tensor,  # (b, f) derivative at (t, y); FSAL cache
     args: Any,
 ) -> StepResult:
-    s = tab.stages
-    a, c, b_sol, b_err = _tableau_arrays(tab, y.dtype)
-
-    # The stages live in one (s, b, f) buffer, so each stage_accum reads the
-    # contiguous prefix K[:i] instead of a fresh stack of the stages so far.
-    K = torch.empty((s,) + tuple(y.shape), dtype=y.dtype, device=y.device)
-    K[0] = f0  # stage 0 is always f(t, y) == the FSAL cache
-    n_evals = 0
-    for i in range(1, s):
-        yi = ops.stage_accum(y, dt, K[:i], a[i, :i])
-        ti = t + float(c[i]) * dt
-        K[i] = term.vf(ti, yi, args)
-        n_evals += 1
-
+    _, _, b_sol, b_err = _tableau_arrays(tab, y.dtype)
+    K, n_evals = stage_derivatives(term, tab, t, dt, y, f0, args)
     y1, err = ops.fused_update(y, K, dt, b_sol, b_err)
 
     if tab.fsal:
@@ -80,6 +71,22 @@ def rk_step(
         f1 = term.vf(t + dt, y1, args)
         n_evals += 1
     return StepResult(y1=y1, err=err, f1=f1, n_f_evals=n_evals)
+
+
+def stage_derivatives(term, tab, t, dt, y, f0, args):
+    """The stacked stage slopes K (s, b, f) of one explicit step, without the
+    b_sol/b_err combination.  Returns ``(K, n_f_evals)``.
+
+    The stages live in one (s, b, f) buffer, so each ``stage_accum`` reads
+    the contiguous prefix K[:i] instead of a fresh stack of the stages so far.
+    """
+    a, c, _, _ = _tableau_arrays(tab, y.dtype)
+    K = torch.empty((tab.stages,) + tuple(y.shape), dtype=y.dtype, device=y.device)
+    K[0] = f0  # stage 0 is always f(t, y) == the FSAL cache
+    for i in range(1, tab.stages):
+        yi = ops.stage_accum(y, dt, K[:i], a[i, :i])
+        K[i] = term.vf(t + float(c[i]) * dt, yi, args)
+    return K, tab.stages - 1
 
 
 def initial_step_size(
@@ -226,6 +233,23 @@ class ExplicitRK(AbstractStepper):
 
     def step(self, term, t, dt, y, f0, args):
         return rk_step(term, self.tableau, t, dt, y, f0, args)
+
+    def stage_derivatives(self, term, t, dt, y, f0, args):
+        """The stacked stage slopes K (s, b, f) without the b_sol/b_err
+        combination, through the same ``stage_accum`` recursion as
+        ``rk_step`` -- the fused step hands K to ``ops.fused_step``.
+        Returns ``(K, n_f_evals)``."""
+        return stage_derivatives(term, self.tableau, t, dt, y, f0, args)
+
+    def trailing_derivative(self, term, t, dt, y, K, args):
+        """The non-FSAL trailing evaluation f(t + dt, y1) the fused step
+        feeds to ``ops.fused_step`` as ``f1``.  y1 comes from the same
+        ``fused_update`` the kernel applies inside, and, as in ``rk_step``,
+        the evaluation happens on every attempt, accepted or not.  Returns
+        ``(f1, n_f_evals_delta)``."""
+        _, _, b_sol, b_err = _tableau_arrays(self.tableau, y.dtype)
+        y1, _ = ops.fused_update(y, K, dt, b_sol, b_err)
+        return term.vf(t + dt, y1, args), 1
 
 
 # Compatibility alias: the pre-hierarchy name of the explicit stepper.

@@ -23,6 +23,8 @@ import torch
 import torch.utils._pytree as pytree
 from torch.func import vmap
 
+from ..kernels import ops
+
 
 @dataclasses.dataclass(frozen=True)
 class ODETerm:
@@ -58,6 +60,49 @@ class ODETerm:
             else:
                 out = vmap(self.f)(t, y)
         return torch.as_tensor(out, dtype=y.dtype, device=y.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PolynomialTerm(ODETerm):
+    """An ``ODETerm`` whose vector field is a closed-form elementwise
+    polynomial ``dy_i/dt = sum_d poly_coeffs[d] * y_i**d``.
+
+    The coefficients are static config (a tuple of floats, or of length-f
+    float tuples for per-feature coefficients), which is what lets the fused
+    step inline the stage evaluations: with ``fused=True`` a whole explicit
+    step attempt is one ``fused_step_poly`` launch with no vector-field
+    launch.  Construct via ``polynomial_term``.
+    """
+
+    poly_coeffs: tuple = ()
+
+
+def polynomial_term(*coeffs) -> PolynomialTerm:
+    """Build a ``PolynomialTerm`` for ``dy/dt = sum_d coeffs[d] * y**d``.
+
+    Each positional coefficient is scalar (shared across features) or a
+    length-f sequence (per-feature), low -> high degree::
+
+        polynomial_term(0.0, -1.0)        # dy/dt = -y        (exp decay)
+        polynomial_term(0.0, 1.0, -1.0)   # dy/dt = y - y**2  (logistic)
+
+    The term solves identically through every path; with ``fused=True`` its
+    stage evaluations run inside the fused step kernel.
+    """
+    if not coeffs:
+        raise ValueError("polynomial_term needs at least one coefficient")
+    norm = tuple(
+        float(c)
+        if np.ndim(c) == 0
+        else tuple(float(x) for x in np.asarray(c).reshape(-1))
+        for c in coeffs
+    )
+
+    def f(t, y, args):
+        del t, args  # autonomous by construction
+        return ops.poly_eval(y, norm)
+
+    return PolynomialTerm(f=f, batched=True, with_args=True, poly_coeffs=norm)
 
 
 def as_term(

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels in ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``.  The build happens at first
+The sources are compiled with ``nvcc`` for ``sm_90a`` -- one ``nvcc`` per
+``.cu`` file, all started together -- and linked into one shared library with
+a plain C interface, loaded with ``ctypes``.  The build happens at first
 use, into ``build/repro_torch_kernels/`` at the repository root, under a file
 name keyed by a hash of the sources: an edited source builds anew, an
 unchanged one is loaded from the previous build.  Nothing here runs at import.
@@ -20,8 +21,7 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -57,6 +57,20 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"solver_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise with the stderr of
+    the first that fails.  Returns the combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [(cmd, proc, *proc.communicate()) for cmd, proc in zip(cmds, procs)]
+    for cmd, proc, _, err in outs:
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}"
+            )
+    return "".join(out + err for _, _, out, err in outs)
+
+
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the sources unless a library for this source hash exists.
     Returns its path.  With ``verbose`` nvcc also reports each kernel's
@@ -65,21 +79,21 @@ def build(verbose: bool = False) -> pathlib.Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename: concurrent builds never load
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[str(s) for s in sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, path)
+    # Build in a temporary directory and rename the library into place:
+    # concurrent builds never load a half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [s for s in sources() if s.suffix == ".cu"]
+        objects = [os.path.join(tmp, f"{s.stem}.o") for s in units]
+        log = _run_all([
+            [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", str(src), "-o", obj]
+            for src, obj in zip(units, objects)
+        ])
+        lib = os.path.join(tmp, path.name)
+        log += _run_all([[nvcc_path(), *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
+        if verbose:
+            print(log, flush=True)
+        os.replace(lib, path)
     return path
 
 
@@ -99,7 +113,12 @@ def load() -> ctypes.CDLL:
         lib.rt_error_norm.argtypes = [i, p, p, p, p, d, i64, i64, p, d, i64, i64, p,
                                       i64, i64, p]
         lib.rt_interp_eval.argtypes = [i, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
-        for name in ("rt_stage_accum", "rt_fused_update", "rt_error_norm", "rt_interp_eval"):
+        lib.rt_fused_step_args_size.argtypes = []
+        lib.rt_fused_step_args_size.restype = i
+        lib.rt_fused_step.argtypes = [i, p, p]
+        lib.rt_fused_step_poly.argtypes = [i, p, p]
+        for name in ("rt_stage_accum", "rt_fused_update", "rt_error_norm", "rt_interp_eval",
+                     "rt_fused_step", "rt_fused_step_poly"):
             getattr(lib, name).restype = i
         _lib = lib
     return _lib

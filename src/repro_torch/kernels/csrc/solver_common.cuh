@@ -1,0 +1,123 @@
+// Device helpers shared by the solver kernels (solver_kernels.cu and
+// fused_step.cu).
+//
+// Every piece of arithmetic that two kernels must round alike lives here
+// once: the weighted stage sums of stage_accum / fused_update, the WRMS terms
+// and warp reduction of error_norm, and the single-rounded operations that
+// mirror one plain PyTorch op each.  The fused step kernels call the same
+// functions as the unfused ones, so on the card a fused step computes
+// bitwise the numbers that the unfused kernels compute.  The multiply-adds
+// that the kernels fuse are written out as fma, and the ones that PyTorch
+// rounds twice as __fmul_rn/__fadd_rn: what the compiler would contract in one
+// kernel and not in another is not left to it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace solver {
+
+constexpr int kMaxStages = 8;  // explicit tableaus in the repo have s <= 7
+constexpr int kWarpsPerBlock = 8;
+
+template <typename T>
+struct Coeffs {
+  T v[kMaxStages];
+};
+
+template <typename T>
+inline Coeffs<T> load_coeffs(const double* host, int n) {
+  Coeffs<T> c;
+  for (int j = 0; j < kMaxStages; ++j) c.v[j] = j < n ? static_cast<T>(host[j]) : T(0);
+  return c;
+}
+
+__device__ __forceinline__ float abs_of(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_of(double x) { return fabs(x); }
+__device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_of(double x) { return sqrt(x); }
+__device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_of(double a, double b, double c) { return fma(a, b, c); }
+
+// One PyTorch elementwise op each: rounded on its own, never contracted.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  // jnp.maximum / torch.maximum propagate NaN; fmax would drop it.
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+
+// sum_j w1[j] * k(j) and sum_j w2[j] * k(j) for j < n, accumulated in the
+// plain version's order (j = 0, 1, ...), each k(j) loaded once.
+template <typename T, typename Load>
+__device__ __forceinline__ void weighted_sums(const Coeffs<T>& w1, const Coeffs<T>& w2, int n,
+                                              Load k, T& acc1, T& acc2) {
+  acc1 = T(0);
+  acc2 = T(0);
+#pragma unroll
+  for (int j = 0; j < kMaxStages; ++j) {
+    if (j < n) {
+      const T kj = k(j);
+      acc1 = fma_of(w1.v[j], kj, acc1);
+      acc2 = fma_of(w2.v[j], kj, acc2);
+    }
+  }
+}
+
+template <typename T, typename Load>
+__device__ __forceinline__ T weighted_sum(const Coeffs<T>& w, int n, Load k) {
+  T acc = T(0);
+#pragma unroll
+  for (int j = 0; j < kMaxStages; ++j) {
+    if (j < n) acc = fma_of(w.v[j], k(j), acc);
+  }
+  return acc;
+}
+
+// A scalar, (b,) or (b, f) tolerance: by value when p is null, else through
+// (row, column) strides, 0 on a broadcast axis.
+template <typename T>
+struct Tol {
+  const T* p;
+  T val;
+  int64_t rs, cs;
+  __device__ __forceinline__ T at(int64_t row, int64_t c) const {
+    return p ? p[row * rs + c * cs] : val;
+  }
+};
+
+template <typename T>
+inline Tol<T> make_tol(const void* p, double val, int64_t rs, int64_t cs) {
+  return Tol<T>{static_cast<const T*>(p), static_cast<T>(val), rs, cs};
+}
+
+// One element's term of error_norm's sum of squares:
+// sum + (err / (atol + rtol * max(|y0|, |y1|)))^2.
+template <typename T>
+__device__ __forceinline__ T wrms_add(T sum, T err, T y0, T y1, T at, T rt) {
+  const T scale = fma_of(rt, nan_max(abs_of(y0), abs_of(y1)), at);
+  const T r = err / scale;
+  return fma_of(r, r, sum);
+}
+
+// Sum over the warp by xor butterfly: every lane ends with the same bits.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T wrms_finish(T sum, int64_t f) {
+  return sqrt_of(sum / static_cast<T>(f));
+}
+
+}  // namespace solver

@@ -11,28 +11,16 @@
 // per element: on an H100 (3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor
 // cores) they are bound by the bytes they move, never by arithmetic.  The
 // designs therefore aim at one coalesced pass over each input and no
-// intermediate in device memory.
+// intermediate in device memory.  The arithmetic they share with the fused
+// step kernels (fused_step.cu) comes from solver_common.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "solver_common.cuh"
 
 namespace {
 
-constexpr int kMaxStages = 8;   // explicit tableaus in the repo have s <= 7
+using namespace solver;
+
 constexpr int kThreads = 256;   // threads per block for the elementwise kernels
-constexpr int kWarpsPerBlock = 8;
-
-template <typename T>
-struct Coeffs {
-  T v[kMaxStages];
-};
-
-template <typename T>
-Coeffs<T> load_coeffs(const double* host, int n) {
-  Coeffs<T> c;
-  for (int j = 0; j < kMaxStages; ++j) c.v[j] = j < n ? static_cast<T>(host[j]) : T(0);
-  return c;
-}
 
 int blocks_for(int64_t n, int threads) {
   int64_t blocks = (n + threads - 1) / threads;
@@ -54,12 +42,8 @@ __global__ void stage_accum_kernel(const T* __restrict__ y, const T* __restrict_
   const int64_t n = b * f;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    T acc = T(0);
-#pragma unroll
-    for (int j = 0; j < kMaxStages; ++j) {
-      if (j < nj) acc += a.v[j] * K[j * n + i];
-    }
-    out[i] = y[i] + dt[i / f] * acc;
+    const T acc = weighted_sum(a, nj, [&](int j) { return K[j * n + i]; });
+    out[i] = fma_of(dt[i / f], acc, y[i]);
   }
 }
 
@@ -76,17 +60,10 @@ __global__ void fused_update_kernel(const T* __restrict__ y, const T* __restrict
   const int64_t n = b * f;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    T acc_sol = T(0), acc_err = T(0);
-#pragma unroll
-    for (int j = 0; j < kMaxStages; ++j) {
-      if (j < ns) {
-        const T k = K[j * n + i];
-        acc_sol += bs.v[j] * k;
-        acc_err += be.v[j] * k;
-      }
-    }
+    T acc_sol, acc_err;
+    weighted_sums(bs, be, ns, [&](int j) { return K[j * n + i]; }, acc_sol, acc_err);
     const T h = dt[i / f];
-    y1[i] = y[i] + h * acc_sol;
+    y1[i] = fma_of(h, acc_sol, y[i]);
     err[i] = h * acc_err;
   }
 }
@@ -100,24 +77,9 @@ __global__ void fused_update_kernel(const T* __restrict__ y, const T* __restrict
 // shuffle reduction and sqrt(sum / f) -- no cross-block state.  8 rows to a
 // block.  Tolerances come in through (row, column) strides, 0 for a broadcast
 // axis; a null pointer means the scalar passed by value.
-__device__ __forceinline__ float abs_of(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_of(double x) { return fabs(x); }
-__device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_of(double x) { return sqrt(x); }
-
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  // jnp.maximum / torch.maximum propagate NaN; fmax would drop it.
-  return a != a ? a : (b != b ? b : (a > b ? a : b));
-}
-
 template <typename T>
 __global__ void error_norm_kernel(const T* __restrict__ err, const T* __restrict__ y0,
-                                  const T* __restrict__ y1,
-                                  const T* __restrict__ atol, T atol_val, int64_t atol_rs,
-                                  int64_t atol_cs,
-                                  const T* __restrict__ rtol, T rtol_val, int64_t rtol_rs,
-                                  int64_t rtol_cs,
+                                  const T* __restrict__ y1, Tol<T> atol, Tol<T> rtol,
                                   T* __restrict__ out, int64_t b, int64_t f) {
   const int lane = threadIdx.x & 31;
   const int64_t row = blockIdx.x * (int64_t)kWarpsPerBlock + (threadIdx.x >> 5);
@@ -125,14 +87,11 @@ __global__ void error_norm_kernel(const T* __restrict__ err, const T* __restrict
   const int64_t base = row * f;
   T sum = T(0);
   for (int64_t c = lane; c < f; c += 32) {
-    const T at = atol ? atol[row * atol_rs + c * atol_cs] : atol_val;
-    const T rt = rtol ? rtol[row * rtol_rs + c * rtol_cs] : rtol_val;
-    const T scale = at + rt * nan_max(abs_of(y0[base + c]), abs_of(y1[base + c]));
-    const T r = err[base + c] / scale;
-    sum += r * r;
+    sum = wrms_add(sum, err[base + c], y0[base + c], y1[base + c], atol.at(row, c),
+                   rtol.at(row, c));
   }
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) out[row] = sqrt_of(sum / static_cast<T>(f));
+  sum = warp_sum(sum);
+  if (lane == 0) out[row] = wrms_finish(sum, f);
 }
 
 // ---------------------------------------------------------------- interp_eval
@@ -194,8 +153,7 @@ int launch_error_norm(const void* err, const void* y0, const void* y1, const voi
   const int blocks = static_cast<int>((b + kWarpsPerBlock - 1) / kWarpsPerBlock);
   error_norm_kernel<T><<<blocks > 0 ? blocks : 1, 32 * kWarpsPerBlock, 0, stream>>>(
       static_cast<const T*>(err), static_cast<const T*>(y0), static_cast<const T*>(y1),
-      static_cast<const T*>(atol), static_cast<T>(atol_val), atol_rs, atol_cs,
-      static_cast<const T*>(rtol), static_cast<T>(rtol_val), rtol_rs, rtol_cs,
+      make_tol<T>(atol, atol_val, atol_rs, atol_cs), make_tol<T>(rtol, rtol_val, rtol_rs, rtol_cs),
       static_cast<T*>(out), b, f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -221,7 +179,7 @@ int launch_interp_eval(const void* c0, const void* c1, const void* c2, const voi
 
 extern "C" {
 
-int rt_max_stages() { return kMaxStages; }
+int rt_max_stages() { return solver::kMaxStages; }
 
 const char* rt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

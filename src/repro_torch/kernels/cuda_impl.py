@@ -1,4 +1,5 @@
-"""Wrappers around the CUDA kernels in ``csrc/solver_kernels.cu``.
+"""Wrappers around the CUDA kernels in ``csrc/`` (``solver_kernels.cu``,
+``fused_step.cu``).
 
 Each wrapper checks device, dtype (float32 or float64), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on
@@ -11,13 +12,15 @@ nothing else adds to it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from . import _build
 
-launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval": 0}
+launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval": 0,
+            "fused_step": 0, "fused_step_poly": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -187,3 +190,130 @@ def interp_eval(coeffs, x, mask, out, cursor=None):
     _raise_on("interp_eval", rc)
     launches["interp_eval"] += 1
     return out
+
+
+class _FusedStepArgs(ctypes.Structure):
+    """``FusedStepArgs`` of ``csrc/fused_step.cu``, field for field."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "y", "K", "f1", "poly", "t", "t_new", "dt_cur", "safe_dt", "prev_inv",
+            "prev2_inv", "running", "failed", "atol", "rtol",
+            "y1", "ratio", "accept", "y_out", "f_out", "t_out", "dt_out", "new_inv",
+            "new_inv2", "c1", "c2", "c3")]
+        + [("atol_val", ctypes.c_double), ("rtol_val", ctypes.c_double)]
+        + [(name, ctypes.c_int64) for name in (
+            "atol_rs", "atol_cs", "rtol_rs", "rtol_cs", "b", "f")]
+        + [(name, ctypes.c_int32) for name in ("s", "npoly", "fsal", "ctrl_mode")]
+        + [("ctrl", ctypes.c_double * 8), ("b_sol", ctypes.c_double * 8),
+           ("b_err", ctypes.c_double * 8), ("a", ctypes.c_double * 64)]
+    )
+
+
+_CTRL_MODES = {"pid": 0, "fixed": 1}
+
+
+def _launch_fused(name, entry, y, K, f1, poly, t, t_new, dt_cur, safe_dt, running,
+                  prev_inv, prev2_inv, atol, rtol, *, b_sol, b_err, ctrl, want_coeffs,
+                  ctrl_mode, failed, a=None, fsal=True):
+    """Check the inputs of ``fused_step``/``fused_step_poly``, allocate the
+    twelve outputs, launch, and return them as ``ref.fused_step`` does."""
+    code = _dtype_code(name, y)
+    b, f = y.shape
+    s = len(b_sol)
+    cols = (t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv)
+    planes = [y, K] + ([f1] if f1 is not None else []) + ([poly] if poly is not None else [])
+    _check(name, y.dtype, *planes, *cols)
+    for mask in (running, failed):
+        if mask is not None:
+            _check(name, torch.bool, mask)
+    masks = [m for m in (running, failed) if m is not None]
+    _same_device(name, *planes, *cols, *masks)
+    k_shape = (s, b, f) if a is None else (b, f)
+    if (K.shape != k_shape or (f1 is not None and f1.shape != (b, f))
+            or any(x.shape != (b,) for x in (*cols, *masks))
+            or len(b_err) != s or s > 8 or (ctrl_mode == "pid" and len(ctrl) != 8)
+            or (poly is not None and (poly.ndim != 2 or poly.shape[1] != f))):
+        raise ValueError(f"{name}: shapes y {tuple(y.shape)}, K {tuple(K.shape)}, "
+                         f"{s}/{len(b_err)} weights, columns "
+                         f"{[tuple(x.shape) for x in (*cols, *masks)]} do not agree")
+    if ctrl_mode not in _CTRL_MODES:
+        raise ValueError(f"{name}: unknown ctrl_mode {ctrl_mode!r}")
+    ap, av, ars, acs = _tolerance(name, atol, b, f, y)
+    rp, rv, rrs, rcs = _tolerance(name, rtol, b, f, y)
+
+    def plane():
+        return torch.empty_like(y)
+
+    def col(dtype=y.dtype):
+        return torch.empty((b,), dtype=dtype, device=y.device)
+
+    y1, y_out, f_out = plane(), plane(), plane()
+    ratio, t_out, dt_out, new_inv, new_inv2 = col(), col(), col(), col(), col()
+    accept = col(torch.bool)
+    c1, c2, c3 = (plane(), plane(), plane()) if want_coeffs else (None, None, None)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    args = _FusedStepArgs(
+        *(ptr(x) for x in (y, K, f1, poly, t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv,
+                           running, failed)),
+        ap, rp, *(ptr(x) for x in (y1, ratio, accept, y_out, f_out, t_out, dt_out, new_inv,
+                                   new_inv2, c1, c2, c3)),
+        av, rv, ars, acs, rrs, rcs, b, f, s,
+        0 if poly is None else poly.shape[0], int(bool(fsal)), _CTRL_MODES[ctrl_mode])
+    args.ctrl[:len(ctrl)] = [float(x) for x in ctrl]
+    args.b_sol[:s] = np.asarray(b_sol, dtype=np.float64).tolist()
+    args.b_err[:s] = np.asarray(b_err, dtype=np.float64).tolist()
+    if a is not None:
+        a = np.asarray(a, dtype=np.float64)
+        if a.shape != (s, s):
+            raise ValueError(f"{name}: stage matrix of shape {a.shape}, want ({s}, {s})")
+        for r in range(s):
+            args.a[r * 8:r * 8 + r] = a[r, :r].tolist()
+    lib = _build.load()
+    if lib.rt_fused_step_args_size() != ctypes.sizeof(_FusedStepArgs):
+        raise RuntimeError(f"{name}: FusedStepArgs layout differs between Python and CUDA")
+    with torch.cuda.device(y.device):
+        rc = entry(lib)(code, ctypes.byref(args), _stream(y.device))
+    _raise_on(name, rc)
+    launches[name] += 1
+    coeffs = (y, c1, c2, c3) if want_coeffs else None
+    return y1, ratio, accept, y_out, f_out, t_out, dt_out, new_inv, new_inv2, coeffs
+
+
+def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+               atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
+               failed=None):
+    """CUDA ``fused_step``: one launch for the combine, the WRMS ratio, the
+    controller, the masked commit and the Hermite coefficients (see
+    ``ref.fused_step``).  ``failed`` may be None (a null pointer)."""
+    return _launch_fused(
+        "fused_step", lambda lib: lib.rt_fused_step, y, K, f1, None, t, t_new, dt_cur,
+        safe_dt, running, prev_inv, prev2_inv, atol, rtol, b_sol=b_sol, b_err=b_err,
+        ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode, failed=failed)
+
+
+@functools.lru_cache(maxsize=32)
+def _poly_rows(poly, f, dtype, device):
+    """The (deg + 1, f) coefficient rows of ``poly`` on the card, made once per
+    (polynomial, width, dtype, device) and kept: scalars broadcast across the
+    features, in the state's dtype."""
+    rows = np.stack([np.broadcast_to(np.asarray(c, dtype=np.float64), (f,)) for c in poly])
+    return torch.tensor(rows, dtype=dtype, device=device)
+
+
+def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+                    atol, rtol, *, a, c, b_sol, b_err, poly, ctrl, want_coeffs,
+                    fsal=True, ctrl_mode="pid"):
+    """CUDA ``fused_step_poly``: ``fused_step`` with the stage recursion of
+    the polynomial vector field ``poly`` (and the non-FSAL trailing
+    evaluation) in the same launch (see ``ref.fused_step_poly``)."""
+    del c  # autonomous polynomial dynamics
+    rows = _poly_rows(tuple(poly), y.shape[1], y.dtype, y.device)
+    return _launch_fused(
+        "fused_step_poly", lambda lib: lib.rt_fused_step_poly, y, f0, None, rows, t, t_new,
+        dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol, b_sol=b_sol,
+        b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode, failed=None,
+        a=a, fsal=fsal)

@@ -7,7 +7,8 @@ version in ``ref.py``; a CUDA tensor goes to the hand-written CUDA kernel in
 on the card.  ``launches`` counts the CUDA launches of each kernel.
 
 The solver core (``core/stepper.py`` for the stage math, ``core/step.py`` for
-the error norm and dense-output writes) imports its ops only from here.
+the error norm, the fused step and dense-output writes) imports its ops only
+from here.
 """
 
 from __future__ import annotations
@@ -56,7 +57,29 @@ def interp_eval(coeffs, x, mask, out, cursor=None):
     return ref.interp_eval_window(coeffs, x, mask, out, cursor)
 
 
-for _op in (stage_accum, fused_update, error_norm):
+def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+               atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
+               failed=None):
+    args = (y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol)
+    kw = dict(b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs,
+              ctrl_mode=ctrl_mode, failed=failed)
+    if _on_cuda("fused_step", y):
+        return cuda_impl.fused_step(*args, **kw)
+    return ref.fused_step(*args, **kw)
+
+
+def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+                    atol, rtol, *, a, c, b_sol, b_err, poly, ctrl, want_coeffs,
+                    fsal=True, ctrl_mode="pid"):
+    args = (y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol)
+    kw = dict(a=a, c=c, b_sol=b_sol, b_err=b_err, poly=poly, ctrl=ctrl,
+              want_coeffs=want_coeffs, fsal=fsal, ctrl_mode=ctrl_mode)
+    if _on_cuda("fused_step_poly", y):
+        return cuda_impl.fused_step_poly(*args, **kw)
+    return ref.fused_step_poly(*args, **kw)
+
+
+for _op in (stage_accum, fused_update, error_norm, fused_step, fused_step_poly):
     _op.__doc__ = getattr(ref, _op.__name__).__doc__
 del _op
 
@@ -66,3 +89,4 @@ hermite_coeffs = ref.hermite_coeffs
 rms_norm = ref.rms_norm
 broadcast_tolerances = ref.broadcast_tolerances
 pid_update = ref.pid_update
+poly_eval = ref.poly_eval

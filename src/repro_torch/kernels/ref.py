@@ -2,8 +2,8 @@
 
 Each function mirrors the op of the same name in the JAX package's
 ``kernels/ref.py`` expression for expression.  They are the semantics the CUDA
-kernels in ``csrc/solver_kernels.cu`` must match, and the execution path for
-tensors that lie on the CPU.
+kernels in ``csrc/`` must match, and the execution path for tensors that lie
+on the CPU.
 """
 
 from __future__ import annotations
@@ -167,3 +167,121 @@ def interp_eval_window(coeffs, x, mask, out, cursor):
     idx = idx.expand(-1, -1, out.shape[-1])
     merged = interp_eval(coeffs, x, mask, torch.gather(out, 1, idx))
     return out.scatter(1, idx, merged)
+
+
+def poly_eval(y, coeffs):
+    """Elementwise polynomial vector field: sum_d coeffs[d] * y**d (Horner).
+
+    ``coeffs`` is a static tuple, low -> high degree; each entry is a float
+    (feature-shared) or a length-f tuple.  The one evaluation program shared by
+    ``PolynomialTerm.vf`` and ``fused_step_poly``: a multiply, then an add, per
+    degree, each rounded on its own.  A float coefficient stays a Python
+    number (cast to ``y``'s dtype by the op, as the JAX ref casts it), so no
+    tensor is made per call.
+    """
+    cs = [float(c) if np.ndim(c) == 0
+          else torch.tensor(c, dtype=y.dtype, device=y.device) for c in coeffs]
+    acc = cs[-1]
+    for c in cs[-2::-1]:
+        acc = acc * y + c
+    if not isinstance(acc, torch.Tensor) or acc.shape != y.shape:
+        acc = torch.as_tensor(acc, dtype=y.dtype, device=y.device).expand(y.shape).contiguous()
+    return acc
+
+
+def fused_step(
+    y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+    atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
+    failed=None,
+):
+    """One fused explicit-RK step attempt around the vf calls: stage combine,
+    WRMS error norm, controller decision, masked commit of (t, y, f) against
+    the ``running`` mask, and the dense-output coefficient build.
+
+    y:        (b, f) current state
+    K:        (s, b, f) stacked stage derivatives; K[0] is f(t, y) (FSAL cache)
+    f1:       (b, f) derivative at (t + dt, y1) (the FSAL last stage, or the
+              trailing evaluation for non-FSAL tableaus)
+    t:        (b,) current time;  t_new: (b,) time reached if accepted
+    dt_cur:   (b,) the standing step proposal (pre-clamp, fed to the controller)
+    safe_dt:  (b,) the signed step the stages actually used
+    running / prev_inv / prev2_inv: (b,) loop mask + controller history
+    b_sol / b_err: tableau weights
+    ctrl:     ``(b1, b2, b3, safety, factor_min, factor_max, dt_min, dt_max)``
+              from ``PIDController.filter_params`` (``()`` under
+              ``ctrl_mode="fixed"``)
+    want_coeffs: build the cubic-Hermite coefficients too (dense output)
+    ctrl_mode: ``"pid"`` runs the Soederlind filter; ``"fixed"`` is the
+              ``FixedController`` contract: accept everything that is running,
+              keep the standing dt proposal and leave the history untouched.
+    failed:   optional (b,) bool -- instances whose implicit stage solve
+              failed: ``err_ratio = inf`` before the controller, and never
+              accepted.
+
+    Returns ``(y1, err_ratio, accept, y_out, f_out, t_out, dt_out, new_inv,
+    new_inv2, coeffs)`` with ``coeffs = (c0, c1, c2, c3)`` or ``None``.
+    """
+    y1, err = fused_update(y, K, safe_dt, b_sol, b_err)
+    err_ratio = error_norm(err, y, y1, atol, rtol)
+    if failed is not None:
+        err_ratio = torch.where(failed, torch.inf, err_ratio)
+    if ctrl_mode == "fixed":
+        accept = torch.ones(dt_cur.shape, dtype=torch.bool, device=dt_cur.device)
+        dt_next = dt_cur
+        new_inv, new_inv2 = prev_inv, prev2_inv
+    else:
+        b1, b2, b3, safety, factor_min, factor_max, dt_min, dt_max = ctrl
+        accept, dt_next, new_inv, new_inv2 = pid_update(
+            err_ratio, dt_cur, prev_inv, prev2_inv,
+            b1=b1, b2=b2, b3=b3, safety=safety,
+            factor_min=factor_min, factor_max=factor_max,
+            dt_min=dt_min, dt_max=dt_max,
+        )
+    accept = accept & running
+    if failed is not None:
+        accept = accept & ~failed
+    acc_f = accept[:, None]
+    y_out = torch.where(acc_f, y1, y)
+    f_out = torch.where(acc_f, f1, K[0])
+    t_out = torch.where(accept, t_new, t)
+    dt_out = torch.where(running, dt_next, dt_cur)
+    coeffs = hermite_coeffs(y, y1, K[0], f1, safe_dt) if want_coeffs else None
+    return y1, err_ratio, accept, y_out, f_out, t_out, dt_out, new_inv, new_inv2, coeffs
+
+
+def poly_stages(y, f0, dt, a, poly):
+    """The stage recursion of an explicit tableau for a polynomial vector
+    field: K (s, b, f) with K[0] = f0, built as ``rk_step`` builds it (one
+    (s, b, f) buffer, ``stage_accum`` over its prefix).  ``a``: (s, s)."""
+    s = len(a)
+    K = torch.empty((s,) + tuple(y.shape), dtype=y.dtype, device=y.device)
+    K[0] = f0
+    for i in range(1, s):
+        K[i] = poly_eval(stage_accum(y, dt, K[:i], np.asarray(a[i])[:i]), poly)
+    return K
+
+
+def fused_step_poly(
+    y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+    atol, rtol, *, a, c, b_sol, b_err, poly, ctrl, want_coeffs,
+    fsal=True, ctrl_mode="pid",
+):
+    """The whole step attempt for a polynomial vector field: the stage
+    evaluations fuse too (zero vf launches).  ``a``/``c`` are the tableau
+    arrays, ``poly`` the coefficient tuple of ``poly_eval``.  For FSAL
+    tableaus f1 is the last stage; otherwise the trailing evaluation
+    f(t + dt, y1) happens here on every attempt, as in the unfused
+    ``rk_step``.  Everything else as in ``fused_step``.
+    """
+    del c  # autonomous polynomial dynamics: stage times never enter
+    K = poly_stages(y, f0, safe_dt, a, poly)
+    if fsal:
+        f1 = K[-1]
+    else:
+        y1, _ = fused_update(y, K, safe_dt, b_sol, b_err)
+        f1 = poly_eval(y1, poly)
+    return fused_step(
+        y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+        atol, rtol, b_sol=b_sol, b_err=b_err, ctrl=ctrl,
+        want_coeffs=want_coeffs, ctrl_mode=ctrl_mode,
+    )

@@ -1,9 +1,12 @@
-"""Where one solver step's time goes on the card, for the two main-path
-workloads of ``chip_smoke.py`` (``tools/workloads.py``).
+"""Where one solver step's time goes on the card, for the workloads of
+``chip_smoke.py`` (``tools/workloads.py``).
 
-    PYTHONPATH=src python -m repro_torch.tools.profile_step
+    PYTHONPATH=src python -m repro_torch.tools.profile_step [--fused]
+        [--workload vdp_table3|full_width|full_width_long|all]
 
-Prints one JSON line per workload (dopri5, float32):
+``--fused`` profiles the fused path (``fused=True``: one ``fused_step``
+launch per step after the stage sweep) instead of the unfused one.  Prints
+one JSON line per workload (dopri5, float32):
 
 - ``ms_per_step``: a whole solve's wall time over its loop iterations, the
   driver's per-step host sync (``running.any()``) included;
@@ -23,6 +26,7 @@ It needs a CUDA device and exits non-zero without one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -35,7 +39,7 @@ from ..kernels import ops
 from . import workloads
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
-           "interp_eval_kernel")
+           "interp_eval_kernel", "fused_step_kernel")
 
 
 def _sync_ms(fn, reps=1):
@@ -108,17 +112,29 @@ def profile_workload(name, vf, y0, t_eval, kw, device):
                 profile=_profile(run, iters))
 
 
-def main() -> int:
+WORKLOADS = {
+    "vdp_table3": lambda device: workloads.vdp_table3(np.float32),
+    "full_width": workloads.full_width,
+    "full_width_long": workloads.full_width_long,
+}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--fused", action="store_true", help="profile fused=True")
+    parser.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device is available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    vf, y0, te, kw = workloads.vdp_table3(np.float32)
-    print(json.dumps(profile_workload("vdp_table3", vf, y0, te, {**kw, "method": "dopri5"},
-                                      device)), flush=True)
-    vf, y0, te, kw = workloads.full_width(device)
-    print(json.dumps(profile_workload("full_width", vf, y0, te, kw, device)), flush=True)
+    names = list(WORKLOADS) if opts.workload == "all" else [opts.workload]
+    for name in names:
+        vf, y0, te, kw = WORKLOADS[name](device)
+        kw = {**kw, "method": "dopri5", "fused": opts.fused}
+        print(json.dumps({"fused": opts.fused,
+                          **profile_workload(name, vf, y0, te, kw, device)}), flush=True)
     return 0
 
 

@@ -205,7 +205,6 @@ class TestNoHiddenDevice:
             T.AutoDiffAdjoint().solve(lambda t, y, a: -y, np.ones((2, 2)), np.linspace(0, 1, 3))
 
     @pytest.mark.parametrize("kw, item", [
-        ({"fused": True}, "A-8"),
         ({"events": object()}, "A-9"),
         ({"method": "kvaerno5"}, "A-10"),
     ])

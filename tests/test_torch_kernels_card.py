@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card, and the fused
+step kernels bitwise against the unfused card path.
 
 These tests need a CUDA device and skip without one; they import no JAX, so
 they also run where only the port is installed:
@@ -14,9 +15,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import make_solver, solve_ivp  # noqa: E402
+from unittest import mock  # noqa: E402
+
+from repro_torch.core import (  # noqa: E402
+    FixedController,
+    get_tableau,
+    integral_controller,
+    make_solver,
+    pid_controller,
+    polynomial_term,
+    solve_ivp,
+)
+from repro_torch.core.stepper import _tableau_arrays  # noqa: E402
 from repro_torch.kernels import cuda_impl, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.tools.step_checks import (  # noqa: E402
+    POLY32_STATE,
+    bitwise_mismatches,
+    hold_to_plain,
+    ratio_floor,
+    step_inputs,
+    unfused_card,
+)
 
 
 @pytest.fixture
@@ -110,7 +130,8 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda_device):
     card = solve_ivp(vdp, y0, te, args=2.0, atol=1e-6, rtol=1e-6, device=cuda_device)
     iters = int(card.stats["n_steps"].max())
     assert ops.launches == {"stage_accum": 6 * iters, "fused_update": iters,
-                            "error_norm": iters, "interp_eval": iters}
+                            "error_norm": iters, "interp_eval": iters,
+                            "fused_step": 0, "fused_step_poly": 0}
     cpu = solve_ivp(vdp, y0, te, args=2.0, atol=1e-6, rtol=1e-6, device="cpu")
     assert torch.equal(card.stats["n_steps"].cpu(), cpu.stats["n_steps"])
     torch.testing.assert_close(card.ys.cpu(), cpu.ys, rtol=1e-9, atol=1e-9)
@@ -134,3 +155,122 @@ def test_step_writes_dense_output_in_place_on_card(cuda_device):
     torch.testing.assert_close(finish(state, consts).ys[:, -1, 0].cpu(),
                                torch.full((2,), np.exp(-1.0), dtype=torch.float64),
                                rtol=1e-6, atol=0)
+
+
+def _gen(seed):
+    return torch.Generator(device="cpu").manual_seed(seed)
+
+
+class TestFusedStepOnCard:
+    """``fused_step`` and ``fused_step_poly`` against their plain versions
+    (within 1e-5 / 1e-12) and, bitwise, against the unfused card path."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("shape", [(5, 3), (13, 300), (256, 2)])
+    @pytest.mark.parametrize("ctrl_kind", ["integral", "pid", "fixed"])
+    @pytest.mark.parametrize("tol_kind", ["scalar", "row", "full"])
+    def test_fused_step(self, cuda_device, dtype, shape, ctrl_kind, tol_kind):
+        b, f = shape
+        tab = get_tableau("rk4" if ctrl_kind == "fixed" else "dopri5")
+        ctl = {"integral": integral_controller(), "pid": pid_controller(),
+               "fixed": FixedController()}[ctrl_kind]
+        _, _, b_sol, b_err = _tableau_arrays(tab, dtype)
+        y, K, cols, failed = step_inputs(b, f, tab.stages, dtype, cuda_device, _gen(b + f))
+        fac = 1.0 if tol_kind == "scalar" else 1.0 + torch.rand(
+            (b,) if tol_kind == "row" else (b, f), dtype=dtype).to(cuda_device)
+        for want_coeffs in (True, False):
+            for fail in (None, failed):
+                kw = dict(b_sol=b_sol, b_err=b_err, ctrl=ctl.filter_params(tab.error_order),
+                          want_coeffs=want_coeffs, failed=fail,
+                          ctrl_mode="fixed" if ctrl_kind == "fixed" else "pid")
+                args = (y, K, K[-1], *cols, 0.01 * fac, 1e-3 * fac)
+                got = cuda_impl.fused_step(*args, **kw)
+                assert bitwise_mismatches(
+                    got, unfused_card(lambda: tref.fused_step(*args, **kw))) == {}
+                want = tref.fused_step(*args, **kw)
+                hold_to_plain("fused_step", got, want, ratio_floor(
+                    y, want[0], K, cols[3], b_err, 0.01 * fac, 1e-3 * fac))
+                if fail is not None:
+                    assert not bool(got[2][fail].any())
+                    assert bool(torch.isinf(got[1][fail]).all())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("shape", [(5, 3), (13, 300)])
+    @pytest.mark.parametrize("method", ["dopri5", "heun", "rk4", "euler"])
+    @pytest.mark.parametrize("poly", ["logistic", "per_feature", "constant"])
+    def test_fused_step_poly(self, cuda_device, dtype, shape, method, poly):
+        b, f = shape
+        tab = get_tableau(method)
+        adaptive = tab.b_err is not None
+        ctl = pid_controller() if adaptive else FixedController()
+        a, c, b_sol, b_err = _tableau_arrays(tab, dtype)
+        coeffs = {"logistic": (0.0, 1.0, -1.0),
+                  "per_feature": (0.5, tuple(np.linspace(-1.5, -0.5, f).tolist())),
+                  "constant": (0.25,)}[poly]
+        y, _, cols, _ = step_inputs(b, f, tab.stages, dtype, cuda_device, _gen(b + f), 4.0)
+        f0 = tref.poly_eval(y, coeffs)
+        for want_coeffs in (True, False):
+            kw = dict(a=a, c=c, b_sol=b_sol, b_err=b_err, poly=coeffs,
+                      ctrl=ctl.filter_params(tab.error_order), want_coeffs=want_coeffs,
+                      fsal=tab.fsal, ctrl_mode="pid" if adaptive else "fixed")
+            args = (y, f0, *cols, 1e-4, 1e-3)
+            got = cuda_impl.fused_step_poly(*args, **kw)
+            assert bitwise_mismatches(
+                got, unfused_card(lambda: tref.fused_step_poly(*args, **kw))) == {}
+            want = tref.fused_step_poly(*args, **kw)
+            K = tref.poly_stages(y, f0, cols[3], a, coeffs)
+            hold_to_plain("fused_step_poly", got, want,
+                          ratio_floor(y, want[0], K, cols[3], b_err, 1e-4, 1e-3),
+                          POLY32_STATE if dtype == torch.float32 else None)
+
+
+@pytest.mark.parametrize("method", ["dopri5", "tsit5", "heun"])
+def test_fused_solve_counts_launches_and_matches_unfused(cuda_device, method):
+    """A float64 fused solve takes the unfused solve's steps, with one
+    fused_step per iteration and no error_norm (nor fused_update for FSAL)."""
+    rng = np.random.default_rng(0)
+    y0 = np.array([2.0, 0.0]) + 0.1 * rng.standard_normal((32, 2))
+    te = np.linspace(0.0, 6.0, 40)
+
+    def vdp(t, y, mu):
+        return torch.stack((y[:, 1], mu * (1 - y[:, 0] ** 2) * y[:, 1] - y[:, 0]), dim=-1)
+
+    kw = dict(args=2.0, atol=1e-6, rtol=1e-6, method=method, device=cuda_device)
+    for k in ops.launches:
+        ops.launches[k] = 0
+    fused = solve_ivp(vdp, y0, te, fused=True, **kw)
+    iters = int(fused.stats["n_steps"].max())
+    s, fsal = get_tableau(method).stages, get_tableau(method).fsal
+    assert ops.launches == {"stage_accum": (s - 1) * iters,
+                            "fused_update": 0 if fsal else iters, "error_norm": 0,
+                            "interp_eval": iters, "fused_step": iters, "fused_step_poly": 0}
+    assert torch.equal(fused.stats["n_fused_steps"], fused.stats["n_steps"])
+    unfused = solve_ivp(vdp, y0, te, **kw)
+    assert torch.equal(fused.stats["n_steps"], unfused.stats["n_steps"])
+    torch.testing.assert_close(fused.ys, unfused.ys, rtol=1e-9, atol=1e-9)
+
+
+def test_fused_poly_solve_launches_only_fused_step_poly(cuda_device):
+    y0 = np.linspace(0.5, 1.5, 64 * 8, dtype=np.float32).reshape(64, 8)
+    for k in ops.launches:
+        ops.launches[k] = 0
+    sol = solve_ivp(polynomial_term(0.0, -1.0), y0, t_start=0.0, t_end=2.0, rtol=1e-4,
+                    atol=1e-6, dense=False, fused=True, device=cuda_device)
+    iters = int(sol.stats["n_steps"].max())
+    assert ops.launches["fused_step_poly"] == iters == sum(ops.launches.values())
+    torch.testing.assert_close(sol.ys.cpu(), torch.as_tensor(y0 * np.exp(-2.0),
+                                                             dtype=torch.float32),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("poly", [False, True])
+def test_fused_path_never_reaches_the_plain_version(cuda_device, poly):
+    """No fallback: with the plain fused ops made to raise, a fused solve on
+    the card still runs (through the kernels)."""
+    term = polynomial_term(0.0, -1.0) if poly else (lambda t, y, a: -y)
+    with mock.patch.object(tref, "fused_step", side_effect=AssertionError("plain")), \
+            mock.patch.object(tref, "fused_step_poly", side_effect=AssertionError("plain")):
+        sol = solve_ivp(term, np.ones((4, 3), np.float32), np.linspace(0.0, 1.0, 5),
+                        fused=True, device=cuda_device)
+    assert int(sol.status.max()) == 0
+    assert bool((sol.stats["n_fused_steps"] == sol.stats["n_steps"]).all())
