@@ -19,7 +19,11 @@ raises, and the script exits non-zero without printing a result:
                    plain version, the error ratio to the same tolerance plus
                    its rounding floor (``repro_torch.tools.step_checks``),
                    and every output must be bitwise equal to the unfused
-                   card path.
+                   card path.  The event kernels (``masked_bisect_refine``,
+                   ``fused_event_detect``, ``fused_event_commit``) at E = 2
+                   over their cases (``repro_torch.tools.event_checks``) are
+                   held bitwise to their plain versions, as is
+                   ``interp_eval``.
 4. ``vdp_table3``  the paper's Table 3 setup (b = 256 Van der Pol, mu = 2,
                    dopri5 then tsit5, tol 1e-5, 200 eval points, float32):
                    solved on the card and on the CPU, with exact kernel
@@ -36,6 +40,14 @@ raises, and the script exits non-zero without printing a result:
                    closed form and the unfused run, and full_width_long (the
                    same network with a real step count) unfused and fused:
                    ms per step, loop iterations, exact launch counts.
+7. ``events``      the event workloads (``tools/workloads.py``), unfused and
+                   fused: ``ball_terminal`` (every impact within 10 rtol of
+                   sqrt(2 h0 / g)), ``vdp_marker`` (zero extra vector-field
+                   evaluations; ms per step with and without the marker) and
+                   ``full_width_long_events`` (25-75 % of rows stop at the
+                   RMS threshold); exact launch counts, fused solves bitwise
+                   equal to unfused ones, float64 card solves against the
+                   CPU's.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -67,6 +79,9 @@ SOURCES = {
     "interp_eval": "src/repro_torch/kernels/csrc/solver_kernels.cu",
     "fused_step": "src/repro_torch/kernels/csrc/fused_step.cu",
     "fused_step_poly": "src/repro_torch/kernels/csrc/fused_step.cu",
+    "masked_bisect_refine": "src/repro_torch/kernels/csrc/events.cu",
+    "fused_event_detect": "src/repro_torch/kernels/csrc/events.cu",
+    "fused_event_commit": "src/repro_torch/kernels/csrc/events.cu",
 }
 REPLACES = {
     "stage_accum": "src/repro/kernels/pallas_impl.py:123",
@@ -75,6 +90,9 @@ REPLACES = {
     "interp_eval": "src/repro/kernels/pallas_impl.py:226",
     "fused_step": "src/repro/kernels/pallas_impl.py:1000",
     "fused_step_poly": "src/repro/kernels/pallas_impl.py:1058",
+    "masked_bisect_refine": "src/repro/kernels/pallas_impl.py:284",
+    "fused_event_detect": "src/repro/kernels/pallas_impl.py:1144",
+    "fused_event_commit": "src/repro/kernels/pallas_impl.py:1205",
 }
 
 
@@ -106,7 +124,7 @@ def main() -> int:
     )
     from repro_torch.core.stepper import _tableau_arrays
     from repro_torch.kernels import _build, cuda_impl, ops, ref
-    from repro_torch.tools import step_checks, workloads
+    from repro_torch.tools import event_checks, step_checks, workloads
     from repro_torch.tools.step_checks import POLY32_STATE, tolerance
 
     dev = torch.device("cuda")
@@ -174,6 +192,11 @@ def main() -> int:
 
     rows = []
 
+    def hold_bitwise(name, got, want, _dtype):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return event_checks.assert_bitwise(name, got, want), 0.0
+
     def measure(kernel, shape_name, dtype, label, run_kernel, run_plain, nbytes, flops,
                 check_kernel=None, compare_fn=None, **extra):
         """Hold the kernel against its plain version, then time both.
@@ -236,12 +259,14 @@ def main() -> int:
             out = r(b, n, f)
             cells, rows_hit = int(mask.sum()), int(mask.any(dim=1).sum())
             # The kernel writes the masked cells of `out` in place; the check
-            # runs it on a copy, so a write to an unmasked cell shows up.
+            # runs it on a copy, so a write to an unmasked cell shows up.  Its
+            # Horner rounds as the plain version's does: held bitwise.
             measure("interp_eval", shape_name, dtype, "mask=3 of n per row",
                     lambda: cuda_impl.interp_eval(coeffs, x, mask, out),
                     lambda: ref.interp_eval(coeffs, x, mask, out),
                     e * (cells * f + 4 * rows_hit * f + b * n) + b * n, 6 * cells * f,
-                    check_kernel=lambda: cuda_impl.interp_eval(coeffs, x, mask, out.clone()))
+                    check_kernel=lambda: cuda_impl.interp_eval(coeffs, x, mask, out.clone()),
+                    compare_fn=hold_bitwise, held="bitwise")
             # The windowed write (dense_window > 0) goes through the same kernel.
             W = 8
             cursor = torch.randint(0, n - W + 1, (b,), generator=gen).to(dev)
@@ -397,6 +422,74 @@ def main() -> int:
         emit("kernels", kernel=kernel, shape=shape_name, dtype=dt, check="all options",
              tol=tolerance(getattr(torch, dt)), state_tol=POLY32_STATE if poly32 else None,
              knife_edge=step_checks.KNIFE_EDGE, bitwise_equal_to_unfused_card=True, **agg)
+
+    # The event kernels at E = 2 (one terminal, one marker event, as on the
+    # main path), over the cases of tools/event_checks.py (active, inactive
+    # and mixed rows; every direction; zeros at an endpoint; fired cells;
+    # terminal mixes with ties in x; NaN condition values), each held
+    # bitwise to its plain version on the same card tensors.  One case per
+    # kernel, shape and dtype is timed: the main path's mix.  library_ms is
+    # null: no single PyTorch call computes a masked bisection step with a
+    # Horner evaluation, a directional sign test with a masked carry, or the
+    # terminal resolution and record commit.
+    event_held = {}
+    E_MAIN = 2
+    for shape_name, shp in (("vdp_table3", workloads.VDP), ("full_width", workloads.FULL)):
+        b, f = shp["b"], shp["f"]
+        for npdt in (np.float32, np.float64):
+            dtype = torch.float32 if npdt == np.float32 else torch.float64
+            e = np.dtype(npdt).itemsize
+            held = event_held.setdefault((shape_name, npdt.__name__), [])
+            for active in ("mixed", "all", "none"):
+                args = event_checks.to_torch(
+                    event_checks.bisect_inputs(b + f, b, f, npdt, active), dev)
+                run_k = lambda args=args: cuda_impl.masked_bisect_refine(*args)
+                run_p = lambda args=args: ref.masked_bisect_refine(*args)
+                if active == "mixed":
+                    measure("masked_bisect_refine", shape_name, dtype, f"active={active}",
+                            run_k, run_p, e * (5 * b * f + 8 * b) + b, 6 * b * f,
+                            compare_fn=hold_bitwise, held="bitwise")
+                else:
+                    held.append(hold_bitwise("masked_bisect_refine", run_k(), run_p(), dtype))
+            *dargs, dirs = event_checks.to_torch(
+                event_checks.detect_inputs(b + 1, b, E_MAIN, npdt), dev)
+            for label, directions in (("directions=(0,+1)", dirs),
+                                      ("directions=+1", (1.0,) * E_MAIN),
+                                      ("directions=-1", (-1.0,) * E_MAIN)):
+                run_k = lambda d=directions: cuda_impl.fused_event_detect(*dargs, directions=d)
+                run_p = lambda d=directions: ref.fused_event_detect(*dargs, directions=d)
+                if directions is dirs:
+                    measure("fused_event_detect", shape_name, dtype, label, run_k, run_p,
+                            e * 3 * b * E_MAIN + 2 * b * E_MAIN + b, 10 * b * E_MAIN,
+                            compare_fn=hold_bitwise, held="bitwise")
+                else:
+                    held.append(hold_bitwise("fused_event_detect", run_k(), run_p(), dtype))
+            for terminal in ("mixed", "all", "none"):
+                *cargs, flags = event_checks.to_torch(
+                    event_checks.commit_inputs(b + 2, b, f, E_MAIN, npdt, terminal), dev)
+                # The kernel writes the recorded cells of ev_y in place: the
+                # check runs it on a copy.
+                check_k = lambda cargs=cargs, flags=flags: cuda_impl.fused_event_commit(
+                    *cargs[:8], cargs[8].clone(), terminal=flags)
+                run_k = lambda cargs=cargs, flags=flags: cuda_impl.fused_event_commit(
+                    *cargs, terminal=flags)
+                run_p = lambda cargs=cargs, flags=flags: ref.fused_event_commit(
+                    *cargs, terminal=flags)
+                if terminal == "mixed":
+                    # Bytes this data needs: per row one (b, f) plane read for
+                    # y_stop (y_new, or the stopping crossing's state) and
+                    # y_stop written; y_ev read and ev_y written in the cells
+                    # of the recorded crossings; the (b, E) and (b,) columns.
+                    recorded = int(run_p()[6].sum())
+                    nbytes = (e * (2 * b * f + 2 * recorded * f + 3 * b * E_MAIN + 2 * b)
+                              + 3 * b * E_MAIN + 5 * b)
+                    measure("fused_event_commit", shape_name, dtype, f"terminal={terminal}",
+                            run_k, run_p, nbytes, 4 * b * E_MAIN, check_kernel=check_k,
+                            compare_fn=hold_bitwise, held="bitwise", recorded=recorded)
+                else:
+                    held.append(hold_bitwise("fused_event_commit", check_k(), run_p(), dtype))
+    emit("kernels", check="event kernels, untimed cases", bitwise_equal_to_plain=True,
+         cases={f"{k[0]}/{k[1]}": len(v) for k, v in event_held.items()})
 
     # --------------------------------------------------------- 4. vdp_table3
     def reset_launches():
@@ -674,9 +767,138 @@ def main() -> int:
         "full_width_long fused vs unfused", long_runs["fused"], long_runs["unfused"],
         float(np.abs(long_runs["unfused"].ys[:32] - truth.ys).max())))
 
+    # ------------------------------------------------------------- 7. events
+    # Each solve: a warm-up, then a timed run with exact launch counts --
+    # detect and commit once per loop iteration, masked_bisect_refine a
+    # multiple of event_bisect_iters + 1 (a bisection per event that fired
+    # somewhere in a step), at most that times E per iteration, the other
+    # kernels as without events (the coefficients are built on every step).
+    def event_solve(label, f, y0, te, kw, fused):
+        solve_ivp(f, y0, te, device=dev, fused=fused, **kw)  # warm-up
+        reset_launches()
+        sol, wall = timed_solve(f, y0, te, device=dev, fused=fused, **kw)
+        launches = dict(ops.launches)
+        out = convert.to_numpy(sol)
+        iters = int(out.stats["n_steps"].max())
+        want = expected_launches(7, iters, "fused" if fused else "unfused",
+                                 dense=te is not None and kw.get("dense", True))
+        want["fused_event_detect"] = want["fused_event_commit"] = iters
+        bis = launches["masked_bisect_refine"]
+        want["masked_bisect_refine"] = bis
+        per = kw.get("event_bisect_iters", 30) + 1
+        n_events = len(kw["events"]) if isinstance(kw["events"], tuple) else 1
+        check(launches == want, f"{label}: launches {launches} != {want}")
+        check(bis % per == 0 and bis <= per * n_events * iters
+              and (bis > 0) == bool(out.stats["n_events"].any()),
+              f"{label}: {bis} masked_bisect_refine launches, {iters} iterations")
+        if fused:
+            check(np.array_equal(out.stats["n_fused_steps"], out.stats["n_steps"]),
+                  f"{label}: the fused path did not run every step")
+        return out, wall, launches, iters
+
+    def same_bits(a, b):
+        """Solutions equal bit for bit (NaN where NaN; stats both have)."""
+        fields = ("ts", "ys", "status", "event_t", "event_y", "event_mask")
+        return (all(np.array_equal(getattr(a, k), getattr(b, k), equal_nan=k == "event_t")
+                    for k in fields)
+                and all(np.array_equal(a.stats[k], b.stats[k]) for k in a.stats
+                        if k in b.stats))
+
+    def card_vs_cpu64(label, f, y0, te, kw):
+        """float64: the card takes the CPU's steps and records its events."""
+        card = convert.to_numpy(solve_ivp(f, y0, te, device=dev, **kw))
+        cpu = convert.to_numpy(solve_ivp(f, y0, te, device="cpu", **kw))
+        check(all(np.array_equal(card.stats[k], cpu.stats[k]) for k in cpu.stats)
+              and np.array_equal(card.status, cpu.status)
+              and np.array_equal(card.event_mask, cpu.event_mask),
+              f"{label}: float64 card and CPU steps, status or event_mask differ")
+        diff = max(float(np.nan_to_num(np.abs(card.event_t - cpu.event_t)).max()),
+                   float(np.abs(card.event_y - cpu.event_y).max()),
+                   float(np.abs(card.ys - cpu.ys).max()))
+        check(np.array_equal(np.isnan(card.event_t), np.isnan(cpu.event_t)) and diff <= 1e-9,
+              f"{label}: float64 card vs CPU differ by {diff}")
+        return diff
+
+    # 7a. ball_terminal: every instance stops at its own impact time.
+    f, y0, te, kw = workloads.ball_terminal(np.float32)
+    runs = {}
+    for fused in (False, True):
+        path = "fused" if fused else "unfused"
+        out, wall, launches, iters = event_solve(f"events/ball_terminal/{path}", f, y0, te,
+                                                 kw, fused)
+        runs[path] = out
+        err = float(np.abs(out.event_t[:, 0] - np.sqrt(2.0 * y0[:, 0] / workloads.BALL["g"]))
+                    .max())
+        check(bool((out.status == 4).all()) and err <= 10 * kw["rtol"],
+              f"events/ball_terminal/{path}: status {np.bincount(out.status)}, "
+              f"max |event_t - analytic| {err}")
+        emit("events", workload="ball_terminal", path=path, dtype="float32", b=len(y0),
+             max_steps=iters, wall_ms=wall, ms_per_step=wall / iters, launches=launches,
+             max_abs_event_t_err=err, bound=10 * kw["rtol"])
+    check(same_bits(runs["fused"], runs["unfused"]),
+          "events/ball_terminal: fused and unfused card solves differ")
+    f, y64, te, kw = workloads.ball_terminal(np.float64)
+    emit("events", workload="ball_terminal", check="fused == unfused bitwise, float32",
+         float64_card_vs_cpu_max_abs_diff=card_vs_cpu64("events/ball_terminal", f, y64, te, kw))
+
+    # 7b. vdp_marker: the marker adds zero vector-field evaluations; ms per
+    # step with and without it.
+    f, y0, te, kw = workloads.vdp_marker(np.float32)
+    plain_kw = {k: v for k, v in kw.items() if k != "events"}
+    runs = {}
+    for fused in (False, True):
+        path = "fused" if fused else "unfused"
+        out, wall, launches, iters = event_solve(f"events/vdp_marker/{path}", f, y0, te, kw,
+                                                 fused)
+        runs[path] = out
+        solve_ivp(f, y0, te, device=dev, fused=fused, **plain_kw)  # warm-up
+        plain, pwall = timed_solve(f, y0, te, device=dev, fused=fused, **plain_kw)
+        plain = convert.to_numpy(plain)
+        piters = int(plain.stats["n_steps"].max())
+        check(np.array_equal(plain.stats["n_f_evals"], out.stats["n_f_evals"])
+              and np.array_equal(plain.ys, out.ys),
+              f"events/vdp_marker/{path}: the marker changed the solve")
+        emit("events", workload="vdp_marker", path=path, dtype="float32", b=len(y0),
+             max_steps=iters, n_events=int(out.stats["n_events"].sum()), launches=launches,
+             ms_per_step=wall / iters, ms_per_step_without_events=pwall / piters,
+             marker_overhead=(wall / iters) / (pwall / piters) - 1.0,
+             zero_extra_vf_evals=True)
+    check(same_bits(runs["fused"], runs["unfused"]),
+          "events/vdp_marker: fused and unfused card solves differ")
+    f, y64, te, kw = workloads.vdp_marker(np.float64)
+    emit("events", workload="vdp_marker", check="fused == unfused bitwise, float32",
+         float64_card_vs_cpu_max_abs_diff=card_vs_cpu64("events/vdp_marker", f, y64, te, kw))
+
+    # 7c. full_width_long_events: the RMS stop and the y[:, 0] marker at
+    # b = 1024, f = 784, unfused and fused.
+    f, y0, te, kw = workloads.full_width_long_events(dev)
+    runs = {}
+    for fused in (False, True):
+        path = "fused" if fused else "unfused"
+        out, wall, launches, iters = event_solve(f"events/full_width_long_events/{path}", f,
+                                                 y0, te, kw, fused)
+        runs[path] = out
+        main_path_launches[f"events/full_width_long_events/{path}"] = launches
+        share = float((out.status == 4).mean())
+        check(np.isfinite(out.ys).all() and bool(np.isin(out.status, (0, 4)).all())
+              and 0.25 <= share <= 0.75,
+              f"events/full_width_long_events/{path}: EVENT share {share}, status "
+              f"{np.bincount(out.status)}")
+        emit("events", workload="full_width_long_events", path=path, dtype="float32",
+             b=len(y0), rms_threshold=workloads.EVENTS_LONG["rms_threshold"],
+             event_share=share, marker_share=float(out.event_mask[:, 1].mean()),
+             max_steps=iters, mean_steps=float(out.stats["n_steps"].mean()), wall_ms=wall,
+             ms_per_step=wall / iters, launches=launches)
+    check(same_bits(runs["fused"], runs["unfused"]),
+          "events/full_width_long_events: fused and unfused card solves differ")
+    emit("events", workload="full_width_long_events", check="fused == unfused bitwise")
+
     # ------------------------------------------- kernel summary, then result
     summary = []
-    launch_source = {"fused_step": "fused/full_width", "fused_step_poly": "fused/step_bench"}
+    launch_source = {"fused_step": "fused/full_width", "fused_step_poly": "fused/step_bench",
+                     "masked_bisect_refine": "events/full_width_long_events/unfused",
+                     "fused_event_detect": "events/full_width_long_events/unfused",
+                     "fused_event_commit": "events/full_width_long_events/unfused"}
     for name in REPLACES:
         mine = [r for r in rows if r["kernel"] == name]
         main = [r for r in mine if r["shape"] == "full_width" and r["dtype"] == "float32"]
@@ -684,7 +906,8 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             # The unfused kernels count the unfused full_width run; the fused
-            # ones the fused full_width run and the step_bench dopri5 run.
+            # ones the fused full_width run and the step_bench dopri5 run;
+            # the event kernels the unfused full_width_long_events run.
             "launches": main_path_launches[launch_source.get(name, "full_width")][name],
             "max_abs_err": max([r["max_abs_err"] for r in mine] + checked),
             # At the full-width float32 shapes; stage_accum and error_norm are

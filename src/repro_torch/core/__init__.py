@@ -19,6 +19,7 @@ from .controller import (
     pid_controller,
 )
 from .drivers import AutoDiffAdjoint, BacksolveAdjoint, ScanAdjoint
+from .events import Event, EventState
 from .loop import make_solver, solve_ivp
 from .solution import Solution, Status
 from .step import FusedFallbackReason, LoopState, StepContext, StepFunction
@@ -57,6 +58,8 @@ __all__ = [
     "AutoDiffAdjoint",
     "BacksolveAdjoint",
     "ScanAdjoint",
+    "Event",
+    "EventState",
     "make_solver",
     "solve_ivp",
     "Solution",

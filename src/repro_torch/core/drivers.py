@@ -13,8 +13,9 @@ and refuse to construct until gradients are ported (ROADMAP A-11).
 
 All drivers accept structured initial states: ravel/unravel happens at the
 term boundary (``terms.ravel_state`` / ``terms.ravel_term``), and the
-returned ``Solution.ys`` has the caller's structure again.  For structured
-states the vector field is interpreted *per instance*.
+returned ``Solution.ys`` (and ``event_y``) has the caller's structure again.
+For structured states the vector field and the event conditions are
+interpreted *per instance*.
 
 ``solve(..., device=None)`` runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without ``device="cpu"`` it raises.
@@ -30,8 +31,9 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from .events import Event, normalize_events
 from .solution import Solution
-from .step import StepFunction, place_tolerance, refuse_unported
+from .step import StepFunction, place_tolerance
 from .stepper import AbstractStepper
 from .terms import as_term, ravel_state, ravel_term
 
@@ -75,15 +77,35 @@ class _Driver:
     dense: bool = True
     dense_window: int = 0
     batched_term: bool = True
-    events: dataclasses.InitVar[Any] = None
-    event_bisect_iters: dataclasses.InitVar[int] = 30
+    events: Any = None
+    event_bisect_iters: int = 30
     extra_stats: tuple = ()
     fused: bool = False
 
-    def __post_init__(self, events, event_bisect_iters):
-        refuse_unported(events)
+    def __post_init__(self):
         object.__setattr__(self, "stepper", AbstractStepper.coerce(self.stepper))
+        object.__setattr__(self, "events", normalize_events(self.events))
         object.__setattr__(self, "extra_stats", tuple(self.extra_stats))
+
+    def _events_for(self, raveled) -> tuple[Event, ...]:
+        """Events see the caller's state: for structured solves each
+        per-instance condition receives the unravelled structure, not the
+        flat buffer."""
+        if raveled is None or not self.events:
+            return self.events
+        wrapped = []
+        for e in self.events:
+            if e.batched:
+                raise ValueError(
+                    "batched event conditions are not supported for PyTree "
+                    "states; use per-instance cond_fn (batched=False)"
+                )
+            if e.with_args:
+                cond = lambda t, y, args, _f=e.cond_fn: _f(t, raveled.unravel_one(y), args)
+            else:
+                cond = lambda t, y, _f=e.cond_fn: _f(t, raveled.unravel_one(y))
+            wrapped.append(dataclasses.replace(e, cond_fn=cond))
+        return tuple(wrapped)
 
     def _prepare(self, f, y0, device):
         """Normalize (f, y0) onto the flat convention on ``device``.  Returns
@@ -103,6 +125,8 @@ class _Driver:
             atol=place_tolerance(self.atol, y0_flat),
             dense=self.dense,
             dense_window=self.dense_window,
+            events=self._events_for(raveled),
+            event_bisect_iters=self.event_bisect_iters,
             extra_stats=self.extra_stats,
             fused=self.fused,
         )
@@ -112,7 +136,10 @@ class _Driver:
     def _finalize(sol: Solution, raveled) -> Solution:
         if raveled is None:
             return sol
-        return dataclasses.replace(sol, ys=raveled.unravel(sol.ys))
+        updates = dict(ys=raveled.unravel(sol.ys))
+        if sol.event_y is not None:
+            updates["event_y"] = raveled.unravel(sol.event_y)
+        return dataclasses.replace(sol, **updates)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

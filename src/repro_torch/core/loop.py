@@ -42,9 +42,10 @@ def make_solver(
     ignored.  The caller places ``y0`` (and tolerance vectors) on the device.
 
     On the card ``step`` writes the dense output into the ``ys`` of the state
-    it is given and returns that buffer in the new state (see
-    ``StepFunction``): clone ``state.ys`` before the call to keep an old
-    state intact.  On the CPU the old state is left as it was.
+    it is given, and the recorded event states into its ``estate.y``, and
+    returns those buffers in the new state (see ``StepFunction``): clone
+    them before the call to keep an old state intact.  On the CPU the old
+    state is left as it was.
     """
     if max_steps != 10_000:
         warnings.warn(
@@ -113,8 +114,14 @@ def solve_ivp(
             ``FixedController``; otherwise the unfused path runs and
             ``stats["fused_fallback_reason"]`` says why.  Same results as
             unfused (bitwise on the CPU).
-    events: refused (NotImplementedError) until its slice is ported
-            (ROADMAP A-9).
+    events: an ``Event`` (or sequence of them) with per-instance scalar
+            conditions ``cond_fn(t, y, args)``; terminal events stop each
+            instance independently at its own localized event time
+            (``Status.EVENT``).  The solution then carries per-instance
+            ``event_t`` / ``event_y`` / ``event_mask``.  Localization bisects
+            the step's dense-output interpolant ``event_bisect_iters`` times
+            (zero extra vector-field evaluations), on both paths (``fused``
+            or not).
     device: where to solve.  ``None`` means the CUDA device, and raises when
             there is none; pass ``device="cpu"`` to solve on the CPU with the
             plain ops.  Inputs are moved to this device.

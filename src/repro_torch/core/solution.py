@@ -35,8 +35,15 @@ class Solution:
             controller: n_accepted, step function: n_steps, n_initialized,
             plus any user-registered contributors)
 
-    ``event_t``/``event_y``/``event_mask`` and ``grads`` keep the JAX
-    package's fields; they stay None until events and gradients are ported.
+    event_t:    (b, E) localized first-crossing times per event (NaN where
+                an event never fired); None unless events were registered
+    event_y:    (b, E, f) interpolated states at those crossings (the
+                caller's structure with (b, E, ...) leaves for structured
+                states)
+    event_mask: (b, E) bool -- which (instance, event) crossings were recorded
+
+    ``grads`` keeps the JAX package's field; it stays None until gradients
+    are ported.
     """
 
     ts: torch.Tensor

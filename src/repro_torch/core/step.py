@@ -8,11 +8,17 @@ batch.  ``AutoDiffAdjoint`` in ``drivers.py`` iterates it; ``make_solver`` in
 loop.
 
 Every instance in the batch carries its own time, step size, controller
-history, accept/reject decision and termination status.  Instances that
-finish early keep being *evaluated* (the dynamics run on the full batch --
-torchode's "overhanging evaluations") but their state is frozen by masking,
-so results are unaffected.  A step itself never synchronizes host and
-device; the driver's loop condition does, once per step.
+history, accept/reject decision, termination status and (when events are
+registered) event bookkeeping: sign changes of each event condition are
+detected on accepted steps and localized by masked bisection on the step's
+dense-output interpolant (``core/events.py``), and a fired terminal event
+stops that instance at the interpolated event state with ``Status.EVENT``.
+Instances that finish early keep being *evaluated* (the dynamics run on the
+full batch -- torchode's "overhanging evaluations") but their state is frozen
+by masking, so results are unaffected.  Without events a step never
+synchronizes host and device; the solve loop's condition does, once per
+step.  With events the step reads which events fired anywhere in the batch
+(one more sync per step, ``events.advance``).
 
 Statistics registry
 -------------------
@@ -21,7 +27,8 @@ Each component contributes entries via an ``init_stats(batch) -> dict`` hook
 and advances them in ``update_stats(stats, ctx) -> dict``, where ``ctx`` is a
 ``StepContext`` describing the step just taken.  The stepper records
 ``n_f_evals``, the controller ``n_accepted``, the step function itself
-``n_steps`` and ``n_initialized``; user code can register additional
+``n_steps``, ``n_initialized`` and, when events are registered,
+``n_events``; user code can register additional
 contributors through ``extra_stats``.  With ``fused=True`` the step function
 also records ``fused_fallback_reason`` (whether the fused path engaged, and if
 not why) and, when it engaged, ``n_fused_steps``.
@@ -43,6 +50,8 @@ from .controller import (
     _ControllerStats,
     integral_controller,
 )
+from .events import advance as advance_events
+from .events import init_event_state, normalize_events
 from .solution import Solution, Status
 from .stepper import AbstractStepper, ExplicitRK, _tableau_arrays
 from .terms import ODETerm, PolynomialTerm, as_term
@@ -82,6 +91,7 @@ class LoopState(NamedTuple):
     stats: dict[str, torch.Tensor]  # named (b,) accumulators (statistics registry)
     ys: torch.Tensor  # (b, n, f) dense output buffer (or (b, 0, f) when unused)
     it: torch.Tensor  # () int32 global iteration counter
+    estate: Any = ()  # per-instance event bookkeeping (EventState, or () without events)
 
 
 class StepContext(NamedTuple):
@@ -93,16 +103,7 @@ class StepContext(NamedTuple):
     n_f_evals: Any  # dynamics-evaluation count of this step (int)
     n_written: torch.Tensor  # (b,) int32: dense-output points written this step
     err_ratio: torch.Tensor  # (b,) weighted RMS error ratio of this step
-
-
-def refuse_unported(events) -> None:
-    """Raise for events, whose slice is not ported yet; they stay in the
-    signatures for parity with the JAX package.  (Implicit steppers are
-    refused by ``AbstractStepper.coerce``.)"""
-    if events is not None and events != ():
-        raise NotImplementedError(
-            "events are not ported yet (ROADMAP A-9; kernels B-7, B-8, B-9)"
-        )
+    n_events: torch.Tensor | None = None  # (b,) int32: events recorded this step
 
 
 def place_tolerance(tol, like: torch.Tensor):
@@ -158,8 +159,11 @@ class StepFunction:
     anything else solves through the unfused path and says why in
     ``stats["fused_fallback_reason"]``.
 
-    ``events`` and ``event_bisect_iters`` stay in the signature for parity
-    with the JAX package: events are refused until their slice is ported.
+    ``events``: an ``Event`` or a sequence of them (normalized to a tuple),
+    detected on every accepted step and localized by ``event_bisect_iters``
+    bisection steps on the step's dense-output interpolant; the Hermite
+    coefficients are then built on every step, dense output or not.  On the
+    card the event record ``estate.y`` is updated in place like ``ys``.
     """
 
     term: ODETerm
@@ -170,8 +174,8 @@ class StepFunction:
     atol: Any = 1e-6
     dense: bool = True
     dense_window: int = 0
-    events: dataclasses.InitVar[Any] = None
-    event_bisect_iters: dataclasses.InitVar[int] = 30
+    events: Any = None
+    event_bisect_iters: int = 30
     extra_stats: tuple = ()
     fused: bool = False
     stat_contributors: tuple = dataclasses.field(init=False, repr=False)
@@ -181,8 +185,7 @@ class StepFunction:
     fused_mode: str | None = dataclasses.field(init=False, repr=False)
     fused_fallback: int = dataclasses.field(init=False, repr=False)
 
-    def __post_init__(self, events, event_bisect_iters):
-        refuse_unported(events)
+    def __post_init__(self):
         stepper = AbstractStepper.coerce(self.stepper)
         controller = self.controller
         if controller is None:
@@ -207,6 +210,7 @@ class StepFunction:
         controller_stats = controller if hasattr(controller, "init_stats") else _ControllerStats()
         for name, value in (
             ("term", as_term(self.term)),
+            ("events", normalize_events(self.events)),
             ("stepper", stepper),
             ("controller", controller),
             ("extra_stats", extra_stats),
@@ -221,6 +225,8 @@ class StepFunction:
     def init_stats(self, batch: int) -> dict[str, torch.Tensor]:
         zeros = torch.zeros((batch,), dtype=torch.int32)
         out = {"n_steps": zeros, "n_initialized": zeros.clone()}
+        if self.events:
+            out["n_events"] = zeros.clone()
         if self.fused:
             out["fused_fallback_reason"] = torch.full(
                 (batch,), self.fused_fallback, dtype=torch.int32
@@ -232,11 +238,14 @@ class StepFunction:
         return out
 
     def update_stats(self, stats: dict, ctx: StepContext) -> dict:
-        return {
+        out = {
             **stats,
             "n_steps": stats["n_steps"] + ctx.step_active * ctx.running.to(torch.int32),
             "n_initialized": stats["n_initialized"] + ctx.n_written,
         }
+        if ctx.n_events is not None:
+            out["n_events"] = stats["n_events"] + ctx.n_events
+        return out
 
     def _collect_init_stats(self, batch: int, device) -> dict[str, torch.Tensor]:
         stats: dict[str, torch.Tensor] = {}
@@ -311,6 +320,9 @@ class StepFunction:
             stats=stats,
             ys=ys,
             it=torch.zeros((), dtype=torch.int32, device=device),
+            estate=(
+                init_event_state(self.events, t_start, y0, args) if self.events else ()
+            ),
         )
         return state, (t_eval, t_start, t_end, direction)
 
@@ -378,11 +390,13 @@ class StepFunction:
         t_new = torch.where(will_finish, t_end, state.t + dt_used)
         return will_finish, safe_dt, t_new, window
 
-    def _advance(self, state: LoopState, consts, committed: LoopState, *, y1, accept,
+    def _advance(self, state: LoopState, consts, committed: LoopState, args, *, y1, accept,
                  will_finish, t_new, safe_dt, window, coeffs, n_f_evals, err_ratio):
         """The new loop state, from the masked commit of ``(t, dt, y, f0,
-        cstate)`` in ``committed``: stop instances that finished or whose
-        step collapsed, write the dense output, advance the statistics."""
+        cstate)`` in ``committed``: detect, localize and record this step's
+        events, stop instances that finished, whose step collapsed or whose
+        terminal event fired, write the dense output (truncated at the
+        event), advance the statistics."""
         t_eval, t_start, t_end, direction = consts
         finfo = torch.finfo(state.y.dtype)
         any_running = state.running.any()
@@ -393,8 +407,22 @@ class StepFunction:
         nonfinite_y = ~torch.all(torch.isfinite(y1), dim=-1)
         stopped = state.running & ~accept & (torch.abs(committed.dt) <= dt_floor)
 
+        # --- events: detect sign changes on accepted steps, localize by
+        # masked bisection on the interpolant (zero extra vf evaluations),
+        # stop instances whose terminal event fired ---
+        if self.events:
+            adv = advance_events(
+                self.events, state.estate, coeffs, state.t, safe_dt, t_new,
+                y1, accept, args, self.event_bisect_iters,
+            )
+            # Dense output and the committed state are truncated at the
+            # earliest terminal event time.
+            t_stop = torch.where(adv.stop, adv.t_stop, t_new)
+        else:
+            adv, t_stop = None, t_new
+
         # --- dense output: write every eval point passed by this step ---
-        ys, n_written = self._write_dense(state, consts, coeffs, accept, t_new, safe_dt,
+        ys, n_written = self._write_dense(state, consts, coeffs, accept, t_stop, safe_dt,
                                           *window)
 
         running = state.running & ~done_now & ~stopped
@@ -406,7 +434,19 @@ class StepFunction:
                 torch.where(nonfinite_y, Status.INFINITE.value, Status.REACHED_DT_MIN.value),
                 state.status,
             ),
-        ).to(torch.int32)
+        )
+        if adv is not None:
+            # An event-stopped instance rests AT the event: its committed
+            # state is the interpolated (event_t, event_y), not (t_new, y1).
+            # EVENT takes precedence over SUCCESS on the final step.
+            committed = committed._replace(
+                y=torch.where(adv.stop[:, None], adv.y_stop, committed.y),
+                t=torch.where(adv.stop, t_stop, committed.t),
+                estate=adv.estate,
+            )
+            running = running & ~adv.stop
+            status = torch.where(adv.stop, Status.EVENT.value, status)
+        status = status.to(torch.int32)
 
         inc = any_running.to(torch.int32)
         ctx = StepContext(
@@ -416,6 +456,7 @@ class StepFunction:
             n_f_evals=n_f_evals,
             n_written=n_written,
             err_ratio=err_ratio,
+            n_events=adv.n_new if adv is not None else None,
         )
         stats = self._apply_stat_updates(dict(state.stats), ctx)
         if self.fused_mode is not None:
@@ -442,10 +483,12 @@ class StepFunction:
         )
         accept = accept & state.running
 
+        # The dense-output interpolant of this step is shared by the eval-point
+        # writer and the event localizer.
         dense_now = self.dense and consts[0] is not None
         coeffs = (
             stepper.interp_coeffs(state.y, res.y1, state.f0, res.f1, safe_dt)
-            if dense_now else None
+            if dense_now or self.events else None
         )
 
         # --- masked commit ---
@@ -459,7 +502,7 @@ class StepFunction:
             # threads it uniformly.
             cstate=cstate_new,
         )
-        return self._advance(state, consts, committed, y1=res.y1, accept=accept,
+        return self._advance(state, consts, committed, args, y1=res.y1, accept=accept,
                              will_finish=will_finish, t_new=t_new, safe_dt=safe_dt,
                              window=window, coeffs=coeffs, n_f_evals=res.n_f_evals,
                              err_ratio=err_ratio)
@@ -495,7 +538,7 @@ class StepFunction:
         )
         kw = dict(b_sol=b_sol, b_err=b_err,
                   ctrl=self.controller.filter_params(stepper.error_order),
-                  want_coeffs=self.dense and consts[0] is not None,
+                  want_coeffs=bool(self.dense and consts[0] is not None or self.events),
                   ctrl_mode=self.fused_mode)
         if isinstance(term, PolynomialTerm) and term.poly_coeffs:
             out = ops.fused_step_poly(state.y, state.f0, *common, a=a, c=c,
@@ -521,7 +564,7 @@ class StepFunction:
         # The masked commit is done in-kernel.
         committed = state._replace(t=t_out, dt=dt_out, y=y_out, f0=f_out,
                                    cstate=ControllerState(new_inv, new_inv2))
-        return self._advance(state, consts, committed, y1=y1, accept=accept,
+        return self._advance(state, consts, committed, args, y1=y1, accept=accept,
                              will_finish=will_finish, t_new=t_new, safe_dt=safe_dt,
                              window=window, coeffs=coeffs, n_f_evals=n_f_evals,
                              err_ratio=err_ratio)
@@ -532,9 +575,16 @@ class StepFunction:
             state.running, Status.REACHED_MAX_STEPS.value, state.status
         ).to(torch.int32)
         stats = dict(state.stats)
+        extra = {}
+        if self.events:
+            extra = dict(
+                event_t=state.estate.t,
+                event_y=state.estate.y,
+                event_mask=state.estate.fired,
+            )
         if self.dense and t_eval is not None:
-            return Solution(ts=t_eval, ys=state.ys, status=status, stats=stats)
+            return Solution(ts=t_eval, ys=state.ys, status=status, stats=stats, **extra)
         # Without t_eval, report the per-instance time actually reached:
-        # t_end on SUCCESS (the final step lands there exactly) and the last
-        # accepted time for early stops.
-        return Solution(ts=state.t, ys=state.y, status=status, stats=stats)
+        # t_end on SUCCESS (the final step lands there exactly), the event
+        # time on EVENT, and the last accepted time for early stops.
+        return Solution(ts=state.t, ys=state.y, status=status, stats=stats, **extra)

@@ -117,8 +117,16 @@ def load() -> ctypes.CDLL:
         lib.rt_fused_step_args_size.restype = i
         lib.rt_fused_step.argtypes = [i, p, p]
         lib.rt_fused_step_poly.argtypes = [i, p, p]
+        i8p = ctypes.POINTER(ctypes.c_int8)
+        lib.rt_max_events.argtypes = []
+        lib.rt_max_events.restype = i
+        lib.rt_masked_bisect_refine.argtypes = [i] + [p] * 14 + [i64, i64, p]
+        lib.rt_fused_event_detect.argtypes = [i, p, p, p, p, i8p, i, p, p, i64, p]
+        lib.rt_fused_event_commit.argtypes = ([i] + [p] * 9 + [i8p, i] + [p] * 6
+                                              + [i64, i64, p])
         for name in ("rt_stage_accum", "rt_fused_update", "rt_error_norm", "rt_interp_eval",
-                     "rt_fused_step", "rt_fused_step_poly"):
+                     "rt_fused_step", "rt_fused_step_poly", "rt_masked_bisect_refine",
+                     "rt_fused_event_detect", "rt_fused_event_commit"):
             getattr(lib, name).restype = i
         _lib = lib
     return _lib

@@ -1,0 +1,279 @@
+// Hand-written Hopper (sm_90a) kernels for the event layer (core/events.py).
+//
+// masked_bisect_refine replaces pallas_impl.masked_bisect_refine (:284, body
+// _bisect_refine_kernel :258); fused_event_detect replaces
+// pallas_impl.fused_event_detect (:1144, body _event_detect_kernel :1123);
+// fused_event_commit replaces pallas_impl.fused_event_commit (:1205, body
+// _event_commit_kernel :1169).  Each computes exactly the plain PyTorch
+// version of the same name in ../ref.py: all three are elementwise ATen ops
+// and selections there, so every rounded operation here is the one ATen
+// rounds (mul_rn/add_rn, no contraction) and the outputs equal the plain
+// version's bitwise on the card.
+//
+// Bound: the bytes, for all three.  masked_bisect_refine reads the four (b, f)
+// coefficient planes and writes y_mid (5 planes, 6 flops an element);
+// fused_event_detect moves a few (b, E) columns; fused_event_commit reads
+// y_new and writes y_stop (2 planes), and reads y_ev and writes ev_y only in
+// the cells of the crossings it records.
+//
+// The TPU kernels carry bool outputs as int32 (a TPU layout matter); here
+// masks are bytes (torch.bool) both ways and n_new is int32.
+//
+// The event count E is at most kMaxEvents (64): the per-event directions and
+// terminal flags ride in the parameter space as int8, and a row's recorded
+// crossings are one 64-bit mask in registers.  The wrappers raise above it.
+
+#include "solver_common.cuh"
+
+namespace {
+
+using namespace solver;
+
+constexpr int kMaxEvents = 64;
+constexpr int kThreads = 256;
+
+struct EventFlags {
+  int8_t v[kMaxEvents];
+};
+
+EventFlags load_flags(const int8_t* host, int n) {
+  EventFlags flags;
+  for (int i = 0; i < kMaxEvents; ++i) flags.v[i] = i < n ? host[i] : 0;
+  return flags;
+}
+
+unsigned blocks_for(int64_t n, int threads) {
+  int64_t blocks = (n + threads - 1) / threads;
+  // Grid-stride loops cover whatever one launch's grid does not.
+  return static_cast<unsigned>(blocks < 65535 * 8 ? (blocks > 0 ? blocks : 1) : 65535 * 8);
+}
+
+template <typename T>
+__device__ __forceinline__ int sign_int(T x) {  // torch.sign, but as an int
+  return (T(0) < x) - (x < T(0));
+}
+
+// sign(a) != sign(b) as the JAX package decides it: jnp.sign(NaN) is NaN and
+// compares unequal to everything, so a NaN on either side picks the left half.
+template <typename T>
+__device__ __forceinline__ bool sign_differs(T a, T b) {
+  return isnan(a) || isnan(b) || sign_int(a) != sign_int(b);
+}
+
+// ------------------------------------------------------ masked_bisect_refine
+// One thread per (row, feature) element.  Each thread recomputes its row's
+// bracket from the (b,) inputs (a few flops; the loads hit the same line as
+// the row's neighbours) and evaluates the interpolant at the new midpoint;
+// the thread of feature 0 writes the row's four (b,) outputs.  y_mid is
+// evaluated for every row, active or not, as the plain version does.  The
+// TPU kernel tiles (BB, BF) blocks and rewrites the (BB, 1) columns once per
+// feature tile; here the columns are written once.
+template <typename T>
+__global__ void masked_bisect_refine_kernel(
+    const T* __restrict__ c0, const T* __restrict__ c1, const T* __restrict__ c2,
+    const T* __restrict__ c3, const T* __restrict__ lo, const T* __restrict__ hi,
+    const T* __restrict__ v_lo, const T* __restrict__ v_mid,
+    const uint8_t* __restrict__ active, T* __restrict__ lo_out, T* __restrict__ hi_out,
+    T* __restrict__ vlo_out, T* __restrict__ mid_out, T* __restrict__ y_mid, int64_t b,
+    int64_t f) {
+  const int64_t n = b * f;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = i / f;
+    const T l = lo[row], h = hi[row], vl = v_lo[row], vm = v_mid[row];
+    const bool act = active[row] != 0;
+    const T mid = mul_rn(T(0.5), add_rn(l, h));
+    const bool left = sign_differs(vl, vm);
+    const T h_new = (act && left) ? mid : h;
+    const T l_new = (act && !left) ? mid : l;
+    const T m_new = mul_rn(T(0.5), add_rn(l_new, h_new));
+    if (i - row * f == 0) {
+      lo_out[row] = l_new;
+      hi_out[row] = h_new;
+      vlo_out[row] = (act && !left) ? vm : vl;
+      mid_out[row] = m_new;
+    }
+    y_mid[i] = horner_rn(c0[i], c1[i], c2[i], c3[i], m_new);
+  }
+}
+
+// -------------------------------------------------------- fused_event_detect
+// One thread per (row, event): the directional sign-change test, masked by
+// `fired` and `accept`, and the carry of the condition values.  Expressions
+// and their order are ref.fused_event_detect's; it takes almost no time, so
+// its cost is the launch.
+template <typename T>
+__global__ void fused_event_detect_kernel(const T* __restrict__ v_prev,
+                                          const T* __restrict__ v_new,
+                                          const uint8_t* __restrict__ fired,
+                                          const uint8_t* __restrict__ accept, EventFlags dirs,
+                                          uint8_t* __restrict__ newly, T* __restrict__ v_keep,
+                                          int64_t b, int E) {
+  const int64_t n = b * E;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = i / E;
+    const int e = static_cast<int>(i - row * E);
+    const T v0 = v_prev[i], v1 = v_new[i];
+    const bool acc = accept[row] != 0;
+    const bool up = (v0 <= T(0)) && (v1 >= T(0));
+    const bool down = (v0 >= T(0)) && (v1 <= T(0));
+    const int d = dirs.v[e];
+    bool crossed = d > 0 ? up : (d < 0 ? down : (up || down));
+    crossed = crossed && ((v0 != T(0)) || (v1 != T(0)));
+    newly[i] = crossed && !fired[i] && acc;
+    v_keep[i] = acc ? v1 : v0;
+  }
+}
+
+// -------------------------------------------------------- fused_event_commit
+// One warp per row, 8 rows to a block.  Every lane resolves the row's
+// terminal events over E in registers (strict <, so the first of two equal
+// crossings wins, as the plain version's sequence of wheres does) and forms
+// the recorded-crossing mask rec = newly & (x <= x_stop); lanes then split
+// the (b, E) columns, lane 0 writes the (b,) ones, and the warp sweeps f for
+// y_stop and, in place, the ev_y cells of the recorded crossings (the cells
+// not recorded are neither read nor written).
+template <typename T>
+__global__ void fused_event_commit_kernel(
+    const T* __restrict__ x, const T* __restrict__ y_ev, const uint8_t* __restrict__ newly,
+    const T* __restrict__ y_new, const T* __restrict__ t0, const T* __restrict__ dt,
+    const uint8_t* __restrict__ fired, const T* __restrict__ ev_t, T* __restrict__ ev_y,
+    EventFlags terminal, uint8_t* __restrict__ fired_out, T* __restrict__ ev_t_out,
+    uint8_t* __restrict__ stop_out, T* __restrict__ t_stop, T* __restrict__ y_stop,
+    int32_t* __restrict__ n_new, int64_t b, int E, int64_t f) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = blockIdx.x * (int64_t)kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= b) return;  // the whole warp leaves together
+  const int64_t eb = row * E;
+  T x_stop = T(INFINITY);
+  bool stop = false;
+  int i_stop = -1;
+  for (int i = 0; i < E; ++i) {
+    if (!terminal.v[i]) continue;
+    const bool ni = newly[eb + i] != 0;
+    stop = stop || ni;
+    if (ni && x[eb + i] < x_stop) {
+      x_stop = x[eb + i];
+      i_stop = i;
+    }
+  }
+  unsigned long long rec = 0;
+  for (int i = 0; i < E; ++i) {
+    if (newly[eb + i] && x[eb + i] <= x_stop) rec |= 1ull << i;
+  }
+  const T t0r = t0[row], dtr = dt[row];
+  for (int i = lane; i < E; i += 32) {
+    const bool ri = (rec >> i) & 1ull;
+    fired_out[eb + i] = fired[eb + i] || ri;
+    ev_t_out[eb + i] = ri ? add_rn(t0r, mul_rn(x[eb + i], dtr)) : ev_t[eb + i];
+  }
+  if (lane == 0) {
+    stop_out[row] = stop;
+    t_stop[row] = add_rn(t0r, mul_rn(stop ? x_stop : T(0), dtr));
+    n_new[row] = __popcll(rec);
+  }
+  const T* src = i_stop >= 0 ? y_ev + (eb + i_stop) * f : y_new + row * f;
+  T* dst = y_stop + row * f;
+  for (int64_t c = lane; c < f; c += 32) {
+    dst[c] = src[c];
+    for (unsigned long long m = rec; m; m &= m - 1) {
+      const int64_t cell = (eb + __ffsll(static_cast<long long>(m)) - 1) * f + c;
+      ev_y[cell] = y_ev[cell];
+    }
+  }
+}
+
+template <typename T>
+int launch_bisect(const void* c0, const void* c1, const void* c2, const void* c3,
+                  const void* lo, const void* hi, const void* v_lo, const void* v_mid,
+                  const void* active, void* lo_out, void* hi_out, void* vlo_out,
+                  void* mid_out, void* y_mid, int64_t b, int64_t f, cudaStream_t stream) {
+  masked_bisect_refine_kernel<T><<<blocks_for(b * f, kThreads), kThreads, 0, stream>>>(
+      static_cast<const T*>(c0), static_cast<const T*>(c1), static_cast<const T*>(c2),
+      static_cast<const T*>(c3), static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<const T*>(v_lo), static_cast<const T*>(v_mid),
+      static_cast<const uint8_t*>(active), static_cast<T*>(lo_out), static_cast<T*>(hi_out),
+      static_cast<T*>(vlo_out), static_cast<T*>(mid_out), static_cast<T*>(y_mid), b, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_detect(const void* v_prev, const void* v_new, const void* fired,
+                  const void* accept, const int8_t* dirs, int E, void* newly, void* v_keep,
+                  int64_t b, cudaStream_t stream) {
+  fused_event_detect_kernel<T><<<blocks_for(b * E, kThreads), kThreads, 0, stream>>>(
+      static_cast<const T*>(v_prev), static_cast<const T*>(v_new),
+      static_cast<const uint8_t*>(fired), static_cast<const uint8_t*>(accept),
+      load_flags(dirs, E), static_cast<uint8_t*>(newly), static_cast<T*>(v_keep), b, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_commit(const void* x, const void* y_ev, const void* newly, const void* y_new,
+                  const void* t0, const void* dt, const void* fired, const void* ev_t,
+                  void* ev_y, const int8_t* terminal, int E, void* fired_out, void* ev_t_out,
+                  void* stop, void* t_stop, void* y_stop, void* n_new, int64_t b, int64_t f,
+                  cudaStream_t stream) {
+  const int64_t blocks = (b + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  fused_event_commit_kernel<T><<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
+                                 32 * kWarpsPerBlock, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y_ev),
+      static_cast<const uint8_t*>(newly), static_cast<const T*>(y_new),
+      static_cast<const T*>(t0), static_cast<const T*>(dt),
+      static_cast<const uint8_t*>(fired), static_cast<const T*>(ev_t),
+      static_cast<T*>(ev_y), load_flags(terminal, E), static_cast<uint8_t*>(fired_out),
+      static_cast<T*>(ev_t_out), static_cast<uint8_t*>(stop), static_cast<T*>(t_stop),
+      static_cast<T*>(y_stop), static_cast<int32_t*>(n_new), b, E, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ------------------------------------------------------------- C entry points
+// dtype: 0 = float32, 1 = float64.  Every entry returns cudaGetLastError(),
+// or cudaErrorInvalidValue for an event count outside [1, kMaxEvents].
+
+extern "C" {
+
+int rt_max_events() { return kMaxEvents; }
+
+int rt_masked_bisect_refine(int dtype, const void* c0, const void* c1, const void* c2,
+                            const void* c3, const void* lo, const void* hi, const void* v_lo,
+                            const void* v_mid, const void* active, void* lo_out, void* hi_out,
+                            void* vlo_out, void* mid_out, void* y_mid, int64_t b, int64_t f,
+                            void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_bisect<double>(c0, c1, c2, c3, lo, hi, v_lo, v_mid, active, lo_out,
+                                       hi_out, vlo_out, mid_out, y_mid, b, f, s)
+               : launch_bisect<float>(c0, c1, c2, c3, lo, hi, v_lo, v_mid, active, lo_out,
+                                      hi_out, vlo_out, mid_out, y_mid, b, f, s);
+}
+
+int rt_fused_event_detect(int dtype, const void* v_prev, const void* v_new, const void* fired,
+                          const void* accept, const int8_t* dirs, int E, void* newly,
+                          void* v_keep, int64_t b, void* stream) {
+  if (E < 1 || E > kMaxEvents) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_detect<double>(v_prev, v_new, fired, accept, dirs, E, newly, v_keep, b,
+                                       s)
+               : launch_detect<float>(v_prev, v_new, fired, accept, dirs, E, newly, v_keep, b,
+                                      s);
+}
+
+int rt_fused_event_commit(int dtype, const void* x, const void* y_ev, const void* newly,
+                          const void* y_new, const void* t0, const void* dt, const void* fired,
+                          const void* ev_t, void* ev_y, const int8_t* terminal, int E,
+                          void* fired_out, void* ev_t_out, void* stop, void* t_stop,
+                          void* y_stop, void* n_new, int64_t b, int64_t f, void* stream) {
+  if (E < 1 || E > kMaxEvents) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_commit<double>(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y,
+                                       terminal, E, fired_out, ev_t_out, stop, t_stop, y_stop,
+                                       n_new, b, f, s)
+               : launch_commit<float>(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y,
+                                      terminal, E, fired_out, ev_t_out, stop, t_stop, y_stop,
+                                      n_new, b, f, s);
+}
+
+}  // extern "C"

@@ -1,5 +1,5 @@
-// Device helpers shared by the solver kernels (solver_kernels.cu and
-// fused_step.cu).
+// Device helpers shared by the solver kernels (solver_kernels.cu,
+// fused_step.cu and events.cu).
 //
 // Every piece of arithmetic that two kernels must round alike lives here
 // once: the weighted stage sums of stage_accum / fused_update, the WRMS terms
@@ -48,6 +48,14 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// The dense-output cubic ((c3 * x + c2) * x + c1) * x + c0 at one element,
+// as the plain versions (ref.interp_eval, ref.masked_bisect_refine) run it:
+// a multiply, then an add, per degree, each rounded on its own.
+template <typename T>
+__device__ __forceinline__ T horner_rn(T c0, T c1, T c2, T c3, T x) {
+  return add_rn(mul_rn(add_rn(mul_rn(add_rn(mul_rn(c3, x), c2), x), c1), x), c0);
+}
 
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {

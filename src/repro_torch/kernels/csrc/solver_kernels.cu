@@ -104,7 +104,10 @@ __global__ void error_norm_kernel(const T* __restrict__ err, const T* __restrict
 // b * n positions and masks.  With a non-null cursor the (b, W) positions and
 // masks address the window out[row, cursor[row] + w, :] (windowed dense
 // output), so the window is written straight into the buffer with no
-// gather/scatter round trip.
+// gather/scatter round trip.  Horner rounds each multiply and add on its own
+// (solver_common.cuh's horner_rn), as the plain version does, so the cells
+// equal ref.interp_eval's bitwise and the event localizer's interpolant
+// (events.cu) is the dense output's.
 template <typename T>
 __global__ void interp_eval_kernel(const T* __restrict__ c0, const T* __restrict__ c1,
                                    const T* __restrict__ c2, const T* __restrict__ c3,
@@ -121,7 +124,7 @@ __global__ void interp_eval_kernel(const T* __restrict__ c0, const T* __restrict
   const int64_t cb = row * f;
   T* o = out + (row * n + col) * f;
   for (int64_t c = lane; c < f; c += 32) {
-    o[c] = ((c3[cb + c] * xv + c2[cb + c]) * xv + c1[cb + c]) * xv + c0[cb + c];
+    o[c] = horner_rn(c0[cb + c], c1[cb + c], c2[cb + c], c3[cb + c], xv);
   }
 }
 

@@ -1,5 +1,5 @@
 """Wrappers around the CUDA kernels in ``csrc/`` (``solver_kernels.cu``,
-``fused_step.cu``).
+``fused_step.cu``, ``events.cu``).
 
 Each wrapper checks device, dtype (float32 or float64), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on
@@ -20,7 +20,8 @@ import torch
 from . import _build
 
 launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval": 0,
-            "fused_step": 0, "fused_step_poly": 0}
+            "fused_step": 0, "fused_step_poly": 0, "masked_bisect_refine": 0,
+            "fused_event_detect": 0, "fused_event_commit": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -317,3 +318,106 @@ def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_i
         dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol, b_sol=b_sol,
         b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode, failed=None,
         a=a, fsal=fsal)
+
+
+def _event_flags(name, values, lib):
+    """Per-event int8 flags (a direction's sign, or a terminal flag) for the
+    kernel's parameter block; at most ``rt_max_events()`` events."""
+    vals = [int(np.sign(float(v))) for v in values]
+    limit = lib.rt_max_events()
+    if not 1 <= len(vals) <= limit:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 to {limit} events, got {len(vals)}")
+    return (ctypes.c_int8 * len(vals))(*vals), len(vals)
+
+
+def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
+    """CUDA ``masked_bisect_refine``: one masked halving of the event bracket
+    and the interpolant at the new midpoint (see ``ref.masked_bisect_refine``).
+    Returns new tensors ``(lo', hi', v_lo', mid', y_mid')``."""
+    c0, c1, c2, c3 = coeffs
+    code = _dtype_code("masked_bisect_refine", c0)
+    cols = (lo, hi, v_lo, v_mid)
+    _check("masked_bisect_refine", c0.dtype, c0, c1, c2, c3, *cols)
+    _check("masked_bisect_refine", torch.bool, active)
+    _same_device("masked_bisect_refine", c0, c1, c2, c3, *cols, active)
+    b, f = c0.shape
+    if (f < 1 or any(c.shape != (b, f) for c in coeffs)
+            or any(x.shape != (b,) for x in (*cols, active))):
+        raise ValueError(f"masked_bisect_refine: shapes coeffs "
+                         f"{[tuple(c.shape) for c in coeffs]}, columns "
+                         f"{[tuple(x.shape) for x in (*cols, active)]} do not agree")
+    outs = [torch.empty_like(lo) for _ in range(4)] + [torch.empty_like(c0)]
+    lib = _build.load()
+    with torch.cuda.device(c0.device):
+        rc = lib.rt_masked_bisect_refine(
+            code, *(x.data_ptr() for x in (c0, c1, c2, c3, *cols, active, *outs)), b, f,
+            _stream(c0.device))
+    _raise_on("masked_bisect_refine", rc)
+    launches["masked_bisect_refine"] += 1
+    return tuple(outs)
+
+
+def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
+    """CUDA ``fused_event_detect``: the per-event directional sign test and
+    the masked carry of the condition values (see ``ref.fused_event_detect``).
+    Returns new tensors ``(newly, v_keep)``, ``newly`` bool."""
+    code = _dtype_code("fused_event_detect", v_prev)
+    _check("fused_event_detect", v_prev.dtype, v_prev, v_new)
+    _check("fused_event_detect", torch.bool, fired, accept)
+    _same_device("fused_event_detect", v_prev, v_new, fired, accept)
+    lib = _build.load()
+    dirs, E = _event_flags("fused_event_detect", directions, lib)
+    b = v_prev.shape[0]
+    if (v_prev.shape != (b, E) or v_new.shape != (b, E) or fired.shape != (b, E)
+            or accept.shape != (b,)):
+        raise ValueError(f"fused_event_detect: shapes v_prev {tuple(v_prev.shape)}, v_new "
+                         f"{tuple(v_new.shape)}, fired {tuple(fired.shape)}, accept "
+                         f"{tuple(accept.shape)} and {E} directions do not agree")
+    newly = torch.empty_like(fired)
+    v_keep = torch.empty_like(v_prev)
+    with torch.cuda.device(v_prev.device):
+        rc = lib.rt_fused_event_detect(
+            code, v_prev.data_ptr(), v_new.data_ptr(), fired.data_ptr(), accept.data_ptr(),
+            dirs, E, newly.data_ptr(), v_keep.data_ptr(), b, _stream(v_prev.device))
+    _raise_on("fused_event_detect", rc)
+    launches["fused_event_detect"] += 1
+    return newly, v_keep
+
+
+def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, terminal):
+    """CUDA ``fused_event_commit``: terminal resolution, the first-crossing
+    bookkeeping and the stop outputs (see ``ref.fused_event_commit``).
+
+    ``ev_y`` is updated IN PLACE -- only its cells of the crossings recorded
+    this step are written, the rest are neither read nor written -- and is
+    returned as ``ev_y'`` (the port saves the (b, E, f) round trip, as
+    ``interp_eval`` does for the dense output).  Every other output is a new
+    tensor: ``(fired', ev_t', ev_y, stop, t_stop, y_stop, n_new)``."""
+    code = _dtype_code("fused_event_commit", y_new)
+    _check("fused_event_commit", y_new.dtype, x, y_ev, y_new, t0, dt, ev_t, ev_y)
+    _check("fused_event_commit", torch.bool, newly, fired)
+    _same_device("fused_event_commit", x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y)
+    lib = _build.load()
+    flags, E = _event_flags("fused_event_commit", terminal, lib)
+    b, f = y_new.shape
+    if (any(m.shape != (b, E) for m in (x, newly, fired, ev_t))
+            or y_ev.shape != (b, E, f) or ev_y.shape != (b, E, f)
+            or t0.shape != (b,) or dt.shape != (b,)):
+        raise ValueError(f"fused_event_commit: shapes x {tuple(x.shape)}, y_ev "
+                         f"{tuple(y_ev.shape)}, y_new {tuple(y_new.shape)}, ev_y "
+                         f"{tuple(ev_y.shape)} and {E} terminal flags do not agree")
+    fired_out = torch.empty_like(fired)
+    ev_t_out = torch.empty_like(ev_t)
+    stop = torch.empty((b,), dtype=torch.bool, device=y_new.device)
+    t_stop = torch.empty_like(t0)
+    y_stop = torch.empty_like(y_new)
+    n_new = torch.empty((b,), dtype=torch.int32, device=y_new.device)
+    with torch.cuda.device(y_new.device):
+        rc = lib.rt_fused_event_commit(
+            code, *(v.data_ptr() for v in (x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y)),
+            flags, E, *(v.data_ptr() for v in (fired_out, ev_t_out, stop, t_stop, y_stop,
+                                               n_new)),
+            b, f, _stream(y_new.device))
+    _raise_on("fused_event_commit", rc)
+    launches["fused_event_commit"] += 1
+    return fired_out, ev_t_out, ev_y, stop, t_stop, y_stop, n_new

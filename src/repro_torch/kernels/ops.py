@@ -7,8 +7,9 @@ version in ``ref.py``; a CUDA tensor goes to the hand-written CUDA kernel in
 on the card.  ``launches`` counts the CUDA launches of each kernel.
 
 The solver core (``core/stepper.py`` for the stage math, ``core/step.py`` for
-the error norm, the fused step and dense-output writes) imports its ops only
-from here.
+the error norm, the fused step and dense-output writes, ``core/events.py``
+for event detection, localization and commit) imports its ops only from
+here.
 """
 
 from __future__ import annotations
@@ -79,7 +80,30 @@ def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_i
     return ref.fused_step_poly(*args, **kw)
 
 
-for _op in (stage_accum, fused_update, error_norm, fused_step, fused_step_poly):
+def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
+    if _on_cuda("masked_bisect_refine", lo):
+        return cuda_impl.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
+    return ref.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
+
+
+def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
+    if _on_cuda("fused_event_detect", v_prev):
+        return cuda_impl.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
+    return ref.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
+
+
+def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, terminal):
+    """Event-record commit (see ``ref.fused_event_commit``).  On the card the
+    kernel updates ``ev_y`` in place and returns it as ``ev_y'``, so callers
+    always use the returned buffer."""
+    args = (x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y)
+    if _on_cuda("fused_event_commit", y_new):
+        return cuda_impl.fused_event_commit(*args, terminal=terminal)
+    return ref.fused_event_commit(*args, terminal=terminal)
+
+
+for _op in (stage_accum, fused_update, error_norm, fused_step, fused_step_poly,
+            masked_bisect_refine, fused_event_detect):
     _op.__doc__ = getattr(ref, _op.__name__).__doc__
 del _op
 

@@ -99,6 +99,42 @@ def hermite_coeffs(y0, y1, f0, f1, dt):
     return c0, c1, c2, c3
 
 
+def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
+    """One masked bisection refinement on the dense-output interpolant.
+
+    The event localizer brackets a sign change of the condition function in
+    interpolant coordinates x in [0, 1].  Given the bracket, the condition
+    value at its low end and at its midpoint, this op halves the bracket
+    (keeping the sign change inside) and evaluates the interpolant at the NEW
+    midpoint -- the caller then evaluates the condition there and iterates.
+
+    coeffs: tuple of (b, f) Horner coefficients, low -> high degree
+    lo, hi: (b,) current bracket
+    v_lo:   (b,) condition value at lo
+    v_mid:  (b,) condition value at (lo + hi)/2
+    active: (b,) bool -- instances still refining (others keep their bracket)
+
+    Returns ``(lo', hi', v_lo', mid', y_mid')`` with ``mid' = (lo' + hi')/2``
+    and ``y_mid'`` the interpolant there (evaluated for every row; inactive
+    rows' brackets are frozen).
+    """
+    mid = 0.5 * (lo + hi)
+    # The crossing is in [lo, mid] iff the condition changes sign there
+    # (v_mid == 0 counts: the event is at/before the midpoint).  A NaN value
+    # picks the left half, as in the JAX package, where sign(NaN) is NaN and
+    # compares unequal to everything; torch.sign(NaN) is 0, hence the isnan.
+    left = (torch.sign(v_lo) != torch.sign(v_mid)) | torch.isnan(v_lo) | torch.isnan(v_mid)
+    hi_new = torch.where(active & left, mid, hi)
+    lo_new = torch.where(active & ~left, mid, lo)
+    v_lo_new = torch.where(active & ~left, v_mid, v_lo)
+    mid_new = 0.5 * (lo_new + hi_new)
+    xe = mid_new[:, None]
+    acc = coeffs[-1]
+    for c in coeffs[-2::-1]:
+        acc = acc * xe + c
+    return lo_new, hi_new, v_lo_new, mid_new, acc
+
+
 def pid_update(
     err_ratio, dt, prev_inv, prev2_inv,
     *, b1, b2, b3, safety, factor_min, factor_max, dt_min, dt_max,
@@ -284,4 +320,76 @@ def fused_step_poly(
         y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
         atol, rtol, b_sol=b_sol, b_err=b_err, ctrl=ctrl,
         want_coeffs=want_coeffs, ctrl_mode=ctrl_mode,
+    )
+
+
+def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
+    """Fused per-event sign test of the event layer: scipy's zero-crossing
+    detection for EVERY registered event in one op, plus the masked carry of
+    the condition values (only accepted steps advance them).
+
+    v_prev: (b, E) condition values at the current accepted state
+    v_new:  (b, E) condition values at the candidate state
+    fired:  (b, E) bool -- crossings already recorded (these never re-fire)
+    accept: (b,) bool -- this step's accept mask (already masked by running)
+    directions: static tuple of per-event crossing directions (0 / +1 / -1)
+
+    Returns ``(newly, v_keep)``: the (b, E) bool "newly crossed this step"
+    mask and the carried (b, E) condition values.
+    """
+    crossed = []
+    for i, d in enumerate(directions):
+        v0, v1 = v_prev[:, i], v_new[:, i]
+        up = (v0 <= 0.0) & (v1 >= 0.0)
+        down = (v0 >= 0.0) & (v1 <= 0.0)
+        if d > 0:
+            c = up
+        elif d < 0:
+            c = down
+        else:
+            c = up | down
+        crossed.append(c & ((v0 != 0.0) | (v1 != 0.0)))
+    newly = torch.stack(crossed, dim=1) & ~fired & accept[:, None]
+    v_keep = torch.where(accept[:, None], v_new, v_prev)
+    return newly, v_keep
+
+
+def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, terminal):
+    """Fused event-record commit: terminal resolution (the earliest terminal
+    crossing wins), the first-crossing bookkeeping update and the stop
+    outputs of one step's event processing, as one op.
+
+    x:      (b, E) localized crossing positions in interpolant coordinates
+    y_ev:   (b, E, f) interpolated states at the crossings
+    newly:  (b, E) bool -- crossings detected this step
+    y_new:  (b, f) the accepted candidate state (stop fallback)
+    t0, dt: (b,) step start times / signed step sizes
+    fired / ev_t / ev_y: the recorded-crossing bookkeeping being advanced
+    terminal: static tuple of per-event terminal flags
+
+    Returns ``(fired', ev_t', ev_y', stop, t_stop, y_stop, n_new)``: bool
+    ``fired'`` and ``stop``, int32 ``n_new``.
+    """
+    b = x.shape[0]
+    x_stop = torch.full((b,), torch.inf, dtype=t0.dtype, device=t0.device)
+    y_stop = y_new
+    stop = torch.zeros((b,), dtype=torch.bool, device=t0.device)
+    for i, term in enumerate(terminal):
+        if not term:
+            continue
+        stop = stop | newly[:, i]
+        earlier = newly[:, i] & (x[:, i] < x_stop)
+        y_stop = torch.where(earlier[:, None], y_ev[:, i], y_stop)
+        x_stop = torch.where(earlier, x[:, i], x_stop)
+    rec = newly & (x <= x_stop[:, None])
+
+    t_ev = t0[:, None] + x * dt[:, None]
+    return (
+        fired | rec,
+        torch.where(rec, t_ev, ev_t),
+        torch.where(rec[:, :, None], y_ev, ev_y),
+        stop,
+        t0 + torch.where(stop, x_stop, 0.0) * dt,
+        y_stop,
+        rec.sum(dim=1).to(torch.int32),
     )

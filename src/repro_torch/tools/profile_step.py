@@ -2,19 +2,28 @@
 ``chip_smoke.py`` (``tools/workloads.py``).
 
     PYTHONPATH=src python -m repro_torch.tools.profile_step [--fused]
-        [--workload vdp_table3|full_width|full_width_long|all]
+        [--workload vdp_table3|full_width|full_width_long|ball_terminal|
+                    vdp_marker|full_width_long_events|all]
 
 ``--fused`` profiles the fused path (``fused=True``: one ``fused_step``
-launch per step after the stage sweep) instead of the unfused one.  Prints
-one JSON line per workload (dopri5, float32):
+launch per step after the stage sweep) instead of the unfused one.  The
+last three workloads register events (``workloads.py``).  Prints one JSON
+line per workload (dopri5, float32):
 
 - ``ms_per_step``: a whole solve's wall time over its loop iterations, the
   driver's per-step host sync (``running.any()``) included;
 - ``ms_per_step_no_sync``: the same number of steps issued back to back
-  through ``make_solver`` without the sync, then one synchronize;
+  through ``make_solver`` without the loop's own sync, then one synchronize
+  (with events each step still reads ``newly.any(dim=0)``);
 - ``pid_update_ms``, ``hermite_coeffs_ms``: one call of each plain-torch op
   of the step (host clock, synchronized after 200 calls) -- the ops the
   slice-2 ``fused_step`` kernel folds into one launch;
+- with events, ``event_read_ms``: one host read of ``newly.any(dim=0)`` on
+  a (b, E) mask, the per-step sync ``events.advance`` adds (host clock, 200
+  reads of an idle device: the read's own cost, without the wait for queued
+  work it also forces), and ``without_events``: ``ms_per_step``,
+  ``ms_per_step_no_sync`` and the profile's operations per step and idle
+  share of the same solve with its events taken out;
 - ``profile``: from ``torch.profiler`` over the no-sync steps, the device
   operations per step, the device busy time per step, the device idle share
   of that profiled run, the busy time of the four CUDA kernels, and the top
@@ -39,7 +48,8 @@ from ..kernels import ops
 from . import workloads
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
-           "interp_eval_kernel", "fused_step_kernel")
+           "interp_eval_kernel", "fused_step_kernel", "masked_bisect_refine_kernel",
+           "fused_event_detect_kernel", "fused_event_commit_kernel")
 
 
 def _sync_ms(fn, reps=1):
@@ -53,10 +63,11 @@ def _sync_ms(fn, reps=1):
 
 def _steps_without_sync(vf, y0, t_eval, kw, iters, device):
     kw = dict(kw)
-    args = kw.pop("args")
+    args = kw.pop("args", None)
     kw.pop("max_steps", None)
+    span = {k: kw.pop(k) for k in ("t_start", "t_end") if k in kw}
     init, step, _ = make_solver(vf, **kw)
-    state, consts = init(torch.as_tensor(y0, device=device), t_eval, args=args)
+    state, consts = init(torch.as_tensor(y0, device=device), t_eval, args=args, **span)
 
     def run():
         s = state
@@ -105,17 +116,25 @@ def profile_workload(name, vf, y0, t_eval, kw, device):
                                              dt_min=0.0, dt_max=float("inf")), reps=200)
     y = torch.rand(b, f, generator=g).to(device)
     herm, _ = _sync_ms(lambda: ops.hermite_coeffs(y, y, y, y, dt), reps=200)
-    return dict(workload=name, b=b, f=f, iterations=iters, wall_ms=wall,
-                ms_per_step=wall / iters, ms_per_step_no_sync=nosync / iters,
-                sync_ms_per_step=(wall - nosync) / iters,
-                pid_update_ms=pid, hermite_coeffs_ms=herm,
-                profile=_profile(run, iters))
+    out = dict(workload=name, b=b, f=f, iterations=iters, wall_ms=wall,
+               ms_per_step=wall / iters, ms_per_step_no_sync=nosync / iters,
+               sync_ms_per_step=(wall - nosync) / iters,
+               pid_update_ms=pid, hermite_coeffs_ms=herm)
+    if kw.get("events"):
+        E = len(kw["events"]) if isinstance(kw["events"], tuple) else 1
+        newly = torch.rand(b, E, generator=g).to(device) < 0.01
+        out["event_read_ms"], _ = _sync_ms(lambda: newly.any(dim=0).tolist(), reps=200)
+        out["n_events"] = int(sol.stats["n_events"].sum())
+    return dict(out, profile=_profile(run, iters))
 
 
 WORKLOADS = {
     "vdp_table3": lambda device: workloads.vdp_table3(np.float32),
     "full_width": workloads.full_width,
     "full_width_long": workloads.full_width_long,
+    "ball_terminal": lambda device: workloads.ball_terminal(np.float32),
+    "vdp_marker": lambda device: workloads.vdp_marker(np.float32),
+    "full_width_long_events": workloads.full_width_long_events,
 }
 
 
@@ -133,8 +152,17 @@ def main(argv=None) -> int:
     for name in names:
         vf, y0, te, kw = WORKLOADS[name](device)
         kw = {**kw, "method": "dopri5", "fused": opts.fused}
-        print(json.dumps({"fused": opts.fused,
-                          **profile_workload(name, vf, y0, te, kw, device)}), flush=True)
+        out = profile_workload(name, vf, y0, te, kw, device)
+        if kw.get("events"):
+            plain = profile_workload(name, vf, y0, te,
+                                     {k: v for k, v in kw.items() if k != "events"}, device)
+            prof = plain["profile"] or {}
+            out["without_events"] = dict(
+                iterations=plain["iterations"], ms_per_step=plain["ms_per_step"],
+                ms_per_step_no_sync=plain["ms_per_step_no_sync"],
+                device_ops_per_step=prof.get("device_ops_per_step"),
+                device_idle_share=prof.get("device_idle_share"))
+        print(json.dumps({"fused": opts.fused, **out}), flush=True)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""The two workloads that drive the port's main path on the card.
+"""The workloads that drive the port's paths on the card.
 
 ``vdp_table3``: the paper's Table 3 setup -- 256 Van der Pol oscillators,
 mu = 2, one cycle, 200 evaluation points, atol = rtol = 1e-5
@@ -20,6 +20,27 @@ with rejections (54 loop iterations, 49 accepted, for rows 0-31 on the CPU)
 -- the tens of dopri5 steps per solve, hundreds of evaluations, that
 published continuous normalising flows on MNIST spend (FFJORD, Grathwohl et
 al. 2019).  Per-step numbers come from this one.
+
+The event workloads:
+
+``ball_terminal``: the JAX package's terminal case
+(``benchmarks/events_bench.py``): b = 256 free-fall instances dropped from
+h0 = linspace(1, 50) at rest, one terminal ground event ``y[0]`` falling
+(direction -1), t in [0, 10], rtol 1e-6, atol 1e-9, no dense output.  Every
+instance stops at its own impact time sqrt(2 h0 / g).
+
+``vdp_marker``: the JAX package's overhead case (the same file): b = 256
+Van der Pol oscillators, mu = 10, y0 = (2, 0) + 0.05 * noise (numpy seed
+0), t in [0, 5], the same tolerances, with a non-terminal marker ``y[0]``
+(direction 0).  The marker changes neither the trajectory nor the steps, so
+a solve without it takes the same vector-field evaluations.
+
+``full_width_long_events``: ``full_width_long`` with E = 2 batched events,
+the neural-event-function use (Chen, Amos & Nickel, ICLR 2021): a terminal
+event when the per-row state RMS rises through ``EVENTS_LONG
+["rms_threshold"]`` and a non-terminal marker on ``y[:, 0]`` (direction 0).
+The state RMS grows from ~1 to 18-21 over t in [0, 8]; at 19.5, 54.7 % of
+rows 0-63 stop with ``Status.EVENT`` on the CPU and the rest reach t_end.
 """
 
 from __future__ import annotations
@@ -28,10 +49,15 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..core import Event
 
 VDP = dict(b=256, f=2, n=200, mu=2.0)
 FULL = dict(b=1024, f=784, n=64, hidden=1024)
 LONG = dict(weight_scale=3.0, t_end=8.0)
+BALL = dict(b=256, g=9.81, t_end=10.0)
+MARKER = dict(b=256, mu=10.0, t_end=5.0)
+EVENT_TOLS = dict(rtol=1e-6, atol=1e-9)
+EVENTS_LONG = dict(rms_threshold=19.5)
 
 
 def vdp(t, y, mu):
@@ -74,3 +100,45 @@ def full_width(device, weight_scale=1.0, t_end=1.0):
 def full_width_long(device):
     """``full_width`` with a real step count (see the module docstring)."""
     return full_width(device, **LONG)
+
+
+def ball(t, y, args):
+    """Free fall: y = (height, velocity)."""
+    return torch.stack((y[..., 1], torch.full_like(y[..., 1], -BALL["g"])), dim=-1)
+
+
+GROUND = Event(lambda t, y, args: y[0], terminal=True, direction=-1.0)
+MARKER_EVENT = Event(lambda t, y, args: y[0], terminal=False)
+
+
+def ball_terminal(dtype=np.float32):
+    """``(f, y0, None, kwargs)`` of the terminal-event solve; the analytic
+    impact times are sqrt(2 * y0[:, 0] / g)."""
+    h0 = np.linspace(1.0, 50.0, BALL["b"])
+    y0 = np.stack([h0, np.zeros_like(h0)], axis=1).astype(dtype)
+    return ball, y0, None, dict(t_start=0.0, t_end=BALL["t_end"], events=GROUND,
+                                **EVENT_TOLS)
+
+
+def vdp_marker(dtype=np.float32):
+    """``(f, y0, None, kwargs)`` of the Van der Pol solve with a marker event
+    (drop ``kwargs["events"]`` for the same solve without it)."""
+    rng = np.random.default_rng(0)
+    y0 = (np.array([2.0, 0.0]) + 0.05 * rng.standard_normal((MARKER["b"], 2))).astype(dtype)
+    return vdp, y0, None, dict(args=MARKER["mu"], t_start=0.0, t_end=MARKER["t_end"],
+                               events=MARKER_EVENT, **EVENT_TOLS)
+
+
+def _rms_above(t, y):
+    return torch.sqrt(torch.mean(y * y, dim=-1)) - EVENTS_LONG["rms_threshold"]
+
+
+RMS_EVENT = Event(_rms_above, terminal=True, direction=1.0, batched=True, with_args=False)
+FIRST_FEATURE = Event(lambda t, y: y[:, 0], terminal=False, batched=True, with_args=False)
+
+
+def full_width_long_events(device):
+    """``full_width_long`` with the RMS-threshold stop and the ``y[:, 0]``
+    marker (see the module docstring)."""
+    vf, y0, t_eval, kw = full_width_long(device)
+    return vf, y0, t_eval, dict(kw, events=(RMS_EVENT, FIRST_FEATURE))

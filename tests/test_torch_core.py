@@ -205,13 +205,20 @@ class TestNoHiddenDevice:
             T.AutoDiffAdjoint().solve(lambda t, y, a: -y, np.ones((2, 2)), np.linspace(0, 1, 3))
 
     @pytest.mark.parametrize("kw, item", [
-        ({"events": object()}, "A-9"),
         ({"method": "kvaerno5"}, "A-10"),
     ])
     def test_unported_features_refuse(self, kw, item):
         with pytest.raises(NotImplementedError, match=item):
             T.solve_ivp(lambda t, y, a: -y, np.ones((1, 1)), np.linspace(0, 1, 3),
                         device="cpu", **kw)
+
+    def test_events_must_be_event_objects(self):
+        """Events are ported: anything that is not an ``Event`` is refused by
+        ``normalize_events``, as in the JAX package."""
+        for events, match in ((object(), "not iterable"), ([object()], "expected Event")):
+            with pytest.raises(TypeError, match=match):
+                T.solve_ivp(lambda t, y, a: -y, np.ones((1, 1)), np.linspace(0, 1, 3),
+                            device="cpu", events=events)
 
     @pytest.mark.parametrize("cls", ["ScanAdjoint", "BacksolveAdjoint"])
     def test_gradient_drivers_refuse(self, cls):

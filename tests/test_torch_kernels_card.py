@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions, on the card, and the fused
-step kernels bitwise against the unfused card path.
+"""The CUDA kernels against their plain versions, on the card, the fused
+step kernels bitwise against the unfused card path, and the event kernels
+bitwise against their plain versions.
 
 These tests need a CUDA device and skip without one; they import no JAX, so
 they also run where only the port is installed:
@@ -8,6 +9,8 @@ they also run where only the port is installed:
 
 Tolerances: float32 at 1e-5 and float64 at 1e-12 -- fma contraction and
 summation order only (the plain version's weighted sums go through cuBLAS).
+The event kernels and ``interp_eval`` round each operation as ATen does, so
+they are held bitwise.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ torch = pytest.importorskip("torch")
 from unittest import mock  # noqa: E402
 
 from repro_torch.core import (  # noqa: E402
+    Event,
     FixedController,
     get_tableau,
     integral_controller,
@@ -29,6 +33,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.stepper import _tableau_arrays  # noqa: E402
 from repro_torch.kernels import cuda_impl, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.tools import event_checks  # noqa: E402
 from repro_torch.tools.step_checks import (  # noqa: E402
     POLY32_STATE,
     bitwise_mismatches,
@@ -80,7 +85,7 @@ class TestKernelsOnCard:
         out = r(b, 9, f)
         want = tref.interp_eval(coeffs, x, mask, out)
         torch.testing.assert_close(cuda_impl.interp_eval(coeffs, x, mask, out.clone()), want,
-                                   rtol=tol, atol=tol)
+                                   rtol=0, atol=0)
 
     def test_window_write(self, cuda_device):
         g = torch.Generator(device="cpu").manual_seed(1)
@@ -131,7 +136,8 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda_device):
     iters = int(card.stats["n_steps"].max())
     assert ops.launches == {"stage_accum": 6 * iters, "fused_update": iters,
                             "error_norm": iters, "interp_eval": iters,
-                            "fused_step": 0, "fused_step_poly": 0}
+                            "fused_step": 0, "fused_step_poly": 0, "masked_bisect_refine": 0,
+                            "fused_event_detect": 0, "fused_event_commit": 0}
     cpu = solve_ivp(vdp, y0, te, args=2.0, atol=1e-6, rtol=1e-6, device="cpu")
     assert torch.equal(card.stats["n_steps"].cpu(), cpu.stats["n_steps"])
     torch.testing.assert_close(card.ys.cpu(), cpu.ys, rtol=1e-9, atol=1e-9)
@@ -243,7 +249,9 @@ def test_fused_solve_counts_launches_and_matches_unfused(cuda_device, method):
     s, fsal = get_tableau(method).stages, get_tableau(method).fsal
     assert ops.launches == {"stage_accum": (s - 1) * iters,
                             "fused_update": 0 if fsal else iters, "error_norm": 0,
-                            "interp_eval": iters, "fused_step": iters, "fused_step_poly": 0}
+                            "interp_eval": iters, "fused_step": iters, "fused_step_poly": 0,
+                            "masked_bisect_refine": 0, "fused_event_detect": 0,
+                            "fused_event_commit": 0}
     assert torch.equal(fused.stats["n_fused_steps"], fused.stats["n_steps"])
     unfused = solve_ivp(vdp, y0, te, **kw)
     assert torch.equal(fused.stats["n_steps"], unfused.stats["n_steps"])
@@ -274,3 +282,115 @@ def test_fused_path_never_reaches_the_plain_version(cuda_device, poly):
                         fused=True, device=cuda_device)
     assert int(sol.status.max()) == 0
     assert bool((sol.stats["n_fused_steps"] == sol.stats["n_steps"]).all())
+
+
+class TestEventKernelsOnCard:
+    """The three event kernels bitwise against their plain versions on the
+    same card tensors, over the cases of ``tools/event_checks.py``."""
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("shape", [(5, 3), (13, 300), (256, 2)])
+    @pytest.mark.parametrize("active", ["mixed", "all", "none"])
+    def test_masked_bisect_refine(self, cuda_device, dtype, shape, active):
+        b, f = shape
+        args = event_checks.to_torch(event_checks.bisect_inputs(b + f, b, f, dtype, active),
+                                     cuda_device)
+        event_checks.assert_bitwise("masked_bisect_refine",
+                                    cuda_impl.masked_bisect_refine(*args),
+                                    tref.masked_bisect_refine(*args))
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("b", [5, 256, 1024])
+    @pytest.mark.parametrize("E", [1, 2, 3, 64])
+    def test_fused_event_detect(self, cuda_device, dtype, b, E):
+        *args, dirs = event_checks.to_torch(event_checks.detect_inputs(b + E, b, E, dtype),
+                                            cuda_device)
+        for directions in (dirs, (1.0,) * E, (-1.0,) * E):
+            event_checks.assert_bitwise(
+                "fused_event_detect", cuda_impl.fused_event_detect(*args, directions=directions),
+                tref.fused_event_detect(*args, directions=directions))
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("shape", [(5, 3), (13, 300), (256, 2)])
+    @pytest.mark.parametrize("E", [1, 2, 3])
+    @pytest.mark.parametrize("terminal", ["mixed", "all", "none"])
+    def test_fused_event_commit(self, cuda_device, dtype, shape, E, terminal):
+        b, f = shape
+        *args, flags = event_checks.to_torch(
+            event_checks.commit_inputs(b + f + E, b, f, E, dtype, terminal), cuda_device)
+        ev_y = args[8].clone()
+        want = tref.fused_event_commit(*args, terminal=flags)
+        got = cuda_impl.fused_event_commit(*args[:8], ev_y, terminal=flags)
+        assert got[2] is ev_y  # updated in place and returned
+        event_checks.assert_bitwise("fused_event_commit", got, want)
+
+    def test_event_limit_raises(self, cuda_device):
+        *args, _ = event_checks.to_torch(event_checks.detect_inputs(0, 4, 65, np.float32),
+                                         cuda_device)
+        with pytest.raises(ValueError, match="1 to 64 events"):
+            cuda_impl.fused_event_detect(*args, directions=(0.0,) * 65)
+
+
+def _ball(t, y, args):
+    return torch.stack((y[:, 1], torch.full_like(y[:, 1], -9.81)), dim=-1)
+
+
+GROUND = Event(lambda t, y, args: y[0], terminal=True, direction=-1.0)
+MARK = Event(lambda t, y, args: y[1] + 3.0, terminal=False)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_event_solve_on_card_matches_cpu_and_counts_launches(cuda_device, fused):
+    """A float64 event solve on the card takes the CPU's steps and records
+    the CPU's events; detect and commit launch once per iteration, the
+    bisection (iters + 1) times per event that fired somewhere in a step."""
+    h0 = np.linspace(1.0, 50.0, 64)
+    y0 = np.stack([h0, np.zeros_like(h0)], 1)
+    te = np.linspace(0.0, 2.5, 11)  # impacts at 0.45-3.19: some rows stop, some finish
+    kw = dict(t_start=0.0, t_end=2.5, events=(GROUND, MARK), rtol=1e-6, atol=1e-9,
+              event_bisect_iters=20, fused=fused)
+    for k in ops.launches:
+        ops.launches[k] = 0
+    card = solve_ivp(_ball, y0, te, device=cuda_device, **kw)
+    iters = int(card.stats["n_steps"].max())
+    assert ops.launches["fused_event_detect"] == ops.launches["fused_event_commit"] == iters
+    bis = ops.launches["masked_bisect_refine"]
+    assert bis > 0 and bis % 21 == 0 and bis <= 21 * 2 * iters
+    assert ops.launches["fused_step" if fused else "error_norm"] == iters
+    cpu = solve_ivp(_ball, y0, te, device="cpu", **kw)
+    for name in ("status", "event_mask"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    for k in cpu.stats:
+        assert torch.equal(card.stats[k].cpu(), cpu.stats[k]), k
+    for name in ("ys", "event_t", "event_y"):
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=1e-9,
+                                   atol=1e-9, equal_nan=True)
+    assert bool((card.status == 4).any()) and bool((card.status == 0).any())
+
+
+def test_event_solve_fused_bitwise_equals_unfused_on_card(cuda_device):
+    h0 = np.linspace(1.0, 50.0, 64, dtype=np.float32)
+    y0 = np.stack([h0, np.zeros_like(h0)], 1)
+    kw = dict(t_start=0.0, t_end=4.0, events=(GROUND, MARK), rtol=1e-6, atol=1e-9,
+              device=cuda_device)
+    a = solve_ivp(_ball, y0, np.linspace(0.0, 4.0, 17, dtype=np.float32), **kw)
+    b = solve_ivp(_ball, y0, np.linspace(0.0, 4.0, 17, dtype=np.float32), fused=True, **kw)
+    for name in ("ts", "ys", "status", "event_y", "event_mask"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert torch.equal(a.event_t.nan_to_num(-1.0), b.event_t.nan_to_num(-1.0))
+
+
+def test_events_never_reach_the_plain_version(cuda_device):
+    """No fallback: with the plain event ops made to raise, an event solve on
+    the card still runs (through the kernels)."""
+    patches = [mock.patch.object(tref, name, side_effect=AssertionError("plain"))
+               for name in ("masked_bisect_refine", "fused_event_detect", "fused_event_commit")]
+    for p in patches:
+        p.start()
+    try:
+        sol = solve_ivp(_ball, np.array([[10.0, 0.0]], np.float32), None, t_start=0.0,
+                        t_end=5.0, events=GROUND, device=cuda_device)
+    finally:
+        for p in patches:
+            p.stop()
+    assert int(sol.status[0]) == 4
