@@ -23,7 +23,14 @@ raises, and the script exits non-zero without printing a result:
                    ``fused_event_detect``, ``fused_event_commit``) at E = 2
                    over their cases (``repro_torch.tools.event_checks``) are
                    held bitwise to their plain versions, as is
-                   ``interp_eval``.
+                   ``interp_eval``.  The chord-Newton kernels
+                   (``batched_lu_factor``, ``batched_linsolve``,
+                   ``fused_newton_iter``, ``masked_newton_update``) at the
+                   stiff workloads' shapes over their cases
+                   (``repro_torch.tools.newton_checks``) are held to their
+                   plain versions at 1e-5 / 1e-12 (the LU relative to the
+                   matrix's largest entry, the permutation exactly), and the
+                   card's unfused Newton iteration bitwise to its fused one.
 4. ``vdp_table3``  the paper's Table 3 setup (b = 256 Van der Pol, mu = 2,
                    dopri5 then tsit5, tol 1e-5, 200 eval points, float32):
                    solved on the card and on the CPU, with exact kernel
@@ -48,6 +55,14 @@ raises, and the script exits non-zero without printing a result:
                    RMS threshold); exact launch counts, fused solves bitwise
                    equal to unfused ones, float64 card solves against the
                    CPU's.
+8. ``stiff``       the stiff workloads (``DiagonallyImplicitRK``, kvaerno5):
+                   ``vdp_stiff_mixed``, ``robertson_sweep`` and
+                   ``allen_cahn_full`` (b = 1024), unfused and fused: every
+                   row SUCCESS, exact launch counts of the four Newton
+                   kernels (> 0 on their path, 0 on the other), fused equal
+                   to unfused bitwise, rows 0-31 solved alone equal to the
+                   same rows of the batch bitwise (all but ``n_f_evals``),
+                   float64 card solves of rows 0-7 against the CPU's.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -82,6 +97,10 @@ SOURCES = {
     "masked_bisect_refine": "src/repro_torch/kernels/csrc/events.cu",
     "fused_event_detect": "src/repro_torch/kernels/csrc/events.cu",
     "fused_event_commit": "src/repro_torch/kernels/csrc/events.cu",
+    "batched_linsolve": "src/repro_torch/kernels/csrc/linalg.cu",
+    "batched_lu_factor": "src/repro_torch/kernels/csrc/linalg.cu",
+    "fused_newton_iter": "src/repro_torch/kernels/csrc/linalg.cu",
+    "masked_newton_update": "src/repro_torch/kernels/csrc/linalg.cu",
 }
 REPLACES = {
     "stage_accum": "src/repro/kernels/pallas_impl.py:123",
@@ -93,7 +112,14 @@ REPLACES = {
     "masked_bisect_refine": "src/repro/kernels/pallas_impl.py:284",
     "fused_event_detect": "src/repro/kernels/pallas_impl.py:1144",
     "fused_event_commit": "src/repro/kernels/pallas_impl.py:1205",
+    "batched_linsolve": "src/repro/kernels/pallas_impl.py:370",
+    "batched_lu_factor": "src/repro/kernels/pallas_impl.py:454",
+    "fused_newton_iter": "src/repro/kernels/pallas_impl.py:540",
+    "masked_newton_update": "src/repro/kernels/pallas_impl.py:608",
 }
+# The stiff path's kernels are timed and counted at allen_cahn_full's shapes.
+MAIN_SHAPE = dict.fromkeys(("batched_linsolve", "batched_lu_factor", "fused_newton_iter",
+                            "masked_newton_update"), "allen_cahn_full")
 
 
 def emit(phase, **fields):
@@ -124,7 +150,7 @@ def main() -> int:
     )
     from repro_torch.core.stepper import _tableau_arrays
     from repro_torch.kernels import _build, cuda_impl, ops, ref
-    from repro_torch.tools import event_checks, step_checks, workloads
+    from repro_torch.tools import event_checks, newton_checks, step_checks, workloads
     from repro_torch.tools.step_checks import POLY32_STATE, tolerance
 
     dev = torch.device("cuda")
@@ -198,12 +224,14 @@ def main() -> int:
         return event_checks.assert_bitwise(name, got, want), 0.0
 
     def measure(kernel, shape_name, dtype, label, run_kernel, run_plain, nbytes, flops,
-                check_kernel=None, compare_fn=None, **extra):
+                check_kernel=None, compare_fn=None, run_library=None, **extra):
         """Hold the kernel against its plain version, then time both.
         ``check_kernel`` replaces ``run_kernel`` in the comparison where the
         kernel writes into one of its inputs: it runs the kernel on a copy,
         so both sides see the same inputs.  ``compare_fn`` replaces
-        ``compare`` (the fused step's decision-aware comparison)."""
+        ``compare`` (the fused step's decision-aware comparison).
+        ``run_library`` is one PyTorch call computing the same function,
+        timed alone (``library_ms``)."""
         torch.cuda.synchronize()
         want = run_plain()
         got = (check_kernel or run_kernel)()
@@ -212,7 +240,8 @@ def main() -> int:
         row = dict(kernel=kernel, shape=shape_name, dtype=str(dtype).split(".")[-1],
                    case=label, tol=tolerance(dtype), max_abs_err=abs_err, max_rel_err=rel_err,
                    kernel_ms=median_ms(run_kernel), plain_ms=median_ms(run_plain),
-                   bound_ms=bound, bound_by=by, library_ms=None, **extra)
+                   bound_ms=bound, bound_by=by,
+                   library_ms=median_ms(run_library) if run_library else None, **extra)
         rows.append(row)
         emit("kernels", **row)
 
@@ -490,6 +519,106 @@ def main() -> int:
                     held.append(hold_bitwise("fused_event_commit", check_k(), run_p(), dtype))
     emit("kernels", check="event kernels, untimed cases", bitwise_equal_to_plain=True,
          cases={f"{k[0]}/{k[1]}": len(v) for k, v in event_held.items()})
+
+    # The chord-Newton kernels at the stiff workloads' shapes (b = 1024; f =
+    # 2 Van der Pol, 3 Robertson, 128 Allen-Cahn), float32 and float64, over
+    # the cases of tools/newton_checks.py (a shuffled chord matrix, a zero
+    # leading diagonal, tied pivots, NaN entries; mixed, all and no active
+    # rows), each held to its plain version on the same card tensors by
+    # newton_checks.hold: the LU to 1e-5 (float32) / 1e-12 (float64) of each
+    # matrix's largest entry with the permutation equal, the rest to the same
+    # tolerance relative to the plain output's largest entry (cuSOLVER and
+    # the kernel eliminate in another order, so not bitwise), NaN rows
+    # non-finite.  The card's unfused Newton iteration (batched_linsolve,
+    # masked_newton_update) must equal its fused one (batched_lu_factor,
+    # fused_newton_iter) bitwise.  fused_newton_iter gets the plain LU, so
+    # both sides see the same factors.  Timed: the shuffled chord matrix
+    # with mixed rows.  library_ms: torch.linalg.lu_factor (the same
+    # factorization, with LAPACK pivots for a permutation) and
+    # torch.linalg.solve.
+    def lu_flops(f):
+        return sum(m + 2 * m * m for m in range(1, f))  # divisions, then fmas
+
+    def subst_flops(f):
+        return 2 * f * (f - 1) + f
+
+    newton_held = {}
+    for shape_name, f in (("vdp_stiff_mixed", 2), ("robertson_sweep", 3),
+                          ("allen_cahn_full", workloads.ALLEN_CAHN["f"])):
+        b = workloads.STIFF["b"]
+        for npdt in (np.float32, np.float64):
+            dtype = torch.float32 if npdt == np.float32 else torch.float64
+            e = np.dtype(npdt).itemsize
+            agg = newton_held.setdefault((shape_name, npdt.__name__),
+                                         dict(cases=0, max_abs_err=0.0))
+            for kind in newton_checks.KINDS:
+                if (kind == "zero_diag" and f < 2) or (kind == "ties" and f < 3):
+                    continue
+                M, rhs, k, fk, mixed, scale = newton_checks.to_torch(
+                    newton_checks.newton_inputs(f + len(kind), b, f, npdt, kind), dev)
+                skip = newton_checks.nan_rows(M.cpu().numpy())
+                keep = ~torch.as_tensor(skip, device=dev)
+                lu_p, perm_p = ref.batched_lu_factor(M)
+                lu_k, perm_k = cuda_impl.batched_lu_factor(M)
+                newton_checks.lu_reconstructs(lu_k[keep], perm_k[keep], M[keep], dtype)
+                for active in ("mixed", "all", "none"):
+                    mask = {"mixed": mixed, "all": torch.ones_like(mixed),
+                            "none": torch.zeros_like(mixed)}[active]
+                    it_k = cuda_impl.fused_newton_iter(lu_p, perm_p, k, fk, mask, scale)
+                    if skip.any():
+                        check(not bool(torch.isfinite(it_k[1][~keep]).any()),
+                              f"fused_newton_iter[{shape_name} {kind}]: a NaN row's "
+                              "res_norm is finite")
+                    unfused = cuda_impl.masked_newton_update(
+                        k, cuda_impl.batched_linsolve(M, k - fk), mask, scale)
+                    fused = cuda_impl.fused_newton_iter(lu_k, perm_k, k, fk, mask, scale)
+                    check(all(torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+                              for a, c in zip(unfused, fused)),
+                          f"newton[{shape_name} {npdt.__name__} {kind} {active}]: the "
+                          "unfused iteration differs bitwise from the fused one")
+
+                    def hold_newton(name, got, want, _dtype, matrix=None, skip=skip):
+                        got = got if isinstance(got, tuple) else (got,)
+                        want = want if isinstance(want, tuple) else (want,)
+                        worst = newton_checks.hold(name, got, want, npdt, matrix=matrix,
+                                                   skip_rows=skip)
+                        agg["cases"] += 1
+                        agg["max_abs_err"] = max(agg["max_abs_err"], worst)
+                        return worst, 0.0
+
+                    it_args = (lu_p, perm_p, k, fk, mask, scale)
+                    up_args = (k, rhs, mask, scale)
+                    # (name, kernel, plain, library, bytes, operations, matrix)
+                    cases = (
+                        ("batched_lu_factor", lambda M=M: cuda_impl.batched_lu_factor(M),
+                         lambda M=M: ref.batched_lu_factor(M),
+                         lambda M=M: torch.linalg.lu_factor(M),
+                         e * 2 * b * f * f + 4 * b * f, b * lu_flops(f), M),
+                        ("batched_linsolve", lambda a=(M, rhs): cuda_impl.batched_linsolve(*a),
+                         lambda a=(M, rhs): ref.batched_linsolve(*a),
+                         lambda a=(M, rhs): torch.linalg.solve(*a),
+                         e * (b * f * f + 2 * b * f), b * (lu_flops(f) + subst_flops(f)), None),
+                        ("fused_newton_iter", lambda a=it_args: cuda_impl.fused_newton_iter(*a),
+                         lambda a=it_args: ref.fused_newton_iter(*a),
+                         None, e * (b * f * f + 4 * b * f + b) + 4 * b * f + b,
+                         b * (subst_flops(f) + 6 * f), None),
+                        ("masked_newton_update",
+                         lambda a=up_args: cuda_impl.masked_newton_update(*a),
+                         lambda a=up_args: ref.masked_newton_update(*a),
+                         None, e * (4 * b * f + b) + b, 5 * b * f, None),
+                    )
+                    for name, run_k, run_p, run_lib, nbytes, flops, matrix in cases:
+                        cmp = (lambda n, g, w, d, matrix=matrix, hn=hold_newton:
+                               hn(n, g, w, d, matrix=matrix))
+                        if kind == "chord" and active == "mixed":
+                            measure(name, shape_name, dtype, f"{kind} active={active}", run_k,
+                                    run_p, nbytes, flops, compare_fn=cmp, run_library=run_lib,
+                                    held="newton_checks.hold")
+                        else:
+                            cmp(name, run_k(), run_p(), dtype)
+    emit("kernels", check="newton kernels, all cases", tol={"float32": 1e-5, "float64": 1e-12},
+         unfused_iteration_bitwise_equal_to_fused=True,
+         cases={f"{k[0]}/{k[1]}": v for k, v in newton_held.items()})
 
     # --------------------------------------------------------- 4. vdp_table3
     def reset_launches():
@@ -893,31 +1022,146 @@ def main() -> int:
           "events/full_width_long_events: fused and unfused card solves differ")
     emit("events", workload="full_width_long_events", check="fused == unfused bitwise")
 
+    # ------------------------------------------------------------- 8. stiff
+    # The stiff workloads (tools/workloads.py; kvaerno5, the default PID
+    # controller, float32, b = 1024), unfused then fused, each timed after a
+    # warm-up with exact launch counts: every batched Newton iteration is
+    # one batched_linsolve and one masked_newton_update (unfused) or one
+    # fused_newton_iter (fused, after one batched_lu_factor per step
+    # attempt).  kvaerno5's first stage is the cache f0 and the Newton
+    # iterations are its only further evaluations, so the iterations are
+    # n_f_evals - 2 (the initial f0 and the initial-step probe).
+    jax_cpu = {  # the JAX package on a CPU, float32 (small batches; not a check)
+        "vdp_stiff_mixed": dict(b=8, t_end=2.0, loop_iterations=13,
+                                n_newton_iters_per_row=[131, 195], n_jac_evals_per_row=[1, 6],
+                                n_f_evals=417),
+        "robertson_sweep": dict(b=2, t_end=100.0, loop_iterations=25, n_newton_iters_per_row=589,
+                                n_jac_evals_per_row=17, n_f_evals=591),
+        "allen_cahn_full": dict(b=4, f=128, t_end=5.0, loop_iterations=20,
+                                n_newton_iters_per_row=[316, 329], n_jac_evals_per_row=[3, 5],
+                                n_f_evals=335),
+    }
+
+    def stiff_launches(iters, newton, fused):
+        want = dict.fromkeys(ops.launches, 0)
+        want["stage_accum"] = 6 * iters  # stages 1..6 start from stage_accum
+        if fused:
+            want.update(batched_lu_factor=iters, fused_newton_iter=newton, fused_step=iters)
+        else:
+            want.update(batched_linsolve=newton, masked_newton_update=newton,
+                        fused_update=iters, error_norm=iters)
+        return want
+
+    def stiff_equal(a, c, skip=()):
+        """Solutions equal bit for bit in ts, ys, status and every shared
+        statistic but ``skip``."""
+        return (all(np.array_equal(getattr(a, k), getattr(c, k)) for k in ("ts", "ys", "status"))
+                and all(np.array_equal(a.stats[k], c.stats[k]) for k in a.stats
+                        if k in c.stats and k not in skip))
+
+    def rows_of(kw, n):
+        """``kw`` with a per-row ``args`` array cut to its first n rows."""
+        args = kw.get("args")
+        return {**kw, "args": args[:n]} if isinstance(args, np.ndarray) else kw
+
+    def spread(x):
+        return dict(mean=float(x.mean()), max=int(x.max()), min=int(x.min()))
+
+    for name in ("vdp_stiff_mixed", "robertson_sweep", "allen_cahn_full"):
+        vf, y0, te, kw = getattr(workloads, name)(np.float32)
+        solve_ivp(vf, y0, te, device=dev, **kw)  # warm-up
+        runs = {}
+        for path in ("unfused", "fused"):
+            fused = path == "fused"
+            reset_launches()
+            sol, wall = timed_solve(vf, y0, te, device=dev, fused=fused, **kw)
+            launches = dict(ops.launches)
+            out = convert.to_numpy(sol)
+            iters = int(out.stats["n_steps"].max())
+            newton = int(out.stats["n_f_evals"][0]) - 2
+            want = stiff_launches(iters, newton, fused)
+            check(launches == want, f"stiff/{name}/{path}: launches {launches} != {want}")
+            check(bool((out.status == 0).all()) and np.isfinite(out.ys).all(),
+                  f"stiff/{name}/{path}: status {np.bincount(out.status)}")
+            runs[path] = out
+            main_path_launches[f"stiff/{name}/{path}"] = launches
+            emit("stiff", workload=name, path=path, dtype="float32", b=len(y0), f=y0.shape[1],
+                 status_counts=np.bincount(out.status, minlength=5).tolist(),
+                 loop_iterations=iters, n_steps=spread(out.stats["n_steps"]),
+                 n_newton_iters=spread(out.stats["n_newton_iters"]),
+                 n_jac_evals=spread(out.stats["n_jac_evals"]),
+                 n_f_evals=int(out.stats["n_f_evals"][0]), wall_ms=wall,
+                 ms_per_step=wall / iters, launches=launches)
+        check(stiff_equal(runs["fused"], runs["unfused"]),
+              f"stiff/{name}: fused and unfused card solves differ")
+        # Per-instance independence, now with per-row Newton masks: rows
+        # 0-31 alone take the same steps, iterations and values, bit for
+        # bit; only n_f_evals (the batch's overhanging evaluations) differs.
+        for path in ("unfused", "fused"):
+            sub = convert.to_numpy(solve_ivp(vf, y0[:32], te, device=dev, fused=path == "fused",
+                                             **rows_of(kw, 32)))
+            full = runs[path]
+            check(all(np.array_equal(getattr(sub, k), getattr(full, k)[:32])
+                      for k in ("ts", "ys", "status"))
+                  and all(np.array_equal(sub.stats[k], full.stats[k][:32]) for k in sub.stats
+                          if k != "n_f_evals"),
+                  f"stiff/{name}/{path}: rows 0-31 alone differ from the batch's")
+        # float64: the card takes the CPU's steps, iterations and Jacobian
+        # evaluations on rows 0-7, values within 1e-9.
+        _, y64, _, kw64 = getattr(workloads, name)(np.float64)
+        kw64 = rows_of(kw64, 8)
+        cpu64 = convert.to_numpy(solve_ivp(vf, y64[:8], te, device="cpu", **kw64))
+        diffs = {}
+        for path in ("unfused", "fused"):
+            card64 = convert.to_numpy(solve_ivp(vf, y64[:8], te, device=dev,
+                                                fused=path == "fused", **kw64))
+            check(np.array_equal(card64.status, cpu64.status)
+                  and all(np.array_equal(card64.stats[k], cpu64.stats[k]) for k in cpu64.stats),
+                  f"stiff/{name}/{path}: float64 card and CPU counts differ")
+            diffs[path] = float(np.abs(card64.ys - cpu64.ys).max())
+            check(diffs[path] <= 1e-9, f"stiff/{name}/{path}: float64 card vs CPU {diffs[path]}")
+        ref_cpu = jax_cpu[name]
+        emit("stiff", workload=name, check="fused == unfused bitwise; rows 0-31 alone bitwise",
+             float64_card_vs_cpu_rows_0_7_max_abs_diff=diffs,
+             mean_steps=float(runs["unfused"].stats["n_steps"].mean()),
+             max_steps=int(runs["unfused"].stats["n_steps"].max()),
+             jax_cpu_float32=ref_cpu,
+             mean_steps_over_jax_loop_iterations=float(runs["unfused"].stats["n_steps"].mean())
+             / ref_cpu["loop_iterations"])
+
     # ------------------------------------------- kernel summary, then result
     summary = []
     launch_source = {"fused_step": "fused/full_width", "fused_step_poly": "fused/step_bench",
                      "masked_bisect_refine": "events/full_width_long_events/unfused",
                      "fused_event_detect": "events/full_width_long_events/unfused",
-                     "fused_event_commit": "events/full_width_long_events/unfused"}
+                     "fused_event_commit": "events/full_width_long_events/unfused",
+                     "batched_linsolve": "stiff/allen_cahn_full/unfused",
+                     "masked_newton_update": "stiff/allen_cahn_full/unfused",
+                     "batched_lu_factor": "stiff/allen_cahn_full/fused",
+                     "fused_newton_iter": "stiff/allen_cahn_full/fused"}
     for name in REPLACES:
         mine = [r for r in rows if r["kernel"] == name]
-        main = [r for r in mine if r["shape"] == "full_width" and r["dtype"] == "float32"]
+        main = [r for r in mine if r["shape"] == MAIN_SHAPE.get(name, "full_width")
+                and r["dtype"] == "float32"]
         checked = [a["max_abs_err"] for (k, _, _), a in fused_checks.items() if k == name]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             # The unfused kernels count the unfused full_width run; the fused
             # ones the fused full_width run and the step_bench dopri5 run;
-            # the event kernels the unfused full_width_long_events run.
+            # the event kernels the unfused full_width_long_events run; the
+            # Newton kernels allen_cahn_full's unfused or fused run.
             "launches": main_path_launches[launch_source.get(name, "full_width")][name],
             "max_abs_err": max([r["max_abs_err"] for r in mine] + checked),
             # At the full-width float32 shapes; stage_accum and error_norm are
             # the mean over their cases (j = 1..6, the three tolerance shapes),
-            # the fused kernels are their main-path case.
+            # the fused kernels are their main-path case; the Newton kernels
+            # at allen_cahn_full's shapes (b = 1024, f = 128).
             "ms": statistics.fmean(r["kernel_ms"] for r in main),
             "plain_ms": statistics.fmean(r["plain_ms"] for r in main),
             "bound_ms": statistics.fmean(r["bound_ms"] for r in main),
             "bound_by": main[0]["bound_by"],
-            "library_ms": None,
+            "library_ms": (statistics.fmean(r["library_ms"] for r in main)
+                           if main[0]["library_ms"] is not None else None),
         })
     check(all(math.isfinite(s["ms"]) for s in summary), "kernel timings are not finite")
     check(all(s["launches"] > 0 for s in summary),

@@ -21,10 +21,13 @@ from .controller import (
 from .drivers import AutoDiffAdjoint, BacksolveAdjoint, ScanAdjoint
 from .events import Event, EventState
 from .loop import make_solver, solve_ivp
+from .newton import NewtonConfig, NewtonResult, newton_solve
 from .solution import Solution, Status
 from .step import FusedFallbackReason, LoopState, StepContext, StepFunction
 from .stepper import (
     AbstractStepper,
+    DiagonallyImplicitRK,
+    DIRKCarry,
     ExplicitRK,
     Stepper,
     StepResult,
@@ -44,7 +47,12 @@ from .terms import (
 
 __all__ = [
     "AbstractStepper",
+    "DiagonallyImplicitRK",
+    "DIRKCarry",
     "ExplicitRK",
+    "NewtonConfig",
+    "NewtonResult",
+    "newton_solve",
     "Stepper",
     "StepResult",
     "initial_step_size",

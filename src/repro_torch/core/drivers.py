@@ -8,8 +8,11 @@ that sync with CUDA graphs).  On the CPU the loop is differentiable through
 torch autograd; the CUDA kernels have no backward yet (ROADMAP A-11).
 
 ``fused=True`` runs each step attempt through the fused step kernel (see
-``StepFunction``).  ``ScanAdjoint`` and ``BacksolveAdjoint`` keep their names
-and refuse to construct until gradients are ported (ROADMAP A-11).
+``StepFunction``).  Explicit and diagonally implicit steppers both run on
+either path; the implicit stepper's cross-step carry (its chord Jacobian)
+rides in ``LoopState.scarry``.  ``ScanAdjoint`` and ``BacksolveAdjoint`` keep
+their names and refuse to construct until gradients are ported (ROADMAP
+A-11).
 
 All drivers accept structured initial states: ravel/unravel happens at the
 term boundary (``terms.ravel_state`` / ``terms.ravel_term``), and the

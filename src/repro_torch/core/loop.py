@@ -104,13 +104,20 @@ def solve_ivp(
             track only the final state
     t_start/t_end: scalars or (batch,) vectors; default to t_eval boundaries.
             Integration ranges may differ per instance, including direction.
-    method: an explicit tableau name ("dopri5", "tsit5", "bosh3", "heun",
-            "euler", "midpoint", "rk4").  Implicit methods are not ported yet.
+    method: a tableau name: explicit ("dopri5", "tsit5", "bosh3", "heun",
+            "euler", "midpoint", "rk4") or diagonally implicit for stiff
+            problems ("kvaerno5", "kvaerno3", "trbdf2", "implicit_euler",
+            solved by ``DiagonallyImplicitRK`` with the batched chord-Newton
+            layer), or a stepper instance.
     rtol/atol: scalars shared by the batch, per-instance (b,) or full (b, f).
     fused:  run each step attempt through the fused step kernel: one
             ``fused_step`` launch after the stage sweep, or for a
             ``polynomial_term`` one ``fused_step_poly`` launch and no vf
-            launch.  Engages for ``ExplicitRK`` with ``PIDController`` or
+            launch.  Under ``DiagonallyImplicitRK`` the chord matrix is
+            factored once per step attempt (``batched_lu_factor``) and each
+            Newton iteration is one ``fused_newton_iter`` launch before the
+            ``fused_step`` launch.  Engages for exactly ``ExplicitRK`` or
+            ``DiagonallyImplicitRK`` with exactly ``PIDController`` or
             ``FixedController``; otherwise the unfused path runs and
             ``stats["fused_fallback_reason"]`` says why.  Same results as
             unfused (bitwise on the CPU).

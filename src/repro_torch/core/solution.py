@@ -33,7 +33,8 @@ class Solution:
     stats:  the solver's statistics registry: a dict of named per-instance (b,)
             accumulators contributed by each component (stepper: n_f_evals,
             controller: n_accepted, step function: n_steps, n_initialized,
-            plus any user-registered contributors)
+            the implicit stepper also n_newton_iters and n_jac_evals, plus
+            any user-registered contributors)
 
     event_t:    (b, E) localized first-crossing times per event (NaN where
                 an event never fired); None unless events were registered

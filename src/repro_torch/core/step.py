@@ -1,9 +1,11 @@
 """The shared ``init/step/finish`` step function of the batch-parallel solver.
 
 ``StepFunction`` composes the three swappable components -- ``ODETerm``
-(dynamics), a stepper (``ExplicitRK``: tableau + stage recursion +
-interpolant) and a controller -- into one adaptive solver step for the whole
-batch.  ``AutoDiffAdjoint`` in ``drivers.py`` iterates it; ``make_solver`` in
+(dynamics), a stepper (``ExplicitRK`` or ``DiagonallyImplicitRK``: tableau +
+stage recursion + interpolant, plus a cross-step carry in
+``LoopState.scarry``, the implicit stepper's reused Jacobian and its
+per-instance refresh mask) and a controller -- into one adaptive solver step
+for the whole batch.  ``AutoDiffAdjoint`` in ``drivers.py`` iterates it; ``make_solver`` in
 ``loop.py`` exposes the bare function triple for callers that build their own
 loop.
 
@@ -15,10 +17,13 @@ dense-output interpolant (``core/events.py``), and a fired terminal event
 stops that instance at the interpolated event state with ``Status.EVENT``.
 Instances that finish early keep being *evaluated* (the dynamics run on the
 full batch -- torchode's "overhanging evaluations") but their state is frozen
-by masking, so results are unaffected.  Without events a step never
+by masking, so results are unaffected.  An explicit step without events never
 synchronizes host and device; the solve loop's condition does, once per
 step.  With events the step reads which events fired anywhere in the batch
-(one more sync per step, ``events.advance``).
+(one more sync per step, ``events.advance``).  An implicit step reads whether
+any row asks for a Jacobian refresh (once per step) and whether any row is
+still iterating (once per Newton iteration, ``core/newton.py``).  A failed
+Newton solve is a controller reject, never a commit.
 
 Statistics registry
 -------------------
@@ -28,7 +33,8 @@ and advances them in ``update_stats(stats, ctx) -> dict``, where ``ctx`` is a
 ``StepContext`` describing the step just taken.  The stepper records
 ``n_f_evals``, the controller ``n_accepted``, the step function itself
 ``n_steps``, ``n_initialized`` and, when events are registered,
-``n_events``; user code can register additional
+``n_events``; the implicit stepper also records ``n_newton_iters`` and
+``n_jac_evals``; user code can register additional
 contributors through ``extra_stats``.  With ``fused=True`` the step function
 also records ``fused_fallback_reason`` (whether the fused path engaged, and if
 not why) and, when it engaged, ``n_fused_steps``.
@@ -53,7 +59,7 @@ from .controller import (
 from .events import advance as advance_events
 from .events import init_event_state, normalize_events
 from .solution import Solution, Status
-from .stepper import AbstractStepper, ExplicitRK, _tableau_arrays
+from .stepper import AbstractStepper, DiagonallyImplicitRK, ExplicitRK, _tableau_arrays
 from .terms import ODETerm, PolynomialTerm, as_term
 
 
@@ -67,16 +73,16 @@ class FusedFallbackReason(enum.IntEnum):
     """
 
     ENGAGED = 0
-    # The stepper is not exactly ExplicitRK: a subclass may override the
-    # stage recursion the fused path bakes in.
+    # The stepper is not exactly ExplicitRK or DiagonallyImplicitRK: a
+    # subclass may override the stage recursion the fused path bakes in.
     NOT_EXPLICIT_RK = 1
     # The controller is not exactly PIDController or FixedController: the
     # kernel bakes in those two accept/next-dt programs only, and a subclass
     # may override ``__call__``.
     UNSUPPORTED_CONTROLLER = 2
-    # A DiagonallyImplicitRK subclass.  Kept so that the codes are the JAX
-    # package's; nothing reports it until the implicit steppers are ported
-    # (ROADMAP A-10).
+    # The stepper is a DiagonallyImplicitRK SUBCLASS: the fused implicit
+    # path bakes in the exact factor-once chord-Newton stage sweep, which a
+    # subclass may override.
     UNSUPPORTED_IMPLICIT = 3
 
 
@@ -85,6 +91,7 @@ class LoopState(NamedTuple):
     dt: torch.Tensor  # (b,) signed step proposal for the next attempt
     y: torch.Tensor  # (b, f)
     f0: torch.Tensor  # (b, f) FSAL derivative cache at (t, y)
+    scarry: Any  # stepper cross-step carry (() for explicit, DIRKCarry for DIRK)
     cstate: ControllerState
     running: torch.Tensor  # (b,) bool
     status: torch.Tensor  # (b,) int32
@@ -103,6 +110,7 @@ class StepContext(NamedTuple):
     n_f_evals: Any  # dynamics-evaluation count of this step (int)
     n_written: torch.Tensor  # (b,) int32: dense-output points written this step
     err_ratio: torch.Tensor  # (b,) weighted RMS error ratio of this step
+    aux: dict | None = None  # stepper-private extras (e.g. Newton iteration counts)
     n_events: torch.Tensor | None = None  # (b,) int32: events recorded this step
 
 
@@ -153,11 +161,15 @@ class StepFunction:
     ``fused=True`` asks for the fused fast path: after the stage sweep one
     ``ops.fused_step`` launch per step attempt does the combine, the error
     norm, the controller decision, the masked commit and the Hermite
-    coefficients; for a ``PolynomialTerm`` one ``ops.fused_step_poly`` launch
-    does the whole attempt, stages included.  It engages for exactly
-    ``ExplicitRK`` driven by exactly ``PIDController`` or ``FixedController``;
-    anything else solves through the unfused path and says why in
-    ``stats["fused_fallback_reason"]``.
+    coefficients; for a ``PolynomialTerm`` under an explicit stepper one
+    ``ops.fused_step_poly`` launch does the whole attempt, stages included.
+    Under exactly ``DiagonallyImplicitRK`` the stage sweep factors the chord
+    matrix once per attempt (``batched_lu_factor``) and runs each Newton
+    iteration as one ``fused_newton_iter``, and ``fused_step`` takes the
+    Newton failures as its ``failed`` input.  It engages for exactly
+    ``ExplicitRK`` or ``DiagonallyImplicitRK`` driven by exactly
+    ``PIDController`` or ``FixedController``; anything else solves through
+    the unfused path and says why in ``stats["fused_fallback_reason"]``.
 
     ``events``: an ``Event`` or a sequence of them (normalized to a tuple),
     detected on every accepted step and localized by ``event_bisect_iters``
@@ -180,10 +192,11 @@ class StepFunction:
     fused: bool = False
     stat_contributors: tuple = dataclasses.field(init=False, repr=False)
     # Derived from the configuration: the fused kernel's controller program
-    # ("pid", "fixed", or None when the fused path is off) and the
-    # FusedFallbackReason code.
+    # ("pid", "fixed", or None when the fused path is off), the
+    # FusedFallbackReason code, and whether the fused path is the implicit one.
     fused_mode: str | None = dataclasses.field(init=False, repr=False)
     fused_fallback: int = dataclasses.field(init=False, repr=False)
+    fused_implicit: bool = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         stepper = AbstractStepper.coerce(self.stepper)
@@ -196,8 +209,11 @@ class StepFunction:
         # bake in.  Everything else falls back to the unfused path, with the
         # same results.
         mode, why = None, FusedFallbackReason.ENGAGED
-        if type(stepper) is not ExplicitRK:
-            why = FusedFallbackReason.NOT_EXPLICIT_RK
+        implicit = type(stepper) is DiagonallyImplicitRK
+        if type(stepper) is not ExplicitRK and not implicit:
+            why = (FusedFallbackReason.UNSUPPORTED_IMPLICIT
+                   if isinstance(stepper, DiagonallyImplicitRK)
+                   else FusedFallbackReason.NOT_EXPLICIT_RK)
         elif type(controller) is PIDController:
             mode = "pid"
         elif type(controller) is FixedController:
@@ -218,6 +234,7 @@ class StepFunction:
             ("fused", bool(self.fused)),
             ("fused_mode", mode if self.fused else None),
             ("fused_fallback", int(why)),
+            ("fused_implicit", bool(self.fused and mode is not None and implicit)),
         ):
             object.__setattr__(self, name, value)
 
@@ -268,6 +285,13 @@ class StepFunction:
     def _tolerances(self, y: torch.Tensor):
         return place_tolerance(self.atol, y), place_tolerance(self.rtol, y)
 
+    def _scale(self, y: torch.Tensor) -> torch.Tensor:
+        """The (b, f) error scale atol + rtol*|y| of the Newton convergence
+        test.  Tolerances may be scalars, per-instance (b,) vectors or full
+        (b, f) tensors."""
+        atol, rtol = ops.broadcast_tolerances(self.atol, self.rtol, y.dtype, y.device)
+        return atol + rtol * torch.abs(y)
+
     def init(self, y0, t_eval=None, t_start=None, t_end=None, dt0=None, args=None):
         """Build the initial LoopState.  Returns ``(state, consts)`` where
         ``consts = (t_eval, t_start, t_end, direction)`` is loop-invariant."""
@@ -314,6 +338,7 @@ class StepFunction:
             dt=dt,
             y=y0,
             f0=f0,
+            scarry=self.stepper.init_carry(self.term, t_start, y0, f0, args),
             cstate=self.controller.init(b, dtype, device),
             running=torch.ones((b,), dtype=torch.bool, device=device),
             status=torch.zeros((b,), dtype=torch.int32, device=device),
@@ -391,7 +416,8 @@ class StepFunction:
         return will_finish, safe_dt, t_new, window
 
     def _advance(self, state: LoopState, consts, committed: LoopState, args, *, y1, accept,
-                 will_finish, t_new, safe_dt, window, coeffs, n_f_evals, err_ratio):
+                 will_finish, t_new, safe_dt, window, coeffs, n_f_evals, err_ratio,
+                 aux=None):
         """The new loop state, from the masked commit of ``(t, dt, y, f0,
         cstate)`` in ``committed``: detect, localize and record this step's
         events, stop instances that finished, whose step collapsed or whose
@@ -456,6 +482,7 @@ class StepFunction:
             n_f_evals=n_f_evals,
             n_written=n_written,
             err_ratio=err_ratio,
+            aux=aux,
             n_events=adv.n_new if adv is not None else None,
         )
         stats = self._apply_stat_updates(dict(state.stats), ctx)
@@ -474,14 +501,25 @@ class StepFunction:
         will_finish, safe_dt, t_new, window = self._attempt(state, consts)
 
         # --- one RK step for the whole batch ---
-        res = stepper.step(self.term, state.t, safe_dt, state.y, state.f0, args)
+        res = stepper.step(self.term, state.t, safe_dt, state.y, state.f0, args,
+                           carry=state.scarry, scale=self._scale(state.y))
         err_ratio = ops.error_norm(res.err, state.y, res.y1, atol, rtol)
+        if res.solver_failed is not None:
+            # A failed nonlinear solve is a hard reject through the ordinary
+            # controller path: an infinite error ratio shrinks that
+            # instance's step and retries.
+            err_ratio = torch.where(res.solver_failed, float("inf"), err_ratio)
 
         # --- per-instance accept/reject + next step proposal ---
         accept, dt_next, cstate_new = self.controller(
             err_ratio, state.dt, state.cstate, stepper.error_order
         )
         accept = accept & state.running
+        if res.solver_failed is not None:
+            # Never commit a failed solve, even under an always-accept
+            # controller (FixedController): it retries until max_steps, a
+            # visible failure instead of a wrong SUCCESS.
+            accept = accept & ~res.solver_failed
 
         # The dense-output interpolant of this step is shared by the eval-point
         # writer and the event localizer.
@@ -498,6 +536,7 @@ class StepFunction:
             dt=torch.where(state.running, dt_next, state.dt),
             y=torch.where(acc_f, res.y1, state.y),
             f0=torch.where(acc_f, res.f1, state.f0),
+            scarry=stepper.commit_carry(state.scarry, res.carry, accept, state.running),
             # Every controller returns its own next state, so the loop
             # threads it uniformly.
             cstate=cstate_new,
@@ -505,7 +544,7 @@ class StepFunction:
         return self._advance(state, consts, committed, args, y1=res.y1, accept=accept,
                              will_finish=will_finish, t_new=t_new, safe_dt=safe_dt,
                              window=window, coeffs=coeffs, n_f_evals=res.n_f_evals,
-                             err_ratio=err_ratio)
+                             err_ratio=err_ratio, aux=res.stats_aux)
 
     def _step_fused(self, state: LoopState, consts, args) -> LoopState:
         """The fused fast path: everything between the stage evaluations and
@@ -522,7 +561,13 @@ class StepFunction:
         Non-FSAL tableaus evaluate the trailing derivative f(t + dt, y1) on
         every attempt, as ``rk_step`` does: by one more Horner pass inside
         ``fused_step_poly``, or by one vf call between the stage sweep and
-        ``fused_step`` for a general term.
+        ``fused_step`` for a general term.  ``DiagonallyImplicitRK`` runs the
+        factor-once chord-Newton sweep (``fused_stage_parts``) and hands the
+        per-instance ``solver_failed`` mask to ``fused_step`` as ``failed``,
+        which forces an infinite error ratio before the controller decides
+        and keeps those rows out of ``accept`` -- the unfused path's
+        failure-to-reject rule, in the kernel.  A ``PolynomialTerm`` under an
+        implicit stepper takes this general path, never ``fused_step_poly``.
         """
         term, stepper = self.term, self.stepper
         atol, rtol = self._tolerances(state.y)
@@ -540,7 +585,16 @@ class StepFunction:
                   ctrl=self.controller.filter_params(stepper.error_order),
                   want_coeffs=bool(self.dense and consts[0] is not None or self.events),
                   ctrl_mode=self.fused_mode)
-        if isinstance(term, PolynomialTerm) and term.poly_coeffs:
+        scarry, failed, aux = state.scarry, None, None
+        if self.fused_implicit:
+            K, f1, n_f_evals, carry_prop, failed, aux = stepper.fused_stage_parts(
+                term, state.t, safe_dt, state.y, state.f0, args, state.scarry,
+                self._scale(state.y),
+            )
+            # f0: the cache a rejected row keeps.  K[0] is not f(t, y) when
+            # the first stage is implicit (ROADMAP C-7).
+            out = ops.fused_step(state.y, K, f1, *common, failed=failed, f0=state.f0, **kw)
+        elif isinstance(term, PolynomialTerm) and term.poly_coeffs:
             out = ops.fused_step_poly(state.y, state.f0, *common, a=a, c=c,
                                       poly=term.poly_coeffs, fsal=tab.fsal, **kw)
             # The in-kernel stage evaluations count as the vf calls they
@@ -561,13 +615,15 @@ class StepFunction:
         (y1, err_ratio, accept, y_out, f_out, t_out, dt_out,
          new_inv, new_inv2, coeffs) = out
 
+        if self.fused_implicit:
+            scarry = stepper.commit_carry(state.scarry, carry_prop, accept, state.running)
         # The masked commit is done in-kernel.
-        committed = state._replace(t=t_out, dt=dt_out, y=y_out, f0=f_out,
+        committed = state._replace(t=t_out, dt=dt_out, y=y_out, f0=f_out, scarry=scarry,
                                    cstate=ControllerState(new_inv, new_inv2))
         return self._advance(state, consts, committed, args, y1=y1, accept=accept,
                              will_finish=will_finish, t_new=t_new, safe_dt=safe_dt,
                              window=window, coeffs=coeffs, n_f_evals=n_f_evals,
-                             err_ratio=err_ratio)
+                             err_ratio=err_ratio, aux=aux)
 
     def finish(self, state: LoopState, consts) -> Solution:
         t_eval, t_start, t_end, direction = consts

@@ -9,7 +9,10 @@
 // attempt after the stage evaluations -- the b_sol/b_err combine, the WRMS
 // error ratio (inf where `failed`), the PID or fixed-step decision, the
 // masked commit of (y, f, t, dt) under `running`, and the cubic-Hermite
-// coefficients c1..c3 -- in one launch.  fused_step_poly also runs the stage
+// coefficients c1..c3 -- in one launch.  The derivative cache f(t, y) that a
+// rejected row keeps and the Hermite build reads is K[0], or `f0` where the
+// caller passes it (a diagonally implicit tableau whose first stage is
+// implicit has K[0] != f(t, y)).  fused_step_poly also runs the stage
 // recursion of an elementwise polynomial vector field by Horner in registers
 // (and the trailing evaluation of non-FSAL tableaus), so a whole step attempt
 // is one launch with no vector-field launch at all.
@@ -45,7 +48,7 @@
 // device pointers, tolerance strides and the static configuration.
 struct FusedStepArgs {
   const void *y, *K, *f1, *poly, *t, *t_new, *dt_cur, *safe_dt, *prev_inv, *prev2_inv;
-  const void *running, *failed, *atol, *rtol;
+  const void *running, *failed, *f0, *atol, *rtol;
   void *y1, *ratio, *accept, *y_out, *f_out, *t_out, *dt_out, *new_inv, *new_inv2;
   void *c1, *c2, *c3;
   double atol_val, rtol_val;
@@ -63,7 +66,7 @@ using namespace solver;
 // The kernel's parameters, by value in its parameter space.
 template <typename T>
 struct Params {
-  const T *y, *K, *f1, *poly, *t, *t_new, *dt_cur, *safe_dt, *prev_inv, *prev2_inv;
+  const T *y, *K, *f1, *f0, *poly, *t, *t_new, *dt_cur, *safe_dt, *prev_inv, *prev2_inv;
   const uint8_t *running, *failed;
   Tol<T> atol, rtol;
   T *y1, *ratio, *y_out, *f_out, *t_out, *dt_out, *new_inv, *new_inv2, *c1, *c2, *c3;
@@ -153,7 +156,8 @@ struct Element {
   T y, y1, err, k0, f1;
 };
 
-// y1, err, K[0] and (with_f1) f1 of element (row, c); i = row * f + c.
+// y1, err, the derivative cache k0 (f0 where given, else K[0]) and
+// (with_f1) f1 of element (row, c); i = row * f + c.
 template <typename T, bool kPoly>
 __device__ __forceinline__ Element<T> element(const Params<T>& p, int64_t i, int64_t c, T h,
                                               bool with_f1) {
@@ -181,7 +185,7 @@ __device__ __forceinline__ Element<T> element(const Params<T>& p, int64_t i, int
     const int64_t n = p.b * p.f;
     weighted_sums(p.b_sol, p.b_err, p.s, [&](int j) { return p.K[j * n + i]; }, acc_sol,
                   acc_err);
-    e.k0 = p.K[i];
+    e.k0 = p.f0 ? p.f0[i] : p.K[i];
     e.y1 = fma_of(h, acc_sol, e.y);
     if (with_f1) e.f1 = p.f1[i];
   }
@@ -246,6 +250,7 @@ Params<T> params_of(const FusedStepArgs& a) {
   p.y = static_cast<const T*>(a.y);
   p.K = static_cast<const T*>(a.K);
   p.f1 = static_cast<const T*>(a.f1);
+  p.f0 = static_cast<const T*>(a.f0);
   p.poly = static_cast<const T*>(a.poly);
   p.t = static_cast<const T*>(a.t);
   p.t_new = static_cast<const T*>(a.t_new);

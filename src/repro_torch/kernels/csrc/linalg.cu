@@ -1,0 +1,234 @@
+// Hand-written Hopper (sm_90a) kernels for the chord-Newton layer of the
+// diagonally implicit stepper (core/newton.py).
+//
+// Each kernel replaces one Pallas TPU kernel of the JAX package
+// (src/repro/kernels/pallas_impl.py) and computes the plain PyTorch version
+// of the same name in ../ref.py, to rounding: the plain versions go through
+// LAPACK/cuSOLVER, which eliminate and substitute in their own (blocked)
+// order, so the kernels are held to them at a tolerance, not bitwise.  What
+// is bitwise is the card's unfused Newton iteration against its fused one:
+// batched_linsolve factors with the same device function as
+// batched_lu_factor and substitutes with the same one as fused_newton_iter,
+// and masked_newton_update takes its row norm from the same function as
+// fused_newton_iter (linalg_common.cuh).
+//
+// Design, shared by the three matrix kernels: one thread block per instance
+// (256 threads), the matrix in device memory (no shared-memory limit on f:
+// at f = 128 an instance is 64 KiB in float32, L2-resident while its block
+// runs), the substitution vectors in shared memory (2 f entries).  This is
+// the simple design; a warp per small instance, the matrix staged in shared
+// memory and tensor cores for the trailing update are later work.
+//
+// Bounds at b = 1024, f = 128, float32 (3.35 TB/s, 67 TFLOP/s outside the
+// tensor cores): batched_lu_factor reads M and writes LU (2 b f^2 elements,
+// 0.040 ms), 2/3 f^3 b flops (0.021 ms): bytes.  batched_linsolve reads M
+// and rhs and writes x (0.020 ms), 2/3 f^3 + 2 f^2 flops per instance
+// (0.022 ms): operations.  fused_newton_iter reads LU once (b f^2) and a few
+// (b, f) planes (0.021 ms): bytes.  masked_newton_update moves four (b, f)
+// planes (0.0006 ms): bytes.  What bounds the simple design instead is
+// latency: f synchronizations per factorization column loop (3 f in all),
+// 2 f in a substitution, each with little work between them at small f.
+
+#include "linalg_common.cuh"
+
+namespace {
+
+using namespace linalg;
+
+// The instance's (f, f) matrix from `src` into `dst` (both row-major).
+template <typename T>
+__device__ __forceinline__ void copy_matrix(const T* __restrict__ src, T* __restrict__ dst,
+                                            int64_t n) {
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// ----------------------------------------------------------- batched_lu_factor
+// Replaces pallas_impl.batched_lu_factor (:454, body _lu_factor_kernel :399).
+// One block per instance: M is copied into the output LU and eliminated
+// there in place (lu_factor_block), the permutation written beside it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lu_factor_kernel(const T* __restrict__ A, T* __restrict__ lu, int32_t* __restrict__ perm,
+                 int f) {
+  const int64_t n = (int64_t)f * f;
+  T* a = lu + blockIdx.x * n;
+  copy_matrix(A + blockIdx.x * n, a, n);
+  __syncthreads();
+  lu_factor_block(a, perm + (int64_t)blockIdx.x * f, f);
+}
+
+// ------------------------------------------------------------ batched_linsolve
+// Replaces pallas_impl.batched_linsolve (:370, body _linsolve_kernel :319).
+// The Pallas kernel runs Gauss-Jordan on the right-hand side; here A is
+// factored in a scratch copy by the same device function as
+// batched_lu_factor, and the permuted right-hand side substituted by the
+// same one as fused_newton_iter, so an unfused Newton iteration equals a
+// fused one bitwise.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+linsolve_kernel(const T* __restrict__ A, const T* __restrict__ rhs, T* __restrict__ scratch,
+                T* __restrict__ x_out, int f) {
+  extern __shared__ unsigned char smem[];
+  T* x = reinterpret_cast<T*>(smem);
+  int32_t* perm = reinterpret_cast<int32_t*>(x + f);
+  const int64_t n = (int64_t)f * f;
+  T* a = scratch + blockIdx.x * n;
+  copy_matrix(A + blockIdx.x * n, a, n);
+  __syncthreads();
+  lu_factor_block(a, perm, f);  // ends synchronized
+  const T* g = rhs + (int64_t)blockIdx.x * f;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) x[i] = g[perm[i]];
+  lu_substitute_block(a, x, x_out + (int64_t)blockIdx.x * f, f);
+}
+
+// ------------------------------------------------------------ fused_newton_iter
+// Replaces pallas_impl.fused_newton_iter (:540, body _newton_iter_kernel
+// :486).  One whole chord-Newton iteration per instance and block: the
+// residual g = k - fk gathered through the permutation, the two
+// substitutions against the prefactored LU (O(f^2), where the unfused path
+// pays an O(f^3) elimination every iteration), then warp 0 takes the scaled
+// RMS of the update while the block commits k - delta where the row is
+// active.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+newton_iter_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
+                   const T* __restrict__ k, const T* __restrict__ fk,
+                   const uint8_t* __restrict__ active, const T* __restrict__ scale,
+                   T* __restrict__ k_new, T* __restrict__ res, int f) {
+  extern __shared__ unsigned char smem[];
+  T* x = reinterpret_cast<T*>(smem);
+  T* delta = x + f;
+  const int64_t row = blockIdx.x, base = row * f;
+  const int32_t* p = perm + base;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) {
+    x[i] = sub_rn(k[base + p[i]], fk[base + p[i]]);
+  }
+  lu_substitute_block(lu + row * (int64_t)f * f, x, delta, f);  // ends synchronized
+  if (threadIdx.x < 32) {
+    const T r = newton_norm_warp(delta, scale + base, f, threadIdx.x);
+    if (threadIdx.x == 0) res[row] = r;
+  }
+  const bool act = active[row] != 0;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) {
+    k_new[base + i] = act ? sub_rn(k[base + i], delta[i]) : k[base + i];
+  }
+}
+
+// --------------------------------------------------------- masked_newton_update
+// Replaces pallas_impl.masked_newton_update (:608, body _newton_update_kernel
+// :589).  k - delta where the row is active, and the scaled RMS of delta: a
+// row reduction like error_norm, so one warp per row (8 to a block), with
+// the row norm of fused_newton_iter (newton_norm_warp).  Bound: four (b, f)
+// planes; the commit is coalesced and lane-strided.
+template <typename T>
+__global__ void newton_update_kernel(const T* __restrict__ k, const T* __restrict__ delta,
+                                     const uint8_t* __restrict__ active,
+                                     const T* __restrict__ scale, T* __restrict__ k_new,
+                                     T* __restrict__ res, int64_t b, int64_t f) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = blockIdx.x * (int64_t)kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= b) return;
+  const int64_t base = row * f;
+  const bool act = active[row] != 0;
+  for (int64_t c = lane; c < f; c += 32) {
+    k_new[base + c] = act ? sub_rn(k[base + c], delta[base + c]) : k[base + c];
+  }
+  const T r = newton_norm_warp(delta + base, scale + base, f, lane);
+  if (lane == 0) res[row] = r;
+}
+
+// Shared memory of the substitution: two f-vectors of T (newton_iter), or
+// one and the int32 permutation (linsolve).  Above the default 48 KiB of
+// dynamic shared memory a launch is refused (f > 3072 in float64).
+constexpr size_t kMaxSmem = 48 * 1024;
+
+template <typename T>
+int launch_lu_factor(const void* A, void* lu, void* perm, int64_t b, int64_t f,
+                     cudaStream_t stream) {
+  if (b < 1 || f < 1 || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  lu_factor_kernel<T><<<static_cast<unsigned>(b), kThreads, 0, stream>>>(
+      static_cast<const T*>(A), static_cast<T*>(lu), static_cast<int32_t*>(perm),
+      static_cast<int>(f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_linsolve(const void* A, const void* rhs, void* scratch, void* x, int64_t b,
+                    int64_t f, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(f) * (sizeof(T) + sizeof(int32_t));
+  if (b < 1 || f < 1 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  linsolve_kernel<T><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
+      static_cast<const T*>(A), static_cast<const T*>(rhs), static_cast<T*>(scratch),
+      static_cast<T*>(x), static_cast<int>(f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_newton_iter(const void* lu, const void* perm, const void* k, const void* fk,
+                       const void* active, const void* scale, void* k_new, void* res,
+                       int64_t b, int64_t f, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(f) * sizeof(T);
+  if (b < 1 || f < 1 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  newton_iter_kernel<T><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
+      static_cast<const T*>(lu), static_cast<const int32_t*>(perm), static_cast<const T*>(k),
+      static_cast<const T*>(fk), static_cast<const uint8_t*>(active),
+      static_cast<const T*>(scale), static_cast<T*>(k_new), static_cast<T*>(res),
+      static_cast<int>(f));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_newton_update(const void* k, const void* delta, const void* active,
+                         const void* scale, void* k_new, void* res, int64_t b, int64_t f,
+                         cudaStream_t stream) {
+  if (b < 1 || f < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (b + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  newton_update_kernel<T><<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock, 0, stream>>>(
+      static_cast<const T*>(k), static_cast<const T*>(delta),
+      static_cast<const uint8_t*>(active), static_cast<const T*>(scale), static_cast<T*>(k_new),
+      static_cast<T*>(res), b, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ------------------------------------------------------------- C entry points
+// dtype: 0 = float32, 1 = float64.  Every entry returns cudaGetLastError(),
+// or cudaErrorInvalidValue for an empty shape or a width whose substitution
+// vectors exceed the shared-memory limit (rt_linalg_max_smem()).
+
+extern "C" {
+
+int rt_linalg_max_smem() { return static_cast<int>(kMaxSmem); }
+
+int rt_batched_lu_factor(int dtype, const void* A, void* lu, void* perm, int64_t b, int64_t f,
+                         void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_lu_factor<double>(A, lu, perm, b, f, s)
+               : launch_lu_factor<float>(A, lu, perm, b, f, s);
+}
+
+int rt_batched_linsolve(int dtype, const void* A, const void* rhs, void* scratch, void* x,
+                        int64_t b, int64_t f, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_linsolve<double>(A, rhs, scratch, x, b, f, s)
+               : launch_linsolve<float>(A, rhs, scratch, x, b, f, s);
+}
+
+int rt_fused_newton_iter(int dtype, const void* lu, const void* perm, const void* k,
+                         const void* fk, const void* active, const void* scale, void* k_new,
+                         void* res, int64_t b, int64_t f, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_newton_iter<double>(lu, perm, k, fk, active, scale, k_new, res, b, f, s)
+               : launch_newton_iter<float>(lu, perm, k, fk, active, scale, k_new, res, b, f, s);
+}
+
+int rt_masked_newton_update(int dtype, const void* k, const void* delta, const void* active,
+                            const void* scale, void* k_new, void* res, int64_t b, int64_t f,
+                            void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_newton_update<double>(k, delta, active, scale, k_new, res, b, f, s)
+               : launch_newton_update<float>(k, delta, active, scale, k_new, res, b, f, s);
+}
+
+}  // extern "C"

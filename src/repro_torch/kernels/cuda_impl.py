@@ -1,5 +1,5 @@
 """Wrappers around the CUDA kernels in ``csrc/`` (``solver_kernels.cu``,
-``fused_step.cu``, ``events.cu``).
+``fused_step.cu``, ``events.cu``, ``linalg.cu``).
 
 Each wrapper checks device, dtype (float32 or float64), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on
@@ -21,7 +21,8 @@ from . import _build
 
 launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval": 0,
             "fused_step": 0, "fused_step_poly": 0, "masked_bisect_refine": 0,
-            "fused_event_detect": 0, "fused_event_commit": 0}
+            "fused_event_detect": 0, "fused_event_commit": 0, "batched_linsolve": 0,
+            "batched_lu_factor": 0, "fused_newton_iter": 0, "masked_newton_update": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -199,7 +200,7 @@ class _FusedStepArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "y", "K", "f1", "poly", "t", "t_new", "dt_cur", "safe_dt", "prev_inv",
-            "prev2_inv", "running", "failed", "atol", "rtol",
+            "prev2_inv", "running", "failed", "f0", "atol", "rtol",
             "y1", "ratio", "accept", "y_out", "f_out", "t_out", "dt_out", "new_inv",
             "new_inv2", "c1", "c2", "c3")]
         + [("atol_val", ctypes.c_double), ("rtol_val", ctypes.c_double)]
@@ -216,14 +217,14 @@ _CTRL_MODES = {"pid": 0, "fixed": 1}
 
 def _launch_fused(name, entry, y, K, f1, poly, t, t_new, dt_cur, safe_dt, running,
                   prev_inv, prev2_inv, atol, rtol, *, b_sol, b_err, ctrl, want_coeffs,
-                  ctrl_mode, failed, a=None, fsal=True):
+                  ctrl_mode, failed, f0=None, a=None, fsal=True):
     """Check the inputs of ``fused_step``/``fused_step_poly``, allocate the
     twelve outputs, launch, and return them as ``ref.fused_step`` does."""
     code = _dtype_code(name, y)
     b, f = y.shape
     s = len(b_sol)
     cols = (t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv)
-    planes = [y, K] + ([f1] if f1 is not None else []) + ([poly] if poly is not None else [])
+    planes = ([y, K] + [p for p in (f1, f0, poly) if p is not None])
     _check(name, y.dtype, *planes, *cols)
     for mask in (running, failed):
         if mask is not None:
@@ -231,7 +232,7 @@ def _launch_fused(name, entry, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runnin
     masks = [m for m in (running, failed) if m is not None]
     _same_device(name, *planes, *cols, *masks)
     k_shape = (s, b, f) if a is None else (b, f)
-    if (K.shape != k_shape or (f1 is not None and f1.shape != (b, f))
+    if (K.shape != k_shape or any(p is not None and p.shape != (b, f) for p in (f1, f0))
             or any(x.shape != (b,) for x in (*cols, *masks))
             or len(b_err) != s or s > 8 or (ctrl_mode == "pid" and len(ctrl) != 8)
             or (poly is not None and (poly.ndim != 2 or poly.shape[1] != f))):
@@ -259,7 +260,7 @@ def _launch_fused(name, entry, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runnin
 
     args = _FusedStepArgs(
         *(ptr(x) for x in (y, K, f1, poly, t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv,
-                           running, failed)),
+                           running, failed, f0)),
         ap, rp, *(ptr(x) for x in (y1, ratio, accept, y_out, f_out, t_out, dt_out, new_inv,
                                    new_inv2, c1, c2, c3)),
         av, rv, ars, acs, rrs, rcs, b, f, s,
@@ -286,14 +287,15 @@ def _launch_fused(name, entry, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runnin
 
 def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
                atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
-               failed=None):
+               failed=None, f0=None):
     """CUDA ``fused_step``: one launch for the combine, the WRMS ratio, the
     controller, the masked commit and the Hermite coefficients (see
-    ``ref.fused_step``).  ``failed`` may be None (a null pointer)."""
+    ``ref.fused_step``).  ``failed`` and ``f0`` may be None (null pointers;
+    without ``f0`` the kernel reads K[0])."""
     return _launch_fused(
         "fused_step", lambda lib: lib.rt_fused_step, y, K, f1, None, t, t_new, dt_cur,
         safe_dt, running, prev_inv, prev2_inv, atol, rtol, b_sol=b_sol, b_err=b_err,
-        ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode, failed=failed)
+        ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode, failed=failed, f0=f0)
 
 
 @functools.lru_cache(maxsize=32)
@@ -421,3 +423,131 @@ def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, term
     _raise_on("fused_event_commit", rc)
     launches["fused_event_commit"] += 1
     return fired_out, ev_t_out, ev_y, stop, t_stop, y_stop, n_new
+
+
+def _square(name, A):
+    """(b, f) of a (b, f, f) stack of matrices, or raise."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[0] < 1 or A.shape[1] < 1:
+        raise ValueError(f"{name}: expected a (b, f, f) stack of square matrices, got "
+                         f"{tuple(A.shape)}")
+    return A.shape[0], A.shape[1]
+
+
+def _substitution_fits(name, f, bytes_per_feature, lib):
+    """The substitution keeps ``bytes_per_feature * f`` bytes in shared
+    memory (its vectors): raise above the kernel's limit."""
+    need = f * bytes_per_feature
+    if need > lib.rt_linalg_max_smem():
+        raise ValueError(f"{name}: f = {f} needs {need} bytes of shared memory for the "
+                         f"substitution, above the kernel's {lib.rt_linalg_max_smem()}")
+
+
+def _row_scale(name, scale, b, f, like):
+    """``scale`` (a number, or a tensor broadcasting to (b, f)) as a
+    contiguous (b, f) tensor in ``like``'s dtype on its device, as the JAX
+    wrapper materializes it."""
+    if isinstance(scale, torch.Tensor):
+        _same_device(name, scale, like)
+    scale = torch.as_tensor(scale, dtype=like.dtype, device=like.device)
+    try:
+        return torch.broadcast_to(scale, (b, f)).contiguous()
+    except RuntimeError:
+        raise ValueError(f"{name}: scale of shape {tuple(scale.shape)} does not broadcast to "
+                         f"({b}, {f})") from None
+
+
+def batched_lu_factor(A):
+    """CUDA ``batched_lu_factor``: the packed partial-pivoted LU of each
+    (f, f) matrix and the int32 row permutation with ``A[perm] == L @ U``
+    (see ``ref.batched_lu_factor``).  Returns new tensors ``(lu, perm)``."""
+    code = _dtype_code("batched_lu_factor", A)
+    _check("batched_lu_factor", A.dtype, A)
+    b, f = _square("batched_lu_factor", A)
+    lu = torch.empty_like(A)
+    perm = torch.empty((b, f), dtype=torch.int32, device=A.device)
+    lib = _build.load()
+    with torch.cuda.device(A.device):
+        rc = lib.rt_batched_lu_factor(code, A.data_ptr(), lu.data_ptr(), perm.data_ptr(), b, f,
+                                      _stream(A.device))
+    _raise_on("batched_lu_factor", rc)
+    launches["batched_lu_factor"] += 1
+    return lu, perm
+
+
+def batched_linsolve(A, rhs):
+    """CUDA ``batched_linsolve``: x with A @ x = rhs per instance, by the LU
+    of ``batched_lu_factor`` (in a scratch copy of A) and the substitution of
+    ``fused_newton_iter`` (see ``ref.batched_linsolve``)."""
+    code = _dtype_code("batched_linsolve", A)
+    _check("batched_linsolve", A.dtype, A, rhs)
+    _same_device("batched_linsolve", A, rhs)
+    b, f = _square("batched_linsolve", A)
+    if rhs.shape != (b, f):
+        raise ValueError(f"batched_linsolve: rhs of shape {tuple(rhs.shape)}, want ({b}, {f})")
+    lib = _build.load()
+    _substitution_fits("batched_linsolve", f, A.element_size() + 4, lib)  # x, int32 perm
+    scratch = torch.empty_like(A)
+    x = torch.empty_like(rhs)
+    with torch.cuda.device(A.device):
+        rc = lib.rt_batched_linsolve(code, A.data_ptr(), rhs.data_ptr(), scratch.data_ptr(),
+                                     x.data_ptr(), b, f, _stream(A.device))
+    _raise_on("batched_linsolve", rc)
+    launches["batched_linsolve"] += 1
+    return x
+
+
+def fused_newton_iter(lu, perm, k, fk, active, scale):
+    """CUDA ``fused_newton_iter``: one chord-Newton iteration against the
+    factors of ``batched_lu_factor`` -- residual, permutation gather, the two
+    substitutions, the masked commit and the scaled-RMS norm (see
+    ``ref.fused_newton_iter``).  Returns new tensors ``(k_new, res_norm)``."""
+    name = "fused_newton_iter"
+    code = _dtype_code(name, k)
+    _check(name, k.dtype, lu, k, fk)
+    _check(name, torch.int32, perm)
+    _check(name, torch.bool, active)
+    _same_device(name, lu, perm, k, fk, active)
+    b, f = _square(name, lu)
+    if k.shape != (b, f) or fk.shape != (b, f) or perm.shape != (b, f) or active.shape != (b,):
+        raise ValueError(f"{name}: shapes lu {tuple(lu.shape)}, perm {tuple(perm.shape)}, k "
+                         f"{tuple(k.shape)}, fk {tuple(fk.shape)}, active "
+                         f"{tuple(active.shape)} do not agree")
+    scale = _row_scale(name, scale, b, f, k)
+    _check(name, k.dtype, scale)
+    lib = _build.load()
+    _substitution_fits(name, f, 2 * k.element_size(), lib)  # x and delta
+    k_new = torch.empty_like(k)
+    res = torch.empty((b,), dtype=k.dtype, device=k.device)
+    with torch.cuda.device(k.device):
+        rc = lib.rt_fused_newton_iter(code, *(x.data_ptr() for x in (
+            lu, perm, k, fk, active, scale, k_new, res)), b, f, _stream(k.device))
+    _raise_on(name, rc)
+    launches[name] += 1
+    return k_new, res
+
+
+def masked_newton_update(k, delta, active, scale):
+    """CUDA ``masked_newton_update``: ``k - delta`` where the row is active
+    and the (b,) RMS of ``delta / scale``, with the row norm of
+    ``fused_newton_iter`` (see ``ref.masked_newton_update``).  Returns new
+    tensors ``(k_new, res_norm)``."""
+    name = "masked_newton_update"
+    code = _dtype_code(name, k)
+    _check(name, k.dtype, k, delta)
+    _check(name, torch.bool, active)
+    _same_device(name, k, delta, active)
+    if k.ndim != 2 or delta.shape != k.shape or active.shape != (k.shape[0],) or k.numel() == 0:
+        raise ValueError(f"{name}: shapes k {tuple(k.shape)}, delta {tuple(delta.shape)}, "
+                         f"active {tuple(active.shape)} do not agree")
+    b, f = k.shape
+    scale = _row_scale(name, scale, b, f, k)
+    _check(name, k.dtype, scale)
+    k_new = torch.empty_like(k)
+    res = torch.empty((b,), dtype=k.dtype, device=k.device)
+    lib = _build.load()
+    with torch.cuda.device(k.device):
+        rc = lib.rt_masked_newton_update(code, *(x.data_ptr() for x in (
+            k, delta, active, scale, k_new, res)), b, f, _stream(k.device))
+    _raise_on(name, rc)
+    launches[name] += 1
+    return k_new, res

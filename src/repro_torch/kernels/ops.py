@@ -6,10 +6,10 @@ version in ``ref.py``; a CUDA tensor goes to the hand-written CUDA kernel in
 ``cuda_impl.py``, or the call raises.  Nothing gives way to the plain version
 on the card.  ``launches`` counts the CUDA launches of each kernel.
 
-The solver core (``core/stepper.py`` for the stage math, ``core/step.py`` for
-the error norm, the fused step and dense-output writes, ``core/events.py``
-for event detection, localization and commit) imports its ops only from
-here.
+The solver core (``core/stepper.py`` for the stage math, ``core/newton.py``
+for the chord-Newton linear algebra, ``core/step.py`` for the error norm, the
+fused step and dense-output writes, ``core/events.py`` for event detection,
+localization and commit) imports its ops only from here.
 """
 
 from __future__ import annotations
@@ -60,10 +60,10 @@ def interp_eval(coeffs, x, mask, out, cursor=None):
 
 def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
                atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
-               failed=None):
+               failed=None, f0=None):
     args = (y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol)
     kw = dict(b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs,
-              ctrl_mode=ctrl_mode, failed=failed)
+              ctrl_mode=ctrl_mode, failed=failed, f0=f0)
     if _on_cuda("fused_step", y):
         return cuda_impl.fused_step(*args, **kw)
     return ref.fused_step(*args, **kw)
@@ -78,6 +78,30 @@ def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_i
     if _on_cuda("fused_step_poly", y):
         return cuda_impl.fused_step_poly(*args, **kw)
     return ref.fused_step_poly(*args, **kw)
+
+
+def batched_linsolve(A, rhs):
+    if _on_cuda("batched_linsolve", A):
+        return cuda_impl.batched_linsolve(A, rhs)
+    return ref.batched_linsolve(A, rhs)
+
+
+def batched_lu_factor(A):
+    if _on_cuda("batched_lu_factor", A):
+        return cuda_impl.batched_lu_factor(A)
+    return ref.batched_lu_factor(A)
+
+
+def fused_newton_iter(lu, perm, k, fk, active, scale):
+    if _on_cuda("fused_newton_iter", k):
+        return cuda_impl.fused_newton_iter(lu, perm, k, fk, active, scale)
+    return ref.fused_newton_iter(lu, perm, k, fk, active, scale)
+
+
+def masked_newton_update(k, delta, active, scale):
+    if _on_cuda("masked_newton_update", k):
+        return cuda_impl.masked_newton_update(k, delta, active, scale)
+    return ref.masked_newton_update(k, delta, active, scale)
 
 
 def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
@@ -103,6 +127,7 @@ def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, term
 
 
 for _op in (stage_accum, fused_update, error_norm, fused_step, fused_step_poly,
+            batched_linsolve, batched_lu_factor, fused_newton_iter, masked_newton_update,
             masked_bisect_refine, fused_event_detect):
     _op.__doc__ = getattr(ref, _op.__name__).__doc__
 del _op

@@ -99,6 +99,94 @@ def hermite_coeffs(y0, y1, f0, f1, dt):
     return c0, c1, c2, c3
 
 
+def batched_linsolve(A, rhs):
+    """Batched dense linear solve: x s.t. A @ x = rhs, per instance.
+
+    A:   (b, f, f) Newton matrices (I - dt*gamma*J -- well conditioned for
+         any stable step size, diagonally dominant in the stiff limit)
+    rhs: (b, f)
+
+    Returns (b, f).  The inner hot spot of the masked-Newton layer.  It is
+    ``batched_lu_factor`` followed by the substitution ``fused_newton_iter``
+    runs (``_lu_solve_perm``), not ``torch.linalg.solve`` (another LAPACK
+    path with its own rounding): so a chord-Newton iteration through this op
+    and ``masked_newton_update`` equals one ``fused_newton_iter`` against the
+    same factors bitwise, and fused DIRK solves equal unfused ones.
+    """
+    lu, perm = batched_lu_factor(A)
+    return _lu_solve_perm(lu, perm, rhs)
+
+
+def batched_lu_factor(A):
+    """Batched partial-pivoted LU factorization: factor ONCE per solver step.
+
+    A: (b, f, f) chord matrices I - dt*gamma*J.
+
+    Returns ``(lu, permutation)``: the packed LU factors (unit lower + upper
+    triangle in one (b, f, f) tensor) and the (b, f) int32 row permutation
+    with ``A[permutation] == L @ U`` -- a permutation, as ``lax.linalg.lu``
+    returns it, not LAPACK's sequential row swaps.  A zero pivot is not an
+    error: its column is left unscaled and the substitution divides by it.
+    """
+    lu, pivots, _ = torch.linalg.lu_factor_ex(A)
+    # A = P L U, so (P^T A)[i] = A[perm[i]] with P[perm[i], i] == 1.
+    P, _, _ = torch.lu_unpack(lu, pivots, unpack_data=False)
+    # LAPACK hands back column-major factors; the op's are row-major.
+    return lu.contiguous(), P.argmax(dim=-2).to(torch.int32)
+
+
+def _lu_solve_perm(lu, perm, g):
+    """x with A x = g from ``batched_lu_factor(A) == (lu, perm)``: the row
+    gather g[perm], then the unit-lower and the upper triangular solves, as
+    ``lax.linalg``'s ``lu_solve`` runs them."""
+    x = torch.gather(g, 1, perm.long())[..., None]
+    x = torch.linalg.solve_triangular(lu, x, upper=False, unitriangular=True)
+    return torch.linalg.solve_triangular(lu, x, upper=True)[..., 0]
+
+
+def _masked_commit(k, delta, active, scale):
+    """``where(active, k - delta, k)`` and the (b,) RMS of ``delta / scale``:
+    the tail both Newton ops share, written once."""
+    k_new = torch.where(active[:, None], k - delta, k)
+    ratio = delta / scale
+    return k_new, torch.sqrt(torch.mean(ratio * ratio, dim=-1))
+
+
+def fused_newton_iter(lu, perm, k, fk, active, scale):
+    """One whole chord-Newton iteration against a prefactored LU, as ONE op:
+    residual, permutation gather, the two triangular substitutions, the
+    masked commit and the scaled-RMS convergence norm.
+
+    lu:     (b, f, f) packed LU factors from ``batched_lu_factor``
+    perm:   (b, f) int32 row permutation from ``batched_lu_factor``
+    k:      (b, f) current stage iterate
+    fk:     (b, f) vf evaluation at the iterate, ``eval_fn(k)``
+    active: (b,) bool -- instances still iterating
+    scale:  (b, f) error scale atol + rtol*|y| (may broadcast)
+
+    Returns ``(k_new, res_norm)`` exactly like ``masked_newton_update``; the
+    update solved here is ``delta = M^{-1} (k - fk)`` via the LU factors.
+    """
+    delta = _lu_solve_perm(lu, perm, k - fk)
+    return _masked_commit(k, delta, active, scale)
+
+
+def masked_newton_update(k, delta, active, scale):
+    """One fused masked Newton commit: apply the update only where an
+    instance's nonlinear solve is still active, and report the scaled RMS
+    norm of the update (the per-instance convergence measure).
+
+    k:      (b, f) current stage iterate
+    delta:  (b, f) Newton update (solution of the linearized system)
+    active: (b,) bool -- instances still iterating
+    scale:  (b, f) error scale atol + rtol*|y| (may broadcast)
+
+    Returns (k_new, res_norm): k - delta where active (k elsewhere), and the
+    (b,) RMS of delta/scale.
+    """
+    return _masked_commit(k, delta, active, scale)
+
+
 def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
     """One masked bisection refinement on the dense-output interpolant.
 
@@ -228,7 +316,7 @@ def poly_eval(y, coeffs):
 def fused_step(
     y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
     atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
-    failed=None,
+    failed=None, f0=None,
 ):
     """One fused explicit-RK step attempt around the vf calls: stage combine,
     WRMS error norm, controller decision, masked commit of (t, y, f) against
@@ -253,6 +341,10 @@ def fused_step(
     failed:   optional (b,) bool -- instances whose implicit stage solve
               failed: ``err_ratio = inf`` before the controller, and never
               accepted.
+    f0:       optional (b, f) derivative cache f(t, y), kept by rejected rows
+              and read by the Hermite build; None means K[0].  A diagonally
+              implicit tableau whose first stage is implicit (implicit_euler)
+              has K[0] != f(t, y) and passes it.
 
     Returns ``(y1, err_ratio, accept, y_out, f_out, t_out, dt_out, new_inv,
     new_inv2, coeffs)`` with ``coeffs = (c0, c1, c2, c3)`` or ``None``.
@@ -277,11 +369,12 @@ def fused_step(
     if failed is not None:
         accept = accept & ~failed
     acc_f = accept[:, None]
+    k0 = K[0] if f0 is None else f0
     y_out = torch.where(acc_f, y1, y)
-    f_out = torch.where(acc_f, f1, K[0])
+    f_out = torch.where(acc_f, f1, k0)
     t_out = torch.where(accept, t_new, t)
     dt_out = torch.where(running, dt_next, dt_cur)
-    coeffs = hermite_coeffs(y, y1, K[0], f1, safe_dt) if want_coeffs else None
+    coeffs = hermite_coeffs(y, y1, k0, f1, safe_dt) if want_coeffs else None
     return y1, err_ratio, accept, y_out, f_out, t_out, dt_out, new_inv, new_inv2, coeffs
 
 

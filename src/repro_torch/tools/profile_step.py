@@ -3,12 +3,15 @@
 
     PYTHONPATH=src python -m repro_torch.tools.profile_step [--fused]
         [--workload vdp_table3|full_width|full_width_long|ball_terminal|
-                    vdp_marker|full_width_long_events|all]
+                    vdp_marker|full_width_long_events|vdp_stiff_mixed|
+                    robertson_sweep|allen_cahn_full|all]
 
 ``--fused`` profiles the fused path (``fused=True``: one ``fused_step``
-launch per step after the stage sweep) instead of the unfused one.  The
-last three workloads register events (``workloads.py``).  Prints one JSON
-line per workload (dopri5, float32):
+launch per step after the stage sweep) instead of the unfused one.
+``ball_terminal``, ``vdp_marker`` and ``full_width_long_events`` register
+events; the last three are the stiff workloads (kvaerno5, the chord-Newton
+kernels), the others run dopri5 (``workloads.py``).  Prints one JSON line
+per workload (float32):
 
 - ``ms_per_step``: a whole solve's wall time over its loop iterations, the
   driver's per-step host sync (``running.any()``) included;
@@ -24,6 +27,11 @@ line per workload (dopri5, float32):
   work it also forces), and ``without_events``: ``ms_per_step``,
   ``ms_per_step_no_sync`` and the profile's operations per step and idle
   share of the same solve with its events taken out;
+- with the implicit stepper, ``newton_read_ms``: one host read of
+  ``active.any()`` on a (b,) mask, the sync ``newton_solve`` adds per Newton
+  iteration (and the Jacobian refresh read per step), timed as
+  ``event_read_ms``; ``newton_iters_per_step``: batched Newton iterations
+  (each with one such read) per loop iteration;
 - ``profile``: from ``torch.profiler`` over the no-sync steps, the device
   operations per step, the device busy time per step, the device idle share
   of that profiled run, the busy time of the four CUDA kernels, and the top
@@ -49,7 +57,8 @@ from . import workloads
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
            "interp_eval_kernel", "fused_step_kernel", "masked_bisect_refine_kernel",
-           "fused_event_detect_kernel", "fused_event_commit_kernel")
+           "fused_event_detect_kernel", "fused_event_commit_kernel", "lu_factor_kernel",
+           "linsolve_kernel", "newton_iter_kernel", "newton_update_kernel")
 
 
 def _sync_ms(fn, reps=1):
@@ -64,6 +73,8 @@ def _sync_ms(fn, reps=1):
 def _steps_without_sync(vf, y0, t_eval, kw, iters, device):
     kw = dict(kw)
     args = kw.pop("args", None)
+    if isinstance(args, np.ndarray):
+        args = torch.as_tensor(args, device=device)
     kw.pop("max_steps", None)
     span = {k: kw.pop(k) for k in ("t_start", "t_end") if k in kw}
     init, step, _ = make_solver(vf, **kw)
@@ -125,6 +136,11 @@ def profile_workload(name, vf, y0, t_eval, kw, device):
         newly = torch.rand(b, E, generator=g).to(device) < 0.01
         out["event_read_ms"], _ = _sync_ms(lambda: newly.any(dim=0).tolist(), reps=200)
         out["n_events"] = int(sol.stats["n_events"].sum())
+    if "n_newton_iters" in sol.stats:
+        active = torch.rand(b, generator=g).to(device) < 0.5
+        out["newton_read_ms"], _ = _sync_ms(lambda: bool(active.any()), reps=200)
+        # kvaerno5: every evaluation after the initial two is a Newton one.
+        out["newton_iters_per_step"] = (int(sol.stats["n_f_evals"][0]) - 2) / iters
     return dict(out, profile=_profile(run, iters))
 
 
@@ -135,6 +151,9 @@ WORKLOADS = {
     "ball_terminal": lambda device: workloads.ball_terminal(np.float32),
     "vdp_marker": lambda device: workloads.vdp_marker(np.float32),
     "full_width_long_events": workloads.full_width_long_events,
+    "vdp_stiff_mixed": lambda device: workloads.vdp_stiff_mixed(np.float32),
+    "robertson_sweep": lambda device: workloads.robertson_sweep(np.float32),
+    "allen_cahn_full": lambda device: workloads.allen_cahn_full(np.float32),
 }
 
 
@@ -151,7 +170,7 @@ def main(argv=None) -> int:
     names = list(WORKLOADS) if opts.workload == "all" else [opts.workload]
     for name in names:
         vf, y0, te, kw = WORKLOADS[name](device)
-        kw = {**kw, "method": "dopri5", "fused": opts.fused}
+        kw = {"method": "dopri5", **kw, "fused": opts.fused}
         out = profile_workload(name, vf, y0, te, kw, device)
         if kw.get("events"):
             plain = profile_workload(name, vf, y0, te,

@@ -41,6 +41,27 @@ event when the per-row state RMS rises through ``EVENTS_LONG
 ["rms_threshold"]`` and a non-terminal marker on ``y[:, 0]`` (direction 0).
 The state RMS grows from ~1 to 18-21 over t in [0, 8]; at 19.5, 54.7 % of
 rows 0-63 stop with ``Status.EVENT`` on the CPU and the rest reach t_end.
+
+The stiff workloads (``DiagonallyImplicitRK`` with kvaerno5 and the default
+PID controller, float32, final state only), after the JAX package's own stiff
+problems:
+
+``vdp_stiff_mixed``: Van der Pol with a per-instance ``mu = 10**linspace(0,
+3, b)`` passed as batched args, y0 = (2, 0), t in [0, 2], rtol 1e-4, atol
+1e-6 (``tests/test_fused_implicit.py``'s mixed-stiffness batch, spread over
+b = 1024 rows): per-instance Newton masks and Jacobian refreshes across four
+decades of stiffness in one batch.
+
+``robertson_sweep``: Robertson kinetics (``benchmarks/stiff_bench.py``),
+y0 = (1, 0, 0) in every row, t in [0, 100], rtol 1e-5, atol 1e-8, b = 1024:
+many Newton iterations per step and frequent refreshes.
+
+``allen_cahn_full``: the Allen-Cahn method of lines of
+``benchmarks/stiff_bench.py`` (Dirichlet, ``lam * Lap(y) + y - y**3`` with
+lam = (f + 1)**2) at b = 1024, f = 128, y0 = amplitude * sin(pi x) with
+amplitudes linspace(1.0, 1.6, b) (the reference's four amplitudes spread over
+the batch), t in [0, 5], rtol 1e-4, atol 1e-7: the Newton kernels at width
+(J, M and the LU are 64 MiB each).
 """
 
 from __future__ import annotations
@@ -142,3 +163,47 @@ def full_width_long_events(device):
     marker (see the module docstring)."""
     vf, y0, t_eval, kw = full_width_long(device)
     return vf, y0, t_eval, dict(kw, events=(RMS_EVENT, FIRST_FEATURE))
+
+
+STIFF = dict(b=1024, method="kvaerno5")
+ALLEN_CAHN = dict(f=128, t_end=5.0)
+
+
+def robertson(t, y, args):
+    """Robertson kinetics, as ``benchmarks/stiff_bench.py`` writes it."""
+    y1, y2, y3 = y[..., 0], y[..., 1], y[..., 2]
+    r1 = -0.04 * y1 + 1e4 * y2 * y3
+    r3 = 3e7 * y2 * y2
+    return torch.stack((r1, -r1 - r3, r3), dim=-1)
+
+
+def allen_cahn(t, y, lam):
+    """Stiff 1D Allen-Cahn semidiscretization (Dirichlet): lam*Lap(y) + y - y^3."""
+    up = torch.cat([y[..., 1:], torch.zeros_like(y[..., :1])], dim=-1)
+    dn = torch.cat([torch.zeros_like(y[..., :1]), y[..., :-1]], dim=-1)
+    return lam * (up - 2.0 * y + dn) + y - y**3
+
+
+def vdp_stiff_mixed(dtype=np.float32, b=STIFF["b"]):
+    """``(f, y0, None, kwargs)`` of the mixed-stiffness Van der Pol solve."""
+    mu = (10.0 ** np.linspace(0.0, 3.0, b)).astype(dtype)
+    y0 = np.tile(np.array([[2.0, 0.0]], dtype), (b, 1))
+    return vdp, y0, None, dict(args=mu, t_start=0.0, t_end=2.0, rtol=1e-4, atol=1e-6,
+                               method=STIFF["method"])
+
+
+def robertson_sweep(dtype=np.float32, b=STIFF["b"]):
+    """``(f, y0, None, kwargs)`` of the Robertson solve."""
+    y0 = np.tile(np.array([[1.0, 0.0, 0.0]], dtype), (b, 1))
+    return robertson, y0, None, dict(t_start=0.0, t_end=100.0, rtol=1e-5, atol=1e-8,
+                                     method=STIFF["method"])
+
+
+def allen_cahn_full(dtype=np.float32, b=STIFF["b"], f=ALLEN_CAHN["f"]):
+    """``(f, y0, None, kwargs)`` of the Allen-Cahn method-of-lines solve."""
+    x = np.linspace(0.0, 1.0, f + 2)[1:-1]
+    amps = np.linspace(1.0, 1.6, b)
+    y0 = (amps[:, None] * np.sin(np.pi * x)[None, :]).astype(dtype)
+    return allen_cahn, y0, None, dict(args=float((f + 1) ** 2), t_start=0.0,
+                                      t_end=ALLEN_CAHN["t_end"], rtol=1e-4, atol=1e-7,
+                                      method=STIFF["method"])

@@ -204,13 +204,17 @@ class TestNoHiddenDevice:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             T.AutoDiffAdjoint().solve(lambda t, y, a: -y, np.ones((2, 2)), np.linspace(0, 1, 3))
 
-    @pytest.mark.parametrize("kw, item", [
-        ({"method": "kvaerno5"}, "A-10"),
-    ])
-    def test_unported_features_refuse(self, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
-            T.solve_ivp(lambda t, y, a: -y, np.ones((1, 1)), np.linspace(0, 1, 3),
-                        device="cpu", **kw)
+    @pytest.mark.parametrize("method", sorted(n for n, tab in T.TABLEAUS.items()
+                                              if tab.implicit))
+    def test_implicit_methods_coerce_to_dirk(self, method):
+        """The implicit tableaus are ported: ``coerce`` gives a
+        ``DiagonallyImplicitRK`` (it used to refuse, ROADMAP A-10) and a CPU
+        solve runs through it."""
+        stepper = T.AbstractStepper.coerce(method)
+        assert type(stepper) is T.DiagonallyImplicitRK and stepper.tableau.name == method
+        sol = T.solve_ivp(lambda t, y, a: -y, np.ones((1, 1)), np.linspace(0, 1, 3),
+                          method=method, max_steps=50, device="cpu")
+        assert sol.stats["n_newton_iters"].shape == (1,)
 
     def test_events_must_be_event_objects(self):
         """Events are ported: anything that is not an ``Event`` is refused by

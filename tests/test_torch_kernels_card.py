@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card, the fused
-step kernels bitwise against the unfused card path, and the event kernels
-bitwise against their plain versions.
+step kernels bitwise against the unfused card path, the event kernels
+bitwise against their plain versions, and the chord-Newton kernels against
+theirs (at a tolerance: LAPACK/cuSOLVER eliminate in another order) with the
+unfused Newton iteration bitwise equal to the fused one.
 
 These tests need a CUDA device and skip without one; they import no JAX, so
 they also run where only the port is installed:
@@ -21,6 +23,7 @@ torch = pytest.importorskip("torch")
 from unittest import mock  # noqa: E402
 
 from repro_torch.core import (  # noqa: E402
+    DiagonallyImplicitRK,
     Event,
     FixedController,
     get_tableau,
@@ -34,6 +37,7 @@ from repro_torch.core.stepper import _tableau_arrays  # noqa: E402
 from repro_torch.kernels import cuda_impl, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.tools import event_checks  # noqa: E402
+from repro_torch.tools import newton_checks as NC  # noqa: E402
 from repro_torch.tools.step_checks import (  # noqa: E402
     POLY32_STATE,
     bitwise_mismatches,
@@ -137,7 +141,9 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda_device):
     assert ops.launches == {"stage_accum": 6 * iters, "fused_update": iters,
                             "error_norm": iters, "interp_eval": iters,
                             "fused_step": 0, "fused_step_poly": 0, "masked_bisect_refine": 0,
-                            "fused_event_detect": 0, "fused_event_commit": 0}
+                            "fused_event_detect": 0, "fused_event_commit": 0,
+                            "batched_linsolve": 0, "batched_lu_factor": 0,
+                            "fused_newton_iter": 0, "masked_newton_update": 0}
     cpu = solve_ivp(vdp, y0, te, args=2.0, atol=1e-6, rtol=1e-6, device="cpu")
     assert torch.equal(card.stats["n_steps"].cpu(), cpu.stats["n_steps"])
     torch.testing.assert_close(card.ys.cpu(), cpu.ys, rtol=1e-9, atol=1e-9)
@@ -251,7 +257,9 @@ def test_fused_solve_counts_launches_and_matches_unfused(cuda_device, method):
                             "fused_update": 0 if fsal else iters, "error_norm": 0,
                             "interp_eval": iters, "fused_step": iters, "fused_step_poly": 0,
                             "masked_bisect_refine": 0, "fused_event_detect": 0,
-                            "fused_event_commit": 0}
+                            "fused_event_commit": 0, "batched_linsolve": 0,
+                            "batched_lu_factor": 0, "fused_newton_iter": 0,
+                            "masked_newton_update": 0}
     assert torch.equal(fused.stats["n_fused_steps"], fused.stats["n_steps"])
     unfused = solve_ivp(vdp, y0, te, **kw)
     assert torch.equal(fused.stats["n_steps"], unfused.stats["n_steps"])
@@ -394,3 +402,155 @@ def test_events_never_reach_the_plain_version(cuda_device):
         for p in patches:
             p.stop()
     assert int(sol.status[0]) == 4
+
+
+def _newton_cases():
+    for f in NC.WIDTHS:
+        for kind in NC.KINDS:
+            if not ((kind == "zero_diag" and f < 2) or (kind == "ties" and f < 3)):
+                yield f, kind
+
+
+class TestNewtonKernelsOnCard:
+    """The four chord-Newton kernels against their plain versions on the same
+    card tensors, over the cases of ``tools/newton_checks.py``, and the
+    card's unfused Newton iteration bitwise against its fused one."""
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("f, kind", list(_newton_cases()))
+    @pytest.mark.parametrize("active", ["mixed", "all", "none"])
+    def test_against_plain(self, cuda_device, dtype, f, kind, active):
+        b = 37
+        M, rhs, k, fk, mask, scale = NC.to_torch(
+            NC.newton_inputs(f + len(kind), b, f, dtype, kind, active), cuda_device)
+        skip = NC.nan_rows(M.cpu().numpy())
+        before = dict(ops.launches)
+        lu, perm = cuda_impl.batched_lu_factor(M)
+        NC.hold("batched_lu_factor", (lu, perm), tref.batched_lu_factor(M), dtype, matrix=M,
+                skip_rows=skip)
+        keep = ~torch.as_tensor(skip, device=cuda_device)
+        NC.lu_reconstructs(lu[keep], perm[keep], M[keep], dtype)
+        x = cuda_impl.batched_linsolve(M, rhs)
+        NC.hold("batched_linsolve", (x,), (tref.batched_linsolve(M, rhs),), dtype,
+                skip_rows=skip)
+        it = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)
+        NC.hold("fused_newton_iter", it, tref.fused_newton_iter(lu, perm, k, fk, mask, scale),
+                dtype, skip_rows=skip)
+        if skip.any():
+            assert not torch.isfinite(it[1][~keep]).any()
+        up = cuda_impl.masked_newton_update(k, rhs, mask, scale)
+        NC.hold("masked_newton_update", up, tref.masked_newton_update(k, rhs, mask, scale),
+                dtype)
+        # The unfused iteration (linsolve, then the masked update) equals the
+        # fused one bitwise: the same LU, substitution and row norm.
+        unfused = cuda_impl.masked_newton_update(k, cuda_impl.batched_linsolve(M, k - fk), mask,
+                                                 scale)
+        for a, c in zip(unfused, it):
+            assert torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+        assert {n: ops.launches[n] - before[n] for n in (
+            "batched_lu_factor", "batched_linsolve", "fused_newton_iter",
+            "masked_newton_update")} == {"batched_lu_factor": 1, "batched_linsolve": 2,
+                                          "fused_newton_iter": 1, "masked_newton_update": 2}
+
+    def test_scale_broadcasts(self, cuda_device):
+        M, _, k, fk, mask, _ = NC.to_torch(NC.newton_inputs(1, 8, 5, np.float64), cuda_device)
+        lu, perm = cuda_impl.batched_lu_factor(M)
+        full = torch.full((8, 5), 2e-3, dtype=torch.float64, device=cuda_device)
+        for s in (2e-3, full[:, :1]):
+            for a, c in zip(cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, s),
+                            cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, full)):
+                assert torch.equal(a, c)
+            for a, c in zip(cuda_impl.masked_newton_update(k, fk, mask, s),
+                            cuda_impl.masked_newton_update(k, fk, mask, full)):
+                assert torch.equal(a, c)
+
+    def test_bad_inputs_raise(self, cuda_device):
+        M, rhs, k, fk, mask, scale = NC.to_torch(NC.newton_inputs(2, 4, 3, np.float32),
+                                                 cuda_device)
+        lu, perm = cuda_impl.batched_lu_factor(M)
+        with pytest.raises(ValueError, match="square"):
+            cuda_impl.batched_lu_factor(M[:, :2].contiguous())
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_impl.batched_linsolve(M.cpu(), rhs.cpu())
+        with pytest.raises(TypeError, match="int32"):
+            cuda_impl.fused_newton_iter(lu, perm.long(), k, fk, mask, scale)
+        with pytest.raises(TypeError, match="float32 or float64"):
+            cuda_impl.batched_lu_factor(M.half())
+        with pytest.raises(ValueError, match="contiguous"):
+            cuda_impl.batched_lu_factor(M.transpose(1, 2))
+        with pytest.raises(ValueError, match="shapes"):
+            cuda_impl.masked_newton_update(k, fk[:2], mask, scale)
+        with pytest.raises(RuntimeError, match="no backward"):
+            cuda_impl.batched_linsolve(M.clone().requires_grad_(True), rhs)
+        big = torch.eye(4100, dtype=torch.float64, device=cuda_device)[None]
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_impl.batched_linsolve(big, torch.ones(1, 4100, dtype=torch.float64,
+                                                       device=cuda_device))
+
+
+def _stiff_vdp(t, y, mu):
+    return torch.stack((y[:, 1], mu * (1 - y[:, 0] ** 2) * y[:, 1] - y[:, 0]), dim=-1)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_stiff_solve_on_card_matches_cpu_and_counts_launches(cuda_device, fused):
+    """A float64 kvaerno5 solve over four decades of stiffness on the card
+    takes the CPU's steps, Newton iterations and Jacobian evaluations; each
+    batched Newton iteration launches one batched_linsolve and one
+    masked_newton_update (unfused) or one fused_newton_iter (fused), and the
+    fused path factors once per step attempt."""
+    mu = np.repeat(10.0 ** np.linspace(0.0, 3.0, 8), 4)
+    y0 = np.tile([[2.0, 0.0]], (32, 1))
+    te = np.linspace(0.0, 1.0, 9)
+    kw = dict(args=mu, method="kvaerno5", rtol=1e-5, atol=1e-7, fused=fused)
+    for name in ops.launches:
+        ops.launches[name] = 0
+    card = solve_ivp(_stiff_vdp, y0, te, device=cuda_device, **kw)
+    iters = int(card.stats["n_steps"].max())
+    newton = int(card.stats["n_f_evals"][0]) - 2  # kvaerno5: only Newton evaluations
+    want = dict.fromkeys(ops.launches, 0)
+    want.update(stage_accum=6 * iters, interp_eval=iters)
+    if fused:
+        want.update(batched_lu_factor=iters, fused_newton_iter=newton, fused_step=iters)
+    else:
+        want.update(batched_linsolve=newton, masked_newton_update=newton, fused_update=iters,
+                    error_norm=iters)
+    assert ops.launches == want
+    cpu = solve_ivp(_stiff_vdp, y0, te, device="cpu", **kw)
+    for name in cpu.stats:
+        assert torch.equal(card.stats[name].cpu(), cpu.stats[name]), name
+    assert torch.equal(card.status.cpu(), cpu.status) and bool((cpu.status == 0).all())
+    torch.testing.assert_close(card.ys.cpu(), cpu.ys, rtol=1e-9, atol=1e-9)
+
+
+def test_stiff_fused_solve_bitwise_equals_unfused_on_card(cuda_device):
+    mu = (10.0 ** np.linspace(0.0, 3.0, 64)).astype(np.float32)
+    y0 = np.tile(np.array([[2.0, 0.0]], np.float32), (64, 1))
+    kw = dict(t_start=0.0, t_end=2.0, args=mu, method=DiagonallyImplicitRK("kvaerno5"),
+              rtol=1e-4, atol=1e-6, device=cuda_device)
+    a = solve_ivp(_stiff_vdp, y0, None, **kw)
+    c = solve_ivp(_stiff_vdp, y0, None, fused=True, **kw)
+    for name in ("ts", "ys", "status"):
+        assert torch.equal(getattr(a, name), getattr(c, name)), name
+    for name in a.stats:
+        assert torch.equal(a.stats[name], c.stats[name]), name
+    assert bool((a.status == 0).all())
+
+
+def test_stiff_path_never_reaches_the_plain_version(cuda_device):
+    """No fallback: with the plain Newton ops made to raise, stiff solves on
+    the card still run (through the kernels), unfused and fused."""
+    patches = [mock.patch.object(tref, name, side_effect=AssertionError("plain"))
+               for name in ("batched_linsolve", "batched_lu_factor", "fused_newton_iter",
+                            "masked_newton_update")]
+    for p in patches:
+        p.start()
+    try:
+        for fused in (False, True):
+            sol = solve_ivp(_stiff_vdp, np.array([[2.0, 0.0]], np.float32), None, t_start=0.0,
+                            t_end=1.0, args=100.0, method="kvaerno5", fused=fused,
+                            device=cuda_device)
+            assert int(sol.status[0]) == 0
+    finally:
+        for p in patches:
+            p.stop()
