@@ -63,6 +63,26 @@ raises, and the script exits non-zero without printing a result:
                    to unfused bitwise, rows 0-31 solved alone equal to the
                    same rows of the batch bitwise (all but ``n_f_evals``),
                    float64 card solves of rows 0-7 against the CPU's.
+9. ``lm``          the LM serving path (``repro_torch.models``,
+                   ``launch/serve``): reduced qwen2.5-14b and stablelm-3b in
+                   float32 on the card against the CPU (prefill, four decode
+                   steps, prefill/decode consistency, within 1e-4); then
+                   full-width qwen2.5-14b in bf16 (48 layers, d = 5120, GQA
+                   40/8, weights drawn on the card from seed 0) served at
+                   batch 4, prompt 2048, 32 generated tokens: prefill ms,
+                   decode ms per token, tokens/s, peak memory, exactly 48
+                   ``flash_attention_fwd`` launches (one per layer per
+                   prefill, none per decode step), finite logits, and
+                   prefill(s) + decode_step against prefill(s + 1) and the
+                   kernel's prefill against the plain attention's, each
+                   within 0.1 of the logits' RMS.
+
+The ``kernels`` phase also holds ``flash_attention_fwd`` to its plain version
+(float32 at 2e-5, bfloat16 at 3e-2) over ragged, ``q_offset``, MQA, hd = 80
+and bidirectional cases, times it at qwen2.5-14b's layer (with
+``scaled_dot_product_attention`` as the library yardstick), and holds the
+substitution kernels above their old 48 KiB shared-memory limit (f = 4096
+and 8192, float64, 1e-12, equal permutations).
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -71,6 +91,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import pathlib
@@ -78,13 +99,15 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # H100 SXM (NVIDIA data sheet): HBM3 at 3.35 TB/s; float32 67 TFLOP/s and
-# float64 34 TFLOP/s outside the tensor cores.
+# float64 34 TFLOP/s outside the tensor cores, bfloat16 989 TFLOP/s dense on
+# them.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 REPS = 50
 SLEEP_CYCLES = 1_000_000  # ~0.5 ms of device time before each timed launch
 SOURCES = {
@@ -101,6 +124,7 @@ SOURCES = {
     "batched_lu_factor": "src/repro_torch/kernels/csrc/linalg.cu",
     "fused_newton_iter": "src/repro_torch/kernels/csrc/linalg.cu",
     "masked_newton_update": "src/repro_torch/kernels/csrc/linalg.cu",
+    "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn.cu",
 }
 REPLACES = {
     "stage_accum": "src/repro/kernels/pallas_impl.py:123",
@@ -116,10 +140,26 @@ REPLACES = {
     "batched_lu_factor": "src/repro/kernels/pallas_impl.py:454",
     "fused_newton_iter": "src/repro/kernels/pallas_impl.py:540",
     "masked_newton_update": "src/repro/kernels/pallas_impl.py:608",
+    "flash_attention_fwd": "src/repro/kernels/flash_attn.py:83",
 }
 # The stiff path's kernels are timed and counted at allen_cahn_full's shapes.
 MAIN_SHAPE = dict.fromkeys(("batched_linsolve", "batched_lu_factor", "fused_newton_iter",
                             "masked_newton_update"), "allen_cahn_full")
+# The attention kernel at the shape the lm phase's full-width serve gives it.
+MAIN_SHAPE["flash_attention_fwd"] = "qwen2.5-14b_prefill"
+MAIN_DTYPE = {"flash_attention_fwd": "bfloat16"}
+# The flash kernel against its plain version (b, sq, sk, H, KV, hd, causal,
+# q_offset): tests/test_flash_kernel.py's CASES, ragged lengths,
+# chunked-prefill continuations, hd = 80 (stablelm-3b), bidirectional.
+FLASH_CASES = [
+    (1, 32, 32, 2, 2, 8, True, 0), (2, 64, 64, 4, 2, 16, True, 0),
+    (1, 64, 64, 4, 4, 16, False, 0), (2, 128, 128, 8, 2, 32, True, 0),
+    (1, 128, 128, 4, 1, 16, True, 0), (2, 37, 37, 4, 2, 16, True, 0),
+    (2, 37, 45, 4, 2, 16, True, 8), (1, 13, 45, 4, 2, 16, True, 32),
+    (1, 37, 45, 4, 4, 16, False, 0), (1, 100, 300, 8, 2, 128, True, 200),
+    (2, 129, 129, 32, 32, 80, True, 0), (1, 77, 77, 4, 4, 80, False, 0),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference's own tolerances
 
 
 def emit(phase, **fields):
@@ -152,6 +192,10 @@ def main() -> int:
     from repro_torch.kernels import _build, cuda_impl, ops, ref
     from repro_torch.tools import event_checks, newton_checks, step_checks, workloads
     from repro_torch.tools.step_checks import POLY32_STATE, tolerance
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, param_count
+    from repro_torch.models import attention as model_attention
 
     dev = torch.device("cuda")
     # Full float32 products everywhere: the CPU/card comparisons below are
@@ -237,8 +281,9 @@ def main() -> int:
         got = (check_kernel or run_kernel)()
         abs_err, rel_err = (compare_fn or compare)(f"{kernel}[{label}]", got, want, dtype)
         bound, by = bound_ms(nbytes, flops, dtype)
+        tol = extra.pop("tol", None) or tolerance(dtype)
         row = dict(kernel=kernel, shape=shape_name, dtype=str(dtype).split(".")[-1],
-                   case=label, tol=tolerance(dtype), max_abs_err=abs_err, max_rel_err=rel_err,
+                   case=label, tol=tol, max_abs_err=abs_err, max_rel_err=rel_err,
                    kernel_ms=median_ms(run_kernel), plain_ms=median_ms(run_plain),
                    bound_ms=bound, bound_by=by,
                    library_ms=median_ms(run_library) if run_library else None, **extra)
@@ -619,6 +664,100 @@ def main() -> int:
     emit("kernels", check="newton kernels, all cases", tol={"float32": 1e-5, "float64": 1e-12},
          unfused_iteration_bitwise_equal_to_fused=True,
          cases={f"{k[0]}/{k[1]}": v for k, v in newton_held.items()})
+
+    # The two substitution kernels above their old 48 KiB shared-memory limit
+    # (ROADMAP C-8: they now opt in to the device's 227 KiB), float64, b = 4,
+    # at f = 4096 and 8192 (chord matrices built on the card,
+    # newton_checks.wide_inputs): the LU (from 1024 columns on eliminated
+    # column by column over the whole card) with the plain permutation,
+    # batched_linsolve and fused_newton_iter held to their plain versions at
+    # 1e-12, the unfused iteration bitwise equal to the fused one.
+    def wide_newton(f):
+        M, rhs, k, fk, mask, scale = newton_checks.wide_inputs(f, 4, f, np.float64, dev)
+        lu_p, perm_p = ref.batched_lu_factor(M)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lu, perm = cuda_impl.batched_lu_factor(M)
+        torch.cuda.synchronize()
+        lu_s = time.perf_counter() - t0
+        err = {"batched_lu_factor": newton_checks.hold(
+            "batched_lu_factor", (lu, perm), (lu_p, perm_p), np.float64, matrix=M)}
+        err["batched_linsolve"] = newton_checks.hold(
+            "batched_linsolve", (cuda_impl.batched_linsolve(M, rhs),),
+            (ref.batched_linsolve(M, rhs),), np.float64)
+        it = cuda_impl.fused_newton_iter(lu_p, perm_p, k, fk, mask, scale)
+        err["fused_newton_iter"] = newton_checks.hold(
+            "fused_newton_iter", it, ref.fused_newton_iter(lu_p, perm_p, k, fk, mask, scale),
+            np.float64)
+        unfused = cuda_impl.masked_newton_update(k, cuda_impl.batched_linsolve(M, k - fk), mask,
+                                                 scale)
+        fused = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)
+        check(all(torch.equal(a, c) for a, c in zip(unfused, fused)),
+              f"newton[wide f={f}]: the unfused iteration differs bitwise from the fused one")
+        emit("kernels", check="newton kernels above 48 KiB of shared memory (C-8)", b=4, f=f,
+             dtype="float64", tol=1e-12, max_abs_err=err, permutation_equal=True,
+             unfused_iteration_bitwise_equal_to_fused=True, lu_factor_seconds=lu_s,
+             max_smem_bytes=_build.load().rt_linalg_max_smem())
+
+    for f in (4096, 8192):
+        wide_newton(f)
+
+    # The attention kernel against its plain version on the same card
+    # tensors (float32 at 2e-5, bfloat16 at 3e-2) over FLASH_CASES, then
+    # timed at qwen2.5-14b's layer: the prefill the lm phase serves (b = 4,
+    # sq = sk = 2048, H = 40, KV = 8, hd = 128, bf16; the summary's row) and
+    # one long prefill (b = 1, sq = sk = 4096) in bf16 and float32.
+    # bound: the causal area's operations (4 b H hd per visible query-key
+    # pair) over the dtype's peak, or q, k, v and o over HBM, the larger.
+    # library_ms: scaled_dot_product_attention(is_causal=True,
+    # enable_gqa=True) on the same tensors in its (b, H, s, hd) layout.
+    def hold_flash(name, got, want, dtype):
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-30)
+
+    def flash_inputs(seed, b, sq, sk, H, KV, hd, dtype):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, sq, H, hd), (b, sk, KV, hd), (b, sk, KV, hd)))
+
+    flash_held = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for case in FLASH_CASES:
+            b, sq, sk, H, KV, hd, causal, q_offset = case
+            q, k, v = flash_inputs(sq * sk + hd, b, sq, sk, H, KV, hd, dtype)
+            got = cuda_impl.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+            want = ref.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                                           q_chunk=32, kv_chunk=64)
+            worst = max(worst, hold_flash(f"flash_attention_fwd[{case}]", got, want, dtype)[0])
+        flash_held[str(dtype).split(".")[-1]] = dict(cases=len(FLASH_CASES), max_abs_err=worst)
+    emit("kernels", check="flash_attention_fwd, untimed cases", tol=FLASH_TOL,
+         cases=flash_held)
+
+    def visible_pairs(sq, sk, causal):
+        return sum(min(sk, i + 1) for i in range(sq)) if causal else sq * sk
+
+    def flash_timed(shape_name, b, s, dtype):
+        H, KV, hd = 40, 8, 128  # qwen2.5-14b
+        q, k, v = flash_inputs(s, b, s, s, H, KV, hd, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        e = q.element_size()
+        measure("flash_attention_fwd", shape_name, dtype, f"b={b} s={s} H=40 KV=8 hd=128 causal",
+                lambda: cuda_impl.flash_attention_fwd(q, k, v),
+                lambda: ref.flash_attention_fwd(q, k, v, q_chunk=512, kv_chunk=1024),
+                e * (2 * q.numel() + k.numel() + v.numel()),
+                4 * b * H * hd * visible_pairs(s, s, True),
+                compare_fn=hold_flash,
+                run_library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                tol=FLASH_TOL[str(dtype).split(".")[-1]])
+
+    flash_timed("qwen2.5-14b_prefill", 4, 2048, torch.bfloat16)
+    flash_timed("qwen2.5-14b_long", 1, 4096, torch.bfloat16)
+    flash_timed("qwen2.5-14b_long", 1, 4096, torch.float32)
 
     # --------------------------------------------------------- 4. vdp_table3
     def reset_launches():
@@ -1129,6 +1268,123 @@ def main() -> int:
              mean_steps_over_jax_loop_iterations=float(runs["unfused"].stats["n_steps"].mean())
              / ref_cpu["loop_iterations"])
 
+    # ----------------------------------------------------------------- 9. lm
+    # The LM serving path (repro_torch.models, launch/serve).  (a) Reduced
+    # qwen2.5-14b and stablelm-3b in float32, the same weights (drawn on the
+    # CPU from seed 0) on the card and on the CPU: prefill logits and four
+    # decode steps within 1e-4, prefill(s) + decode_step(token s) within 1e-4
+    # of prefill(s + 1), one flash launch per layer per prefill and none per
+    # decode step.
+    torch.cuda.empty_cache()
+    for arch in ("qwen2.5-14b", "stablelm-3b"):
+        cfg = get_config(arch, reduced=True)
+        cpu_lm = LM(cfg, device="cpu", seed=0)
+        card_lm = LM(cfg, device=dev)
+        card_lm.load_state_dict(cpu_lm.state_dict())
+        tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 45)))
+        reset_launches()
+        lg, cache = card_lm.prefill({"tokens": tok[:, :37].to(dev)})
+        check(ops.launches["flash_attention_fwd"] == cfg.n_layers,
+              f"lm/{arch}: {ops.launches['flash_attention_fwd']} flash launches per prefill")
+        lg_cpu, cache_cpu = cpu_lm.prefill({"tokens": tok[:, :37]})
+        diffs = [float((lg.cpu() - lg_cpu).abs().max())]
+        cache, cache_cpu = card_lm.pad_cache(cache, 41), cpu_lm.pad_cache(cache_cpu, 41)
+        for i in range(4):
+            pos = torch.full((2,), 37 + i)
+            lg, cache = card_lm.decode_step(tok[:, 37 + i].to(dev), pos.to(dev), cache)
+            lg_cpu, cache_cpu = cpu_lm.decode_step(tok[:, 37 + i], pos, cache_cpu)
+            diffs.append(float((lg.cpu() - lg_cpu).abs().max()))
+        check(ops.launches["flash_attention_fwd"] == cfg.n_layers,
+              f"lm/{arch}: a decode step launched the flash kernel")
+        # the last decode step saw tokens 0..40: prefill(tokens[:, :41])
+        full_lg, _ = card_lm.prefill({"tokens": tok[:, :41].to(dev)})
+        consistency = float((lg - full_lg).abs().max())
+        check(max(diffs) <= 1e-4 and consistency <= 1e-4,
+              f"lm/{arch}: card vs cpu {diffs}, prefill/decode consistency {consistency}")
+        emit("lm", arch=cfg.name, dtype="float32", b=2, prompt=37, decode_steps=4,
+             card_vs_cpu_max_abs_diff=diffs, decode_vs_prefill_max_abs_diff=consistency,
+             flash_launches_per_prefill=cfg.n_layers)
+        del cpu_lm, card_lm, cache, cache_cpu
+
+    # (b) Full-width qwen2.5-14b in bf16, weights drawn on the card from seed
+    # 0: serve.run at batch 4, prompt 2048, 32 generated tokens -- one
+    # prefill (48 flash launches) and 31 decode steps (none) -- every logit
+    # finite.  Then through the whole stack: prefill(s) + decode_step(token
+    # s) against prefill(s + 1) (the kernel against the plain decode
+    # attention), and the prefill with the kernel against the same prefill
+    # with the plain attention on the card, both held to 0.1 of the logits'
+    # RMS (||a - b|| / ||b||: bf16 rounding through 48 layers, where a
+    # mask, scale or head-mapping fault moves the logits by their own size).
+    cfg = get_config("qwen2.5-14b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve_args = argparse.Namespace(arch="qwen2.5-14b", reduced=False, batch=4,
+                                    prompt_len=2048, gen=32, seed=0, model_parallel=1,
+                                    device="cuda")
+    serve.run(serve_args, model=lm)  # warm-up: kernels built, cuBLAS plans made
+    finite = {"all": torch.ones((), dtype=torch.bool, device=dev), "steps": 0}
+
+    def record(step, logits):
+        finite["all"] &= torch.isfinite(logits).all()
+        finite["steps"] += 1
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = serve.run(serve_args, model=lm, record=record)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    main_path_launches["lm/serve"] = launches
+    want = dict.fromkeys(ops.launches, 0)
+    want["flash_attention_fwd"] = cfg.n_layers
+    check(launches == want, f"lm/serve: launches {launches} != {want} (48 per prefill, 0 per "
+          "decode step)")
+    check(bool(finite["all"]) and finite["steps"] == serve_args.gen,
+          "lm/serve: a logit is not finite")
+    b, plen, gen = serve_args.batch, serve_args.prompt_len, serve_args.gen
+    emit("lm", arch=cfg.name, dtype=cfg.dtype, b=b, prompt=plen, gen=gen,
+         params=param_count(lm), init_s=init_s, prefill_ms=out["prefill_s"] * 1e3,
+         decode_ms_per_token=out["decode_s"] * 1e3 / (gen - 1),
+         tokens_per_s=(gen - 1) * b / out["decode_s"],
+         prefill_tokens_per_s=b * plen / out["prefill_s"], max_memory_allocated=peak,
+         launches=launches, logits_finite=True, sample=out["tokens"][0, :8].tolist())
+
+    def rel(a, c):
+        return float((a.float() - c.float()).norm() / c.float().norm())
+
+    prompts = torch.randint(0, cfg.vocab, (b, plen), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    s_ = plen - 1
+    reset_launches()
+    lg_s, cache = lm.prefill({"tokens": prompts[:, :s_]})
+    cache = lm.pad_cache(cache, plen)
+    check(ops.launches["flash_attention_fwd"] == cfg.n_layers, "lm: prefill launches")
+    lg_dec, _ = lm.decode_step(prompts[:, s_].to(torch.int32),
+                               torch.full((b,), s_, dtype=torch.int32, device=dev), cache)
+    check(ops.launches["flash_attention_fwd"] == cfg.n_layers, "lm: decode launched flash")
+    del cache
+    lg_full, _ = lm.prefill({"tokens": prompts})
+    with mock.patch.object(model_attention.ops, "flash_attention_fwd",
+                           side_effect=lambda q, k, v, **kw: ref.flash_attention_fwd(q, k, v,
+                                                                                    **kw)):
+        lg_plain, _ = lm.prefill({"tokens": prompts})
+    decode_rel, plain_rel = rel(lg_dec, lg_full), rel(lg_full, lg_plain)
+    top1 = float((lg_dec.argmax(-1) == lg_full.argmax(-1)).float().mean())
+    check(all(bool(torch.isfinite(x).all()) for x in (lg_s, lg_dec, lg_full, lg_plain)),
+          "lm: non-finite logits")
+    check(decode_rel <= 0.1 and plain_rel <= 0.1,
+          f"lm: decode vs prefill {decode_rel}, kernel vs plain attention {plain_rel} (> 0.1)")
+    emit("lm", arch=cfg.name, check="prefill(s) + decode_step vs prefill(s + 1); kernel vs "
+         "plain attention", s=s_, bound=0.1, decode_vs_prefill_rel=decode_rel,
+         decode_vs_prefill_max_abs=float((lg_dec.float() - lg_full.float()).abs().max()),
+         kernel_vs_plain_prefill_rel=plain_rel,
+         kernel_vs_plain_prefill_max_abs=float((lg_full.float() - lg_plain.float()).abs().max()),
+         logits_rms=float(lg_full.float().pow(2).mean().sqrt()), top1_agreement=top1)
+    del lm
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- kernel summary, then result
     summary = []
     launch_source = {"fused_step": "fused/full_width", "fused_step_poly": "fused/step_bench",
@@ -1138,24 +1394,27 @@ def main() -> int:
                      "batched_linsolve": "stiff/allen_cahn_full/unfused",
                      "masked_newton_update": "stiff/allen_cahn_full/unfused",
                      "batched_lu_factor": "stiff/allen_cahn_full/fused",
-                     "fused_newton_iter": "stiff/allen_cahn_full/fused"}
+                     "fused_newton_iter": "stiff/allen_cahn_full/fused",
+                     "flash_attention_fwd": "lm/serve"}
     for name in REPLACES:
         mine = [r for r in rows if r["kernel"] == name]
         main = [r for r in mine if r["shape"] == MAIN_SHAPE.get(name, "full_width")
-                and r["dtype"] == "float32"]
+                and r["dtype"] == MAIN_DTYPE.get(name, "float32")]
         checked = [a["max_abs_err"] for (k, _, _), a in fused_checks.items() if k == name]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             # The unfused kernels count the unfused full_width run; the fused
             # ones the fused full_width run and the step_bench dopri5 run;
             # the event kernels the unfused full_width_long_events run; the
-            # Newton kernels allen_cahn_full's unfused or fused run.
+            # Newton kernels allen_cahn_full's unfused or fused run; the
+            # attention the full-width serve (one prefill, 31 decode steps).
             "launches": main_path_launches[launch_source.get(name, "full_width")][name],
             "max_abs_err": max([r["max_abs_err"] for r in mine] + checked),
             # At the full-width float32 shapes; stage_accum and error_norm are
             # the mean over their cases (j = 1..6, the three tolerance shapes),
             # the fused kernels are their main-path case; the Newton kernels
-            # at allen_cahn_full's shapes (b = 1024, f = 128).
+            # at allen_cahn_full's shapes (b = 1024, f = 128); the attention
+            # at the full-width serve's prefill (b = 4, s = 2048, bf16).
             "ms": statistics.fmean(r["kernel_ms"] for r in main),
             "plain_ms": statistics.fmean(r["plain_ms"] for r in main),
             "bound_ms": statistics.fmean(r["bound_ms"] for r in main),

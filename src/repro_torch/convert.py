@@ -2,7 +2,9 @@
 
 ``from_numpy`` turns a nested dict, list or tuple of numpy arrays into
 tensors on a device, so one numpy seed can feed both the JAX package and the
-port; ``to_numpy`` brings a ``Solution`` back to the host.
+port; ``to_numpy`` brings a ``Solution`` back to the host;
+``lm_params_from_numpy`` turns the JAX package's LM parameter pytree into the
+state of the port's ``models.LM``.
 """
 
 from __future__ import annotations
@@ -42,3 +44,34 @@ def to_numpy(solution: Solution) -> Solution:
         **{f.name: pytree.tree_map(conv, getattr(solution, f.name))
            for f in dataclasses.fields(solution)},
     )
+
+
+def lm_params_from_numpy(cfg, params_np, device, dtype=None):
+    """The ``models.LM`` state (a ``state_dict``) of the reference's
+    parameter pytree ``params_np`` -- ``{"embed", "final_norm", "blocks"}``
+    as numpy arrays, each block leaf stacked on a leading period axis -- on
+    ``device``.  Layer ``p * len(pattern) + i`` takes period ``p`` of block
+    ``b{i}``.  Floating leaves are cast to ``dtype``, or by default to the
+    dtype the LM gives them: ``cfg.dtype`` for weights, float32 for norm
+    parameters, as ``init_params`` makes them.  (bfloat16 leaves come out of
+    JAX as ``ml_dtypes.bfloat16``, which torch does not take: convert them to
+    float32 first; the cast back to bfloat16 is exact.)"""
+    weights = getattr(torch, cfg.dtype)
+
+    def conv(x, norm):
+        t = torch.as_tensor(np.array(x), device=device)  # a writable copy
+        return t.to(dtype or (torch.float32 if norm else weights))
+
+    state = {"embed": conv(params_np["embed"], False)}
+    for name, x in params_np["final_norm"].items():
+        state[f"final_norm.{name}"] = conv(x, True)
+    n = len(cfg.pattern)
+    for i in range(n):
+        block = params_np["blocks"][f"b{i}"]
+        for sub, leaves in block.items():
+            for name, x in leaves.items():
+                x = np.asarray(x)
+                for period in range(cfg.n_periods):
+                    state[f"blocks.{period * n + i}.{sub}.{name}"] = conv(
+                        x[period], sub.startswith("ln"))
+    return state

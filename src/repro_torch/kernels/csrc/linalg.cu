@@ -137,15 +137,119 @@ __global__ void newton_update_kernel(const T* __restrict__ k, const T* __restric
   if (lane == 0) res[row] = r;
 }
 
+// ------------------------------------------------ the wide elimination
+// One block per instance leaves all but b SMs idle, and its trailing
+// update is a latency chain through device memory once the matrix outgrows
+// L2: at b = 4, f = 8192 it would take minutes.  From kWideF columns on,
+// batched_lu_factor and batched_linsolve eliminate column by column over
+// the whole card instead: per column one launch of lu_pivot_kernel (one
+// block per instance: lu_pivot_column, the same device function as the
+// one-block path) and one of lu_update_kernel (a warp per row and 8
+// columns per lane, over a grid of 8-row by 256-column tiles).  Every entry
+// takes the same fma with the same operands in the same column order, so
+// the factors are bitwise those of lu_factor_block.
+constexpr int kWideF = 1024;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lu_pivot_kernel(T* __restrict__ a_all, int32_t* __restrict__ perm_all, int f, int k) {
+  T* a = a_all + blockIdx.x * (int64_t)f * f;
+  int32_t* perm = perm_all + blockIdx.x * (int64_t)f;
+  if (k == 0) {
+    for (int i = threadIdx.x; i < f; i += blockDim.x) perm[i] = i;
+  }
+  lu_pivot_column(a, perm, f, k);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lu_update_kernel(T* __restrict__ a_all, int f, int k) {
+  T* a = a_all + blockIdx.z * (int64_t)f * f;
+  const int i = k + 1 + blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (i >= f) return;
+  const T l = a[(int64_t)i * f + k];
+  const int j0 = k + 1 + blockIdx.y * 256 + (threadIdx.x & 31);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int j = j0 + 32 * c;
+    if (j < f) lu_update_entry(a, f, k, i, j, l);
+  }
+}
+
+// Factor the b matrices at `a` in place, column by column (perm: (b, f)).
+template <typename T>
+cudaError_t factor_wide(T* a, int32_t* perm, int64_t b, int f, cudaStream_t stream) {
+  if (b > 65535) return cudaErrorInvalidValue;  // grid.z of the update
+  for (int k = 0; k < f; ++k) {
+    lu_pivot_kernel<T><<<static_cast<unsigned>(b), kThreads, 0, stream>>>(a, perm, f, k);
+    const int n = f - k - 1;
+    if (n > 0) {
+      const dim3 grid((n + kThreads / 32 - 1) / (kThreads / 32), (n + 255) / 256,
+                      static_cast<unsigned>(b));
+      lu_update_kernel<T><<<grid, kThreads, 0, stream>>>(a, f, k);
+    }
+  }
+  return cudaGetLastError();
+}
+
+// The substitution of batched_linsolve after a wide elimination: x =
+// rhs[perm] through lu_substitute_block, one block per instance.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+substitute_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
+                  const T* __restrict__ rhs, T* __restrict__ x_out, int f) {
+  extern __shared__ unsigned char smem[];
+  T* x = reinterpret_cast<T*>(smem);
+  const int64_t row = blockIdx.x;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) x[i] = rhs[row * f + perm[row * f + i]];
+  lu_substitute_block(lu + row * (int64_t)f * f, x, x_out + row * f, f);
+}
+
 // Shared memory of the substitution: two f-vectors of T (newton_iter), or
-// one and the int32 permutation (linsolve).  Above the default 48 KiB of
-// dynamic shared memory a launch is refused (f > 3072 in float64).
-constexpr size_t kMaxSmem = 48 * 1024;
+// one and the int32 permutation (linsolve).  Above the default 48 KiB a
+// launch opts in to the larger dynamic shared memory, up to the device's
+// per-block limit (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KiB on an
+// H100) less the kernel's static shared memory: f <= ~14.5k (newton_iter)
+// and ~19.3k (linsolve) in float64.
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+// The dynamic shared memory `kernel` may ask for on the current device.
+template <typename Kernel>
+cudaError_t dynamic_smem_limit(Kernel kernel, size_t* limit) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess) *limit = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  return e;
+}
+
+// Check `smem` against the limit and, above the default, opt the kernel in.
+template <typename Kernel>
+cudaError_t reserve_smem(Kernel kernel, size_t smem) {
+  size_t limit = 0;
+  cudaError_t e = dynamic_smem_limit(kernel, &limit);
+  if (e != cudaSuccess) return e;
+  if (smem > limit) return cudaErrorInvalidValue;
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
 
 template <typename T>
 int launch_lu_factor(const void* A, void* lu, void* perm, int64_t b, int64_t f,
                      cudaStream_t stream) {
   if (b < 1 || f < 1 || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (f >= kWideF) {
+    const cudaError_t e = cudaMemcpyAsync(lu, A, sizeof(T) * b * f * f,
+                                          cudaMemcpyDeviceToDevice, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(factor_wide(static_cast<T*>(lu), static_cast<int32_t*>(perm), b,
+                                        static_cast<int>(f), stream));
+  }
   lu_factor_kernel<T><<<static_cast<unsigned>(b), kThreads, 0, stream>>>(
       static_cast<const T*>(A), static_cast<T*>(lu), static_cast<int32_t*>(perm),
       static_cast<int>(f));
@@ -153,10 +257,28 @@ int launch_lu_factor(const void* A, void* lu, void* perm, int64_t b, int64_t f,
 }
 
 template <typename T>
-int launch_linsolve(const void* A, const void* rhs, void* scratch, void* x, int64_t b,
-                    int64_t f, cudaStream_t stream) {
+int launch_linsolve(const void* A, const void* rhs, void* scratch, void* perm_scratch, void* x,
+                    int64_t b, int64_t f, cudaStream_t stream) {
+  if (b < 1 || f < 1 || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (f >= kWideF) {
+    const size_t smem = static_cast<size_t>(f) * sizeof(T);
+    cudaError_t e = reserve_smem(substitute_kernel<T>, smem);
+    if (e == cudaSuccess) {
+      e = cudaMemcpyAsync(scratch, A, sizeof(T) * b * f * f, cudaMemcpyDeviceToDevice, stream);
+    }
+    if (e == cudaSuccess) {
+      e = factor_wide(static_cast<T*>(scratch), static_cast<int32_t*>(perm_scratch), b,
+                      static_cast<int>(f), stream);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    substitute_kernel<T><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
+        static_cast<const T*>(scratch), static_cast<const int32_t*>(perm_scratch),
+        static_cast<const T*>(rhs), static_cast<T*>(x), static_cast<int>(f));
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = static_cast<size_t>(f) * (sizeof(T) + sizeof(int32_t));
-  if (b < 1 || f < 1 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = reserve_smem(linsolve_kernel<T>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   linsolve_kernel<T><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
       static_cast<const T*>(A), static_cast<const T*>(rhs), static_cast<T*>(scratch),
       static_cast<T*>(x), static_cast<int>(f));
@@ -168,7 +290,9 @@ int launch_newton_iter(const void* lu, const void* perm, const void* k, const vo
                        const void* active, const void* scale, void* k_new, void* res,
                        int64_t b, int64_t f, cudaStream_t stream) {
   const size_t smem = 2 * static_cast<size_t>(f) * sizeof(T);
-  if (b < 1 || f < 1 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1 || f < 1 || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = reserve_smem(newton_iter_kernel<T>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   newton_iter_kernel<T><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
       static_cast<const T*>(lu), static_cast<const int32_t*>(perm), static_cast<const T*>(k),
       static_cast<const T*>(fk), static_cast<const uint8_t*>(active),
@@ -195,11 +319,25 @@ int launch_newton_update(const void* k, const void* delta, const void* active,
 // ------------------------------------------------------------- C entry points
 // dtype: 0 = float32, 1 = float64.  Every entry returns cudaGetLastError(),
 // or cudaErrorInvalidValue for an empty shape or a width whose substitution
-// vectors exceed the shared-memory limit (rt_linalg_max_smem()).
+// vectors exceed the device's shared-memory limit (rt_linalg_max_smem()).
 
 extern "C" {
 
-int rt_linalg_max_smem() { return static_cast<int>(kMaxSmem); }
+// The smallest dynamic shared-memory limit of the two substitution kernels
+// on the current device, in bytes (either dtype), or -1 if the device
+// cannot be queried.
+int rt_linalg_max_smem() {
+  size_t least = static_cast<size_t>(-1), limit = 0;
+  if (dynamic_smem_limit(linsolve_kernel<float>, &limit) != cudaSuccess) return -1;
+  least = limit < least ? limit : least;
+  if (dynamic_smem_limit(linsolve_kernel<double>, &limit) != cudaSuccess) return -1;
+  least = limit < least ? limit : least;
+  if (dynamic_smem_limit(newton_iter_kernel<float>, &limit) != cudaSuccess) return -1;
+  least = limit < least ? limit : least;
+  if (dynamic_smem_limit(newton_iter_kernel<double>, &limit) != cudaSuccess) return -1;
+  least = limit < least ? limit : least;
+  return static_cast<int>(least);
+}
 
 int rt_batched_lu_factor(int dtype, const void* A, void* lu, void* perm, int64_t b, int64_t f,
                          void* stream) {
@@ -208,11 +346,11 @@ int rt_batched_lu_factor(int dtype, const void* A, void* lu, void* perm, int64_t
                : launch_lu_factor<float>(A, lu, perm, b, f, s);
 }
 
-int rt_batched_linsolve(int dtype, const void* A, const void* rhs, void* scratch, void* x,
-                        int64_t b, int64_t f, void* stream) {
+int rt_batched_linsolve(int dtype, const void* A, const void* rhs, void* scratch,
+                        void* perm_scratch, void* x, int64_t b, int64_t f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_linsolve<double>(A, rhs, scratch, x, b, f, s)
-               : launch_linsolve<float>(A, rhs, scratch, x, b, f, s);
+  return dtype ? launch_linsolve<double>(A, rhs, scratch, perm_scratch, x, b, f, s)
+               : launch_linsolve<float>(A, rhs, scratch, perm_scratch, x, b, f, s);
 }
 
 int rt_fused_newton_iter(int dtype, const void* lu, const void* perm, const void* k,

@@ -6,7 +6,10 @@
 // So the three pieces they share are written once, here:
 //
 // - lu_factor_block: the partial-pivoted elimination of one (f, f) matrix
-//   by one thread block, in place in device memory;
+//   by one thread block, in place in device memory, from lu_pivot_column
+//   (one column's pivot, swap and multipliers) and lu_update_entry (one
+//   entry's trailing fma), which linalg.cu's wide elimination launches
+//   column by column over the whole card;
 // - lu_substitute_block: the unit-lower, then upper, substitution against
 //   those factors, column by column;
 // - newton_norm_warp: the scaled RMS of one row of the update, by one warp.
@@ -72,13 +75,57 @@ __device__ int argmax_block(T mag, int row) {
   return s_best;
 }
 
+// Column k of the elimination up to its trailing update: the pivot is the
+// row of largest |a[r, k]|, r >= k (lowest row on ties; NaN is never chosen,
+// and a column of NaN keeps row k), rows k and p swap (and so do perm[k]
+// and perm[p]), and the multipliers below the diagonal are divided by the
+// pivot -- a zero pivot leaves its column unscaled, as LAPACK's getrf does,
+// and the substitution divides by it.  `perm` must be initialized before
+// the call (argmax_block synchronizes ahead of the swap).  Every thread of
+// the block must call it; the block is synchronized on return.
+template <typename T>
+__device__ void lu_pivot_column(T* __restrict__ a, int32_t* __restrict__ perm, int f, int k) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  T mag = T(-1);
+  int row = k;
+  for (int i = k + tid; i < f; i += nt) {
+    const T v = abs_of(a[(int64_t)i * f + k]);
+    if (v > mag) {  // rows ascend within a thread: the first of equals stays
+      mag = v;
+      row = i;
+    }
+  }
+  const int p = argmax_block(mag, row);  // synchronizes the block
+  if (p != k) {
+    for (int j = tid; j < f; j += nt) {
+      const T t = a[(int64_t)k * f + j];
+      a[(int64_t)k * f + j] = a[(int64_t)p * f + j];
+      a[(int64_t)p * f + j] = t;
+    }
+    if (tid == 0) {
+      const int32_t t = perm[k];
+      perm[k] = perm[p];
+      perm[p] = t;
+    }
+  }
+  __syncthreads();
+  const T piv = a[(int64_t)k * f + k];
+  if (piv != T(0)) {
+    for (int i = k + 1 + tid; i < f; i += nt) a[(int64_t)i * f + k] /= piv;
+  }
+  __syncthreads();
+}
+
+// The trailing update of column k at entry (i, j), i, j > k: one fma.
+template <typename T>
+__device__ __forceinline__ void lu_update_entry(T* __restrict__ a, int f, int k, int i, int j,
+                                                T l) {
+  a[(int64_t)i * f + j] = fma_of(-l, a[(int64_t)k * f + j], a[(int64_t)i * f + j]);
+}
+
 // Partial-pivoted LU of the (f, f) row-major matrix `a`, in place: the
 // unit-lower multipliers below the diagonal, U on and above, and `perm` the
-// row permutation (a_in[perm] == L U).  Per column k: the pivot is the row
-// of largest |a[r, k]|, r >= k (lowest row on ties; NaN is never chosen, and
-// a column of NaN keeps row k), rows k and p swap, the multipliers are
-// divided by the pivot -- a zero pivot leaves its column unscaled, as
-// LAPACK's getrf does, and the substitution divides by it -- and the
+// row permutation (a_in[perm] == L U): per column lu_pivot_column, then the
 // trailing block takes one fma per entry.  Needs the whole block; every
 // thread must call it.
 template <typename T>
@@ -87,40 +134,11 @@ __device__ void lu_factor_block(T* __restrict__ a, int32_t* __restrict__ perm, i
   const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
   for (int i = tid; i < f; i += nt) perm[i] = i;
   for (int k = 0; k < f; ++k) {
-    T mag = T(-1);
-    int row = k;
-    for (int i = k + tid; i < f; i += nt) {
-      const T v = abs_of(a[(int64_t)i * f + k]);
-      if (v > mag) {  // rows ascend within a thread: the first of equals stays
-        mag = v;
-        row = i;
-      }
-    }
-    const int p = argmax_block(mag, row);  // synchronizes the block
-    if (p != k) {
-      for (int j = tid; j < f; j += nt) {
-        const T t = a[(int64_t)k * f + j];
-        a[(int64_t)k * f + j] = a[(int64_t)p * f + j];
-        a[(int64_t)p * f + j] = t;
-      }
-      if (tid == 0) {
-        const int32_t t = perm[k];
-        perm[k] = perm[p];
-        perm[p] = t;
-      }
-    }
-    __syncthreads();
-    const T piv = a[(int64_t)k * f + k];
-    if (piv != T(0)) {
-      for (int i = k + 1 + tid; i < f; i += nt) a[(int64_t)i * f + k] /= piv;
-    }
-    __syncthreads();
+    lu_pivot_column(a, perm, f, k);
     // Trailing update: a warp per row, lanes along the row (coalesced).
     for (int i = k + 1 + warp; i < f; i += nwarps) {
       const T l = a[(int64_t)i * f + k];
-      for (int j = k + 1 + lane; j < f; j += 32) {
-        a[(int64_t)i * f + j] = fma_of(-l, a[(int64_t)k * f + j], a[(int64_t)i * f + j]);
-      }
+      for (int j = k + 1 + lane; j < f; j += 32) lu_update_entry(a, f, k, i, j, l);
     }
     __syncthreads();
   }

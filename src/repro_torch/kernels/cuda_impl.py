@@ -1,7 +1,8 @@
 """Wrappers around the CUDA kernels in ``csrc/`` (``solver_kernels.cu``,
-``fused_step.cu``, ``events.cu``, ``linalg.cu``).
+``fused_step.cu``, ``events.cu``, ``linalg.cu``, ``flash_attn.cu``).
 
-Each wrapper checks device, dtype (float32 or float64), shape and
+Each wrapper checks device, dtype (float32 or float64; float32 or bfloat16
+for the attention), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and raises when the launch reports an error.
 It never falls back to the plain version: a tensor the kernel does not take
@@ -22,7 +23,8 @@ from . import _build
 launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval": 0,
             "fused_step": 0, "fused_step_poly": 0, "masked_bisect_refine": 0,
             "fused_event_detect": 0, "fused_event_commit": 0, "batched_linsolve": 0,
-            "batched_lu_factor": 0, "fused_newton_iter": 0, "masked_newton_update": 0}
+            "batched_lu_factor": 0, "fused_newton_iter": 0, "masked_newton_update": 0,
+            "flash_attention_fwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -433,13 +435,19 @@ def _square(name, A):
     return A.shape[0], A.shape[1]
 
 
-def _substitution_fits(name, f, bytes_per_feature, lib):
+def _substitution_fits(name, f, bytes_per_feature, lib, device):
     """The substitution keeps ``bytes_per_feature * f`` bytes in shared
-    memory (its vectors): raise above the kernel's limit."""
+    memory (its vectors): raise above the device's opt-in limit per block
+    less the kernels' static shared memory (``rt_linalg_max_smem``)."""
     need = f * bytes_per_feature
-    if need > lib.rt_linalg_max_smem():
+    with torch.cuda.device(device):
+        limit = lib.rt_linalg_max_smem()
+    if limit < 0:
+        raise RuntimeError(f"{name}: cannot read the shared-memory limit of {device}")
+    if need > limit:
         raise ValueError(f"{name}: f = {f} needs {need} bytes of shared memory for the "
-                         f"substitution, above the kernel's {lib.rt_linalg_max_smem()}")
+                         f"substitution, above the device's limit of {limit} bytes "
+                         f"(f <= {limit // bytes_per_feature} at this dtype)")
 
 
 def _row_scale(name, scale, b, f, like):
@@ -485,12 +493,13 @@ def batched_linsolve(A, rhs):
     if rhs.shape != (b, f):
         raise ValueError(f"batched_linsolve: rhs of shape {tuple(rhs.shape)}, want ({b}, {f})")
     lib = _build.load()
-    _substitution_fits("batched_linsolve", f, A.element_size() + 4, lib)  # x, int32 perm
+    _substitution_fits("batched_linsolve", f, A.element_size() + 4, lib, A.device)  # x, int32 perm
     scratch = torch.empty_like(A)
+    perm = torch.empty((b, f), dtype=torch.int32, device=A.device)
     x = torch.empty_like(rhs)
     with torch.cuda.device(A.device):
         rc = lib.rt_batched_linsolve(code, A.data_ptr(), rhs.data_ptr(), scratch.data_ptr(),
-                                     x.data_ptr(), b, f, _stream(A.device))
+                                     perm.data_ptr(), x.data_ptr(), b, f, _stream(A.device))
     _raise_on("batched_linsolve", rc)
     launches["batched_linsolve"] += 1
     return x
@@ -515,7 +524,7 @@ def fused_newton_iter(lu, perm, k, fk, active, scale):
     scale = _row_scale(name, scale, b, f, k)
     _check(name, k.dtype, scale)
     lib = _build.load()
-    _substitution_fits(name, f, 2 * k.element_size(), lib)  # x and delta
+    _substitution_fits(name, f, 2 * k.element_size(), lib, k.device)  # x and delta
     k_new = torch.empty_like(k)
     res = torch.empty((b,), dtype=k.dtype, device=k.device)
     with torch.cuda.device(k.device):
@@ -551,3 +560,45 @@ def masked_newton_update(k, delta, active, scale):
     _raise_on(name, rc)
     launches[name] += 1
     return k_new, res
+
+
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0):
+    """CUDA ``flash_attention_fwd``: GQA attention of q (b, sq, H, hd) over
+    k, v (b, sk, KV, hd), query head h on KV head h // (H // KV), ``q_offset``
+    the position of q[:, 0] against k[:, 0] (see ``ref.flash_attention_fwd``).
+    Ragged lengths need no padding: the kernel masks rows and keys past the
+    ends.  Returns a new (b, sq, H, hd) tensor in q's dtype."""
+    name = "flash_attention_fwd"
+    if not isinstance(q, torch.Tensor) or q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, got "
+                        f"{getattr(q, 'dtype', type(q).__name__)}")
+    _check(name, q.dtype, q, k, v)
+    _same_device(name, q, k, v)
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} are not (b, sq, H, hd), (b, sk, KV, hd) twice")
+    b, sq, H, hd = q.shape
+    sk, KV = k.shape[1], k.shape[2]
+    if min(b, sq, sk, H, KV) < 1 or H % KV:
+        raise ValueError(f"{name}: {H} query heads over {KV} KV heads, b = {b}, sq = {sq}, "
+                         f"sk = {sk}: want non-empty shapes and H % KV == 0")
+    if hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"{name}: head dim {hd} is not a multiple of 8 in [8, 256]")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset {q_offset} < 0")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the CUDA kernel takes 16-byte aligned tensors")
+    out = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.rt_flash_attention_fwd(_ATTN_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), out.data_ptr(), b, sq, sk, H, KV, hd,
+                                        int(bool(causal)), q_offset, _stream(q.device))
+    _raise_on(name, rc)
+    launches[name] += 1
+    return out

@@ -9,7 +9,8 @@ on the card.  ``launches`` counts the CUDA launches of each kernel.
 The solver core (``core/stepper.py`` for the stage math, ``core/newton.py``
 for the chord-Newton linear algebra, ``core/step.py`` for the error norm, the
 fused step and dense-output writes, ``core/events.py`` for event detection,
-localization and commit) imports its ops only from here.
+localization and commit) imports its ops only from here, as does the LM's
+attention (``models/attention.py``, ``flash_attention_fwd``).
 """
 
 from __future__ import annotations
@@ -124,6 +125,17 @@ def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, term
     if _on_cuda("fused_event_commit", y_new):
         return cuda_impl.fused_event_commit(*args, terminal=terminal)
     return ref.fused_event_commit(*args, terminal=terminal)
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, q_chunk=256, kv_chunk=128):
+    """GQA flash attention, forward (see ``ref.flash_attention_fwd``).  On
+    the card every shape goes to the kernel, ragged lengths and
+    ``q_offset`` included; ``q_chunk``/``kv_chunk`` set only the plain
+    version's blocks (the kernel has its own tiles)."""
+    if _on_cuda("flash_attention_fwd", q):
+        return cuda_impl.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+    return ref.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk)
 
 
 for _op in (stage_accum, fused_update, error_norm, fused_step, fused_step_poly,

@@ -486,3 +486,105 @@ def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, term
         y_stop,
         rec.sum(dim=1).to(torch.int32),
     )
+
+
+# ------------------------------------------------------------ flash attention
+# The plain versions of the JAX package's flash-attention forward
+# (``kernels/flash_attn.py``): the pair schedule and online-softmax body of
+# the Pallas kernel, with the padding and ``q_offset`` of
+# ``models/attention.flash_attention``, and the quadratic oracle.
+
+NEG_INF = -1e30  # the masked score of the reference (not -inf)
+
+
+def flash_pairs(nq, nk, qc, kc, sk0, causal, q_offset):
+    """The (qi, ki) blocks whose scores are not all masked, in the order the
+    reference visits them (``models/attention._block_pairs``): keys at or
+    past ``sk0`` are padding, and with ``causal`` a block wholly above the
+    diagonal is skipped.  With ``q_offset = 0`` and ``sk0 = nk * kc`` this is
+    ``flash_attn._pairs``."""
+    pairs = []
+    for qi in range(nq):
+        q_hi = q_offset + (qi + 1) * qc - 1  # highest query position in the block
+        for ki in range(nk):
+            k_lo = ki * kc
+            if k_lo >= sk0:
+                continue
+            if causal and k_lo > q_hi:
+                continue
+            pairs.append((qi, ki))
+    return pairs
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, q_chunk=256, kv_chunk=128):
+    """GQA flash attention, forward: q (b, sq, H, hd); k, v (b, sk, KV, hd)
+    with H % KV == 0.  Query head h reads KV head h // (H // KV); ``q_offset``
+    is the absolute position of q[:, 0] against k[:, 0].
+
+    Ragged lengths are padded up to chunk multiples and the padded keys
+    masked; each q-block runs the online softmax over its pairs with float32
+    (m, l) and accumulator, masked scores at -1e30, and is normalized by
+    max(l, 1e-30).  Returns (b, sq, H, hd) in q's dtype."""
+    b, sq0, H, hd = q.shape
+    sk0, KV = k.shape[1], k.shape[2]
+    if H % KV:
+        raise ValueError(f"flash_attention_fwd: {H} query heads over {KV} KV heads")
+    G = H // KV
+    qc, kc = min(q_chunk, sq0), min(kv_chunk, sk0)
+    pq, pk = (-sq0) % qc, (-sk0) % kc
+    if pq:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+    sq, sk = sq0 + pq, sk0 + pk
+    nq, nk = sq // qc, sk // kc
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    qr = q.reshape(b, nq, qc, KV, G, hd)
+    kr = k.reshape(b, nk, kc, KV, hd)
+    vr = v.reshape(b, nk, kc, KV, hd)
+    pos = torch.arange(max(qc, kc), device=q.device)
+    # zeros, as the reference's scan starts: a q-block with no pair stays 0
+    out = torch.zeros((b, sq, H, hd), dtype=q.dtype, device=q.device)
+    pairs = flash_pairs(nq, nk, qc, kc, sk0, causal, q_offset)
+    for qi in sorted({p[0] for p in pairs}):
+        m = torch.full((b, KV, G, qc), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, KV, G, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, KV, G, qc, hd), dtype=torch.float32, device=q.device)
+        qb = qr[:, qi].float() * scale.to(q.device)
+        q_pos = q_offset + qi * qc + pos[:qc]
+        for _, ki in (p for p in pairs if p[0] == qi):
+            s = torch.einsum("bqKGh,bkKh->bKGqk", qb, kr[:, ki].float())
+            k_pos = ki * kc + pos[:kc]
+            mask = (k_pos >= sk0)[None, :]
+            if causal:
+                mask = mask | (k_pos[None, :] > q_pos[:, None])
+            s = torch.where(mask, NEG_INF, s)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bKGqk,bkKh->bKGqh", p,
+                                                       vr[:, ki].float())
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        out[:, qi * qc:(qi + 1) * qc] = o.permute(0, 3, 1, 2, 4).reshape(b, qc, H, hd)
+    return out[:, :sq0]
+
+
+def flash_attention_ref(q, k, v, *, causal=True):
+    """The quadratic oracle of ``flash_attn.ref``: the whole (sq, sk) score
+    matrix, masked at -1e30 above the diagonal, softmax in float32.  Returns
+    (b, sq, H, hd) in q's dtype."""
+    b, sq, H, hd = q.shape
+    sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(b, sq, KV, G, hd) / np.sqrt(hd)
+    s = torch.einsum("bqKGh,bkKh->bKGqk", qf, k.float())
+    if causal:
+        pos = torch.arange(max(sq, sk), device=q.device)
+        above = pos[None, :sk] > pos[:sq, None]
+        s = torch.where(above, NEG_INF, s)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bKGqk,bkKh->bKGqh", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, H, hd).to(q.dtype)

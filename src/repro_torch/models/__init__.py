@@ -1,0 +1,28 @@
+"""The LM substrate of the port (the JAX package's ``repro.models``): the
+dense attention-and-MLP models, prefill and cached decode, on one device."""
+
+from .config import SHAPES, ArchConfig, MoECfg
+from .lm import (
+    LM,
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    pad_cache,
+    param_count,
+    prefill,
+)
+
+__all__ = [
+    "LM",
+    "SHAPES",
+    "ArchConfig",
+    "MoECfg",
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "pad_cache",
+    "param_count",
+    "prefill",
+]

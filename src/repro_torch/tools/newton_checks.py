@@ -29,6 +29,11 @@ h*gamma*J``, one per instance, in four kinds:
   the kernels must finish and give a non-finite ``res_norm`` on those rows
   (``newton_solve`` then marks them diverged), and the other rows must match.
 
+``wide_inputs`` makes the chord kind on the card, with torch, for the widths
+(f in the thousands) that hold the kernels above their old 48 KiB
+shared-memory limit, where a numpy build would take gigabytes of host
+memory.
+
 ``newton_inputs`` adds the vectors of one Newton iteration: a right-hand side,
 an iterate ``k`` and its evaluation ``fk``, an ``active`` mask ("mixed",
 "all" or "none") and a positive (b, f) error scale.
@@ -167,3 +172,26 @@ def lu_reconstructs(lu, perm, A, dtype):
     if not float(rel) <= tolerance(dtype) * f:
         raise AssertionError(f"A[perm] != L @ U: relative difference {float(rel)}")
     return float(rel)
+
+
+def wide_inputs(seed, b, f, dtype, device):
+    """``(M, rhs, k, fk, active, scale)`` as tensors on ``device``: the
+    "chord" kind of ``chord_matrices`` (rows shuffled, distinct pivots, the
+    same construction) and the vectors of ``newton_inputs``, drawn by a
+    ``torch.Generator`` on the device."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def unif(*shape):
+        return torch.rand(shape, generator=g, dtype=torch.float64, device=device)
+
+    hg = 10.0 ** (2.0 * unif(b, 1) - 2.0)
+    D = 1.0 + hg * 10.0 ** (3.0 * unif(b, f))
+    M = torch.randn((b, f, f), generator=g, dtype=torch.float64, device=device)
+    M.mul_(-0.3 / np.sqrt(f)).diagonal(dim1=1, dim2=2).fill_(1.0)  # I - G, G's diagonal 0
+    M.mul_(D[:, :, None])
+    M = torch.take_along_dim(M, torch.argsort(unif(b, f), dim=1)[:, :, None], dim=1)
+    dt = torch.float32 if dtype in (np.float32, torch.float32) else torch.float64
+    rhs, k, fk = (torch.randn((b, f), generator=g, dtype=dt, device=device) for _ in range(3))
+    active = unif(b) > 0.4
+    scale = (1e-3 * (0.5 + 1.5 * unif(b, f))).to(dt)
+    return M.to(dt), rhs, k, fk, active, scale

@@ -34,7 +34,7 @@ per workload (float32):
   (each with one such read) per loop iteration;
 - ``profile``: from ``torch.profiler`` over the no-sync steps, the device
   operations per step, the device busy time per step, the device idle share
-  of that profiled run, the busy time of the four CUDA kernels, and the top
+  of that profiled run, the busy time of the port's CUDA kernels, and the top
   device operations by time.
   ``null`` when the profiler reports no device activity.
 
@@ -58,7 +58,9 @@ from . import workloads
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
            "interp_eval_kernel", "fused_step_kernel", "masked_bisect_refine_kernel",
            "fused_event_detect_kernel", "fused_event_commit_kernel", "lu_factor_kernel",
-           "linsolve_kernel", "newton_iter_kernel", "newton_update_kernel")
+           "linsolve_kernel", "newton_iter_kernel", "newton_update_kernel",
+           "lu_pivot_kernel", "lu_update_kernel", "substitute_kernel", "flash_fwd_kernel",
+           "flash_fwd_mma_kernel")
 
 
 def _sync_ms(fn, reps=1):
@@ -100,15 +102,15 @@ def _profile(run, iters):
         return None
     busy_us = sum(t for _, t in kernels)
     by_name: dict[str, float] = {}
-    for name, t in kernels:
-        by_name[name] = by_name.get(name, 0.0) + t
+    for name, t in kernels:  # summed by the (80-character) name printed below
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + t
     ours = sum(t for name, t in by_name.items() if any(k in name for k in KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(device_ops_per_step=len(kernels) / iters,
                 device_busy_ms_per_step=busy_us / 1e3 / iters,
                 device_idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
                 cuda_kernels_busy_ms_per_step=ours / 1e3 / iters,
-                top_kernels_ms_per_step={k[:80]: v / 1e3 / iters for k, v in top})
+                top_kernels_ms_per_step={k: v / 1e3 / iters for k, v in top})
 
 
 def profile_workload(name, vf, y0, t_eval, kw, device):

@@ -262,6 +262,16 @@ def test_port_runs_with_jax_blocked():
         sol = repro_torch.solve_ivp(lambda t, y, a: -y, np.ones((2, 3), np.float32),
                                     np.linspace(0.0, 1.0, 5), device="cpu")
         assert sol.ys.shape == (2, 5, 3) and int(sol.status.max()) == 0
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params, pad_cache, prefill, decode_step
+        cfg = get_config("qwen2.5-14b", reduced=True)
+        lm = init_params(cfg, 0, "cpu")
+        tok = torch.randint(0, cfg.vocab, (2, 9))
+        logits, cache = prefill(cfg, lm, {"tokens": tok})
+        cache = pad_cache(cfg, cache, 10)
+        logits, cache = decode_step(cfg, lm, tok[:, 0], torch.full((2,), 9), cache)
+        assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
         assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules
                        if sys.modules[m] is not None)
         print("ok")

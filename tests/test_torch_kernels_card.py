@@ -143,7 +143,8 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda_device):
                             "fused_step": 0, "fused_step_poly": 0, "masked_bisect_refine": 0,
                             "fused_event_detect": 0, "fused_event_commit": 0,
                             "batched_linsolve": 0, "batched_lu_factor": 0,
-                            "fused_newton_iter": 0, "masked_newton_update": 0}
+                            "fused_newton_iter": 0, "masked_newton_update": 0,
+                            "flash_attention_fwd": 0}
     cpu = solve_ivp(vdp, y0, te, args=2.0, atol=1e-6, rtol=1e-6, device="cpu")
     assert torch.equal(card.stats["n_steps"].cpu(), cpu.stats["n_steps"])
     torch.testing.assert_close(card.ys.cpu(), cpu.ys, rtol=1e-9, atol=1e-9)
@@ -259,7 +260,7 @@ def test_fused_solve_counts_launches_and_matches_unfused(cuda_device, method):
                             "masked_bisect_refine": 0, "fused_event_detect": 0,
                             "fused_event_commit": 0, "batched_linsolve": 0,
                             "batched_lu_factor": 0, "fused_newton_iter": 0,
-                            "masked_newton_update": 0}
+                            "masked_newton_update": 0, "flash_attention_fwd": 0}
     assert torch.equal(fused.stats["n_fused_steps"], fused.stats["n_steps"])
     unfused = solve_ivp(vdp, y0, te, **kw)
     assert torch.equal(fused.stats["n_steps"], unfused.stats["n_steps"])
@@ -482,10 +483,14 @@ class TestNewtonKernelsOnCard:
             cuda_impl.masked_newton_update(k, fk[:2], mask, scale)
         with pytest.raises(RuntimeError, match="no backward"):
             cuda_impl.batched_linsolve(M.clone().requires_grad_(True), rhs)
-        big = torch.eye(4100, dtype=torch.float64, device=cuda_device)[None]
+        # Above the device's opt-in shared memory (227 KiB on an H100: f <=
+        # ~19.3k for the float64 linsolve) the wrapper raises before launching.
+        f = 19500
+        big = torch.empty((1, f, f), dtype=torch.float64, device=cuda_device)
         with pytest.raises(ValueError, match="shared memory"):
-            cuda_impl.batched_linsolve(big, torch.ones(1, 4100, dtype=torch.float64,
+            cuda_impl.batched_linsolve(big, torch.ones(1, f, dtype=torch.float64,
                                                        device=cuda_device))
+        del big
 
 
 def _stiff_vdp(t, y, mu):
@@ -554,3 +559,124 @@ def test_stiff_path_never_reaches_the_plain_version(cuda_device):
     finally:
         for p in patches:
             p.stop()
+
+
+@pytest.mark.parametrize("f", [4096, 8192])
+def test_wide_newton_kernels_against_plain(cuda_device, f):
+    """The substitution kernels above their old 48 KiB limit (ROADMAP C-8),
+    float64, b = 4: ``batched_lu_factor`` (column by column over the card
+    from 1024 columns on) with the plain permutation, ``batched_linsolve``
+    and ``fused_newton_iter`` held to their plain versions at 1e-12, and the
+    unfused iteration bitwise equal to the fused one."""
+    M, rhs, k, fk, mask, scale = NC.wide_inputs(f, 4, f, np.float64, cuda_device)
+    lu_p, perm_p = tref.batched_lu_factor(M)
+    lu, perm = cuda_impl.batched_lu_factor(M)
+    NC.hold("batched_lu_factor", (lu, perm), (lu_p, perm_p), np.float64, matrix=M)
+    NC.hold("batched_linsolve", (cuda_impl.batched_linsolve(M, rhs),),
+            (tref.batched_linsolve(M, rhs),), np.float64)
+    it = cuda_impl.fused_newton_iter(lu_p, perm_p, k, fk, mask, scale)
+    NC.hold("fused_newton_iter", it, tref.fused_newton_iter(lu_p, perm_p, k, fk, mask, scale),
+            np.float64)
+    unfused = cuda_impl.masked_newton_update(k, cuda_impl.batched_linsolve(M, k - fk), mask,
+                                             scale)
+    fused = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)
+    for a, c in zip(unfused, fused):
+        assert torch.equal(a, c)
+
+
+# b, sq, sk, H, KV, hd, causal, q_offset: tests/test_flash_kernel.py's CASES
+# (sq == sk), ragged lengths, chunked-prefill continuations, MQA, hd = 80
+# (stablelm-3b) and the widest head the kernel takes.
+FLASH_CASES = [
+    (1, 32, 32, 2, 2, 8, True, 0), (2, 64, 64, 4, 2, 16, True, 0),
+    (1, 64, 64, 4, 4, 16, False, 0), (2, 128, 128, 8, 2, 32, True, 0),
+    (1, 128, 128, 4, 1, 16, True, 0),
+    (2, 37, 37, 4, 2, 16, True, 0), (2, 37, 45, 4, 2, 16, True, 8),
+    (1, 13, 45, 4, 2, 16, True, 32), (1, 37, 45, 4, 4, 16, False, 0),
+    (1, 100, 300, 4, 2, 64, True, 200), (1, 70, 130, 4, 2, 64, False, 0),
+    (2, 129, 129, 32, 32, 80, True, 0), (1, 77, 77, 4, 4, 80, False, 0),
+    (1, 65, 65, 8, 2, 128, True, 0), (1, 64, 64, 2, 1, 256, True, 0),
+    (1, 50, 90, 2, 2, 192, False, 0),
+]
+
+
+class TestFlashKernelOnCard:
+    """``flash_attention_fwd`` against its plain version on the same card
+    tensors: float32 at 2e-5, bfloat16 at 3e-2 (the reference's own
+    kernel-vs-oracle tolerances)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,sq,sk,H,KV,hd,causal,q_offset", FLASH_CASES)
+    def test_against_plain(self, cuda_device, dtype, b, sq, sk, H, KV, hd, causal, q_offset):
+        g = _gen(sq * sk + hd)
+        q, k, v = (torch.randn(shape, generator=g).to(cuda_device, dtype)
+                   for shape in ((b, sq, H, hd), (b, sk, KV, hd), (b, sk, KV, hd)))
+        before = ops.launches["flash_attention_fwd"]
+        got = ops.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+        assert ops.launches["flash_attention_fwd"] == before + 1
+        want = tref.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset, q_chunk=32,
+                                        kv_chunk=64)
+        assert got.dtype == dtype and got.shape == (b, sq, H, hd)
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    def test_matches_the_oracle(self, cuda_device):
+        g = _gen(11)
+        q, k, v = (torch.randn(shape, generator=g).to(cuda_device)
+                   for shape in ((2, 200, 8, 64), (2, 200, 2, 64), (2, 200, 2, 64)))
+        for causal in (True, False):
+            torch.testing.assert_close(cuda_impl.flash_attention_fwd(q, k, v, causal=causal),
+                                       tref.flash_attention_ref(q, k, v, causal=causal),
+                                       rtol=2e-5, atol=2e-5)
+
+    def test_never_reaches_the_plain_version(self, cuda_device):
+        q = torch.randn(1, 37, 4, 16, device=cuda_device)
+        k = torch.randn(1, 45, 2, 16, device=cuda_device)
+        with mock.patch.object(tref, "flash_attention_fwd", side_effect=AssertionError("plain")):
+            out = ops.flash_attention_fwd(q, k, k, q_offset=8, q_chunk=16, kv_chunk=16)
+        assert out.shape == q.shape
+
+    def test_bad_inputs_raise(self, cuda_device):
+        q = torch.randn(1, 8, 4, 16, device=cuda_device)
+        k = torch.randn(1, 8, 3, 16, device=cuda_device)
+        with pytest.raises(ValueError, match="KV heads"):
+            cuda_impl.flash_attention_fwd(q, k, k)
+        with pytest.raises(ValueError, match="head dim"):
+            cuda_impl.flash_attention_fwd(q[..., :12].contiguous(), q[..., :12].contiguous(),
+                                          q[..., :12].contiguous())
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            cuda_impl.flash_attention_fwd(q.half(), q.half(), q.half())
+        with pytest.raises(TypeError, match="expected"):
+            cuda_impl.flash_attention_fwd(q, q.bfloat16(), q)
+        with pytest.raises(ValueError, match="contiguous"):
+            cuda_impl.flash_attention_fwd(q.transpose(1, 2), q, q)
+        with pytest.raises(ValueError, match="q_offset"):
+            cuda_impl.flash_attention_fwd(q, q, q, q_offset=-1)
+        with pytest.raises(RuntimeError, match="no backward"):
+            cuda_impl.flash_attention_fwd(q.clone().requires_grad_(True), q, q)
+
+
+def test_lm_prefill_on_card_matches_cpu(cuda_device):
+    """Reduced qwen2.5-14b in float32, the same weights on the card and the
+    CPU: one flash kernel launch per layer per prefill and none per decode
+    step; prefill and decode logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config("qwen2.5-14b", reduced=True)
+    cpu = LM(cfg, device="cpu", seed=0)
+    card = LM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 37)))
+    before = ops.launches["flash_attention_fwd"]
+    lg, cache = card.prefill({"tokens": tok.to(cuda_device)})
+    assert ops.launches["flash_attention_fwd"] == before + cfg.n_layers
+    lg_cpu, cache_cpu = cpu.prefill({"tokens": tok})
+    torch.testing.assert_close(lg.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    cache, cache_cpu = card.pad_cache(cache, 41), cpu.pad_cache(cache_cpu, 41)
+    for i in range(4):
+        pos = torch.full((2,), 37 + i)
+        lg, cache = card.decode_step(tok[:, i].to(cuda_device), pos.to(cuda_device), cache)
+        lg_cpu, cache_cpu = cpu.decode_step(tok[:, i], pos, cache_cpu)
+        torch.testing.assert_close(lg.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    assert ops.launches["flash_attention_fwd"] == before + cfg.n_layers
