@@ -79,10 +79,15 @@ raises, and the script exits non-zero without printing a result:
 
 The ``kernels`` phase also holds ``flash_attention_fwd`` to its plain version
 (float32 at 2e-5, bfloat16 at 3e-2) over ragged, ``q_offset``, MQA, hd = 80
-and bidirectional cases, times it at qwen2.5-14b's layer (with
-``scaled_dot_product_attention`` as the library yardstick), and holds the
-substitution kernels above their old 48 KiB shared-memory limit (f = 4096
-and 8192, float64, 1e-12, equal permutations).
+and bidirectional cases -- the wgmma body for bfloat16 with hd <= 128, the
+FFMA body otherwise, each counted -- times it at qwen2.5-14b's layer (with
+``scaled_dot_product_attention`` as the library yardstick), holds the
+elimination staged in shared memory bitwise to the device-memory one (the
+stiff widths, float32 and float64, with the device-memory path's time
+beside the staged one's), and holds the substitution kernels above their
+old 48 KiB shared-memory limit (f = 4096 and 8192, float64, 1e-12, equal
+permutations).  The ``stiff`` and ``lm`` phases check that the main path
+took the staged elimination and the wgmma body.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -665,6 +670,37 @@ def main() -> int:
          unfused_iteration_bitwise_equal_to_fused=True,
          cases={f"{k[0]}/{k[1]}": v for k, v in newton_held.items()})
 
+    # The elimination staged in shared memory (the main path's at these
+    # widths, cuda_impl.lu_path) against the device-memory one: factors,
+    # permutation and linsolve solutions equal bit for bit over the cases of
+    # tools/newton_checks.py.  The device-memory path is timed beside the
+    # staged one at allen_cahn_full's shape: the earlier design's time.
+    for shape_name, f in (("vdp_stiff_mixed", 2), ("robertson_sweep", 3),
+                          ("allen_cahn_full", workloads.ALLEN_CAHN["f"])):
+        b = workloads.STIFF["b"]
+        for npdt in (np.float32, np.float64):
+            timed = {}
+            for kind in newton_checks.KINDS:
+                if (kind == "zero_diag" and f < 2) or (kind == "ties" and f < 3):
+                    continue
+                M, rhs = newton_checks.to_torch(
+                    newton_checks.newton_inputs(f + len(kind), b, f, npdt, kind), dev)[:2]
+                for name, run in (
+                        ("batched_lu_factor", lambda p, M=M: cuda_impl.batched_lu_factor(M, path=p)),
+                        ("batched_linsolve",
+                         lambda p, M=M, rhs=rhs: (cuda_impl.batched_linsolve(M, rhs, path=p),))):
+                    staged, glob = run("staged"), run("global")
+                    check(all(torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+                              for a, c in zip(staged, glob)),
+                          f"{name}[{shape_name} {npdt.__name__} {kind}]: the staged elimination "
+                          "differs bitwise from the device-memory one")
+                    if kind == "chord" and f > 3:
+                        timed[name] = {p: median_ms(lambda p=p, run=run: run(p))
+                                       for p in ("staged", "global")}
+            emit("kernels", check="staged elimination == device-memory elimination bitwise",
+                 shape=shape_name, f=f, b=b, dtype=npdt.__name__, kinds=list(newton_checks.KINDS),
+                 ms_by_path=timed or None)
+
     # The two substitution kernels above their old 48 KiB shared-memory limit
     # (ROADMAP C-8: they now opt in to the device's 227 KiB), float64, b = 4,
     # at f = 4096 and 8192 (chord matrices built on the card,
@@ -725,15 +761,21 @@ def main() -> int:
 
     flash_held = {}
     for dtype in (torch.float32, torch.bfloat16):
-        worst = 0.0
+        worst, bodies = 0.0, {}
         for case in FLASH_CASES:
             b, sq, sk, H, KV, hd, causal, q_offset = case
             q, k, v = flash_inputs(sq * sk + hd, b, sq, sk, H, KV, hd, dtype)
+            body = cuda_impl.flash_body(hd, dtype)
+            before = cuda_impl.body_launches["flash_attention_fwd"][body]
             got = cuda_impl.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+            check(cuda_impl.body_launches["flash_attention_fwd"][body] == before + 1,
+                  f"flash_attention_fwd[{case}]: the {body} body did not run")
+            bodies[body] = bodies.get(body, 0) + 1
             want = ref.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
                                            q_chunk=32, kv_chunk=64)
             worst = max(worst, hold_flash(f"flash_attention_fwd[{case}]", got, want, dtype)[0])
-        flash_held[str(dtype).split(".")[-1]] = dict(cases=len(FLASH_CASES), max_abs_err=worst)
+        flash_held[str(dtype).split(".")[-1]] = dict(cases=len(FLASH_CASES), max_abs_err=worst,
+                                                     bodies=bodies)
     emit("kernels", check="flash_attention_fwd, untimed cases", tol=FLASH_TOL,
          cases=flash_held)
 
@@ -763,6 +805,9 @@ def main() -> int:
     def reset_launches():
         for k in ops.launches:
             ops.launches[k] = 0
+        for counts in cuda_impl.body_launches.values():
+            for k in counts:
+                counts[k] = 0
 
     def timed_solve(*args, **kw):
         torch.cuda.synchronize()
@@ -1220,6 +1265,11 @@ def main() -> int:
             newton = int(out.stats["n_f_evals"][0]) - 2
             want = stiff_launches(iters, newton, fused)
             check(launches == want, f"stiff/{name}/{path}: launches {launches} != {want}")
+            # Every elimination of these widths is the staged one.
+            lu_op = "batched_lu_factor" if fused else "batched_linsolve"
+            paths = dict(cuda_impl.body_launches[lu_op])
+            check(paths["staged"] == want[lu_op] and sum(paths.values()) == want[lu_op],
+                  f"stiff/{name}/{path}: {lu_op} paths {paths}, want {want[lu_op]} staged")
             check(bool((out.status == 0).all()) and np.isfinite(out.ys).all(),
                   f"stiff/{name}/{path}: status {np.bincount(out.status)}")
             runs[path] = out
@@ -1230,7 +1280,7 @@ def main() -> int:
                  n_newton_iters=spread(out.stats["n_newton_iters"]),
                  n_jac_evals=spread(out.stats["n_jac_evals"]),
                  n_f_evals=int(out.stats["n_f_evals"][0]), wall_ms=wall,
-                 ms_per_step=wall / iters, launches=launches)
+                 ms_per_step=wall / iters, launches=launches, elimination_paths=paths)
         check(stiff_equal(runs["fused"], runs["unfused"]),
               f"stiff/{name}: fused and unfused card solves differ")
         # Per-instance independence, now with per-row Newton masks: rows
@@ -1341,6 +1391,9 @@ def main() -> int:
     want["flash_attention_fwd"] = cfg.n_layers
     check(launches == want, f"lm/serve: launches {launches} != {want} (48 per prefill, 0 per "
           "decode step)")
+    bodies = dict(cuda_impl.body_launches["flash_attention_fwd"])
+    check(bodies == {"wgmma": cfg.n_layers, "ffma": 0},
+          f"lm/serve: flash bodies {bodies}, want every launch on the wgmma body")
     check(bool(finite["all"]) and finite["steps"] == serve_args.gen,
           "lm/serve: a logit is not finite")
     b, plen, gen = serve_args.batch, serve_args.prompt_len, serve_args.gen
@@ -1349,7 +1402,8 @@ def main() -> int:
          decode_ms_per_token=out["decode_s"] * 1e3 / (gen - 1),
          tokens_per_s=(gen - 1) * b / out["decode_s"],
          prefill_tokens_per_s=b * plen / out["prefill_s"], max_memory_allocated=peak,
-         launches=launches, logits_finite=True, sample=out["tokens"][0, :8].tolist())
+         launches=launches, flash_bodies=bodies, logits_finite=True,
+         sample=out["tokens"][0, :8].tolist())
 
     def rel(a, c):
         return float((a.float() - c.float()).norm() / c.float().norm())

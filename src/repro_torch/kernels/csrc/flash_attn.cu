@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel for the attention forward of the LM
+// Hand-written Hopper (sm_90a) kernels for the attention forward of the LM
 // serving path (models/attention.flash_attention, one launch per layer per
 // prefill).
 //
@@ -13,45 +13,59 @@
 //
 // The TPU kernel walks a static list of (q-block, kv-block) pairs on one
 // core and carries (m, l, acc) across a q-block's pairs in its output
-// blocks.  Here one thread block owns one (64-query tile, head, batch row)
-// and loops over its key tiles itself, so the state never leaves the
-// block: (m, l) and the 64 x hd accumulator live in registers, the query
-// tile (scaled on load) and one 64-key tile of K and of V are staged in
-// shared memory as float32, the tile's probabilities P go through shared
-// memory between the two products.  Key tiles wholly above the causal
-// diagonal are never loaded.  Ragged lengths and q_offset need no padding
-// by the caller: rows and keys past the ends are bounds-masked (zero-filled
-// in shared memory, never written).  The config's q_chunk/kv_chunk drive
-// only the plain version; these tiles are the kernel's own.
+// blocks.  Here a thread block owns one (query tile, head, batch row) at a
+// time and loops over its key tiles itself, so the state never leaves it:
+// (m, l) and the accumulator live in registers.  Key tiles wholly above the
+// causal diagonal are never loaded.  Ragged lengths and q_offset need no
+// padding by the caller: rows and keys past the ends are zero-filled and
+// masked, never written.  The config's q_chunk/kv_chunk drive only the
+// plain version; these tiles are the kernels' own.
 //
-// Two bodies share that schedule:
+// Two bodies; cuda_impl.flash_body picks one and the C entry refuses a body
+// that does not take the shape:
 //
-// - float32 (and bfloat16 with hd > 128): both products in float32 FFMA
-//   (TF32 tensor cores would miss the reference's 2e-5), exp by expf.  256
-//   threads; each computes a 4 x 4 block of the score tile (rows rg + 16 i,
-//   keys cg + 16 j, strided so a warp's float4 reads of K fall in distinct
-//   banks) and the same 4 rows of the accumulator over hd / 16 columns; the
-//   row max and sum of a tile are reduced over the 16 lanes that share the
-//   rows.  Q, K and V are staged as float32.
-// - bfloat16 with hd <= 128: both products on the tensor cores, mma.sync
-//   m16n8k16 bf16 into float32, operands from shared memory by ldmatrix (V
-//   transposed on the way).  128 threads, one warp per 16 query rows; a
-//   thread keeps its rows' Q fragments, two rows of (m, l), its 16 x 64
-//   score fragment and its 16 x hd accumulator fragment in registers.  The
-//   scores are scaled in float32 after the product (the reference scales q
-//   first: the same value to rounding), and P is rounded to bf16 for the
-//   second product (the accumulator and l stay float32).
-//
-// The head dim is padded in shared memory to D = 64, 128, 192 or 256 (hd
-// any multiple of 8 up to 256), with zeros.
+// - wgmma (bfloat16, hd <= 128; the serving path): one block per SM walks
+//   work items of 128 query rows -- two consumer warpgroups of 64 rows --
+//   with a producer warpgroup.  The producer loads an item's query tile
+//   (the next one as soon as the last S product has read the current one)
+//   and keeps 128-key tiles of K and V in flight by TMA into a two-stage
+//   ring in shared memory (128-byte swizzle, an mbarrier per stage and
+//   operand for "full" and for "empty"); TMA zero-fills rows past sq or sk
+//   and head columns past hd.  S = Q K^T
+//   is wgmma.mma_async m64n128k16 with both operands in shared memory
+//   (K-major); the scores are scaled in float32 after the product (the
+//   reference scales q first: the same value to rounding), masked, and the
+//   online softmax runs on the S accumulator in base 2 (ex2 on the SFU); P,
+//   rounded to bf16, stays in registers: the accumulator's fragment layout
+//   is the A operand's register layout, so O += P V is wgmma with A from
+//   registers and V read MN-major through the descriptor's transpose bit.
+//   The two consumer warpgroups take turns at the tensor cores, so one's
+//   softmax overlaps the other's products.  setmaxnreg moves registers from
+//   the producer to the consumers.  The work items run longest causal query
+//   tile first, dealt to the blocks in zig-zag rounds, with the query heads
+//   of one KV head side by side, so their K and V tiles are read from L2.
+// - FFMA (float32, and bfloat16 with hd > 128): both products in float32
+//   FFMA (TF32 tensor cores would miss the reference's 2e-5), exp by expf.
+//   256 threads, one block per 64-query tile; each thread computes a 4 x 4
+//   block of the 64 x 64 score tile (rows rg + 16 i, keys cg + 16 j, strided
+//   so a warp's float4 reads of K fall in distinct banks) and the same 4
+//   rows of the accumulator over hd / 16 columns; the row max and sum of a
+//   tile are reduced over the 16 lanes that share the rows.  Q (scaled on
+//   load), K, V and P are staged in shared memory as float32, loaded
+//   synchronously; the head dim is padded to D = 64, 128, 192 or 256.
 //
 // Bound, at qwen2.5-14b's layer (b = 4, sq = sk = 2048, H = 40, KV = 8,
 // hd = 128, bf16, causal): 4 b H hd (sq (sq + 1) / 2) = 1.7e11 flops, or
 // 0.17 ms on the bf16 tensor cores (989 TFLOP/s), against 0.10 GB of q, k,
-// v and o (0.03 ms at 3.35 TB/s): operations.  mma.sync reaches about two
-// thirds of that peak at best; wgmma, TMA-fed and pipelined tiles are later
-// work.  In float32 the bound is the FFMA pipes' 67 TFLOP/s (2.6 ms).
+// v and o (0.03 ms at 3.35 TB/s): operations.  What the wgmma body leaves
+// on the table: inside a warpgroup the softmax of a tile waits for its S
+// product and the next S product for the softmax (only the two warpgroups
+// overlap), the exponentials (64 per thread per tile on the SFU) compete
+// with that overlap, the diagonal tiles are computed whole, and O is stored
+// from the fragments.  In float32 the bound is the FFMA pipes' 67 TFLOP/s
+// (2.6 ms).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -303,32 +317,192 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// ------------------------------------------------ the bf16 tensor-core body
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows = kBQ
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// ------------------------------------------------ the bf16 wgmma body
+namespace wg {
+
+constexpr int kBM = 128;                   // query rows per block
+constexpr int kBN = 128;                   // keys per tile
+constexpr int kStages = 2;                 // K/V tiles in flight
+constexpr int kConsumers = 256;             // two warpgroups of 64 query rows
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kBlk = 128 * 128;             // bytes of 128 rows x 64 bf16 columns
+// setmaxnreg moves registers within the block's own allocation at launch:
+// ptxas gives a block of three warpgroups 168 registers a thread (65536 /
+// 384), so 128 x 24 + 256 x 240 = 384 x 168.  The producer is a whole
+// warpgroup (its first thread issues every copy): with a lone producer warp
+// the block holds 288 x 168 registers, and the consumers' increase would
+// wait forever.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Shared memory, in bytes from a 1024-byte aligned base (the swizzle atom
+// repeats every 1024 bytes): Q as D / 64 column blocks of 128 rows x 64
+// columns, then per stage the column blocks of K and of V, then the
+// mbarriers (q_full, q_empty, full_k[kStages], full_v[kStages],
+// empty_k[kStages], empty_v[kStages]).
+template <int D>
+struct Layout {
+  static constexpr int kCols = D / 64;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kCols * kBlk;
+  static constexpr int kV = kK + kStages * kCols * kBlk;
+  static constexpr int kBar = kV + kStages * kCols * kBlk;
+  static constexpr int kTileBytes = kCols * kBlk;  // one K or V tile, one Q tile
+  static constexpr size_t kBytes = kBar + 8 * (2 + 4 * kStages) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// d += a b for one 16 x 8 x 16 tile: a (16 x 16, row major) in the four
-// registers of the PTX fragment layout, b (16 x 8, column major) in two.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-D tensor map (coordinates innermost first: column,
+// head, row, batch) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The wgmma descriptor of a 128-byte-swizzled operand at shared address
+// `addr`: start address, leading byte offset (K-major: unused; MN-major: the
+// distance between 64-column blocks), stride byte offset 1024 (between
+// groups of 8 rows of 128 bytes), all >> 4, swizzle mode 1 (128 B).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A B for one k16 step: A (64 x 16) and B (16 x 128, stored 128 x 16)
+// both K-major in 128-byte-swizzled shared memory (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for one k16 step: A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 128) MN-major in 128-byte-swizzled
+// shared memory (descriptor db, transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d += A B for one k16 step: A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 64) MN-major in 128-byte-swizzled
+// shared memory (descriptor db, transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -336,186 +510,354 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows [row0, row0 + 64) of one head into the bf16 tile s[64][ld]; rows at
-// or past n are zeros.
-__device__ __forceinline__ void load_tile_bf16(const __nv_bfloat16* __restrict__ base,
-                                               int64_t stride, int64_t row0, int64_t n,
-                                               int hd, __nv_bfloat16* s, int ld) {
-  const int chunks = hd >> 3;
-  for (int c = threadIdx.x; c < kBQ * chunks; c += kMmaThreads) {
-    const int r = c / chunks, col = (c - r * chunks) << 3;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) v = *reinterpret_cast<const uint4*>(base + (row0 + r) * stride + col);
-    *reinterpret_cast<uint4*>(s + r * ld + col) = v;
-  }
+// 2^x by the SFU (flushes subnormal results to zero: every input here is a
+// difference to the running maximum, so a flushed p is below 2^-126 of it).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// A persistent kernel: one block per SM walks its share of the n_work work
+// items (128-query tile, head, batch row; `decode_work`, `work_of`), so the
+// next item's Q and first K/V tiles load while the current item finishes.  D (hd padded) is 64 or 128.
+// In a consumer warp's fragments (lane = 4 g + t) a thread holds rows g and
+// g + 8 of the warp's 16 and, per 8-column block, columns 2 t and 2 t + 1.
+// scale_log2 is log2(e) / sqrt(hd): the softmax runs in base 2, its running
+// maximum m on the scaled scores.
+//
+// Each consumer warpgroup runs its tiles in order -- S_t = Q K_t^T, the
+// softmax, O += P_t V_t -- and the two take turns at the tensor cores
+// (named barriers 1 and 2): a warpgroup issues its product only after the
+// other has issued its own, so one's softmax runs while the other's product
+// does.  Letting a warpgroup also overlap its own softmax with its next
+// product (S_{t+1} issued before the softmax of S_t) needs P, S and O
+// pinned in registers at once; ptxas then spilled and serialized the
+// products at 168 and at 224 registers a thread, and that schedule ran
+// slower (PERF.md).  K and V slots are released separately, K after its S
+// product and V after its P V product.
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(kBQ + 2 * kBK) * (D + 8);
-}
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                       int64_t b, int64_t sq, int64_t sk, int H, int KV, int hd, int causal,
+                       int64_t q_offset, float scale_log2, int64_t n_work) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8u;
+  auto full_k = [&](int s) { return q_full + 8u * (2 + s); };
+  auto full_v = [&](int s) { return q_full + 8u * (2 + kStages + s); };
+  auto empty_k = [&](int s) { return q_full + 8u * (2 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return q_full + 8u * (2 + 3 * kStages + s); };
 
-// One block per (64-query tile, head, batch row), as flash_fwd_kernel; warp
-// w owns query rows 16 w .. 16 w + 15 of the tile.  In the fragments a
-// thread (lane = 4 g + t) holds rows g and g + 8 and, per 8-column tile,
-// columns 2 t and 2 t + 1.  D (hd padded) is 64 or 128.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     int64_t sq, int64_t sk, int H, int KV, int hd, int causal,
-                     int64_t q_offset, float scale) {
-  constexpr int LD = D + 8;  // bf16 row stride: 16-byte rows, ldmatrix conflict-free
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* sK = sQ + kBQ * LD;
-  __nv_bfloat16* sV = sK + kBK * LD;
+  // Work item w -> (query tile q0, batch row bi, head h) and its key tiles:
+  // heads fastest, so the H / KV heads of one KV head are neighbours; the
+  // last (longest causal) query tiles first.
+  const int64_t n_qt = (sq + kBM - 1) / kBM;
+  struct Work {
+    int64_t q0, bi;
+    int h, n_tiles;
+  };
+  auto decode_work = [&](int64_t w) {
+    Work r;
+    r.h = static_cast<int>(w % H);
+    w /= H;
+    r.bi = w % b;
+    r.q0 = (n_qt - 1 - w / b) * kBM;
+    const int64_t q_last = (r.q0 + kBM < sq ? r.q0 + kBM : sq) - 1;
+    const int64_t n_keys =
+        causal ? (q_offset + q_last + 1 < sk ? q_offset + q_last + 1 : sk) : sk;
+    r.n_tiles = static_cast<int>((n_keys + kBN - 1) / kBN);
+    return r;
+  };
+  // This block's item-th work item: rounds of gridDim.x items, walked
+  // forwards and backwards in turn, so that the blocks' sums of the
+  // longest-first items come out even.
+  auto work_of = [&](int item) {
+    const int64_t g = gridDim.x;
+    return item * g + ((item & 1) ? g - 1 - blockIdx.x : blockIdx.x);
+  };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int64_t q0 = (int64_t)blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int64_t bi = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const __nv_bfloat16* qb = q + (bi * sq * H + h) * hd;
-  const __nv_bfloat16* kb = k + (bi * sk * KV + kvh) * hd;
-  const __nv_bfloat16* vb = v + (bi * sk * KV + kvh) * hd;
-
-  const int pad = D - hd;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < kBQ * pad; i += kMmaThreads) {
-    const int r = i / pad, c = hd + (i - r * pad);
-    sQ[r * LD + c] = zero;
-    sK[r * LD + c] = zero;
-    sV[r * LD + c] = zero;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), kConsumers);
+      mbar_init(empty_v(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  load_tile_bf16(qb, (int64_t)H * hd, q0, sq, hd, sQ, LD);
   __syncthreads();
 
-  // This warp's Q fragments, one per 16 columns of the head dim.
-  uint32_t qa[D / 16][4];
+  if (threadIdx.x >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      int it = 0;  // K/V tiles loaded, over all of this block's items
+      int item = 0;
+      for (int64_t w; (w = work_of(item)) < n_work; ++item) {
+        const Work wk = decode_work(w);
+        const int qrow = static_cast<int>(wk.q0), batch = static_cast<int>(wk.bi);
+        const int kvh = wk.h / (H / KV);
+        if (item > 0) mbar_wait(q_empty, (item - 1) & 1);  // the last item's Q is read
+        mbar_expect_tx(q_full, L::kTileBytes);
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    ldmatrix_x4(qa[ks], sQ + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + ks * 16 +
-                            8 * (lane >> 4));
-  }
-
-  const int64_t q_last = (q0 + kBQ < sq ? q0 + kBQ : sq) - 1;
-  const int64_t n_keys = causal ? (q_offset + q_last + 1 < sk ? q_offset + q_last + 1 : sk) : sk;
-  const int64_t row_lo = q0 + warp * 16 + g;  // and row_lo + 8
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+        for (int c = 0; c < L::kCols; ++c) {
+          tma_load_4d(sQ + c * kBlk, &tm_q, q_full, 64 * c, wk.h, qrow, batch);
+        }
+        for (int t = 0; t < wk.n_tiles; ++t, ++it) {
+          const int s = it % kStages;
+          const uint32_t parity = ((it / kStages) - 1) & 1;  // the slot's previous tile
+          const int k0 = t * kBN;
+          if (it >= kStages) mbar_wait(empty_k(s), parity);
+          mbar_expect_tx(full_k(s), L::kTileBytes);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+          for (int c = 0; c < L::kCols; ++c) {
+            tma_load_4d(sK + (s * L::kCols + c) * kBlk, &tm_k, full_k(s), 64 * c, kvh, k0,
+                        batch);
+          }
+          if (it >= kStages) mbar_wait(empty_v(s), parity);
+          mbar_expect_tx(full_v(s), L::kTileBytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int64_t k0 = 0; k0 < n_keys; k0 += kBK) {
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    load_tile_bf16(kb, (int64_t)KV * hd, k0, sk, hd, sK, LD);
-    load_tile_bf16(vb, (int64_t)KV * hd, k0, sk, hd, sV, LD);
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys, eight 8-key tiles.
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, sK + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * LD + ks * 16 +
-                            8 * ((lane >> 3) & 1));
-        mma_bf16(s[2 * np], qa[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa[ks], kf[2], kf[3]);
+          for (int c = 0; c < L::kCols; ++c) {
+            tma_load_4d(sV + (s * L::kCols + c) * kBlk, &tm_v, full_v(s), 64 * c, kvh, k0,
+                        batch);
+          }
+        }
       }
     }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t q_wg = sQ + 64 * wg * 128;  // this warpgroup's 64 rows of Q
+    float acc[D / 2];
+    float sc[kBN / 2];         // S_t, then P_t in float32
+    uint32_t pa[kBN / 16][4];  // P_t in bf16: wgmma's A
 
-    // Scale and mask, then the online softmax of rows g (half 0) and g + 8
-    // (half 1); a row's 64 scores sit in the 4 lanes of its quad.
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int64_t k_pos = k0 + n * 8 + 2 * t + (e & 1);
-        const int64_t q_pos = q_offset + row_lo + 8 * half;
-        float x = s[n][e] * scale;
-        if (k_pos >= sk || (causal && k_pos > q_pos)) x = kNegInf;
-        s[n][e] = x;
-        mx[half] = fmaxf(mx[half], x);
-      }
-    float corr[2], m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float x = mx[half];
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      m_new[half] = fmaxf(m[half], x);
-      corr[half] = expf(m[half] - m_new[half]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m_new[e >> 1]);
-        s[n][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float x = sum[half];
-      x += __shfl_xor_sync(0xffffffffu, x, 1);
-      x += __shfl_xor_sync(0xffffffffu, x, 2);
-      l[half] = l[half] * corr[half] + x;
-      m[half] = m_new[half];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
+    // This warpgroup's turn at the tensor cores: wait at barrier 1 + wg for
+    // the other to have passed its turn on; pass the turn on after issuing.
+    auto take_turn = [&]() {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kConsumers) : "memory");
+    };
+    auto pass_turn = [&]() {
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(kConsumers) : "memory");
+    };
+    if (wg == 1) pass_turn();  // warpgroup 0 goes first
 
-    // acc += P V: P's score fragments are the A fragments of 16-key steps.
+    int it = 0;  // K/V tiles consumed, over all of this block's items
+    int item = 0;
+    for (int64_t w; (w = work_of(item)) < n_work; ++item) {
+      const Work wk = decode_work(w);
+      const int64_t wg_row0 = wk.q0 + 64 * wg;
+      const int64_t row_lo = wg_row0 + 16 * warp + g;  // and row_lo + 8
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sV + (j * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-                                  dp * 16 + 8 * (lane >> 4));
-        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+      mbar_wait(q_full, item & 1);
+      for (int t = 0; t < wk.n_tiles; ++t, ++it) {
+        const int s = it % kStages;
+        const uint32_t parity = (it / kStages) & 1;
+        const int64_t k0 = static_cast<int64_t>(t) * kBN;
 
-  // o = acc / max(l, 1e-30) in bf16, rows and columns inside the tensor only.
-  __nv_bfloat16* ob = o + (bi * sq * H + h) * hd;
+        // S = Q K^T: 64 rows x 128 keys, D / 16 steps of k16.
+        mbar_wait(full_k(s), parity);
+        take_turn();
+        wgmma_fence();
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int64_t row = row_lo + 8 * half;
-    if (row >= sq) continue;
-    const float den = fmaxf(l[half], 1e-30f);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk >> 2) * kBlk + (kk & 3) * 32;
+          wgmma_ss_n128(sc, sw128_desc(q_wg + off, 16),
+                        sw128_desc(sK + s * L::kCols * kBlk + off, 16), kk > 0);
+        }
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        mbar_arrive(empty_k(s));
+        if (t == wk.n_tiles - 1) mbar_arrive(q_empty);  // the producer may load the next Q
+
+        // Mask (only a tile that reaches past sk or, causal, past the
+        // diagonal of this warpgroup's first row): row r sees the tile's
+        // columns below lim = min(sk, causal ? q_offset + r + 1 : sk) - k0,
+        // and a thread's column 8 n + (e & 1) + 2 t is tested against lim -
+        // 2 t.  Masked scores are -1e30, as the reference's.
+        const bool edge = k0 + kBN > sk || (causal && k0 + kBN - 1 > q_offset + wg_row0);
+        int lim[2];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col >= hd) continue;
-      *reinterpret_cast<uint32_t*>(ob + row * (int64_t)H * hd + col) =
-          pack_bf16(acc[n][2 * half] / den, acc[n][2 * half + 1] / den);
+        for (int half = 0; half < 2; ++half) {
+          const int64_t diag = q_offset + row_lo + 8 * half + 1;
+          int64_t hi = causal && diag < sk ? diag : sk;
+          hi -= k0;
+          lim[half] = static_cast<int>(hi < kBN ? (hi > 0 ? hi : 0) : kBN) - 2 * t4;
+        }
+        // The online softmax of rows g (half 0) and g + 8 (half 1): a row's
+        // 128 scores sit in the 4 lanes of its quad.  The maximum is taken on
+        // the raw scores (the scale is positive) and the scale folded into
+        // the exponent's fma.
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1;
+            float x = sc[4 * n + e];
+            if (edge && 8 * n + (e & 1) >= lim[half]) x = kNegInf;
+            sc[4 * n + e] = x;
+            mx[half] = fmaxf(mx[half], x);
+          }
+        float corr[2], neg_m[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float x = mx[half];
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+          const float m_new = fmaxf(m[half], x * scale_log2);
+          corr[half] = ex2(m[half] - m_new);
+          m[half] = m_new;
+          l[half] *= corr[half];
+          neg_m[half] = -m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) {
+          const int half = (i >> 1) & 1;
+          sc[i] = ex2(fmaf(sc[i], scale_log2, neg_m[half]));
+          l[half] += sc[i];
+        }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n] *= corr[0];
+          acc[4 * n + 1] *= corr[0];
+          acc[4 * n + 2] *= corr[1];
+          acc[4 * n + 3] *= corr[1];
+        }
+        // P into wgmma's A registers: keys 16 j .. 16 j + 15 are the score
+        // blocks 2 j and 2 j + 1, one k16 step.
+#pragma unroll
+        for (int j = 0; j < kBN / 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[j][r] = pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+          }
+
+        // O += P V: V read MN-major, k16 steps of 16 keys (2048 bytes).
+        mbar_wait(full_v(s), parity);
+        take_turn();
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kBN / 16; ++j) {
+          const uint64_t dv = sw128_desc(sV + s * L::kCols * kBlk + j * 2048, kBlk);
+          if constexpr (D == 128) {
+            wgmma_rs_n128(acc, pa[j], dv, 1);
+          } else {
+            wgmma_rs_n64(acc, pa[j], dv, 1);
+          }
+        }
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty_v(s));
+      }
+
+      // o = acc / max(l, 1e-30) in bf16, rows and columns inside the tensor.
+      __nv_bfloat16* ob = o + (wk.bi * sq * H + wk.h) * hd;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = l[half];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        const float den = fmaxf(x, 1e-30f);
+        const int64_t row = row_lo + 8 * half;
+        if (row >= sq) continue;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const int col = 8 * n + 2 * t4;
+          if (col >= hd) continue;
+          *reinterpret_cast<uint32_t*>(ob + row * (int64_t)H * hd + col) =
+              pack_bf16(acc[4 * n + 2 * half] / den, acc[4 * n + 2 * half + 1] / den);
+        }
+      }
     }
   }
 }
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
+// entry-point query (no -lcuda link).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The 4-D map of a contiguous bf16 (b, rows, heads, hd) tensor with boxes of
+// 64 columns x 1 head x 128 rows x 1 batch row, 128-byte swizzle; reads
+// outside the tensor are zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t b, int64_t rows, int64_t heads,
+                     int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * heads, 2ull * hd * heads * rows};
+  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
+                 int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
+                 cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t e = make_map(&tm_q, q, b, sq, H, hd);
+  if (e == cudaSuccess) e = make_map(&tm_k, k, b, sk, KV, hd);
+  if (e == cudaSuccess) e = make_map(&tm_v, v, b, sk, KV, hd);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Layout<D>::kBytes));
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(hd)));
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t n_work = (sq + kBM - 1) / kBM * H * b;
+  const int64_t blocks = n_work < sms ? n_work : sms;
+  flash_fwd_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, Layout<D>::kBytes,
+                              stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), b, sq,
+                                        sk, H, KV, hd, causal, q_offset, scale_log2, n_work);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
@@ -535,29 +877,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b, int6
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
-               int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
-  const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ), static_cast<unsigned>(H),
-                  static_cast<unsigned>(b));
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, H, KV, hd,
-      causal, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
-              int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
-              cudaStream_t stream) {
+int launch_ffma(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
+                int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
+                cudaStream_t stream) {
   switch ((hd + 63) / 64) {
     case 1: return launch<T, 64>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
     case 2: return launch<T, 128>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
@@ -566,41 +889,41 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int64_t b, i
   }
 }
 
-// bfloat16 with hd <= 128 on the tensor cores; float32, and wider bf16
-// heads (whose fragments would not fit the registers), by FFMA.
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
-                int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
-                cudaStream_t stream) {
-  if (hd <= 64) return launch_mma<64>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
-  if (hd <= 128) {
-    return launch_mma<128>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
-  }
-  return launch_hd<__nv_bfloat16>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
-}
-
 }  // namespace
 
 // ------------------------------------------------------------- C entry point
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  q, o: (b, sq, H,
-// hd); k, v: (b, sk, KV, hd); all contiguous and 16-byte aligned.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel does
-// not take (an empty dimension, H % KV != 0, hd not a multiple of 8 in
-// [8, 256], q_offset < 0, or a grid dimension out of range).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  body: 0 = wgmma
+// (bfloat16 with hd <= 128 only), 1 = FFMA (either dtype, any hd).  q, o:
+// (b, sq, H, hd); k, v: (b, sk, KV, hd); all contiguous and 16-byte
+// aligned.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape
+// the kernels do not take (an empty dimension, H % KV != 0, hd not a
+// multiple of 8 in [8, 256], q_offset < 0, a grid dimension out of range)
+// or a body that does not take it.
 
 extern "C" {
 
-int rt_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                           int64_t b, int64_t sq, int64_t sk, int64_t H, int64_t KV,
+int rt_flash_attention_fwd(int dtype, int body, const void* q, const void* k, const void* v,
+                           void* o, int64_t b, int64_t sq, int64_t sk, int64_t H, int64_t KV,
                            int64_t hd, int causal, int64_t q_offset, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KV < 1 || H % KV != 0 || hd < 8 || hd > 256 ||
-      hd % 8 != 0 || q_offset < 0 || H > 65535 || b > 65535 ||
-      (sq + kBQ - 1) / kBQ > 0x7fffffff || (dtype != 0 && dtype != 1)) {
+      hd % 8 != 0 || q_offset < 0 || H > 65535 || b > 65535 || (dtype != 0 && dtype != 1) ||
+      (body != 0 && body != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(H), kv = static_cast<int>(KV), d = static_cast<int>(hd);
-  return dtype ? launch_bf16(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s)
-               : launch_hd<float>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s);
+  if (body == 0) {
+    if (dtype != 1 || hd > 128 || sq > 0x7fffffff || sk > 0x7fffffff ||
+        (sq + wg::kBM - 1) / wg::kBM * H * b > 0x7fffffff) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return hd <= 64
+               ? wg::launch_wgmma<64>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s)
+               : wg::launch_wgmma<128>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s);
+  }
+  if ((sq + kBQ - 1) / kBQ > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  return dtype ? launch_ffma<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s)
+               : launch_ffma<float>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s);
 }
 
 }  // extern "C"

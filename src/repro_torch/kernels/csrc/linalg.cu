@@ -13,11 +13,30 @@
 // fused_newton_iter (linalg_common.cuh).
 //
 // Design, shared by the three matrix kernels: one thread block per instance
-// (256 threads), the matrix in device memory (no shared-memory limit on f:
-// at f = 128 an instance is 64 KiB in float32, L2-resident while its block
-// runs), the substitution vectors in shared memory (2 f entries).  This is
-// the simple design; a warp per small instance, the matrix staged in shared
-// memory and tensor cores for the trailing update are later work.
+// (256 threads), the substitution vectors in shared memory (2 f entries).
+// The elimination of batched_lu_factor and batched_linsolve takes one of
+// three paths, picked by cuda_impl.lu_path and passed in (the entries
+// refuse a path that does not take the shape):
+//
+// - staged (f <= 239 / 238 in float32 for the LU / the linsolve, 169 / 168
+//   in float64, on an H100): the block copies its matrix into shared memory
+//   once (16-byte loads, rows padded to f + 1 entries so a column's entries
+//   fall in distinct banks), eliminates it there with two barriers per column
+//   (lu_factor_staged) and writes LU back once; the linsolve substitutes
+//   from shared memory and writes no LU at all.  At allen_cahn_full's f =
+//   128 the device-memory elimination streamed ~f^3 / 3 entries per
+//   instance through L2 and device memory, read and written (5.7 GB at b =
+//   1024; the 1024 matrices, 64 MiB, do not fit the 50 MB L2): that traffic
+//   goes.  Occupancy: 3 blocks per SM in float32 (66 KiB each), 1 in
+//   float64.
+// - global: the same elimination in place in device memory
+//   (lu_factor_block, four barriers per column), for widths between the
+//   staged limit and 1024.
+// - wide (f >= 1024): column by column over the whole card, below.
+//
+// The three give the same factors and permutation bitwise (the same pivot
+// rule, division and fma per entry in column order).  A warp per small
+// instance and tensor cores for the trailing update are later work.
 //
 // Bounds at b = 1024, f = 128, float32 (3.35 TB/s, 67 TFLOP/s outside the
 // tensor cores): batched_lu_factor reads M and writes LU (2 b f^2 elements,
@@ -57,6 +76,66 @@ lu_factor_kernel(const T* __restrict__ A, T* __restrict__ lu, int32_t* __restric
   lu_factor_block(a, perm + (int64_t)blockIdx.x * f, f);
 }
 
+// The staged path's copies between an instance's row-major (f, f) matrix in
+// device memory and the tile `s` in shared memory (row stride f + 1): by
+// 16-byte loads and stores where the instance starts 16-byte aligned and
+// fills whole 16-byte words, else by element.
+template <typename T>
+__device__ __forceinline__ void stage_in(const T* __restrict__ src, T* s, int f) {
+  constexpr int V = 16 / sizeof(T);
+  const int n = f * f;
+  if (n % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int c = threadIdx.x; c < n / V; c += blockDim.x) {
+      const uint4 raw = reinterpret_cast<const uint4*>(src)[c];
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = c * V + e;
+        s[(i / f) * (f + 1) + i % f] = v[e];
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s[(i / f) * (f + 1) + i % f] = src[i];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_out(const T* s, T* __restrict__ dst, int f) {
+  constexpr int V = 16 / sizeof(T);
+  const int n = f * f;
+  if (n % V == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    for (int c = threadIdx.x; c < n / V; c += blockDim.x) {
+      uint4 raw;
+      T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = c * V + e;
+        v[e] = s[(i / f) * (f + 1) + i % f];
+      }
+      reinterpret_cast<uint4*>(dst)[c] = raw;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = s[(i / f) * (f + 1) + i % f];
+  }
+}
+
+// The staged path: stage M, eliminate in shared memory, write LU and perm
+// once (shared memory: staged_smem_bytes<T>(f, false)); f <= 32 NC.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads)
+lu_factor_staged_kernel(const T* __restrict__ A, T* __restrict__ lu,
+                        int32_t* __restrict__ perm, int f) {
+  extern __shared__ unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem);
+  T* mult = s + f * (f + 1);
+  int32_t* p = reinterpret_cast<int32_t*>(mult + f);
+  const int64_t n = (int64_t)f * f;
+  stage_in(A + blockIdx.x * n, s, f);
+  lu_factor_staged<T, NC>(s, f + 1, mult, p, f);
+  stage_out(s, lu + blockIdx.x * n, f);
+  for (int i = threadIdx.x; i < f; i += blockDim.x) perm[(int64_t)blockIdx.x * f + i] = p[i];
+}
+
 // ------------------------------------------------------------ batched_linsolve
 // Replaces pallas_impl.batched_linsolve (:370, body _linsolve_kernel :319).
 // The Pallas kernel runs Gauss-Jordan on the right-hand side; here A is
@@ -78,7 +157,26 @@ linsolve_kernel(const T* __restrict__ A, const T* __restrict__ rhs, T* __restric
   lu_factor_block(a, perm, f);  // ends synchronized
   const T* g = rhs + (int64_t)blockIdx.x * f;
   for (int i = threadIdx.x; i < f; i += blockDim.x) x[i] = g[perm[i]];
-  lu_substitute_block(a, x, x_out + (int64_t)blockIdx.x * f, f);
+  lu_substitute_block(a, f, x, x_out + (int64_t)blockIdx.x * f, f);
+}
+
+// The staged path of batched_linsolve: the same factors and substitution
+// as linsolve_kernel, from shared memory (staged_smem_bytes<T>(f, true));
+// no LU is written.  f <= 32 NC.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads)
+linsolve_staged_kernel(const T* __restrict__ A, const T* __restrict__ rhs,
+                       T* __restrict__ x_out, int f) {
+  extern __shared__ unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem);
+  T* mult = s + f * (f + 1);
+  T* x = mult + f;
+  int32_t* perm = reinterpret_cast<int32_t*>(x + f);
+  stage_in(A + blockIdx.x * (int64_t)f * f, s, f);
+  lu_factor_staged<T, NC>(s, f + 1, mult, perm, f);  // ends synchronized
+  const T* g = rhs + (int64_t)blockIdx.x * f;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) x[i] = g[perm[i]];
+  lu_substitute_block(s, f + 1, x, x_out + (int64_t)blockIdx.x * f, f);
 }
 
 // ------------------------------------------------------------ fused_newton_iter
@@ -103,7 +201,7 @@ newton_iter_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
   for (int i = threadIdx.x; i < f; i += blockDim.x) {
     x[i] = sub_rn(k[base + p[i]], fk[base + p[i]]);
   }
-  lu_substitute_block(lu + row * (int64_t)f * f, x, delta, f);  // ends synchronized
+  lu_substitute_block(lu + row * (int64_t)f * f, f, x, delta, f);  // ends synchronized
   if (threadIdx.x < 32) {
     const T r = newton_norm_warp(delta, scale + base, f, threadIdx.x);
     if (threadIdx.x == 0) res[row] = r;
@@ -140,15 +238,15 @@ __global__ void newton_update_kernel(const T* __restrict__ k, const T* __restric
 // ------------------------------------------------ the wide elimination
 // One block per instance leaves all but b SMs idle, and its trailing
 // update is a latency chain through device memory once the matrix outgrows
-// L2: at b = 4, f = 8192 it would take minutes.  From kWideF columns on,
-// batched_lu_factor and batched_linsolve eliminate column by column over
-// the whole card instead: per column one launch of lu_pivot_kernel (one
+// L2: at b = 4, f = 8192 it would take minutes.  From 1024 columns on
+// (cuda_impl.LU_WIDE_F), batched_lu_factor and batched_linsolve eliminate
+// column by column over the whole card instead: per column one launch of
+// lu_pivot_kernel (one
 // block per instance: lu_pivot_column, the same device function as the
 // one-block path) and one of lu_update_kernel (a warp per row and 8
 // columns per lane, over a grid of 8-row by 256-column tiles).  Every entry
 // takes the same fma with the same operands in the same column order, so
 // the factors are bitwise those of lu_factor_block.
-constexpr int kWideF = 1024;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -202,7 +300,7 @@ substitute_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
   T* x = reinterpret_cast<T*>(smem);
   const int64_t row = blockIdx.x;
   for (int i = threadIdx.x; i < f; i += blockDim.x) x[i] = rhs[row * f + perm[row * f + i]];
-  lu_substitute_block(lu + row * (int64_t)f * f, x, x_out + row * f, f);
+  lu_substitute_block(lu + row * (int64_t)f * f, f, x, x_out + row * f, f);
 }
 
 // Shared memory of the substitution: two f-vectors of T (newton_iter), or
@@ -239,17 +337,49 @@ cudaError_t reserve_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// The elimination paths of batched_lu_factor and batched_linsolve, as
+// cuda_impl.LU_PATHS numbers them.
+constexpr int kStaged = 0, kGlobal = 1, kWide = 2;
+constexpr int64_t kStagedMaxF = 32 * kStagedCols;  // a lane's columns in registers
+
+// The staged kernels for f <= 32 NC (NC the fewest 32-column chunks that
+// hold f): batched_linsolve's with `rhs`, else batched_lu_factor's.
+template <typename T, int NC = 1>
+int launch_staged(const void* A, const void* rhs, void* lu, void* perm, void* x, int64_t b, int f,
+                  cudaStream_t stream) {
+  if constexpr (NC < kStagedCols) {
+    if (f > 32 * NC) return launch_staged<T, NC + 1>(A, rhs, lu, perm, x, b, f, stream);
+  }
+  const size_t smem = staged_smem_bytes<T>(f, rhs != nullptr);
+  const cudaError_t e = rhs ? reserve_smem(linsolve_staged_kernel<T, NC>, smem)
+                            : reserve_smem(lu_factor_staged_kernel<T, NC>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (rhs) {
+    linsolve_staged_kernel<T, NC><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
+        static_cast<const T*>(A), static_cast<const T*>(rhs), static_cast<T*>(x), f);
+  } else {
+    lu_factor_staged_kernel<T, NC><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
+        static_cast<const T*>(A), static_cast<T*>(lu), static_cast<int32_t*>(perm), f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int launch_lu_factor(const void* A, void* lu, void* perm, int64_t b, int64_t f,
+int launch_lu_factor(int path, const void* A, void* lu, void* perm, int64_t b, int64_t f,
                      cudaStream_t stream) {
   if (b < 1 || f < 1 || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  if (f >= kWideF) {
+  if (path == kWide) {
     const cudaError_t e = cudaMemcpyAsync(lu, A, sizeof(T) * b * f * f,
                                           cudaMemcpyDeviceToDevice, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(factor_wide(static_cast<T*>(lu), static_cast<int32_t*>(perm), b,
                                         static_cast<int>(f), stream));
   }
+  if (path == kStaged) {
+    if (f > kStagedMaxF) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_staged<T>(A, nullptr, lu, perm, nullptr, b, static_cast<int>(f), stream);
+  }
+  if (path != kGlobal) return static_cast<int>(cudaErrorInvalidValue);
   lu_factor_kernel<T><<<static_cast<unsigned>(b), kThreads, 0, stream>>>(
       static_cast<const T*>(A), static_cast<T*>(lu), static_cast<int32_t*>(perm),
       static_cast<int>(f));
@@ -257,10 +387,14 @@ int launch_lu_factor(const void* A, void* lu, void* perm, int64_t b, int64_t f,
 }
 
 template <typename T>
-int launch_linsolve(const void* A, const void* rhs, void* scratch, void* perm_scratch, void* x,
-                    int64_t b, int64_t f, cudaStream_t stream) {
+int launch_linsolve(int path, const void* A, const void* rhs, void* scratch, void* perm_scratch,
+                    void* x, int64_t b, int64_t f, cudaStream_t stream) {
   if (b < 1 || f < 1 || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  if (f >= kWideF) {
+  if (path == kStaged) {
+    if (f > kStagedMaxF) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_staged<T>(A, rhs, nullptr, nullptr, x, b, static_cast<int>(f), stream);
+  }
+  if (path == kWide) {
     const size_t smem = static_cast<size_t>(f) * sizeof(T);
     cudaError_t e = reserve_smem(substitute_kernel<T>, smem);
     if (e == cudaSuccess) {
@@ -276,6 +410,7 @@ int launch_linsolve(const void* A, const void* rhs, void* scratch, void* perm_sc
         static_cast<const T*>(rhs), static_cast<T*>(x), static_cast<int>(f));
     return static_cast<int>(cudaGetLastError());
   }
+  if (path != kGlobal) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(f) * (sizeof(T) + sizeof(int32_t));
   const cudaError_t e = reserve_smem(linsolve_kernel<T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -317,40 +452,47 @@ int launch_newton_update(const void* k, const void* delta, const void* active,
 }  // namespace
 
 // ------------------------------------------------------------- C entry points
-// dtype: 0 = float32, 1 = float64.  Every entry returns cudaGetLastError(),
-// or cudaErrorInvalidValue for an empty shape or a width whose substitution
-// vectors exceed the device's shared-memory limit (rt_linalg_max_smem()).
+// dtype: 0 = float32, 1 = float64; path (batched_lu_factor and
+// batched_linsolve): 0 = staged, 1 = global, 2 = wide.  Every entry returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an empty shape, an
+// unknown path, or a width whose shared memory (the staged matrix, or the
+// substitution vectors) exceeds the device's limit (rt_linalg_max_smem()).
 
 extern "C" {
 
-// The smallest dynamic shared-memory limit of the two substitution kernels
-// on the current device, in bytes (either dtype), or -1 if the device
-// cannot be queried.
+// The smallest dynamic shared-memory limit of the substitution and staged
+// kernels on the current device, in bytes (either dtype), or -1 if the
+// device cannot be queried.
 int rt_linalg_max_smem() {
   size_t least = static_cast<size_t>(-1), limit = 0;
-  if (dynamic_smem_limit(linsolve_kernel<float>, &limit) != cudaSuccess) return -1;
-  least = limit < least ? limit : least;
-  if (dynamic_smem_limit(linsolve_kernel<double>, &limit) != cudaSuccess) return -1;
-  least = limit < least ? limit : least;
-  if (dynamic_smem_limit(newton_iter_kernel<float>, &limit) != cudaSuccess) return -1;
-  least = limit < least ? limit : least;
-  if (dynamic_smem_limit(newton_iter_kernel<double>, &limit) != cudaSuccess) return -1;
-  least = limit < least ? limit : least;
-  return static_cast<int>(least);
+  cudaError_t e = cudaSuccess;
+  auto take = [&](cudaError_t r) {
+    if (r != cudaSuccess) e = r;
+    least = limit < least ? limit : least;
+  };
+  take(dynamic_smem_limit(linsolve_kernel<float>, &limit));
+  take(dynamic_smem_limit(linsolve_kernel<double>, &limit));
+  take(dynamic_smem_limit(newton_iter_kernel<float>, &limit));
+  take(dynamic_smem_limit(newton_iter_kernel<double>, &limit));
+  take(dynamic_smem_limit(lu_factor_staged_kernel<float, kStagedCols>, &limit));
+  take(dynamic_smem_limit(lu_factor_staged_kernel<double, kStagedCols>, &limit));
+  take(dynamic_smem_limit(linsolve_staged_kernel<float, kStagedCols>, &limit));
+  take(dynamic_smem_limit(linsolve_staged_kernel<double, kStagedCols>, &limit));
+  return e == cudaSuccess ? static_cast<int>(least) : -1;
 }
 
-int rt_batched_lu_factor(int dtype, const void* A, void* lu, void* perm, int64_t b, int64_t f,
-                         void* stream) {
+int rt_batched_lu_factor(int dtype, int path, const void* A, void* lu, void* perm, int64_t b,
+                         int64_t f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_lu_factor<double>(A, lu, perm, b, f, s)
-               : launch_lu_factor<float>(A, lu, perm, b, f, s);
+  return dtype ? launch_lu_factor<double>(path, A, lu, perm, b, f, s)
+               : launch_lu_factor<float>(path, A, lu, perm, b, f, s);
 }
 
-int rt_batched_linsolve(int dtype, const void* A, const void* rhs, void* scratch,
+int rt_batched_linsolve(int dtype, int path, const void* A, const void* rhs, void* scratch,
                         void* perm_scratch, void* x, int64_t b, int64_t f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_linsolve<double>(A, rhs, scratch, perm_scratch, x, b, f, s)
-               : launch_linsolve<float>(A, rhs, scratch, perm_scratch, x, b, f, s);
+  return dtype ? launch_linsolve<double>(path, A, rhs, scratch, perm_scratch, x, b, f, s)
+               : launch_linsolve<float>(path, A, rhs, scratch, perm_scratch, x, b, f, s);
 }
 
 int rt_fused_newton_iter(int dtype, const void* lu, const void* perm, const void* k,

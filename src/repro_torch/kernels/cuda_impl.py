@@ -7,7 +7,17 @@ contiguity, allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and raises when the launch reports an error.
 It never falls back to the plain version: a tensor the kernel does not take
 is an error.  ``launches[name]`` counts the launches of each kernel, and
-nothing else adds to it.
+nothing else adds to it; ``body_launches`` splits the count of the kernels
+with more than one body or path by the one that ran.
+
+Two kernels have more than one body, each chosen by one function here and
+passed to the C entry, which refuses a body that does not take the shape:
+``flash_attention_fwd`` (``flash_body``: the wgmma body for bfloat16 with
+hd <= 128, FFMA otherwise) and the elimination of ``batched_lu_factor`` and
+``batched_linsolve`` (``lu_path``: staged in shared memory where the matrix
+fits, in device memory above that, column by column over the card from
+``LU_WIDE_F`` columns).  The wrappers check a body or path given by the
+caller with the same rules and raise ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
@@ -25,6 +35,17 @@ launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval":
             "fused_event_detect": 0, "fused_event_commit": 0, "batched_linsolve": 0,
             "batched_lu_factor": 0, "fused_newton_iter": 0, "masked_newton_update": 0,
             "flash_attention_fwd": 0}
+
+# The elimination paths of csrc/linalg.cu and the attention bodies of
+# csrc/flash_attn.cu, numbered as their C entries take them.
+LU_PATHS = {"staged": 0, "global": 1, "wide": 2}
+LU_WIDE_F = 1024  # the wide path's first width
+LU_STAGED_MAX_F = 256  # kStagedMaxF of csrc/linalg.cu: a lane's columns in registers
+FLASH_BODIES = {"wgmma": 0, "ffma": 1}
+
+body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
+                 "batched_lu_factor": dict.fromkeys(LU_PATHS, 0),
+                 "batched_linsolve": dict.fromkeys(LU_PATHS, 0)}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -435,15 +456,27 @@ def _square(name, A):
     return A.shape[0], A.shape[1]
 
 
+_smem_limits = {}
+
+
+def _smem_limit(name, lib, device):
+    """The device's opt-in shared memory per block less the linalg kernels'
+    static shared memory (``rt_linalg_max_smem``), read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _smem_limits:
+        with torch.cuda.device(index):
+            limit = lib.rt_linalg_max_smem()
+        if limit < 0:
+            raise RuntimeError(f"{name}: cannot read the shared-memory limit of {device}")
+        _smem_limits[index] = limit
+    return _smem_limits[index]
+
+
 def _substitution_fits(name, f, bytes_per_feature, lib, device):
     """The substitution keeps ``bytes_per_feature * f`` bytes in shared
-    memory (its vectors): raise above the device's opt-in limit per block
-    less the kernels' static shared memory (``rt_linalg_max_smem``)."""
+    memory (its vectors): raise above the device's limit."""
     need = f * bytes_per_feature
-    with torch.cuda.device(device):
-        limit = lib.rt_linalg_max_smem()
-    if limit < 0:
-        raise RuntimeError(f"{name}: cannot read the shared-memory limit of {device}")
+    limit = _smem_limit(name, lib, device)
     if need > limit:
         raise ValueError(f"{name}: f = {f} needs {need} bytes of shared memory for the "
                          f"substitution, above the device's limit of {limit} bytes "
@@ -464,44 +497,110 @@ def _row_scale(name, scale, b, f, like):
                          f"({b}, {f})") from None
 
 
-def batched_lu_factor(A):
+def _known(name, choice, table, what):
+    if choice not in table:
+        raise ValueError(f"{name}: unknown {what} {choice!r}; one of {sorted(table)}")
+
+
+def staged_smem_bytes(f, itemsize, with_rhs=False):
+    """Shared memory of the staged elimination at width ``f``
+    (``staged_smem_bytes`` of ``csrc/linalg_common.cuh``): the matrix at row
+    stride f + 1 and the f multipliers in the matrix's dtype (``itemsize``
+    bytes), the linsolve's right-hand side (``with_rhs``), the int32
+    permutation."""
+    return itemsize * (f * (f + 1) + f + (f if with_rhs else 0)) + 4 * f
+
+
+def _staged_fits(f, itemsize, smem_limit, with_rhs):
+    return f <= LU_STAGED_MAX_F and staged_smem_bytes(f, itemsize, with_rhs) <= smem_limit
+
+
+def lu_path(f, itemsize, smem_limit, with_rhs=False):
+    """The elimination path of ``batched_lu_factor`` (``with_rhs`` False) or
+    ``batched_linsolve`` (True) at width ``f``: ``"wide"`` from
+    ``LU_WIDE_F`` columns, else ``"staged"`` where the staged matrix fits
+    ``smem_limit`` bytes and f <= ``LU_STAGED_MAX_F``, else ``"global"``."""
+    if f >= LU_WIDE_F:
+        return "wide"
+    return "staged" if _staged_fits(f, itemsize, smem_limit, with_rhs) else "global"
+
+
+def check_lu_path(name, path, f, itemsize, smem_limit, with_rhs=False):
+    """Raise ValueError where the C entry would refuse ``path`` at width
+    ``f``: an unknown path, or a staged matrix above ``smem_limit`` bytes or
+    ``LU_STAGED_MAX_F`` columns.  The global and wide paths take every width
+    (the global one is slow from ``LU_WIDE_F`` columns on, and the wide one
+    below)."""
+    _known(name, path, LU_PATHS, "elimination path")
+    if path == "staged" and not _staged_fits(f, itemsize, smem_limit, with_rhs):
+        raise ValueError(f"{name}: the staged path takes f <= {LU_STAGED_MAX_F} within the "
+                         f"device's {smem_limit} bytes of shared memory; f = {f} needs "
+                         f"{staged_smem_bytes(f, itemsize, with_rhs)} bytes")
+
+
+def _pick_lu_path(name, path, f, A, lib, with_rhs):
+    limit = _smem_limit(name, lib, A.device)
+    if path is None:
+        path = lu_path(f, A.element_size(), limit, with_rhs)
+    check_lu_path(name, path, f, A.element_size(), limit, with_rhs)
+    return path
+
+
+def batched_lu_factor(A, *, path=None):
     """CUDA ``batched_lu_factor``: the packed partial-pivoted LU of each
     (f, f) matrix and the int32 row permutation with ``A[perm] == L @ U``
-    (see ``ref.batched_lu_factor``).  Returns new tensors ``(lu, perm)``."""
-    code = _dtype_code("batched_lu_factor", A)
-    _check("batched_lu_factor", A.dtype, A)
-    b, f = _square("batched_lu_factor", A)
+    (see ``ref.batched_lu_factor``).  ``path`` overrides ``lu_path``'s
+    choice of elimination (all three give the same bits).  Returns new
+    tensors ``(lu, perm)``."""
+    name = "batched_lu_factor"
+    code = _dtype_code(name, A)
+    if path is not None:
+        _known(name, path, LU_PATHS, "elimination path")
+    _check(name, A.dtype, A)
+    b, f = _square(name, A)
+    lib = _build.load()
+    path = _pick_lu_path(name, path, f, A, lib, False)
     lu = torch.empty_like(A)
     perm = torch.empty((b, f), dtype=torch.int32, device=A.device)
-    lib = _build.load()
     with torch.cuda.device(A.device):
-        rc = lib.rt_batched_lu_factor(code, A.data_ptr(), lu.data_ptr(), perm.data_ptr(), b, f,
-                                      _stream(A.device))
-    _raise_on("batched_lu_factor", rc)
-    launches["batched_lu_factor"] += 1
+        rc = lib.rt_batched_lu_factor(code, LU_PATHS[path], A.data_ptr(), lu.data_ptr(),
+                                      perm.data_ptr(), b, f, _stream(A.device))
+    _raise_on(name, rc)
+    launches[name] += 1
+    body_launches[name][path] += 1
     return lu, perm
 
 
-def batched_linsolve(A, rhs):
+def batched_linsolve(A, rhs, *, path=None):
     """CUDA ``batched_linsolve``: x with A @ x = rhs per instance, by the LU
-    of ``batched_lu_factor`` (in a scratch copy of A) and the substitution of
-    ``fused_newton_iter`` (see ``ref.batched_linsolve``)."""
-    code = _dtype_code("batched_linsolve", A)
-    _check("batched_linsolve", A.dtype, A, rhs)
-    _same_device("batched_linsolve", A, rhs)
-    b, f = _square("batched_linsolve", A)
+    of ``batched_lu_factor`` and the substitution of ``fused_newton_iter``
+    (see ``ref.batched_linsolve``).  ``path`` overrides ``lu_path``'s choice
+    of elimination: staged, the matrix is factored and substituted in shared
+    memory; global and wide, in a scratch copy of A."""
+    name = "batched_linsolve"
+    code = _dtype_code(name, A)
+    if path is not None:
+        _known(name, path, LU_PATHS, "elimination path")
+    _check(name, A.dtype, A, rhs)
+    _same_device(name, A, rhs)
+    b, f = _square(name, A)
     if rhs.shape != (b, f):
-        raise ValueError(f"batched_linsolve: rhs of shape {tuple(rhs.shape)}, want ({b}, {f})")
+        raise ValueError(f"{name}: rhs of shape {tuple(rhs.shape)}, want ({b}, {f})")
     lib = _build.load()
-    _substitution_fits("batched_linsolve", f, A.element_size() + 4, lib, A.device)  # x, int32 perm
-    scratch = torch.empty_like(A)
-    perm = torch.empty((b, f), dtype=torch.int32, device=A.device)
+    path = _pick_lu_path(name, path, f, A, lib, True)
+    if path != "staged":
+        _substitution_fits(name, f, A.element_size() + 4, lib, A.device)  # x, int32 perm
+    scratch = torch.empty_like(A) if path != "staged" else None
+    perm = torch.empty((b, f), dtype=torch.int32, device=A.device) if path == "wide" else None
     x = torch.empty_like(rhs)
     with torch.cuda.device(A.device):
-        rc = lib.rt_batched_linsolve(code, A.data_ptr(), rhs.data_ptr(), scratch.data_ptr(),
-                                     perm.data_ptr(), x.data_ptr(), b, f, _stream(A.device))
-    _raise_on("batched_linsolve", rc)
-    launches["batched_linsolve"] += 1
+        rc = lib.rt_batched_linsolve(code, LU_PATHS[path], A.data_ptr(), rhs.data_ptr(),
+                                     None if scratch is None else scratch.data_ptr(),
+                                     None if perm is None else perm.data_ptr(), x.data_ptr(),
+                                     b, f, _stream(A.device))
+    _raise_on(name, rc)
+    launches[name] += 1
+    body_launches[name][path] += 1
     return x
 
 
@@ -565,23 +664,43 @@ def masked_newton_update(k, delta, active, scale):
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0):
+def flash_body(hd, dtype):
+    """The attention body for head dim ``hd`` and ``dtype``: ``"wgmma"``
+    (tensor cores, TMA-fed) for bfloat16 with hd <= 128, else ``"ffma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and hd <= 128 else "ffma"
+
+
+def check_flash_body(body, hd, dtype):
+    """Raise ValueError where the C entry would refuse ``body``: an unknown
+    body, or wgmma outside bfloat16 with hd <= 128.  FFMA takes every shape
+    the wrapper takes."""
+    name = "flash_attention_fwd"
+    _known(name, body, FLASH_BODIES, "body")
+    if body == "wgmma" and (dtype != torch.bfloat16 or hd > 128):
+        raise ValueError(f"{name}: the wgmma body takes bfloat16 with hd <= 128, got {dtype} "
+                         f"with hd = {hd}")
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, body=None):
     """CUDA ``flash_attention_fwd``: GQA attention of q (b, sq, H, hd) over
     k, v (b, sk, KV, hd), query head h on KV head h // (H // KV), ``q_offset``
     the position of q[:, 0] against k[:, 0] (see ``ref.flash_attention_fwd``).
     Ragged lengths need no padding: the kernel masks rows and keys past the
-    ends.  Returns a new (b, sq, H, hd) tensor in q's dtype."""
+    ends.  ``body`` overrides ``flash_body``'s choice.  Returns a new (b, sq,
+    H, hd) tensor in q's dtype."""
     name = "flash_attention_fwd"
     if not isinstance(q, torch.Tensor) or q.dtype not in _ATTN_DTYPES:
         raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, got "
                         f"{getattr(q, 'dtype', type(q).__name__)}")
-    _check(name, q.dtype, q, k, v)
-    _same_device(name, q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or k.shape[0] != q.shape[0] \
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} are not (b, sq, H, hd), (b, sk, KV, hd) twice")
     b, sq, H, hd = q.shape
+    body = flash_body(hd, q.dtype) if body is None else body
+    check_flash_body(body, hd, q.dtype)
+    _check(name, q.dtype, q, k, v)
+    _same_device(name, q, k, v)
     sk, KV = k.shape[1], k.shape[2]
     if min(b, sq, sk, H, KV) < 1 or H % KV:
         raise ValueError(f"{name}: {H} query heads over {KV} KV heads, b = {b}, sq = {sq}, "
@@ -596,9 +715,10 @@ def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0):
     out = torch.empty_like(q)
     lib = _build.load()
     with torch.cuda.device(q.device):
-        rc = lib.rt_flash_attention_fwd(_ATTN_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                                        v.data_ptr(), out.data_ptr(), b, sq, sk, H, KV, hd,
-                                        int(bool(causal)), q_offset, _stream(q.device))
+        rc = lib.rt_flash_attention_fwd(_ATTN_DTYPES[q.dtype], FLASH_BODIES[body], q.data_ptr(),
+                                        k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, H,
+                                        KV, hd, int(bool(causal)), q_offset, _stream(q.device))
     _raise_on(name, rc)
     launches[name] += 1
+    body_launches[name][body] += 1
     return out

@@ -34,7 +34,7 @@ from repro_torch.core import (  # noqa: E402
     solve_ivp,
 )
 from repro_torch.core.stepper import _tableau_arrays  # noqa: E402
-from repro_torch.kernels import cuda_impl, ops  # noqa: E402
+from repro_torch.kernels import _build, cuda_impl, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.tools import event_checks  # noqa: E402
 from repro_torch.tools import newton_checks as NC  # noqa: E402
@@ -584,6 +584,83 @@ def test_wide_newton_kernels_against_plain(cuda_device, f):
         assert torch.equal(a, c)
 
 
+def _same_bits(a, c):
+    return torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+
+
+class TestStagedEliminationOnCard:
+    """The elimination staged in shared memory (``lu_path`` "staged", the
+    main path's at f <= 239 / 169) against the device-memory one ("global"):
+    equal factors, permutation and solutions bit for bit, both held to the
+    plain versions; the unfused Newton iteration on the staged linsolve
+    bitwise equal to the fused one on the staged LU.  Widths: the stiff
+    workloads' 2, 3 and 128, others, the widest staged f of each op and
+    dtype, and the narrowest global one (where "staged" is refused)."""
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("f", [2, 3, 17, 64, 128, "max_staged", "min_global"])
+    @pytest.mark.parametrize("kind", NC.KINDS)
+    def test_staged_against_global(self, cuda_device, dtype, f, kind):
+        itemsize = np.dtype(dtype).itemsize
+        limit = cuda_impl._smem_limit("test", _build.load(), cuda_device)
+        widths = {}
+        for with_rhs in (False, True):
+            f_max = max(n for n in range(1, 1024)
+                        if cuda_impl.lu_path(n, itemsize, limit, with_rhs) == "staged")
+            widths[with_rhs] = {"max_staged": f_max, "min_global": f_max + 1}.get(f, f)
+        for with_rhs, width in widths.items():
+            if (kind == "zero_diag" and width < 2) or (kind == "ties" and width < 3):
+                continue
+            M, rhs, k, fk, mask, scale = NC.to_torch(
+                NC.newton_inputs(width + len(kind), 29, width, dtype, kind), cuda_device)
+            skip = NC.nan_rows(M.cpu().numpy())
+            path = cuda_impl.lu_path(width, itemsize, limit, with_rhs)
+            assert path == ("global" if f == "min_global" else "staged")
+            name = "batched_linsolve" if with_rhs else "batched_lu_factor"
+            run = ((lambda p: cuda_impl.batched_linsolve(M, rhs, path=p)) if with_rhs
+                   else (lambda p: cuda_impl.batched_lu_factor(M, path=p)))
+            before = dict(cuda_impl.body_launches[name])
+            got = run(None)  # the selection's path
+            assert cuda_impl.body_launches[name][path] == before[path] + 1
+            if with_rhs:
+                NC.hold(name, (got,), (tref.batched_linsolve(M, rhs),), dtype, skip_rows=skip)
+            else:
+                NC.hold(name, got, tref.batched_lu_factor(M), dtype, matrix=M, skip_rows=skip)
+            if path == "global":
+                with pytest.raises(ValueError, match="staged path takes"):
+                    run("staged")
+                continue
+            glob = run("global")
+            for a, c in zip(got if isinstance(got, tuple) else (got,),
+                            glob if isinstance(glob, tuple) else (glob,)):
+                assert _same_bits(a, c)
+            if with_rhs:
+                # the unfused iteration on the staged linsolve equals the
+                # fused one on the staged LU, bit for bit
+                lu, perm = cuda_impl.batched_lu_factor(M, path="staged")
+                unfused = cuda_impl.masked_newton_update(
+                    k, cuda_impl.batched_linsolve(M, k - fk, path="staged"), mask, scale)
+                fused = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)
+                for a, c in zip(unfused, fused):
+                    assert _same_bits(a, c)
+
+    def test_entry_refuses_a_path_that_does_not_fit(self, cuda_device):
+        # Called past the wrapper: the C entry itself refuses the staged path
+        # above the shared-memory limit, and an unknown path, with
+        # cudaErrorInvalidValue (1), before any launch.
+        lib = _build.load()
+        f = 400
+        A = torch.eye(f, dtype=torch.float64, device=cuda_device)[None].contiguous()
+        lu = torch.empty_like(A)
+        perm = torch.empty(1, f, dtype=torch.int32, device=cuda_device)
+        stream = torch.cuda.current_stream().cuda_stream
+        for path in (cuda_impl.LU_PATHS["staged"], 7):
+            assert lib.rt_batched_lu_factor(1, path, A.data_ptr(), lu.data_ptr(),
+                                            perm.data_ptr(), 1, f, stream) == 1
+        with pytest.raises(ValueError, match="staged path takes"):
+            cuda_impl.batched_lu_factor(A, path="staged")
+
+
 # b, sq, sk, H, KV, hd, causal, q_offset: tests/test_flash_kernel.py's CASES
 # (sq == sk), ragged lengths, chunked-prefill continuations, MQA, hd = 80
 # (stablelm-3b) and the widest head the kernel takes.
@@ -612,13 +689,59 @@ class TestFlashKernelOnCard:
         q, k, v = (torch.randn(shape, generator=g).to(cuda_device, dtype)
                    for shape in ((b, sq, H, hd), (b, sk, KV, hd), (b, sk, KV, hd)))
         before = ops.launches["flash_attention_fwd"]
+        body = cuda_impl.flash_body(hd, dtype)
+        before_body = cuda_impl.body_launches["flash_attention_fwd"][body]
         got = ops.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
         assert ops.launches["flash_attention_fwd"] == before + 1
+        assert cuda_impl.body_launches["flash_attention_fwd"][body] == before_body + 1
         want = tref.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset, q_chunk=32,
                                         kv_chunk=64)
         assert got.dtype == dtype and got.shape == (b, sq, H, hd)
         tol = 2e-5 if dtype == torch.float32 else 3e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("b,sq,sk,H,KV,hd,causal,q_offset",
+                             [c for c in FLASH_CASES if c[5] <= 128])
+    def test_ffma_body_in_bf16(self, cuda_device, b, sq, sk, H, KV, hd, causal, q_offset):
+        """The FFMA body takes the wgmma body's shapes too (it is what bf16
+        heads above 128 run): held to the plain version at 3e-2."""
+        g = _gen(sq * sk + hd + 1)
+        q, k, v = (torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+                   for shape in ((b, sq, H, hd), (b, sk, KV, hd), (b, sk, KV, hd)))
+        got = cuda_impl.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                                            body="ffma")
+        want = tref.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset, q_chunk=32,
+                                        kv_chunk=64)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+    def test_serve_layer_against_plain(self, cuda_device):
+        """qwen2.5-14b's layer as the full-width serve's prefill gives it (b =
+        4, s = 2048, 40 query / 8 KV heads, hd = 128, bf16, causal): the wgmma
+        body, within 3e-2 of the plain version."""
+        g = torch.Generator(device=cuda_device).manual_seed(2048)
+        q = torch.randn(4, 2048, 40, 128, generator=g, device=cuda_device).bfloat16()
+        k, v = (torch.randn(4, 2048, 8, 128, generator=g, device=cuda_device).bfloat16()
+                for _ in range(2))
+        before = cuda_impl.body_launches["flash_attention_fwd"]["wgmma"]
+        got = ops.flash_attention_fwd(q, k, v)
+        assert cuda_impl.body_launches["flash_attention_fwd"]["wgmma"] == before + 1
+        want = tref.flash_attention_fwd(q, k, v, q_chunk=512, kv_chunk=1024)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+    def test_entry_refuses_wgmma_outside_its_shapes(self, cuda_device):
+        # Past the wrapper, the C entry refuses the wgmma body for float32 and
+        # for hd > 128 with cudaErrorInvalidValue (1); the wrapper raises first.
+        lib = _build.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 136)):
+            q = torch.zeros(1, 8, 2, hd, dtype=dtype, device=cuda_device)
+            out = torch.empty_like(q)
+            code = 0 if dtype == torch.float32 else 1
+            assert lib.rt_flash_attention_fwd(code, cuda_impl.FLASH_BODIES["wgmma"], q.data_ptr(),
+                                              q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 8, 8,
+                                              2, 2, hd, 1, 0, stream) == 1
+            with pytest.raises(ValueError, match="wgmma body"):
+                cuda_impl.flash_attention_fwd(q, q, q, body="wgmma")
 
     def test_matches_the_oracle(self, cuda_device):
         g = _gen(11)
