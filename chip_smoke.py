@@ -84,10 +84,16 @@ FFMA body otherwise, each counted -- times it at qwen2.5-14b's layer (with
 ``scaled_dot_product_attention`` as the library yardstick), holds the
 elimination staged in shared memory bitwise to the device-memory one (the
 stiff widths, float32 and float64, with the device-memory path's time
-beside the staged one's), and holds the substitution kernels above their
-old 48 KiB shared-memory limit (f = 4096 and 8192, float64, 1e-12, equal
-permutations).  The ``stiff`` and ``lm`` phases check that the main path
-took the staged elimination and the wgmma body.
+beside the staged one's), holds ``fused_newton_iter``'s bodies (the warp
+body up to f = 32, the panel substitution, the column loop) bitwise to each
+other on every Newton case and times them side by side (``ms_by_body``),
+holds ``masked_bisect_refine`` bitwise to its plain version at every row
+segment class (f = 1-5, 783-785; aligned and unaligned coefficients), and
+holds the substitution kernels above their old 48 KiB shared-memory limit
+(f = 4096 and 8192, float64, 1e-12, equal permutations, both Newton bodies
+bitwise equal).  The ``stiff`` and ``lm`` phases check that the main path
+took the staged elimination, the Newton body ``newton_iter_body`` picks
+(the panel substitution at allen_cahn_full) and the wgmma body.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -569,6 +575,26 @@ def main() -> int:
                     held.append(hold_bitwise("fused_event_commit", check_k(), run_p(), dtype))
     emit("kernels", check="event kernels, untimed cases", bitwise_equal_to_plain=True,
          cases={f"{k[0]}/{k[1]}": len(v) for k, v in event_held.items()})
+    # masked_bisect_refine at every row-segment class: f below, at and above
+    # a 16-byte chunk and around full_width's 784, b = 37 rows (not a
+    # multiple of a block's rows), coefficient planes 16-byte aligned (chunks,
+    # with per-row heads and tails where f is not a multiple of a chunk) and
+    # one entry off (entry by entry), bitwise.
+    widths = (1, 2, 3, 4, 5, 783, 784, 785)
+    for npdt in (np.float32, np.float64):
+        for f in widths:
+            coeffs, *cols = event_checks.to_torch(
+                event_checks.bisect_inputs(f, 37, f, npdt, "mixed"), dev)
+            for aligned in (True, False):
+                if not aligned:
+                    coeffs = tuple(torch.empty(c.numel() + 1, dtype=c.dtype, device=dev)[1:]
+                                   .view(c.shape).copy_(c) for c in coeffs)
+                event_checks.assert_bitwise(
+                    f"masked_bisect_refine[f={f} aligned={aligned}]",
+                    cuda_impl.masked_bisect_refine(coeffs, *cols),
+                    ref.masked_bisect_refine(coeffs, *cols))
+    emit("kernels", check="masked_bisect_refine row segments", b=37, widths=widths,
+         coefficients=["16-byte aligned", "one entry off"], bitwise_equal_to_plain=True)
 
     # The chord-Newton kernels at the stiff workloads' shapes (b = 1024; f =
     # 2 Van der Pol, 3 Robertson, 128 Allen-Cahn), float32 and float64, over
@@ -592,7 +618,12 @@ def main() -> int:
     def subst_flops(f):
         return 2 * f * (f - 1) + f
 
-    newton_held = {}
+    def newton_bodies(f):
+        """fused_newton_iter's bodies at width f: the column loop (the first
+        design), the panel substitution, the warp body up to 32 columns."""
+        return ("column", "panel") + (("warp",) if f <= cuda_impl.WARP_MAX_F else ())
+
+    newton_held, body_ms = {}, {}
     for shape_name, f in (("vdp_stiff_mixed", 2), ("robertson_sweep", 3),
                           ("allen_cahn_full", workloads.ALLEN_CAHN["f"])):
         b = workloads.STIFF["b"]
@@ -626,6 +657,20 @@ def main() -> int:
                               for a, c in zip(unfused, fused)),
                           f"newton[{shape_name} {npdt.__name__} {kind} {active}]: the "
                           "unfused iteration differs bitwise from the fused one")
+                    # Every body fused_newton_iter has at this width gives the
+                    # same bits (the warp body takes f <= 32).
+                    for body in newton_bodies(f):
+                        other = cuda_impl.fused_newton_iter(lu_k, perm_k, k, fk, mask, scale,
+                                                            body=body)
+                        check(all(torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+                                  for a, c in zip(fused, other)),
+                              f"fused_newton_iter[{shape_name} {npdt.__name__} {kind} "
+                              f"{active}]: the {body} body differs bitwise")
+                    if kind == "chord" and active == "mixed":
+                        body_ms[(shape_name, npdt.__name__)] = {
+                            body: median_ms(lambda body=body, a=(lu_p, perm_p, k, fk, mask, scale):
+                                            cuda_impl.fused_newton_iter(*a, body=body))
+                            for body in newton_bodies(f)}
 
                     def hold_newton(name, got, want, _dtype, matrix=None, skip=skip):
                         got = got if isinstance(got, tuple) else (got,)
@@ -669,6 +714,16 @@ def main() -> int:
     emit("kernels", check="newton kernels, all cases", tol={"float32": 1e-5, "float64": 1e-12},
          unfused_iteration_bitwise_equal_to_fused=True,
          cases={f"{k[0]}/{k[1]}": v for k, v in newton_held.items()})
+    # fused_newton_iter's bodies, each bitwise equal to the others on every
+    # case above, timed side by side at the stiff shapes (chord, mixed rows):
+    # the column loop is the first design's time.
+    smem_limit = _build.load().rt_linalg_max_smem()
+    for (shape_name, dt), ms in body_ms.items():
+        f = {"vdp_stiff_mixed": 2, "robertson_sweep": 3}.get(shape_name, workloads.ALLEN_CAHN["f"])
+        emit("kernels", check="fused_newton_iter bodies bitwise equal", kernel="fused_newton_iter",
+             shape=shape_name, f=f, dtype=dt,
+             chosen=cuda_impl.newton_iter_body(f, np.dtype(dt).itemsize, smem_limit),
+             ms_by_body=ms)
 
     # The elimination staged in shared memory (the main path's at these
     # widths, cuda_impl.lu_path) against the device-memory one: factors,
@@ -730,9 +785,20 @@ def main() -> int:
         fused = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)
         check(all(torch.equal(a, c) for a, c in zip(unfused, fused)),
               f"newton[wide f={f}]: the unfused iteration differs bitwise from the fused one")
+        body = cuda_impl.newton_iter_body(f, 8, _build.load().rt_linalg_max_smem())
+        seconds = {}
+        for other in ("panel", "column"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale, body=other)
+            torch.cuda.synchronize()
+            seconds[other] = time.perf_counter() - t0
+            check(all(torch.equal(a, c) for a, c in zip(got, fused)),
+                  f"fused_newton_iter[wide f={f}]: the {other} body differs bitwise")
         emit("kernels", check="newton kernels above 48 KiB of shared memory (C-8)", b=4, f=f,
              dtype="float64", tol=1e-12, max_abs_err=err, permutation_equal=True,
              unfused_iteration_bitwise_equal_to_fused=True, lu_factor_seconds=lu_s,
+             newton_iter_body=body, newton_iter_seconds_by_body=seconds,
              max_smem_bytes=_build.load().rt_linalg_max_smem())
 
     for f in (4096, 8192):
@@ -1270,6 +1336,15 @@ def main() -> int:
             paths = dict(cuda_impl.body_launches[lu_op])
             check(paths["staged"] == want[lu_op] and sum(paths.values()) == want[lu_op],
                   f"stiff/{name}/{path}: {lu_op} paths {paths}, want {want[lu_op]} staged")
+            # Every fused iteration took the body newton_iter_body picks:
+            # the panel substitution at allen_cahn_full, the warp body at f
+            # = 2, 3.
+            bodies = dict(cuda_impl.body_launches["fused_newton_iter"])
+            body = cuda_impl.newton_iter_body(y0.shape[1], 4, _build.load().rt_linalg_max_smem())
+            check(bodies[body] == want["fused_newton_iter"]
+                  and sum(bodies.values()) == want["fused_newton_iter"],
+                  f"stiff/{name}/{path}: fused_newton_iter bodies {bodies}, want "
+                  f"{want['fused_newton_iter']} {body}")
             check(bool((out.status == 0).all()) and np.isfinite(out.ys).all(),
                   f"stiff/{name}/{path}: status {np.bincount(out.status)}")
             runs[path] = out
@@ -1280,7 +1355,8 @@ def main() -> int:
                  n_newton_iters=spread(out.stats["n_newton_iters"]),
                  n_jac_evals=spread(out.stats["n_jac_evals"]),
                  n_f_evals=int(out.stats["n_f_evals"][0]), wall_ms=wall,
-                 ms_per_step=wall / iters, launches=launches, elimination_paths=paths)
+                 ms_per_step=wall / iters, launches=launches, elimination_paths=paths,
+                 newton_iter_bodies=bodies)
         check(stiff_equal(runs["fused"], runs["unfused"]),
               f"stiff/{name}: fused and unfused card solves differ")
         # Per-instance independence, now with per-row Newton masks: rows

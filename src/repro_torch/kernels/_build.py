@@ -128,7 +128,7 @@ def load() -> ctypes.CDLL:
         lib.rt_linalg_max_smem.restype = i
         lib.rt_batched_lu_factor.argtypes = [i, i, p, p, p, i64, i64, p]
         lib.rt_batched_linsolve.argtypes = [i, i, p, p, p, p, p, i64, i64, p]
-        lib.rt_fused_newton_iter.argtypes = [i] + [p] * 8 + [i64, i64, p]
+        lib.rt_fused_newton_iter.argtypes = [i, i] + [p] * 8 + [i64, i64, p]
         lib.rt_masked_newton_update.argtypes = [i] + [p] * 6 + [i64, i64, p]
         lib.rt_flash_attention_fwd.argtypes = [i, i, p, p, p, p] + [i64] * 6 + [i, i64, p]
         for name in ("rt_stage_accum", "rt_fused_update", "rt_error_norm", "rt_interp_eval",

@@ -11,10 +11,17 @@
 // version's bitwise on the card.
 //
 // Bound: the bytes, for all three.  masked_bisect_refine reads the four (b, f)
-// coefficient planes and writes y_mid (5 planes, 6 flops an element);
-// fused_event_detect moves a few (b, E) columns; fused_event_commit reads
-// y_new and writes y_stop (2 planes), and reads y_ev and writes ev_y only in
-// the cells of the crossings it records.
+// coefficient planes and writes y_mid (5 planes, 6 flops an element: at
+// full_width's b = 1024, f = 784 in float32, 16 MB, 0.0048 ms at 3.35
+// TB/s); fused_event_detect moves a few (b, E) columns; fused_event_commit
+// reads y_new and writes y_stop (2 planes), and reads y_ev and writes ev_y
+// only in the cells of the crossings it records.
+//
+// masked_bisect_refine's first design (one thread per entry) spent its time
+// around the bytes: a 64-bit division per entry for its row, the row's four
+// (b,) inputs reloaded and its bracket recomputed per entry, and 4-byte
+// loads.  Its design now (below): the grid laid out by row, a thread per
+// 16-byte chunk, the bracket once per thread, 16-byte loads and stores.
 //
 // The TPU kernels carry bool outputs as int32 (a TPU layout matter); here
 // masks are bytes (torch.bool) both ways and n_new is int32.
@@ -61,25 +68,41 @@ __device__ __forceinline__ bool sign_differs(T a, T b) {
 }
 
 // ------------------------------------------------------ masked_bisect_refine
-// One thread per (row, feature) element.  Each thread recomputes its row's
-// bracket from the (b,) inputs (a few flops; the loads hit the same line as
-// the row's neighbours) and evaluates the interpolant at the new midpoint;
-// the thread of feature 0 writes the row's four (b,) outputs.  y_mid is
-// evaluated for every row, active or not, as the plain version does.  The
-// TPU kernel tiles (BB, BF) blocks and rewrites the (BB, 1) columns once per
-// feature tile; here the columns are written once.
+// Rows by 2-D grid, a thread per 16-byte chunk of a row.  A row's segment of
+// 2^lanes_log2 threads (lanes_log2 <= 5: up to a warp, fewer for narrow
+// rows, so a block holds 256 >> lanes_log2 rows) spans gridDim.x segments;
+// each thread computes its row's bracket once, from the four (b,) inputs
+// (loads its segment shares), and evaluates the interpolant at the new
+// midpoint on one chunk of V entries: c0..c3 read and y_mid written 16 bytes
+// at a time.  Where the five (b, f) planes start 16-byte aligned, a row's
+// first entries up to a 16-byte boundary (f not a multiple of V) and its
+// entries after the last whole chunk go scalar, by the row's first thread;
+// otherwise V = 1 and every entry is a chunk.  No division: V is a power of
+// two and the grid is laid out by row.  The row's
+// first thread writes its four (b,) outputs, once.  y_mid is evaluated for
+// every row, active or not, as the plain version does.  The TPU kernel tiles
+// (BB, BF) blocks and rewrites the (BB, 1) columns once per feature tile.
 template <typename T>
-__global__ void masked_bisect_refine_kernel(
+__device__ __forceinline__ void bisect_entry(const T* __restrict__ c0, const T* __restrict__ c1,
+                                             const T* __restrict__ c2, const T* __restrict__ c3,
+                                             T* __restrict__ y_mid, int64_t i, T m) {
+  y_mid[i] = horner_rn(c0[i], c1[i], c2[i], c3[i], m);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) masked_bisect_refine_kernel(
     const T* __restrict__ c0, const T* __restrict__ c1, const T* __restrict__ c2,
     const T* __restrict__ c3, const T* __restrict__ lo, const T* __restrict__ hi,
     const T* __restrict__ v_lo, const T* __restrict__ v_mid,
     const uint8_t* __restrict__ active, T* __restrict__ lo_out, T* __restrict__ hi_out,
-    T* __restrict__ vlo_out, T* __restrict__ mid_out, T* __restrict__ y_mid, int64_t b,
-    int64_t f) {
-  const int64_t n = b * f;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = i / f;
+    T* __restrict__ vlo_out, T* __restrict__ mid_out, T* __restrict__ y_mid, int b, int f,
+    int lanes_log2) {
+  const int lane = threadIdx.x & ((1 << lanes_log2) - 1);
+  const int rows = kThreads >> lanes_log2;
+  const int q = (blockIdx.x << lanes_log2) | lane;  // this thread's chunk of its rows
+  const bool first = blockIdx.x == 0 && lane == 0;
+  for (int row = blockIdx.y * rows + (threadIdx.x >> lanes_log2); row < b;
+       row += gridDim.y * rows) {
     const T l = lo[row], h = hi[row], vl = v_lo[row], vm = v_mid[row];
     const bool act = active[row] != 0;
     const T mid = mul_rn(T(0.5), add_rn(l, h));
@@ -87,13 +110,38 @@ __global__ void masked_bisect_refine_kernel(
     const T h_new = (act && left) ? mid : h;
     const T l_new = (act && !left) ? mid : l;
     const T m_new = mul_rn(T(0.5), add_rn(l_new, h_new));
-    if (i - row * f == 0) {
+    if (first) {
       lo_out[row] = l_new;
       hi_out[row] = h_new;
       vlo_out[row] = (act && !left) ? vm : vl;
       mid_out[row] = m_new;
     }
-    y_mid[i] = horner_rn(c0[i], c1[i], c2[i], c3[i], m_new);
+    const int64_t base = static_cast<int64_t>(row) * f;
+    const int head =
+        V == 1 ? 0 : min(f, (V - static_cast<int>(base & (V - 1))) & (V - 1));
+    const int nc = (f - head) / V;
+    if (q < nc) {
+      const int64_t i = base + head + static_cast<int64_t>(q) * V;
+      if constexpr (V == 1) {
+        bisect_entry(c0, c1, c2, c3, y_mid, i, m_new);
+      } else {
+        union Vec {
+          uint4 raw;
+          T v[V];
+        } a0, a1, a2, a3, y;
+        a0.raw = __ldg(reinterpret_cast<const uint4*>(c0 + i));
+        a1.raw = __ldg(reinterpret_cast<const uint4*>(c1 + i));
+        a2.raw = __ldg(reinterpret_cast<const uint4*>(c2 + i));
+        a3.raw = __ldg(reinterpret_cast<const uint4*>(c3 + i));
+#pragma unroll
+        for (int e = 0; e < V; ++e) y.v[e] = horner_rn(a0.v[e], a1.v[e], a2.v[e], a3.v[e], m_new);
+        *reinterpret_cast<uint4*>(y_mid + i) = y.raw;
+      }
+    }
+    if (V > 1 && first) {
+      for (int e = 0; e < head; ++e) bisect_entry(c0, c1, c2, c3, y_mid, base + e, m_new);
+      for (int e = head + nc * V; e < f; ++e) bisect_entry(c0, c1, c2, c3, y_mid, base + e, m_new);
+    }
   }
 }
 
@@ -189,12 +237,29 @@ int launch_bisect(const void* c0, const void* c1, const void* c2, const void* c3
                   const void* lo, const void* hi, const void* v_lo, const void* v_mid,
                   const void* active, void* lo_out, void* hi_out, void* vlo_out,
                   void* mid_out, void* y_mid, int64_t b, int64_t f, cudaStream_t stream) {
-  masked_bisect_refine_kernel<T><<<blocks_for(b * f, kThreads), kThreads, 0, stream>>>(
+  if (b < 1 || f < 1 || b > 0x7fffffff || f > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int V = 16 / sizeof(T);
+  // 16-byte chunks where the five (b, f) planes start 16-byte aligned, else
+  // entry by entry.
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = aligned(c0) && aligned(c1) && aligned(c2) && aligned(c3) && aligned(y_mid);
+  const int64_t chunks = f / (vec ? V : 1) > 0 ? f / (vec ? V : 1) : 1;
+  int lanes_log2 = 0;
+  while ((int64_t{1} << lanes_log2) < chunks && lanes_log2 < 5) ++lanes_log2;
+  const int64_t rows = kThreads >> lanes_log2;
+  const int64_t gy = (b + rows - 1) / rows;
+  const dim3 grid(static_cast<unsigned>((chunks + (1 << lanes_log2) - 1) >> lanes_log2),
+                  static_cast<unsigned>(gy < 65535 ? gy : 65535));
+  auto kernel = vec ? &masked_bisect_refine_kernel<T, V> : &masked_bisect_refine_kernel<T, 1>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(c0), static_cast<const T*>(c1), static_cast<const T*>(c2),
       static_cast<const T*>(c3), static_cast<const T*>(lo), static_cast<const T*>(hi),
       static_cast<const T*>(v_lo), static_cast<const T*>(v_mid),
       static_cast<const uint8_t*>(active), static_cast<T*>(lo_out), static_cast<T*>(hi_out),
-      static_cast<T*>(vlo_out), static_cast<T*>(mid_out), static_cast<T*>(y_mid), b, f);
+      static_cast<T*>(vlo_out), static_cast<T*>(mid_out), static_cast<T*>(y_mid),
+      static_cast<int>(b), static_cast<int>(f), lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

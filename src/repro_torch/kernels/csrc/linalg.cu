@@ -12,11 +12,10 @@
 // and masked_newton_update takes its row norm from the same function as
 // fused_newton_iter (linalg_common.cuh).
 //
-// Design, shared by the three matrix kernels: one thread block per instance
-// (256 threads), the substitution vectors in shared memory (2 f entries).
-// The elimination of batched_lu_factor and batched_linsolve takes one of
-// three paths, picked by cuda_impl.lu_path and passed in (the entries
-// refuse a path that does not take the shape):
+// Design of the two elimination kernels (batched_lu_factor,
+// batched_linsolve): one thread block per instance (256 threads).  The
+// elimination takes one of three paths, picked by cuda_impl.lu_path and
+// passed in (the entries refuse a path that does not take the shape):
 //
 // - staged (f <= 239 / 238 in float32 for the LU / the linsolve, 169 / 168
 //   in float64, on an H100): the block copies its matrix into shared memory
@@ -35,8 +34,34 @@
 // - wide (f >= 1024): column by column over the whole card, below.
 //
 // The three give the same factors and permutation bitwise (the same pivot
-// rule, division and fma per entry in column order).  A warp per small
-// instance and tensor cores for the trailing update are later work.
+// rule, division and fma per entry in column order).
+//
+// fused_newton_iter has three bodies, picked by cuda_impl.newton_iter_body
+// and passed in (the entry refuses one that does not take the shape), all
+// three the same bits (linalg_common.cuh states the contract):
+//
+// - panel (f > 32, wherever its ring and x fit: f <= 53388 / 25736 in
+//   float32 / float64 on an H100): lu_substitute_panels.  The first design
+//   (the column body below) ran lu_substitute_block on the LU in device
+//   memory: 2 f columns, each behind a barrier, each thread's load of lu[i,
+//   j] a line of its own, so at f = 128 256 dependent device-memory round
+//   trips per block and every line of the 64 MiB of matrices read back once
+//   per column that touches it.  The panel body reads each tile of the LU
+//   from device memory once (the diagonal tiles twice: once a pass), a tile
+//   row per TMA bulk copy, by a producer warp that keeps the next tiles in
+//   flight through a ring of shared-memory slots with mbarriers, and
+//   substitutes 32 columns per barrier: 2 (f / 32) barriers, the 32 x 32
+//   triangles by warp shuffles (the backward one's divisions with their
+//   reciprocals taken ahead, `quotient`), the rest one lane per row from
+//   shared memory.  160 threads and 19 / 27 KiB of shared memory a block
+//   (float32 / float64): 8 blocks an SM, so allen_cahn_full's 1024
+//   instances run in one wave.  What bounds it is the chain of 2 (f / 32)
+//   triangles, each waiting for its tile (PERF.md).
+// - warp (f <= 32, the small stiff systems: vdp_stiff_mixed's f = 2,
+//   robertson_sweep's 3): a warp per instance, every load in flight at
+//   once, the same triangles by shuffles, no block barrier.
+// - column: the first design, kept as the timed reference (chip_smoke.py's
+//   ms_by_body) and for a device whose shared memory holds no panel ring.
 //
 // Bounds at b = 1024, f = 128, float32 (3.35 TB/s, 67 TFLOP/s outside the
 // tensor cores): batched_lu_factor reads M and writes LU (2 b f^2 elements,
@@ -44,9 +69,11 @@
 // and rhs and writes x (0.020 ms), 2/3 f^3 + 2 f^2 flops per instance
 // (0.022 ms): operations.  fused_newton_iter reads LU once (b f^2) and a few
 // (b, f) planes (0.021 ms): bytes.  masked_newton_update moves four (b, f)
-// planes (0.0006 ms): bytes.  What bounds the simple design instead is
-// latency: f synchronizations per factorization column loop (3 f in all),
-// 2 f in a substitution, each with little work between them at small f.
+// planes (0.0006 ms): bytes.  What bounds the elimination instead is
+// latency: f synchronizations per factorization column loop, each with
+// little work between them at small f; what bounds the panel substitution
+// is the chain of its 2 (f / 32) triangles (a division per column in the
+// backward one) and the tile loads each waits for.
 
 #include "linalg_common.cuh"
 
@@ -181,12 +208,13 @@ linsolve_staged_kernel(const T* __restrict__ A, const T* __restrict__ rhs,
 
 // ------------------------------------------------------------ fused_newton_iter
 // Replaces pallas_impl.fused_newton_iter (:540, body _newton_iter_kernel
-// :486).  One whole chord-Newton iteration per instance and block: the
-// residual g = k - fk gathered through the permutation, the two
-// substitutions against the prefactored LU (O(f^2), where the unfused path
-// pays an O(f^3) elimination every iteration), then warp 0 takes the scaled
-// RMS of the update while the block commits k - delta where the row is
-// active.
+// :486).  One whole chord-Newton iteration per instance: the residual g = k
+// - fk gathered through the permutation, the two substitutions against the
+// prefactored LU (O(f^2), where the unfused path pays an O(f^3)
+// elimination every iteration), then the scaled RMS of the update and the
+// commit k - delta where the row is active.  The column body (the first
+// design): one block per instance, lu_substitute_block on the LU in device
+// memory, warp 0 takes the norm while the block commits.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 newton_iter_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
@@ -210,6 +238,83 @@ newton_iter_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
   for (int i = threadIdx.x; i < f; i += blockDim.x) {
     k_new[base + i] = act ? sub_rn(k[base + i], delta[i]) : k[base + i];
   }
+}
+
+// The panel body: the same iteration, with the substitution of
+// lu_substitute_panels (the LU streamed through a ring of tiles in shared
+// memory by a producer warp, 32 columns per barrier).  The gather runs in
+// the consumer warps, each on the rows it owns; y overwrites x in place.
+// Shared memory: panel_smem_bytes<T>(f); panel_threads(f) threads.
+template <typename T>
+__global__ void __launch_bounds__(32 * (kPanelConsumers + 1), 8)
+newton_iter_panel_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
+                         const T* __restrict__ k, const T* __restrict__ fk,
+                         const uint8_t* __restrict__ active, const T* __restrict__ scale,
+                         T* __restrict__ k_new, T* __restrict__ res, int f) {
+  extern __shared__ __align__(16) unsigned char panel_smem[];
+  T* x = reinterpret_cast<T*>(panel_smem + kPanelRingBytes<T>);
+  const int64_t row = blockIdx.x, base = row * f;
+  const int32_t* p = perm + base;
+  lu_substitute_panels(lu + row * (int64_t)f * f, f, x, panel_smem, [&](int i) {
+    x[i] = sub_rn(k[base + p[i]], fk[base + p[i]]);
+  });  // ends synchronized, y in x
+  if (threadIdx.x < 32) {
+    const T r = newton_norm_warp(x, scale + base, f, threadIdx.x);
+    if (threadIdx.x == 0) res[row] = r;
+  }
+  const bool act = active[row] != 0;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) {
+    k_new[base + i] = act ? sub_rn(k[base + i], x[i]) : k[base + i];
+  }
+}
+
+// The warp body, for f <= 32 (the small stiff systems): a warp per
+// instance, kWarpInstances to a block.  The warp copies its matrix into a
+// tile of shared memory in the panel body's layout and its rows of perm, k,
+// fk and scale into registers (lane = entry), all loads at once, gathers x
+// by shuffle, solves both triangles by shuffles (triangle_fwd and
+// triangle_bwd, the panel body's diagonal steps with ncol = f), then takes
+// the row norm and commits: no block barrier and one round trip to device
+// memory before the stores.
+constexpr int kWarpInstances = 4;
+constexpr int kWarpMaxF = kPanel;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarpInstances)
+newton_iter_warp_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
+                        const T* __restrict__ k, const T* __restrict__ fk,
+                        const uint8_t* __restrict__ active, const T* __restrict__ scale,
+                        T* __restrict__ k_new, T* __restrict__ res, int64_t b, int f) {
+  constexpr int LD = kTileLd<T>;
+  __shared__ __align__(16) T tiles[kWarpInstances][kPanel * LD + 2 * kPanel];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t row = blockIdx.x * (int64_t)kWarpInstances + w;
+  if (row >= b) return;  // the whole warp leaves together
+  T* tile = tiles[w];
+  T* y = tile + kPanel * LD;
+  T* sc = y + kPanel;
+  const int64_t base = row * f;
+  // Every load up front: the row's entries of perm, k, fk and scale (lane =
+  // entry), and the matrix.
+  const bool in = lane < f;
+  const int32_t pl = in ? perm[base + lane] : 0;
+  const T kl = in ? k[base + lane] : T(0), fl = in ? fk[base + lane] : T(0);
+  if (in) sc[lane] = scale[base + lane];
+  const T* a = lu + row * (int64_t)f * f;
+#pragma unroll 4
+  for (int i = 0; i < f; ++i) {
+    if (in) tile[i * LD + lane] = a[i * f + lane];
+  }
+  // The gather x[l] = k[p[l]] - fk[p[l]], by shuffle.
+  T xl = sub_rn(__shfl_sync(0xffffffffu, kl, pl), __shfl_sync(0xffffffffu, fl, pl));
+  __syncwarp();
+  xl = triangle_fwd(tile + lane * LD, xl, f, lane);
+  xl = triangle_bwd(tile + lane * LD, xl, f, lane);
+  if (in) y[lane] = xl;
+  __syncwarp();
+  const T r = newton_norm_warp(y, sc, f, lane);
+  if (lane == 0) res[row] = r;
+  if (in) k_new[base + lane] = active[row] != 0 ? sub_rn(kl, xl) : kl;
 }
 
 // --------------------------------------------------------- masked_newton_update
@@ -420,19 +525,43 @@ int launch_linsolve(int path, const void* A, const void* rhs, void* scratch, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bodies of fused_newton_iter, as cuda_impl.NEWTON_BODIES numbers them.
+constexpr int kPanelBody = 0, kColumnBody = 1, kWarpBody = 2;
+
 template <typename T>
-int launch_newton_iter(const void* lu, const void* perm, const void* k, const void* fk,
+int launch_newton_iter(int body, const void* lu, const void* perm, const void* k, const void* fk,
                        const void* active, const void* scale, void* k_new, void* res,
                        int64_t b, int64_t f, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(f) * sizeof(T);
   if (b < 1 || f < 1 || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = [&](auto kernel, int threads, size_t smem) {
+    kernel<<<static_cast<unsigned>(b), threads, smem, stream>>>(
+        static_cast<const T*>(lu), static_cast<const int32_t*>(perm), static_cast<const T*>(k),
+        static_cast<const T*>(fk), static_cast<const uint8_t*>(active),
+        static_cast<const T*>(scale), static_cast<T*>(k_new), static_cast<T*>(res),
+        static_cast<int>(f));
+  };
+  if (body == kPanelBody) {
+    const size_t smem = panel_smem_bytes<T>(f);
+    const cudaError_t e = reserve_smem(newton_iter_panel_kernel<T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    launch(newton_iter_panel_kernel<T>, panel_threads(f), smem);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (body == kWarpBody) {
+    if (f > kWarpMaxF) return static_cast<int>(cudaErrorInvalidValue);
+    newton_iter_warp_kernel<T><<<static_cast<unsigned>((b + kWarpInstances - 1) / kWarpInstances),
+                                 32 * kWarpInstances, 0, stream>>>(
+        static_cast<const T*>(lu), static_cast<const int32_t*>(perm), static_cast<const T*>(k),
+        static_cast<const T*>(fk), static_cast<const uint8_t*>(active),
+        static_cast<const T*>(scale), static_cast<T*>(k_new), static_cast<T*>(res), b,
+        static_cast<int>(f));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (body != kColumnBody) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * static_cast<size_t>(f) * sizeof(T);
   const cudaError_t e = reserve_smem(newton_iter_kernel<T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  newton_iter_kernel<T><<<static_cast<unsigned>(b), kThreads, smem, stream>>>(
-      static_cast<const T*>(lu), static_cast<const int32_t*>(perm), static_cast<const T*>(k),
-      static_cast<const T*>(fk), static_cast<const uint8_t*>(active),
-      static_cast<const T*>(scale), static_cast<T*>(k_new), static_cast<T*>(res),
-      static_cast<int>(f));
+  launch(newton_iter_kernel<T>, kThreads, smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -453,10 +582,12 @@ int launch_newton_update(const void* k, const void* delta, const void* active,
 
 // ------------------------------------------------------------- C entry points
 // dtype: 0 = float32, 1 = float64; path (batched_lu_factor and
-// batched_linsolve): 0 = staged, 1 = global, 2 = wide.  Every entry returns
+// batched_linsolve): 0 = staged, 1 = global, 2 = wide; body
+// (fused_newton_iter): 0 = panel, 1 = column, 2 = warp (f <= 32).  Every entry returns
 // cudaGetLastError(), or cudaErrorInvalidValue for an empty shape, an
-// unknown path, or a width whose shared memory (the staged matrix, or the
-// substitution vectors) exceeds the device's limit (rt_linalg_max_smem()).
+// unknown path or body, or a width whose shared memory (the staged matrix,
+// the panel ring and x, or the substitution vectors) exceeds the device's
+// limit (rt_linalg_max_smem()).
 
 extern "C" {
 
@@ -474,6 +605,8 @@ int rt_linalg_max_smem() {
   take(dynamic_smem_limit(linsolve_kernel<double>, &limit));
   take(dynamic_smem_limit(newton_iter_kernel<float>, &limit));
   take(dynamic_smem_limit(newton_iter_kernel<double>, &limit));
+  take(dynamic_smem_limit(newton_iter_panel_kernel<float>, &limit));
+  take(dynamic_smem_limit(newton_iter_panel_kernel<double>, &limit));
   take(dynamic_smem_limit(lu_factor_staged_kernel<float, kStagedCols>, &limit));
   take(dynamic_smem_limit(lu_factor_staged_kernel<double, kStagedCols>, &limit));
   take(dynamic_smem_limit(linsolve_staged_kernel<float, kStagedCols>, &limit));
@@ -495,12 +628,14 @@ int rt_batched_linsolve(int dtype, int path, const void* A, const void* rhs, voi
                : launch_linsolve<float>(path, A, rhs, scratch, perm_scratch, x, b, f, s);
 }
 
-int rt_fused_newton_iter(int dtype, const void* lu, const void* perm, const void* k,
+int rt_fused_newton_iter(int dtype, int body, const void* lu, const void* perm, const void* k,
                          const void* fk, const void* active, const void* scale, void* k_new,
                          void* res, int64_t b, int64_t f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_newton_iter<double>(lu, perm, k, fk, active, scale, k_new, res, b, f, s)
-               : launch_newton_iter<float>(lu, perm, k, fk, active, scale, k_new, res, b, f, s);
+  return dtype ? launch_newton_iter<double>(body, lu, perm, k, fk, active, scale, k_new, res, b,
+                                            f, s)
+               : launch_newton_iter<float>(body, lu, perm, k, fk, active, scale, k_new, res, b,
+                                           f, s);
 }
 
 int rt_masked_newton_update(int dtype, const void* k, const void* delta, const void* active,

@@ -13,7 +13,11 @@
 //   elimination of a matrix staged in shared memory (same pivots, same
 //   division, same fma per entry in the same column order: the same bits);
 // - lu_substitute_block: the unit-lower, then upper, substitution against
-//   those factors, column by column;
+//   those factors, column by column (batched_linsolve, and
+//   fused_newton_iter's column body); lu_substitute_panels, the same
+//   substitution with the factors streamed through shared memory and the
+//   columns taken 32 at a time (fused_newton_iter's panel body): the same
+//   fma per entry in the same column order, so the same bits;
 // - newton_norm_warp: the scaled RMS of one row of the update, by one warp.
 //
 // None of them depends on the thread count for its result: the pivot is the
@@ -299,6 +303,425 @@ __device__ void lu_substitute_block(const T* __restrict__ lu, int64_t ld, T* x, 
     const T yj = x[j] / lu[j * ld + j];
     if (tid == 0) y[j] = yj;
     for (int i = tid; i < j; i += nt) x[i] = fma_of(-lu[i * ld + j], yj, x[i]);
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------ the panel substitution
+// lu_substitute_panels: the substitution of lu_substitute_block with the
+// factors streamed through shared memory in 32 x 32 tiles, for
+// fused_newton_iter.
+//
+// Contract (what keeps the fused Newton iteration bitwise equal to the
+// unfused one, whose batched_linsolve substitutes with lu_substitute_block):
+// every x[i] receives fma_of(-lu[i, j], x[j], x[i]) for j ascending in the
+// forward pass, with x[j] final; in the backward pass yj = x[j] / lu[j, j]
+// (correctly rounded: `quotient` below gives the bits of x[j] / lu[j, j])
+// and then every x[i], i < j, receives fma_of(-lu[i, j], yj, x[i]) for j
+// descending.  Only the grouping of that work changes: the same operands in
+// the same order per entry, so the same bits.
+//
+// Grouping: columns in panels of 32, rows in tiles of 32 (tile row r holds
+// rows 32 r .. 32 r + 31; its x entries are owned by consumer warp r % nw,
+// lane = row).  Per panel c the owner of tile row c solves the 32 x 32
+// diagonal triangle alone, with warp shuffles, x in registers; one consumer
+// barrier publishes the panel's final x (forward) or y (backward) entries;
+// then each owner of a tile row below (forward) or above (backward) applies
+// the panel's 32 fmas to its rows, one lane per row, from shared memory.
+// So a panel costs one barrier where the column loop pays 32.
+//
+// The tiles come from device memory once each, in the order of use:
+// forward, panel by panel, the diagonal tile and then the tiles below it;
+// backward, right to left, the diagonal tile and then the tiles above it (the
+// last forward tile is the first backward one and is kept).  A producer warp
+// (the block's last) copies them into a ring of kRingStages<T> slots: where
+// every row of the matrix starts 16-byte aligned (f a multiple of 16 /
+// sizeof(T)), a tile row by one bulk copy of the TMA unit (lane = row), so
+// the copies take no load/store slots from the consumers' shuffles and
+// shared-memory reads; else one cp.async per entry.  Each slot has a `full`
+// mbarrier (the copies complete on it) and an `empty` one (every consumer warp arrives once: the warp that
+// works on the tile when it is done, the others as they pass it), so the
+// next tiles are in flight while the consumers work.  A tile row is
+// padded by 16 bytes (kTileLd), so the 32 lanes' 16-byte reads of their rows
+// fall in distinct banks.
+constexpr int kPanel = 32;          // a panel's columns, a tile's rows
+constexpr int kPanelConsumers = 4;  // consumer warps at most; one producer warp beside them
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // entries per 16-byte copy
+template <typename T>
+constexpr int kTileLd = kPanel + kVec<T>;  // a tile's row stride in shared memory
+template <typename T>
+constexpr int kRingStages = sizeof(T) == 4 ? 4 : 3;  // 18 / 26 KiB of tiles
+
+// The dynamic shared memory of the panel substitution: the ring (two
+// mbarriers a slot, then the tiles), then x (f entries, rounded up to 16
+// bytes).
+template <typename T>
+constexpr size_t kPanelRingBytes =
+    16 * kRingStages<T> + sizeof(T) * kRingStages<T> * kPanel * kTileLd<T>;
+template <typename T>
+__host__ __device__ constexpr size_t panel_smem_bytes(int64_t f) {
+  return kPanelRingBytes<T> +
+         static_cast<size_t>((f * static_cast<int64_t>(sizeof(T)) + 15) / 16 * 16);
+}
+
+// The block's threads for width f: a consumer warp per tile row up to
+// kPanelConsumers, and the producer warp.
+__host__ __device__ constexpr int panel_threads(int64_t f) {
+  const int64_t tiles = (f + kPanel - 1) / kPanel;
+  return 32 * (1 + static_cast<int>(tiles < kPanelConsumers ? tiles : kPanelConsumers));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// An asynchronous copy of one entry (N = 4 or 8 bytes) from device to
+// shared memory.
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(N)
+               : "memory");
+}
+
+// One arrival on the barrier, which then also waits for `bytes` more bytes
+// of bulk copies.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from device to shared memory by the TMA unit, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The barrier receives one arrival once this thread's earlier cp.asyncs land.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The consumer warps' barrier (named barrier 1; the producer warp is not in it).
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// The ring's item index of tile (r, c) in the forward pass (panels left to
+// right, in each the diagonal tile, then the tiles below) and the backward
+// pass (right to left, the diagonal tile, then the tiles above; its first
+// item is the forward pass's last).  nt tiles a side; items 2 F - 1 in all,
+// F = nt (nt + 1) / 2.
+__device__ __forceinline__ int fwd_item(int nt, int r, int c) {
+  return c * nt - c * (c - 1) / 2 + (r - c);
+}
+__device__ __forceinline__ int bwd_item(int nt, int r, int c) {
+  return nt * (nt + 1) - 1 - (c + 1) * (c + 2) / 2 + (c - r);
+}
+
+// One 16-byte chunk (kVec<T> entries) of shared memory.
+template <typename T>
+struct Chunk {
+  T v[kVec<T>];
+};
+template <typename T>
+__device__ __forceinline__ Chunk<T> load_chunk(const T* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  return *reinterpret_cast<const Chunk<T>*>(&raw);
+}
+
+// x / u for the backward triangle's chain, with the division's u-only part
+// taken ahead: r = 1 / u (correctly rounded), then q = x r and two
+// corrections q += (x - u q) r, each residual exact by fma.  The second
+// correction starts within an ulp of x / u with r within half an ulp of
+// 1 / u, so it rounds to the correctly rounded quotient (Markstein's
+// theorem) -- the bits of x / u -- as long as nothing underflows or
+// overflows: |x| and |u| within [2^-60, 2^60) in float32 ([2^-500, 2^500)
+// in float64).  Anything else (zeros, subnormals, infinities, NaN, huge or
+// tiny values) takes x / u itself, out of line.  The chain then holds 5
+// dependent multiply-adds where the division's own sequence (reciprocal,
+// refinement, range check) held many more.
+template <typename T>
+struct Divisor {
+  T u, r;
+  bool ok;
+};
+template <typename T>
+__device__ __forceinline__ bool div_in_range(T a) {
+  constexpr T lo = sizeof(T) == 4 ? T(0x1p-60) : T(0x1p-500);
+  constexpr T hi = sizeof(T) == 4 ? T(0x1p60) : T(0x1p500);
+  return abs_of(a) >= lo && abs_of(a) < hi;  // false for NaN
+}
+template <typename T>
+__device__ __noinline__ T divide(T x, T u) {
+  return x / u;
+}
+template <typename T>
+__device__ __forceinline__ Divisor<T> divisor(T u) {
+  return {u, divide(T(1), u), div_in_range(u)};
+}
+template <typename T>
+__device__ __forceinline__ T quotient(T x, const Divisor<T>& d) {
+  if (d.ok && div_in_range(x)) {
+    const T q = mul_rn(x, d.r);
+    const T q1 = fma_of(fma_of(-d.u, q, x), d.r, q);
+    return fma_of(fma_of(-d.u, q1, x), d.r, q1);
+  }
+  return divide(x, d.u);
+}
+
+// The 32 x 32 diagonal triangles, by one warp: lane l holds x[c0 + l] in
+// `xl` and `row` points to row l of the tile (row stride kTileLd<T>, in
+// shared memory); ncol <= 32 columns lie within f.  Forward: x[l] -= l[l, j]
+// x[j], j ascending; backward: y[j] = x[j] / u[j, j] (`quotient`), then
+// x[l] -= u[l, j] y[j], j descending, and lane j keeps y[j].  The column's
+// x (or y) moves by shuffle: no barrier, one shuffle and one multiply-add
+// (and in the backward pass a `quotient`) per column on the chain.  A full
+// tile (ncol = 32) takes a loop without bounds checks.
+template <typename T, bool kFull>
+__device__ __forceinline__ T triangle_fwd_cols(const T* row, T xl, int ncol, int lane) {
+  constexpr int V = kVec<T>, CPR = kPanel / V;
+#pragma unroll
+  for (int q = 0; q < CPR; ++q) {
+    const Chunk<T> a = load_chunk(row + q * V);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int jj = q * V + e;
+      if (kFull || jj < ncol) {
+        const T xj = __shfl_sync(0xffffffffu, xl, jj);
+        if (lane > jj) xl = fma_of(-a.v[e], xj, xl);
+      }
+    }
+  }
+  return xl;
+}
+
+template <typename T>
+__device__ __forceinline__ T triangle_fwd(const T* row, T xl, int ncol, int lane) {
+  return ncol == kPanel ? triangle_fwd_cols<T, true>(row, xl, ncol, lane)
+                        : triangle_fwd_cols<T, false>(row, xl, ncol, lane);
+}
+
+template <typename T, bool kFull>
+__device__ __forceinline__ T triangle_bwd_cols(const T* row, T xl, int ncol, int lane) {
+  constexpr int V = kVec<T>, CPR = kPanel / V;
+  const Divisor<T> d = divisor(row[lane]);  // this lane's diagonal entry
+#pragma unroll
+  for (int q = CPR - 1; q >= 0; --q) {
+    const Chunk<T> a = load_chunk(row + q * V);
+#pragma unroll
+    for (int e = V - 1; e >= 0; --e) {
+      const int jj = q * V + e;
+      if (kFull || jj < ncol) {
+        T yj = T(0);
+        if (lane == jj) yj = quotient(xl, d);
+        yj = __shfl_sync(0xffffffffu, yj, jj);
+        if (lane == jj) {
+          xl = yj;
+        } else if (lane < jj) {
+          xl = fma_of(-a.v[e], yj, xl);
+        }
+      }
+    }
+  }
+  return xl;
+}
+
+template <typename T>
+__device__ __forceinline__ T triangle_bwd(const T* row, T xl, int ncol, int lane) {
+  return ncol == kPanel ? triangle_bwd_cols<T, true>(row, xl, ncol, lane)
+                        : triangle_bwd_cols<T, false>(row, xl, ncol, lane);
+}
+
+// Whether every row of the matrix starts 16-byte aligned: then a tile row's
+// columns go by one bulk copy (the TMA unit; lane = row), else by one
+// cp.async per entry.
+template <typename T>
+__device__ __forceinline__ bool rows_aligned(const T* lu, int f) {
+  return f % kVec<T> == 0 && (reinterpret_cast<uintptr_t>(lu) & 15) == 0;
+}
+
+// The producer: every tile in the order of use into the ring.
+template <typename T>
+__device__ void panel_producer(const T* __restrict__ lu, int f, int nt, T* ring, uint32_t full,
+                               uint32_t empty, int lane) {
+  constexpr int S = kRingStages<T>, LD = kTileLd<T>;
+  const bool bulk = rows_aligned(lu, f);
+  int n = 0;
+  auto load = [&](int r, int c) {
+    const int s = n % S;
+    if (n >= S) mbar_wait(empty + 8 * s, (n / S - 1) & 1);
+    T* tile = ring + s * kPanel * LD;
+    const int r0 = r * kPanel, c0 = c * kPanel, ncol = min(kPanel, f - c0);
+    const int rows = min(kPanel, f - r0);
+    if (bulk) {  // ncol is a multiple of 16 / sizeof(T)
+      const uint32_t bytes = ncol * sizeof(T);
+      if (lane == 0) mbar_expect_tx(full + 8 * s, rows * bytes);
+      __syncwarp();
+      if (lane < rows) {
+        bulk_copy(smem_u32(tile + lane * LD), lu + (int64_t)(r0 + lane) * f + c0, bytes,
+                  full + 8 * s);
+      }
+    } else {
+      if (lane < ncol) {
+        for (int row = 0; row < rows; ++row) {
+          cp_async<static_cast<int>(sizeof(T))>(smem_u32(tile + row * LD + lane),
+                                                lu + (int64_t)(r0 + row) * f + c0 + lane);
+        }
+      }
+      cp_async_arrive(full + 8 * s);
+    }
+    ++n;
+  };
+  for (int c = 0; c < nt; ++c)
+    for (int r = c; r < nt; ++r) load(r, c);
+  for (int c = nt - 1; c >= 0; --c)
+    for (int r = c == nt - 1 ? c - 1 : c; r >= 0; --r) load(r, c);
+}
+
+// Solve L U y = x in place for the packed factors `lu` (row-major, row
+// stride f, in device memory) by the contract above: x (f entries of shared
+// memory, 16-byte aligned) holds the permuted right-hand side on entry and y
+// on return.  `smem` holds the ring (kPanelRingBytes<T>).  The block has panel_threads(f) threads;
+// every thread must call it.  The caller's gather may still be writing x
+// from the consumer warps: `gather(i)` is called here by the owner of row i,
+// before that row is used.  The block is synchronized on return.
+template <typename T, typename Gather>
+__device__ void lu_substitute_panels(const T* __restrict__ lu, int f, T* x,
+                                     unsigned char* smem, Gather gather) {
+  constexpr int S = kRingStages<T>, V = kVec<T>, LD = kTileLd<T>, CPR = kPanel / V;
+  const int nt = (f + kPanel - 1) / kPanel;
+  const int nw = blockDim.x / 32 - 1;  // consumer warps; warp nw is the producer
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t full = smem_u32(smem), empty = full + 8 * S;
+  T* ring = reinterpret_cast<T*>(smem + 16 * S);
+  if (threadIdx.x == 0) {
+    // `full`: the producer's one arrival with the bulk copies' bytes, or
+    // its 32 lanes' cp.async arrivals.
+    const uint32_t arrivals = rows_aligned(lu, f) ? 1 : 32;
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, arrivals);
+      mbar_init(empty + 8 * s, nw);
+    }
+  }
+  __syncthreads();
+  if (warp == nw) {
+    panel_producer(lu, f, nt, ring, full, empty, lane);
+  } else {
+    // Every consumer warp waits for every tile in ring order and arrives on
+    // its `empty` barrier once: the tiles it works on after its work, the
+    // others as it passes them.  So a slot is refilled only after every
+    // warp has seen its tile, and a parity wait never meets a barrier two
+    // phases behind it.
+    int seen = 0;  // tiles this warp has waited for
+    auto wait_tile = [&](int n) { mbar_wait(full + 8 * (n % S), (n / S) & 1); };
+    auto release = [&](int n) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * (n % S));
+    };
+    auto pass_through = [&](int n) {  // pass every tile up to n
+      for (; seen <= n; ++seen) {
+        wait_tile(seen);
+        release(seen);
+      }
+    };
+    auto acquire = [&](int n) {  // pass the tiles before n, wait for n
+      pass_through(n - 1);
+      if (seen == n) wait_tile(seen++);
+      return ring + (n % S) * kPanel * LD + lane * LD;  // this lane's row of the tile
+    };
+    for (int r = warp; r < nt; r += nw) {
+      if (r * kPanel + lane < f) gather(r * kPanel + lane);
+    }
+    // Forward: x[i] -= l[i, j] x[j], j ascending.
+    for (int c = 0; c < nt; ++c) {
+      const int c0 = c * kPanel, ncol = min(kPanel, f - c0);
+      if (c % nw == warp) {  // the diagonal triangle, x in registers
+        const int n = fwd_item(nt, c, c);
+        const T* row = acquire(n);
+        const T xl = triangle_fwd(row, lane < ncol ? x[c0 + lane] : T(0), ncol, lane);
+        if (lane < ncol) x[c0 + lane] = xl;
+        if (c < nt - 1) release(n);  // the last is the backward pass's first
+      }
+      if (c == nt - 1) break;
+      pass_through(fwd_item(nt, c, c));
+      consumers_sync(32 * nw);
+      for (int r = c + 1 + (warp - (c + 1) % nw + nw) % nw; r < nt; r += nw) {
+        const int n = fwd_item(nt, r, c);
+        const T* row = acquire(n);
+        const int i = r * kPanel + lane;
+        if (i < f) {  // every column of a panel with rows below lies within f
+          T xi = x[i];
+#pragma unroll
+          for (int q = 0; q < CPR; ++q) {
+            const Chunk<T> a = load_chunk(row + q * V), xj = load_chunk(x + c0 + q * V);
+#pragma unroll
+            for (int e = 0; e < V; ++e) xi = fma_of(-a.v[e], xj.v[e], xi);
+          }
+          x[i] = xi;
+        }
+        release(n);
+      }
+    }
+    // Backward: y[j] = x[j] / u[j, j], then x[i] -= u[i, j] y[j], j descending.
+    for (int c = nt - 1; c >= 0; --c) {
+      const int c0 = c * kPanel, ncol = min(kPanel, f - c0);
+      if (c % nw == warp) {
+        const int n = bwd_item(nt, c, c);
+        const T* row = acquire(n);
+        const T xl = triangle_bwd(row, lane < ncol ? x[c0 + lane] : T(0), ncol, lane);
+        if (lane < ncol) x[c0 + lane] = xl;
+        release(n);
+      }
+      if (c == 0) break;
+      pass_through(bwd_item(nt, c, c));
+      consumers_sync(32 * nw);
+      for (int r = (c - 1) - ((c - 1 - warp) % nw + nw) % nw; r >= 0; r -= nw) {
+        const int n = bwd_item(nt, r, c);
+        const T* row = acquire(n);
+        const int i = r * kPanel + lane;  // r < c: every row lies within f
+        T xi = x[i];
+#pragma unroll
+        for (int q = CPR - 1; q >= 0; --q) {
+          if (q * V < ncol) {
+            const Chunk<T> a = load_chunk(row + q * V), yj = load_chunk(x + c0 + q * V);
+#pragma unroll
+            for (int e = V - 1; e >= 0; --e) {
+              if (q * V + e < ncol) xi = fma_of(-a.v[e], yj.v[e], xi);
+            }
+          }
+        }
+        x[i] = xi;
+        release(n);
+      }
+    }
+    pass_through(nt * (nt + 1) - 2);  // the last tile: the producer's last waits
   }
   __syncthreads();
 }

@@ -10,13 +10,16 @@ is an error.  ``launches[name]`` counts the launches of each kernel, and
 nothing else adds to it; ``body_launches`` splits the count of the kernels
 with more than one body or path by the one that ran.
 
-Two kernels have more than one body, each chosen by one function here and
+Three kernels have more than one body, each chosen by one function here and
 passed to the C entry, which refuses a body that does not take the shape:
 ``flash_attention_fwd`` (``flash_body``: the wgmma body for bfloat16 with
-hd <= 128, FFMA otherwise) and the elimination of ``batched_lu_factor`` and
+hd <= 128, FFMA otherwise), the elimination of ``batched_lu_factor`` and
 ``batched_linsolve`` (``lu_path``: staged in shared memory where the matrix
 fits, in device memory above that, column by column over the card from
-``LU_WIDE_F`` columns).  The wrappers check a body or path given by the
+``LU_WIDE_F`` columns) and ``fused_newton_iter`` (``newton_iter_body``: a warp
+per instance up to ``WARP_MAX_F`` columns, then the panel substitution, the
+LU streamed through shared memory, wherever its ring and vector fit; the
+column loop otherwise).  The wrappers check a body or path given by the
 caller with the same rules and raise ``ValueError`` before any launch.
 """
 
@@ -42,10 +45,18 @@ LU_PATHS = {"staged": 0, "global": 1, "wide": 2}
 LU_WIDE_F = 1024  # the wide path's first width
 LU_STAGED_MAX_F = 256  # kStagedMaxF of csrc/linalg.cu: a lane's columns in registers
 FLASH_BODIES = {"wgmma": 0, "ffma": 1}
+NEWTON_BODIES = {"panel": 0, "column": 1, "warp": 2}
+WARP_MAX_F = 32  # kWarpMaxF of csrc/linalg.cu: a lane per row
+# The panel body's ring in csrc/linalg_common.cuh: kRingStages tiles of
+# kPanel rows at a row stride of kPanel + 16 / itemsize entries, two 8-byte
+# mbarriers a tile.
+PANEL = 32
+PANEL_STAGES = {4: 4, 8: 3}
 
 body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
                  "batched_lu_factor": dict.fromkeys(LU_PATHS, 0),
-                 "batched_linsolve": dict.fromkeys(LU_PATHS, 0)}
+                 "batched_linsolve": dict.fromkeys(LU_PATHS, 0),
+                 "fused_newton_iter": dict.fromkeys(NEWTON_BODIES, 0)}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -604,13 +615,59 @@ def batched_linsolve(A, rhs, *, path=None):
     return x
 
 
-def fused_newton_iter(lu, perm, k, fk, active, scale):
+def panel_smem_bytes(f, itemsize):
+    """Shared memory of ``fused_newton_iter``'s panel body at width ``f``
+    (``panel_smem_bytes`` of ``csrc/linalg_common.cuh``): the ring's
+    mbarriers and tiles, then the f-entry vector rounded up to 16 bytes."""
+    stages = PANEL_STAGES[itemsize]
+    tile = PANEL * (PANEL + 16 // itemsize) * itemsize
+    return 16 * stages + stages * tile + -(-f * itemsize // 16) * 16
+
+
+def column_smem_bytes(f, itemsize):
+    """Shared memory of the column body: its two f-entry vectors."""
+    return 2 * f * itemsize
+
+
+_NEWTON_SMEM = {"panel": panel_smem_bytes, "column": column_smem_bytes}
+
+
+def newton_iter_body(f, itemsize, smem_limit):
+    """The body of ``fused_newton_iter`` at width ``f``: ``"warp"`` up to
+    ``WARP_MAX_F``, else ``"panel"`` where its shared memory fits
+    ``smem_limit`` bytes, else ``"column"`` (which ``check_newton_iter_body``
+    refuses where it does not fit either)."""
+    if f <= WARP_MAX_F:
+        return "warp"
+    return "panel" if panel_smem_bytes(f, itemsize) <= smem_limit else "column"
+
+
+def check_newton_iter_body(name, body, f, itemsize, smem_limit):
+    """Raise ValueError where the C entry would refuse ``body`` at width
+    ``f``: an unknown body, the warp body above ``WARP_MAX_F``, or dynamic
+    shared memory above ``smem_limit`` bytes (the warp body's is static)."""
+    _known(name, body, NEWTON_BODIES, "body")
+    if body == "warp":
+        if f > WARP_MAX_F:
+            raise ValueError(f"{name}: the warp body takes f <= {WARP_MAX_F}, got f = {f}")
+        return
+    need = _NEWTON_SMEM[body](f, itemsize)
+    if need > smem_limit:
+        raise ValueError(f"{name}: the {body} body needs {need} bytes of shared memory at "
+                         f"f = {f}, above the device's limit of {smem_limit} bytes")
+
+
+def fused_newton_iter(lu, perm, k, fk, active, scale, *, body=None):
     """CUDA ``fused_newton_iter``: one chord-Newton iteration against the
     factors of ``batched_lu_factor`` -- residual, permutation gather, the two
     substitutions, the masked commit and the scaled-RMS norm (see
-    ``ref.fused_newton_iter``).  Returns new tensors ``(k_new, res_norm)``."""
+    ``ref.fused_newton_iter``).  ``body`` overrides ``newton_iter_body``'s
+    choice (both give the same bits).  Returns new tensors ``(k_new,
+    res_norm)``."""
     name = "fused_newton_iter"
     code = _dtype_code(name, k)
+    if body is not None:
+        _known(name, body, NEWTON_BODIES, "body")
     _check(name, k.dtype, lu, k, fk)
     _check(name, torch.int32, perm)
     _check(name, torch.bool, active)
@@ -623,14 +680,18 @@ def fused_newton_iter(lu, perm, k, fk, active, scale):
     scale = _row_scale(name, scale, b, f, k)
     _check(name, k.dtype, scale)
     lib = _build.load()
-    _substitution_fits(name, f, 2 * k.element_size(), lib, k.device)  # x and delta
+    limit = _smem_limit(name, lib, k.device)
+    if body is None:
+        body = newton_iter_body(f, k.element_size(), limit)
+    check_newton_iter_body(name, body, f, k.element_size(), limit)
     k_new = torch.empty_like(k)
     res = torch.empty((b,), dtype=k.dtype, device=k.device)
     with torch.cuda.device(k.device):
-        rc = lib.rt_fused_newton_iter(code, *(x.data_ptr() for x in (
+        rc = lib.rt_fused_newton_iter(code, NEWTON_BODIES[body], *(x.data_ptr() for x in (
             lu, perm, k, fk, active, scale, k_new, res)), b, f, _stream(k.device))
     _raise_on(name, rc)
     launches[name] += 1
+    body_launches[name][body] += 1
     return k_new, res
 
 

@@ -16,7 +16,14 @@ sleep, CUDA events):
 - ``batched_lu_factor`` and ``batched_linsolve`` at allen_cahn_full's shape
   (b = 1024, f = 128, the chord matrices of ``tools/newton_checks.py``) in
   float32 and float64, beside ``torch.linalg.lu_factor`` and
-  ``torch.linalg.solve``.
+  ``torch.linalg.solve``;
+- ``fused_newton_iter`` against the plain LU of the same matrices (mixed
+  active rows) at allen_cahn_full's shape and at vdp_stiff_mixed's and
+  robertson_sweep's (f = 2, 3), float32 and float64;
+- ``masked_newton_update`` at allen_cahn_full's shape;
+- ``masked_bisect_refine`` (``tools/event_checks.py``'s inputs, mixed active
+  rows) at full_width's shape (b = 1024, f = 784) and vdp_marker's (b = 256,
+  f = 2), float32 and float64.
 
 Only the wrappers' common arguments are used, so the same script times an
 older tree of the port: run as a file with ``--src``, it imports
@@ -49,8 +56,8 @@ def main(argv=None) -> int:
         return 1
     if args.src:
         sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
-    from repro_torch.kernels import cuda_impl
-    from repro_torch.tools import newton_checks, workloads
+    from repro_torch.kernels import cuda_impl, ref
+    from repro_torch.tools import event_checks, newton_checks, workloads
 
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,6 +105,21 @@ def main(argv=None) -> int:
         emit(kernel="batched_linsolve", shape=f"b={b} f={f}", dtype=npdt.__name__,
              ms=median_ms(lambda: cuda_impl.batched_linsolve(M, rhs)),
              library_ms=median_ms(lambda: torch.linalg.solve(M, rhs)))
+        k, fk, mask, scale = newton_checks.to_torch(
+            newton_checks.newton_inputs(f + 5, b, f, npdt), dev)[2:]
+        emit(kernel="masked_newton_update", shape=f"b={b} f={f}", dtype=npdt.__name__,
+             ms=median_ms(lambda: cuda_impl.masked_newton_update(k, rhs, mask, scale)))
+        for width in (2, 3, f):
+            M, _, k, fk, mask, scale = newton_checks.to_torch(
+                newton_checks.newton_inputs(width + 5, b, width, npdt), dev)
+            lu, perm = ref.batched_lu_factor(M)
+            emit(kernel="fused_newton_iter", shape=f"b={b} f={width}", dtype=npdt.__name__,
+                 ms=median_ms(lambda: cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)))
+        for eb, ef in ((workloads.FULL["b"], workloads.FULL["f"]),
+                       (workloads.MARKER["b"], 2)):
+            bargs = event_checks.to_torch(event_checks.bisect_inputs(eb + ef, eb, ef, npdt), dev)
+            emit(kernel="masked_bisect_refine", shape=f"b={eb} f={ef}", dtype=npdt.__name__,
+                 ms=median_ms(lambda: cuda_impl.masked_bisect_refine(*bargs)))
     return 0
 
 

@@ -58,7 +58,8 @@ from . import workloads
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
            "interp_eval_kernel", "fused_step_kernel", "masked_bisect_refine_kernel",
            "fused_event_detect_kernel", "fused_event_commit_kernel", "lu_factor_kernel",
-           "linsolve_kernel", "newton_iter_kernel", "newton_update_kernel",
+           "linsolve_kernel", "newton_iter_kernel", "newton_iter_panel_kernel",
+           "newton_iter_warp_kernel", "newton_update_kernel",
            "lu_pivot_kernel", "lu_update_kernel", "substitute_kernel", "lu_factor_staged_kernel",
            "linsolve_staged_kernel", "flash_fwd_kernel", "flash_fwd_wgmma_kernel")
 

@@ -1,14 +1,15 @@
-"""The choice of body or path of the two kernels that have more than one,
-on the CPU: ``cuda_impl.flash_body`` (the attention's wgmma or FFMA body)
-and ``cuda_impl.lu_path`` (the elimination staged in shared memory, in
-device memory, or column by column over the card), on every boundary, and
-the wrappers' own checks, which raise ``ValueError`` wherever the C entries
-would refuse a body or path -- before any launch, so a refusal never
+"""The choice of body or path of the kernels that have more than one, on
+the CPU: ``cuda_impl.flash_body`` (the attention's wgmma or FFMA body),
+``cuda_impl.lu_path`` (the elimination staged in shared memory, in device
+memory, or column by column over the card) and ``cuda_impl.newton_iter_body``
+(``fused_newton_iter``'s panel or column substitution), on every boundary,
+and the wrappers' own checks, which raise ``ValueError`` wherever the C
+entries would refuse a body or path -- before any launch, so a refusal never
 reaches the card.
 
 The card tests (``tests/test_torch_kernels_card.py``) hold each body and
-path to the plain version and the staged elimination bitwise to the
-device-memory one.
+path to the plain version, the staged elimination bitwise to the
+device-memory one and the panel substitution bitwise to the column one.
 """
 
 import pytest
@@ -154,3 +155,93 @@ class TestLuPath:
         # a known path goes on to the device check
         with pytest.raises(ValueError, match="CUDA tensors"):
             getattr(cuda_impl, op)(*args, path="staged")
+
+
+# fused_newton_iter's widest f at H100_SMEM: itemsize -> f, per body.
+H100_PANEL_MAX = {4: 53388, 8: 25736}
+H100_COLUMN_MAX = {4: 29006, 8: 14503}
+# The limits above and one below the panel body's ring (16 KiB), where only
+# the column body fits.
+NEWTON_LIMITS = LIMITS[:3] + (16 * 1024,)
+
+
+def _max_fitting(smem_bytes, itemsize, limit):
+    """The widest f whose ``smem_bytes(f, itemsize)`` fits ``limit`` (0 if
+    none): the bytes grow with f, so bisect."""
+    lo, hi = 0, limit + 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if smem_bytes(mid, itemsize) <= limit else (lo, mid)
+    return lo
+
+
+class TestNewtonIterBody:
+    def test_smem_layout(self):
+        # two mbarriers and a 32-row tile (row stride 32 + 16 / itemsize) per
+        # ring slot, 4 slots in float32 and 3 in float64, then x rounded up
+        # to 16 bytes
+        assert cuda_impl.panel_smem_bytes(128, 4) == 16 * 4 + 4 * 32 * 36 * 4 + 512 == 19008
+        assert cuda_impl.panel_smem_bytes(128, 8) == 16 * 3 + 3 * 32 * 34 * 8 + 1024 == 27184
+        assert cuda_impl.panel_smem_bytes(3, 4) == 16 * 4 + 4 * 32 * 36 * 4 + 16
+        assert cuda_impl.column_smem_bytes(128, 4) == 1024  # x and delta
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_h100_limits(self, itemsize):
+        assert _max_fitting(cuda_impl.panel_smem_bytes, itemsize,
+                            H100_SMEM) == H100_PANEL_MAX[itemsize]
+        assert _max_fitting(cuda_impl.column_smem_bytes, itemsize,
+                            H100_SMEM) == H100_COLUMN_MAX[itemsize]
+        # the panel body takes every width the column body took, and more
+        for f in (33, 128, 4096, 8192, H100_COLUMN_MAX[itemsize], H100_PANEL_MAX[itemsize]):
+            assert cuda_impl.newton_iter_body(f, itemsize, H100_SMEM) == "panel"
+        for f in (1, 2, 3, 32):  # the small stiff systems: a warp per instance
+            assert cuda_impl.newton_iter_body(f, itemsize, H100_SMEM) == "warp"
+
+    @pytest.mark.parametrize("limit", NEWTON_LIMITS)
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_boundaries(self, itemsize, limit):
+        p_max = _max_fitting(cuda_impl.panel_smem_bytes, itemsize, limit)
+        c_max = _max_fitting(cuda_impl.column_smem_bytes, itemsize, limit)
+        widths = {1, 2, 3, 32, 33, 128, p_max, p_max + 1, c_max, c_max + 1}
+        for f in sorted(widths - {0}):
+            body = cuda_impl.newton_iter_body(f, itemsize, limit)
+            assert body == ("warp" if f <= 32 else "panel" if f <= p_max else "column")
+            fits = {"warp": f <= 32, "panel": f <= p_max, "column": f <= c_max}
+            for name, ok in fits.items():
+                if ok:
+                    cuda_impl.check_newton_iter_body("x", name, f, itemsize, limit)
+                else:
+                    with pytest.raises(ValueError, match=f"the {name} body (needs|takes)"):
+                        cuda_impl.check_newton_iter_body("x", name, f, itemsize, limit)
+
+    def test_only_the_column_body_fits_below_the_ring(self):
+        limit = 16 * 1024
+        assert _max_fitting(cuda_impl.panel_smem_bytes, 4, limit) == 0
+        assert cuda_impl.newton_iter_body(2, 4, limit) == "warp"  # static shared memory
+        assert cuda_impl.newton_iter_body(33, 4, limit) == "column"
+        assert cuda_impl.newton_iter_body(2048, 4, limit) == "column"
+        with pytest.raises(ValueError, match="column body needs"):
+            cuda_impl.check_newton_iter_body("x", "column", 2049, 4, limit)
+
+    def test_unknown_body(self):
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.check_newton_iter_body("x", "blocked", 128, 4, H100_SMEM)
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_warp_body_width(self, itemsize):
+        for f in (1, 2, 3, 31, 32):
+            cuda_impl.check_newton_iter_body("x", "warp", f, itemsize, H100_SMEM)
+        with pytest.raises(ValueError, match="the warp body takes f <= 32"):
+            cuda_impl.check_newton_iter_body("x", "warp", 33, itemsize, H100_SMEM)
+
+    def test_wrapper_refuses_an_unknown_body_before_the_launch(self):
+        lu = torch.eye(4).expand(2, 4, 4).contiguous()
+        perm = torch.arange(4, dtype=torch.int32).expand(2, 4).contiguous()
+        k, fk = torch.ones(2, 4), torch.zeros(2, 4)
+        active = torch.ones(2, dtype=torch.bool)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.fused_newton_iter(lu, perm, k, fk, active, 1e-3, body="blocked")
+        # a known body goes on to the device check
+        for body in ("warp", "panel", "column", None):
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                cuda_impl.fused_newton_iter(lu, perm, k, fk, active, 1e-3, body=body)

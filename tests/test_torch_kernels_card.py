@@ -333,6 +333,31 @@ class TestEventKernelsOnCard:
         assert got[2] is ev_y  # updated in place and returned
         event_checks.assert_bitwise("fused_event_commit", got, want)
 
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("f", [1, 2, 3, 4, 5, 783, 784, 785])
+    @pytest.mark.parametrize("aligned", [True, False])
+    def test_masked_bisect_refine_widths(self, cuda_device, dtype, f, aligned):
+        """Row segments at every width class (f below, at and above a
+        16-byte chunk, full_width's 784 and its neighbours), b = 37 rows
+        (not a multiple of a block's rows), the coefficient planes starting
+        16-byte aligned (16-byte chunks, with per-row heads and tails where f
+        is not a multiple of a chunk) and one entry past it (entry by
+        entry)."""
+        b = 37
+        coeffs, *cols = event_checks.to_torch(
+            event_checks.bisect_inputs(f, b, f, dtype, "mixed"), cuda_device)
+        if not aligned:
+            def shifted(c):
+                flat = torch.empty(b * f + 1, dtype=c.dtype, device=cuda_device)
+                view = flat[1:].view(b, f)
+                view.copy_(c)
+                return view
+            coeffs = tuple(shifted(c) for c in coeffs)
+        assert all(c.is_contiguous() and (c.data_ptr() % 16 == 0) == aligned for c in coeffs)
+        event_checks.assert_bitwise("masked_bisect_refine",
+                                    cuda_impl.masked_bisect_refine(coeffs, *cols),
+                                    tref.masked_bisect_refine(coeffs, *cols))
+
     def test_event_limit_raises(self, cuda_device):
         *args, _ = event_checks.to_torch(event_checks.detect_inputs(0, 4, 65, np.float32),
                                          cuda_device)
@@ -405,8 +430,13 @@ def test_events_never_reach_the_plain_version(cuda_device):
     assert int(sol.status[0]) == 4
 
 
-def _newton_cases():
-    for f in NC.WIDTHS:
+# fused_newton_iter's widths: within one panel, at and around the 32-column
+# panels, allen_cahn_full's 128, the staged elimination's limits.
+PANEL_WIDTHS = (1, 2, 3, 31, 32, 33, 64, 127, 128, 129, 239, 240)
+
+
+def _newton_cases(widths=NC.WIDTHS):
+    for f in widths:
         for kind in NC.KINDS:
             if not ((kind == "zero_diag" and f < 2) or (kind == "ties" and f < 3)):
                 yield f, kind
@@ -491,6 +521,63 @@ class TestNewtonKernelsOnCard:
             cuda_impl.batched_linsolve(big, torch.ones(1, f, dtype=torch.float64,
                                                        device=cuda_device))
         del big
+
+
+class TestNewtonIterBodiesOnCard:
+    """``fused_newton_iter``'s bodies -- a warp per instance (f <= 32), the
+    panel substitution (the LU streamed through shared memory, 32 columns
+    per barrier) and the column loop -- against each other and the unfused
+    iteration (``batched_linsolve`` + ``masked_newton_update``), bitwise,
+    and against the plain version within ``newton_checks.hold``: at widths
+    around the warp body's limit, the 32-column panels and the staged
+    elimination's limits, over every ``newton_checks`` kind and active mask,
+    float32 and float64."""
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("f, kind", list(_newton_cases(PANEL_WIDTHS)))
+    def test_bodies(self, cuda_device, dtype, f, kind):
+        b = 37
+        M, _, k, fk, mixed, scale = NC.to_torch(NC.newton_inputs(f + len(kind), b, f, dtype, kind),
+                                                cuda_device)
+        skip = NC.nan_rows(M.cpu().numpy())
+        lu, perm = cuda_impl.batched_lu_factor(M)
+        limit = cuda_impl._smem_limit("test", _build.load(), cuda_device)
+        chosen = cuda_impl.newton_iter_body(f, np.dtype(dtype).itemsize, limit)
+        assert chosen == ("warp" if f <= 32 else "panel")
+        bodies = ("warp", "panel", "column") if f <= 32 else ("panel", "column")
+        for mask in (mixed, torch.ones_like(mixed), torch.zeros_like(mixed)):
+            before = dict(cuda_impl.body_launches["fused_newton_iter"])
+            got = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)
+            assert cuda_impl.body_launches["fused_newton_iter"][chosen] == before[chosen] + 1
+            unfused = cuda_impl.masked_newton_update(k, cuda_impl.batched_linsolve(M, k - fk),
+                                                     mask, scale)
+            for body in bodies:
+                other = cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale, body=body)
+                for a, c, u in zip(got, other, unfused):
+                    assert _same_bits(a, c) and _same_bits(a, u), body
+            NC.hold("fused_newton_iter", got,
+                    tref.fused_newton_iter(lu, perm, k, fk, mask, scale), dtype, skip_rows=skip)
+
+    def test_entry_refuses_an_unknown_body(self, cuda_device):
+        # Past the wrapper: the C entry refuses a body it does not have with
+        # cudaErrorInvalidValue (1), before any launch.
+        M, _, k, fk, mask, scale = NC.to_torch(NC.newton_inputs(0, 2, 4, np.float32),
+                                                cuda_device)
+        lu, perm = cuda_impl.batched_lu_factor(M)
+        out, res = torch.empty_like(k), torch.empty(2, device=cuda_device)
+        assert _build.load().rt_fused_newton_iter(
+            0, 7, *(x.data_ptr() for x in (lu, perm, k, fk, mask, scale, out, res)), 2, 4,
+            torch.cuda.current_stream().cuda_stream) == 1
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale, body="blocked")
+        # ... and the warp body above 32 columns
+        M, _, k, fk, mask, scale = NC.to_torch(NC.newton_inputs(0, 2, 33, np.float32),
+                                                cuda_device)
+        lu, perm = cuda_impl.batched_lu_factor(M)
+        out = torch.empty_like(k)
+        assert _build.load().rt_fused_newton_iter(
+            0, 2, *(x.data_ptr() for x in (lu, perm, k, fk, mask, scale, out, res)), 2, 33,
+            torch.cuda.current_stream().cuda_stream) == 1
 
 
 def _stiff_vdp(t, y, mu):
