@@ -89,7 +89,13 @@ body up to f = 32, the panel substitution, the column loop) bitwise to each
 other on every Newton case and times them side by side (``ms_by_body``),
 holds ``masked_bisect_refine`` bitwise to its plain version at every row
 segment class (f = 1-5, 783-785; aligned and unaligned coefficients), and
-holds the substitution kernels above their old 48 KiB shared-memory limit
+``fused_event_commit`` at every row class of its layout (f = 1-5, 783-785;
+E = 1, 3, 64; rows with no crossing, one, all tied; planes aligned, or y_new
+or ev_y one entry off), holds ``masked_newton_update`` to its plain version
+and the unfused Newton iteration bitwise to the fused one at the update's
+boundary widths (``newton_checks.UPDATE_WIDTHS``), prints the launch floor
+(a one-element PyTorch op under the same timing rule), and holds the
+substitution kernels above their old 48 KiB shared-memory limit
 (f = 4096 and 8192, float64, 1e-12, equal permutations, both Newton bodies
 bitwise equal).  The ``stiff`` and ``lm`` phases check that the main path
 took the staged elimination, the Newton body ``newton_iter_body`` picks
@@ -272,6 +278,13 @@ def main() -> int:
         return abs_err, abs_err / max(scale, 1e-300)
 
     rows = []
+
+    # The launch floor: a one-element PyTorch elementwise op timed by the same
+    # rule as every kernel below (L2 flushed, the device asleep first, CUDA
+    # events, median): what any launch costs under this rule.
+    one = torch.zeros(1, device=dev)
+    emit("kernels", check="launch floor", op="Tensor.add_ on one float32 element",
+         ms=median_ms(lambda: one.add_(1.0)), reps=REPS)
 
     def hold_bitwise(name, got, want, _dtype):
         got = got if isinstance(got, tuple) else (got,)
@@ -587,14 +600,39 @@ def main() -> int:
                 event_checks.bisect_inputs(f, 37, f, npdt, "mixed"), dev)
             for aligned in (True, False):
                 if not aligned:
-                    coeffs = tuple(torch.empty(c.numel() + 1, dtype=c.dtype, device=dev)[1:]
-                                   .view(c.shape).copy_(c) for c in coeffs)
+                    coeffs = tuple(event_checks.unaligned(c) for c in coeffs)
                 event_checks.assert_bitwise(
                     f"masked_bisect_refine[f={f} aligned={aligned}]",
                     cuda_impl.masked_bisect_refine(coeffs, *cols),
                     ref.masked_bisect_refine(coeffs, *cols))
     emit("kernels", check="masked_bisect_refine row segments", b=37, widths=widths,
          coefficients=["16-byte aligned", "one entry off"], bitwise_equal_to_plain=True)
+    # fused_event_commit at every row class of its layout (a thread per
+    # 16-byte chunk where the planes start 16-byte aligned and a row is whole
+    # 16-byte words, entry by entry otherwise): event_checks.COMMIT_WIDTHS x
+    # COMMIT_EVENTS, b = 37 rows detecting no crossing, one, all at one x (a
+    # tied terminal one) or a random mix, the planes aligned or y_new / ev_y
+    # one entry off; bitwise, ev_y in place.
+    layouts = ("aligned", "y_new one entry off", "ev_y one entry off")
+    for npdt in (np.float32, np.float64):
+        for f in event_checks.COMMIT_WIDTHS:
+            for E in event_checks.COMMIT_EVENTS:
+                *cargs, flags = event_checks.to_torch(event_checks.commit_inputs(
+                    f + E, 37, f, E, npdt, "mixed", rows="classes"), dev)
+                want = ref.fused_event_commit(*cargs, terminal=flags)
+                for layout in layouts:
+                    a = list(cargs)
+                    a[8] = (event_checks.unaligned(a[8]) if layout.startswith("ev_y")
+                            else a[8].clone())
+                    if layout.startswith("y_new"):
+                        a[3] = event_checks.unaligned(a[3])
+                    event_checks.assert_bitwise(
+                        f"fused_event_commit[f={f} E={E} {npdt.__name__} {layout}]",
+                        cuda_impl.fused_event_commit(*a, terminal=flags), want)
+    emit("kernels", check="fused_event_commit row classes", b=37,
+         widths=event_checks.COMMIT_WIDTHS, events=event_checks.COMMIT_EVENTS,
+         rows="no crossing, one, all at one x (tie), random", layouts=layouts,
+         bitwise_equal_to_plain=True)
 
     # The chord-Newton kernels at the stiff workloads' shapes (b = 1024; f =
     # 2 Van der Pol, 3 Robertson, 128 Allen-Cahn), float32 and float64, over
@@ -714,6 +752,32 @@ def main() -> int:
     emit("kernels", check="newton kernels, all cases", tol={"float32": 1e-5, "float64": 1e-12},
          unfused_iteration_bitwise_equal_to_fused=True,
          cases={f"{k[0]}/{k[1]}": v for k, v in newton_held.items()})
+    # masked_newton_update at the boundaries of its layout (a warp per row,
+    # 128-column batches: newton_checks.UPDATE_WIDTHS), b = 37, every active
+    # mask: held to its plain version by newton_checks.hold, and the unfused
+    # iteration bitwise equal to fused_newton_iter (the same row norm).
+    update_err = {}
+    for npdt in (np.float32, np.float64):
+        for f in newton_checks.UPDATE_WIDTHS:
+            for active in ("mixed", "all", "none"):
+                M, rhs, k, fk, mask, scale = newton_checks.to_torch(
+                    newton_checks.newton_inputs(f + 700, 37, f, npdt, "chord", active), dev)
+                worst = newton_checks.hold(
+                    f"masked_newton_update[f={f} {active}]",
+                    cuda_impl.masked_newton_update(k, rhs, mask, scale),
+                    ref.masked_newton_update(k, rhs, mask, scale), npdt)
+                update_err[npdt.__name__] = max(update_err.get(npdt.__name__, 0.0), worst)
+                unfused = cuda_impl.masked_newton_update(
+                    k, cuda_impl.batched_linsolve(M, k - fk), mask, scale)
+                fused = cuda_impl.fused_newton_iter(*cuda_impl.batched_lu_factor(M), k, fk,
+                                                    mask, scale)
+                check(all(torch.equal(a.nan_to_num(7.0), c.nan_to_num(7.0))
+                          for a, c in zip(unfused, fused)),
+                      f"newton[f={f} {npdt.__name__} {active}]: the unfused iteration differs "
+                      "bitwise from the fused one")
+    emit("kernels", check="masked_newton_update widths", b=37,
+         widths=newton_checks.UPDATE_WIDTHS, tol={"float32": 1e-5, "float64": 1e-12},
+         max_abs_err=update_err, unfused_iteration_bitwise_equal_to_fused=True)
     # fused_newton_iter's bodies, each bitwise equal to the others on every
     # case above, timed side by side at the stiff shapes (chord, mixed rows):
     # the column loop is the first design's time.

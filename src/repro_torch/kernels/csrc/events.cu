@@ -20,15 +20,18 @@
 // masked_bisect_refine's first design (one thread per entry) spent its time
 // around the bytes: a 64-bit division per entry for its row, the row's four
 // (b,) inputs reloaded and its bracket recomputed per entry, and 4-byte
-// loads.  Its design now (below): the grid laid out by row, a thread per
-// 16-byte chunk, the bracket once per thread, 16-byte loads and stores.
+// loads.  fused_event_commit's (a warp per row) kept one 4-byte load of a
+// lane in flight at a time.  Both are laid out by row now (below): a thread
+// per 16-byte chunk, the row's bracket or header once per thread, 16-byte
+// loads and stores.
 //
 // The TPU kernels carry bool outputs as int32 (a TPU layout matter); here
 // masks are bytes (torch.bool) both ways and n_new is int32.
 //
-// The event count E is at most kMaxEvents (64): the per-event directions and
-// terminal flags ride in the parameter space as int8, and a row's recorded
-// crossings are one 64-bit mask in registers.  The wrappers raise above it.
+// The event count E is at most kMaxEvents (64): the per-event directions ride
+// in the parameter space as int8, the terminal flags as one 64-bit mask, and
+// a row's recorded crossings are one 64-bit mask in registers.  The wrappers
+// raise above it.
 
 #include "solver_common.cuh"
 
@@ -47,6 +50,14 @@ EventFlags load_flags(const int8_t* host, int n) {
   EventFlags flags;
   for (int i = 0; i < kMaxEvents; ++i) flags.v[i] = i < n ? host[i] : 0;
   return flags;
+}
+
+unsigned long long terminal_mask(const int8_t* host, int n) {
+  unsigned long long mask = 0;
+  for (int i = 0; i < n && i < kMaxEvents; ++i) {
+    if (host[i]) mask |= 1ull << i;
+  }
+  return mask;
 }
 
 unsigned blocks_for(int64_t n, int threads) {
@@ -175,59 +186,212 @@ __global__ void fused_event_detect_kernel(const T* __restrict__ v_prev,
 }
 
 // -------------------------------------------------------- fused_event_commit
-// One warp per row, 8 rows to a block.  Every lane resolves the row's
-// terminal events over E in registers (strict <, so the first of two equal
-// crossings wins, as the plain version's sequence of wheres does) and forms
-// the recorded-crossing mask rec = newly & (x <= x_stop); lanes then split
-// the (b, E) columns, lane 0 writes the (b,) ones, and the warp sweeps f for
-// y_stop and, in place, the ev_y cells of the recorded crossings (the cells
-// not recorded are neither read nor written).
-template <typename T>
-__global__ void fused_event_commit_kernel(
+// Rows by 2-D grid, a thread per 16-byte chunk of a row, as in
+// masked_bisect_refine: a row's segment of 2^lanes_log2 threads (up to a
+// warp; 256 >> lanes_log2 rows to a block) spans gridDim.x segments.  Every
+// thread resolves its row's header once: the terminal events in order
+// (strict <, so the first of two equal crossings wins, as the plain
+// version's sequence of wheres does), then the recorded-crossing mask rec =
+// newly & (x <= x_stop) over the crossings detected.  It copies one chunk of
+// V entries of y_stop from its source row (y_new, or the stopping crossing's
+// y_ev row) and the same chunk of each recorded ev_y cell from y_ev, in
+// place; ev_y cells of crossings not recorded are neither read nor written.
+// The row's first thread writes its (b, E) and (b,) outputs.  V = 16 /
+// sizeof(T) where y_new, y_ev, ev_y and y_stop start 16-byte aligned and a
+// row is a whole number of 16-byte words, else 1 (entry by entry).
+//
+// Bound: the bytes this step's data needs (2 (b, f) planes, 2 f per
+// recorded cell, the columns): at full_width (b = 1024, f = 784, E = 2,
+// event_checks' mixed rows, float32) 12 MB, 0.0036 ms at 3.35 TB/s.  The
+// first design (a warp per row, 8 rows a block, 4-byte copies with the
+// recorded cells' loop inside the column loop) kept one load of a lane in
+// flight: some 25 dependent round trips per row, 0.034 ms.  Here a thread's
+// loads come in two rounds: first everything that does not depend on the
+// header -- the row's first kHeadEvents columns of newly and x (and of fired
+// and ev_t, t0 and dt for the row's first thread) and the y_new chunk, read
+// whether or not the row stops -- then, where the row recorded a crossing,
+// the y_ev chunks of the recorded cells (kCellBatch at a time) and of the
+// stopping one; every load of a round is issued before its stores.
+//
+// Two events' columns in the first round and two cells a batch cover the
+// usual E = 1-2 in two rounds at 48-77 registers a thread (ptxas); wider
+// batches (4 and 4: 64-98 registers, fewer blocks an SM) measured slower at
+// full_width, and a cap of 64 registers slower still.  The terminal flags
+// come as a 64-bit mask: a by-value array parameter indexed at run time is
+// copied to each thread's stack (64 bytes).  On an H100 (700 W) the kernel
+// takes 0.0109 ms at full_width float32: 0.0056 ms above the launch floor
+// (0.0053 ms), the bytes at ~2.1 TB/s where the timing rule's L2 flush
+// leaves dirty lines to write back first, as for masked_bisect_refine
+// (PERF.md).
+constexpr int kHeadEvents = 2;
+constexpr int kCellBatch = 2;
+
+template <typename T, int V>
+struct Chunk16 {
+  T v[V];
+};
+
+// The loads of the copies are volatile: a load of round one stays in round
+// one, where the compiler could otherwise sink the speculative y_new load
+// below the header that may discard it.
+__device__ __forceinline__ float load_nc(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ double load_nc(const double* p) {
+  double v;
+  asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Chunk16<T, V> load16(const T* p) {
+  if constexpr (V == 1) {
+    return Chunk16<T, V>{{load_nc(p)}};
+  } else {
+    union {
+      uint4 raw;
+      Chunk16<T, V> c;
+    } u;
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(u.raw.x), "=r"(u.raw.y), "=r"(u.raw.z), "=r"(u.raw.w)
+                 : "l"(p));
+    return u.c;
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store16(T* p, const Chunk16<T, V>& c) {
+  if constexpr (V == 1) {
+    *p = c.v[0];
+  } else {
+    union {
+      uint4 raw;
+      Chunk16<T, V> c;
+    } u;
+    u.c = c;
+    *reinterpret_cast<uint4*>(p) = u.raw;
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) fused_event_commit_kernel(
     const T* __restrict__ x, const T* __restrict__ y_ev, const uint8_t* __restrict__ newly,
     const T* __restrict__ y_new, const T* __restrict__ t0, const T* __restrict__ dt,
     const uint8_t* __restrict__ fired, const T* __restrict__ ev_t, T* __restrict__ ev_y,
-    EventFlags terminal, uint8_t* __restrict__ fired_out, T* __restrict__ ev_t_out,
+    unsigned long long terminal, uint8_t* __restrict__ fired_out, T* __restrict__ ev_t_out,
     uint8_t* __restrict__ stop_out, T* __restrict__ t_stop, T* __restrict__ y_stop,
-    int32_t* __restrict__ n_new, int64_t b, int E, int64_t f) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = blockIdx.x * (int64_t)kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= b) return;  // the whole warp leaves together
-  const int64_t eb = row * E;
-  T x_stop = T(INFINITY);
-  bool stop = false;
-  int i_stop = -1;
-  for (int i = 0; i < E; ++i) {
-    if (!terminal.v[i]) continue;
-    const bool ni = newly[eb + i] != 0;
-    stop = stop || ni;
-    if (ni && x[eb + i] < x_stop) {
-      x_stop = x[eb + i];
-      i_stop = i;
+    int32_t* __restrict__ n_new, int b, int E, int f, int lanes_log2) {
+  const int lane = threadIdx.x & ((1 << lanes_log2) - 1);
+  const int rows = kThreads >> lanes_log2;
+  const int q = (blockIdx.x << lanes_log2) | lane;  // this thread's chunk of its rows
+  const bool first = blockIdx.x == 0 && lane == 0;
+  const int nc = f / V;
+  const int64_t o = static_cast<int64_t>(q) * V;
+  for (int row = blockIdx.y * rows + (threadIdx.x >> lanes_log2); row < b;
+       row += gridDim.y * rows) {
+    const int64_t eb = static_cast<int64_t>(row) * E, rb = static_cast<int64_t>(row) * f;
+    // Round one: nothing here depends on the header.
+    Chunk16<T, V> s;
+    if (q < nc) s = load16<T, V>(y_new + rb + o);
+    T t0r = T(0), dtr = T(0);
+    if (first) {
+      t0r = t0[row];
+      dtr = dt[row];
     }
-  }
-  unsigned long long rec = 0;
-  for (int i = 0; i < E; ++i) {
-    if (newly[eb + i] && x[eb + i] <= x_stop) rec |= 1ull << i;
-  }
-  const T t0r = t0[row], dtr = dt[row];
-  for (int i = lane; i < E; i += 32) {
-    const bool ri = (rec >> i) & 1ull;
-    fired_out[eb + i] = fired[eb + i] || ri;
-    ev_t_out[eb + i] = ri ? add_rn(t0r, mul_rn(x[eb + i], dtr)) : ev_t[eb + i];
-  }
-  if (lane == 0) {
-    stop_out[row] = stop;
-    t_stop[row] = add_rn(t0r, mul_rn(stop ? x_stop : T(0), dtr));
-    n_new[row] = __popcll(rec);
-  }
-  const T* src = i_stop >= 0 ? y_ev + (eb + i_stop) * f : y_new + row * f;
-  T* dst = y_stop + row * f;
-  for (int64_t c = lane; c < f; c += 32) {
-    dst[c] = src[c];
-    for (unsigned long long m = rec; m; m &= m - 1) {
-      const int64_t cell = (eb + __ffsll(static_cast<long long>(m)) - 1) * f + c;
-      ev_y[cell] = y_ev[cell];
+    bool nh[kHeadEvents];
+    T xh[kHeadEvents], th[kHeadEvents];
+    uint8_t fh[kHeadEvents];
+#pragma unroll
+    for (int k = 0; k < kHeadEvents; ++k) {
+      nh[k] = k < E && newly[eb + k] != 0;
+      if (k < E) xh[k] = x[eb + k];
+      if (first && k < E) {
+        fh[k] = fired[eb + k];
+        th[k] = ev_t[eb + k];
+      }
+    }
+    // The header: the crossings detected, the earliest terminal one, rec.
+    T x_stop = T(INFINITY);
+    int i_stop = -1;
+    unsigned long long detected = 0;
+#pragma unroll
+    for (int k = 0; k < kHeadEvents; ++k) {
+      if (!nh[k]) continue;
+      detected |= 1ull << k;
+      if (((terminal >> k) & 1ull) && xh[k] < x_stop) {
+        x_stop = xh[k];
+        i_stop = k;
+      }
+    }
+    for (int i = kHeadEvents; i < E; ++i) {
+      if (!newly[eb + i]) continue;
+      detected |= 1ull << i;
+      const T xi = x[eb + i];
+      if (((terminal >> i) & 1ull) && xi < x_stop) {
+        x_stop = xi;
+        i_stop = i;
+      }
+    }
+    const bool stop = (detected & terminal) != 0;
+    unsigned long long rec = 0;
+#pragma unroll
+    for (int k = 0; k < kHeadEvents; ++k) {
+      if (nh[k] && xh[k] <= x_stop) rec |= 1ull << k;
+    }
+    for (unsigned long long m = detected >> kHeadEvents; m; m &= m - 1) {
+      const int i = kHeadEvents + __ffsll(static_cast<long long>(m)) - 1;
+      if (x[eb + i] <= x_stop) rec |= 1ull << i;
+    }
+    // Round two: the stopping row's source and the first recorded cells.
+    unsigned long long m = q < nc ? rec : 0ull;
+    int64_t at[kCellBatch];
+    Chunk16<T, V> c[kCellBatch];
+    const auto load_cells = [&]() {
+#pragma unroll
+      for (int k = 0; k < kCellBatch; ++k) {
+        at[k] = -1;
+        if (m) {
+          at[k] = (eb + __ffsll(static_cast<long long>(m)) - 1) * f + o;
+          m &= m - 1;
+          c[k] = load16<T, V>(y_ev + at[k]);
+        }
+      }
+    };
+    const auto store_cells = [&]() {
+#pragma unroll
+      for (int k = 0; k < kCellBatch; ++k) {
+        if (at[k] >= 0) store16<T, V>(ev_y + at[k], c[k]);
+      }
+    };
+    if (q < nc && i_stop >= 0) s = load16<T, V>(y_ev + (eb + i_stop) * f + o);
+    load_cells();
+    if (first) {
+#pragma unroll
+      for (int k = 0; k < kHeadEvents; ++k) {
+        if (k < E) {
+          const bool rk = (rec >> k) & 1ull;
+          fired_out[eb + k] = fh[k] || rk;
+          ev_t_out[eb + k] = rk ? add_rn(t0r, mul_rn(xh[k], dtr)) : th[k];
+        }
+      }
+      for (int i = kHeadEvents; i < E; ++i) {
+        const bool ri = (rec >> i) & 1ull;
+        fired_out[eb + i] = fired[eb + i] || ri;
+        ev_t_out[eb + i] = ri ? add_rn(t0r, mul_rn(x[eb + i], dtr)) : ev_t[eb + i];
+      }
+      stop_out[row] = stop;
+      t_stop[row] = add_rn(t0r, mul_rn(stop ? x_stop : T(0), dtr));
+      n_new[row] = __popcll(rec);
+    }
+    if (q >= nc) continue;
+    store16<T, V>(y_stop + rb + o, s);
+    store_cells();
+    while (m) {  // more than kCellBatch recorded cells
+      load_cells();
+      store_cells();
     }
   }
 }
@@ -280,16 +444,32 @@ int launch_commit(const void* x, const void* y_ev, const void* newly, const void
                   void* ev_y, const int8_t* terminal, int E, void* fired_out, void* ev_t_out,
                   void* stop, void* t_stop, void* y_stop, void* n_new, int64_t b, int64_t f,
                   cudaStream_t stream) {
-  const int64_t blocks = (b + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  fused_event_commit_kernel<T><<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
-                                 32 * kWarpsPerBlock, 0, stream>>>(
+  if (b > 0x7fffffff || f > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1) return static_cast<int>(cudaSuccess);  // no rows: nothing to write
+  constexpr int V = 16 / sizeof(T);
+  // 16-byte chunks where the four (b, f) / (b, E, f) planes start 16-byte
+  // aligned and a row fills whole 16-byte words, else entry by entry.
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = f % V == 0 && aligned(y_ev) && aligned(y_new) && aligned(ev_y) &&
+                   aligned(y_stop);
+  const int64_t chunks = f / (vec ? V : 1);
+  int lanes_log2 = 0;
+  while ((int64_t{1} << lanes_log2) < chunks && lanes_log2 < 5) ++lanes_log2;
+  const int64_t rows = kThreads >> lanes_log2;
+  const int64_t gy = (b + rows - 1) / rows;
+  const int64_t gx = (chunks + (1 << lanes_log2) - 1) >> lanes_log2;  // f = 0: the header alone
+  const dim3 grid(static_cast<unsigned>(gx > 0 ? gx : 1),
+                  static_cast<unsigned>(gy < 65535 ? gy : 65535));
+  auto kernel = vec ? &fused_event_commit_kernel<T, V> : &fused_event_commit_kernel<T, 1>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y_ev),
       static_cast<const uint8_t*>(newly), static_cast<const T*>(y_new),
       static_cast<const T*>(t0), static_cast<const T*>(dt),
       static_cast<const uint8_t*>(fired), static_cast<const T*>(ev_t),
-      static_cast<T*>(ev_y), load_flags(terminal, E), static_cast<uint8_t*>(fired_out),
+      static_cast<T*>(ev_y), terminal_mask(terminal, E), static_cast<uint8_t*>(fired_out),
       static_cast<T*>(ev_t_out), static_cast<uint8_t*>(stop), static_cast<T*>(t_stop),
-      static_cast<T*>(y_stop), static_cast<int32_t*>(n_new), b, E, f);
+      static_cast<T*>(y_stop), static_cast<int32_t*>(n_new), static_cast<int>(b), E,
+      static_cast<int>(f), lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -320,23 +320,46 @@ newton_iter_warp_kernel(const T* __restrict__ lu, const int32_t* __restrict__ pe
 // --------------------------------------------------------- masked_newton_update
 // Replaces pallas_impl.masked_newton_update (:608, body _newton_update_kernel
 // :589).  k - delta where the row is active, and the scaled RMS of delta: a
-// row reduction like error_norm, so one warp per row (8 to a block), with
-// the row norm of fused_newton_iter (newton_norm_warp).  Bound: four (b, f)
-// planes; the commit is coalesced and lane-strided.
+// row reduction like error_norm, so one warp per row, with the row norm of
+// fused_newton_iter (newton_norm_warp: the same lane-strided sum in the same
+// order, so the unfused iteration's bits are the fused one's).
+//
+// Bound: four (b, f) planes and two (b,) columns, 2.1 MB at allen_cahn_full
+// (b = 1024, f = 128, float32): 0.6 us at 3.35 TB/s.  The first design read
+// delta twice (the commit, then the norm) and, f being known only at run
+// time, kept one or two loads of a lane in flight: some 8 dependent round
+// trips to device memory per row, 8.6 us.  Now each of k, delta and scale is
+// read once, a lane's kNormBatch columns of all three are loaded before the
+// first is used (12 loads in flight at f = 128: one round trip per row),
+// delta stays in registers for the commit and the norm, and a block holds
+// kUpdateRows rows, so at b = 1024 every SM has two blocks in flight.  The
+// layout stays lane-strided 4 or 8 bytes a lane (one 128-byte line per warp
+// instruction): wider loads would change which lane sums which columns, and
+// so the norm's bits.  What is left is one round trip and the launch: on an
+// H100 (700 W) 0.0073 ms at allen_cahn_full, 0.002 ms above the 0.0053 ms
+// that any launch takes under the same timing rule (the launch floor); 2, 4
+// or 8 rows a block made no difference (PERF.md).
+constexpr int kUpdateRows = 4;
+
 template <typename T>
-__global__ void newton_update_kernel(const T* __restrict__ k, const T* __restrict__ delta,
-                                     const uint8_t* __restrict__ active,
-                                     const T* __restrict__ scale, T* __restrict__ k_new,
-                                     T* __restrict__ res, int64_t b, int64_t f) {
+__global__ void __launch_bounds__(32 * kUpdateRows)
+newton_update_kernel(const T* __restrict__ k, const T* __restrict__ delta,
+                     const uint8_t* __restrict__ active, const T* __restrict__ scale,
+                     T* __restrict__ k_new, T* __restrict__ res, int64_t b, int64_t f) {
   const int lane = threadIdx.x & 31;
-  const int64_t row = blockIdx.x * (int64_t)kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= b) return;
+  const int64_t row = blockIdx.x * (int64_t)kUpdateRows + (threadIdx.x >> 5);
+  if (row >= b) return;  // the whole warp leaves together
   const int64_t base = row * f;
   const bool act = active[row] != 0;
-  for (int64_t c = lane; c < f; c += 32) {
-    k_new[base + c] = act ? sub_rn(k[base + c], delta[base + c]) : k[base + c];
-  }
-  const T r = newton_norm_warp(delta + base, scale + base, f, lane);
+  T kv[kNormBatch];
+  const T r = newton_norm_warp<T>(
+      f, lane,
+      [&](int u, int64_t c, T& d, T& s) {
+        kv[u] = k[base + c];
+        d = delta[base + c];
+        s = scale[base + c];
+      },
+      [&](int u, int64_t c, T d) { k_new[base + c] = act ? sub_rn(kv[u], d) : kv[u]; });
   if (lane == 0) res[row] = r;
 }
 
@@ -570,8 +593,8 @@ int launch_newton_update(const void* k, const void* delta, const void* active,
                          const void* scale, void* k_new, void* res, int64_t b, int64_t f,
                          cudaStream_t stream) {
   if (b < 1 || f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (b + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  newton_update_kernel<T><<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock, 0, stream>>>(
+  const int64_t blocks = (b + kUpdateRows - 1) / kUpdateRows;
+  newton_update_kernel<T><<<static_cast<unsigned>(blocks), 32 * kUpdateRows, 0, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(delta),
       static_cast<const uint8_t*>(active), static_cast<const T*>(scale), static_cast<T*>(k_new),
       static_cast<T*>(res), b, f);

@@ -728,16 +728,46 @@ __device__ void lu_substitute_panels(const T* __restrict__ lu, int f, T* x,
 
 // sqrt(sum_c (d[c] / s[c])^2 / f) over one row, by one warp: each lane sums
 // its columns c = lane, lane + 32, ... in order, then the xor butterfly.
-// Every lane returns the same bits.
+// Every lane returns the same bits.  The columns go kNormBatch a lane at a
+// time: fetch(u, c, d, s) loads column c's entries of the update and the
+// scale into d and s (and whatever else the caller keeps in slot u) for
+// every column of a batch before use(u, c, d) sees the first of them, so a
+// lane has the whole batch's loads in flight at once.  masked_newton_update
+// commits k - d in use() from the same registers; fused_newton_iter's
+// bodies take the row from shared memory (the overload below).
+constexpr int kNormBatch = 4;
+
+template <typename T, typename Fetch, typename Use>
+__device__ __forceinline__ T newton_norm_warp(int64_t f, int lane, Fetch fetch, Use use) {
+  T sum = T(0);
+  for (int64_t c0 = lane; c0 < f; c0 += 32 * kNormBatch) {
+    T d[kNormBatch], s[kNormBatch];
+#pragma unroll
+    for (int u = 0; u < kNormBatch; ++u) {
+      if (c0 + 32 * u < f) fetch(u, c0 + 32 * u, d[u], s[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kNormBatch; ++u) {
+      if (c0 + 32 * u < f) {
+        use(u, c0 + 32 * u, d[u]);
+        const T r = d[u] / s[u];
+        sum = fma_of(r, r, sum);
+      }
+    }
+  }
+  return wrms_finish(warp_sum(sum), f);
+}
+
 template <typename T>
 __device__ __forceinline__ T newton_norm_warp(const T* d, const T* __restrict__ s, int64_t f,
                                               int lane) {
-  T sum = T(0);
-  for (int64_t c = lane; c < f; c += 32) {
-    const T r = d[c] / s[c];
-    sum = fma_of(r, r, sum);
-  }
-  return wrms_finish(warp_sum(sum), f);
+  return newton_norm_warp<T>(
+      f, lane,
+      [&](int, int64_t c, T& dc, T& sc) {
+        dc = d[c];
+        sc = s[c];
+      },
+      [](int, int64_t, T) {});
 }
 
 }  // namespace linalg

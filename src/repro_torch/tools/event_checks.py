@@ -15,7 +15,15 @@ Each input function covers the cases the kernels must get right in one batch:
 - ``commit_inputs``: terminal and non-terminal mixes (``terminal``), rows
   with no crossing, one or several, two terminal crossings at the same x (a
   tie), crossings after the earliest terminal one, already fired cells and
-  NaN event times where nothing was recorded yet.
+  NaN event times where nothing was recorded yet; with ``rows="classes"``
+  every fourth row also detects no crossing, one, or all E at one x (all
+  recorded, the first terminal one stops the row).
+
+``COMMIT_WIDTHS`` and ``COMMIT_EVENTS`` are the widths and event counts at
+the boundaries of ``fused_event_commit``'s layout on the card (a thread per
+16-byte chunk of a row where the planes start 16-byte aligned and a row is a
+whole number of 16-byte words, entry by entry otherwise); ``unaligned``
+gives a tensor's copy one entry past a 16-byte boundary.
 
 All three kernels are elementwise selections and single-rounded ATen
 operations in their plain versions, so on the card they are held bitwise
@@ -28,6 +36,11 @@ import numpy as np
 import torch
 
 DIRECTIONS = (0.0, 1.0, -1.0)
+# f = 1-5 (below, at and just above a 16-byte chunk in either dtype) and
+# full_width's 784 with its neighbours: rows of whole 16-byte words in
+# float32 at f = 4, 784, in float64 at f = 2, 4, 784; the rest not.
+COMMIT_WIDTHS = (1, 2, 3, 4, 5, 783, 784, 785)
+COMMIT_EVENTS = (1, 3, 64)  # one event, a few, kMaxEvents
 
 
 def _signed(rng, shape, dtype, zero=0.15, nan=0.05):
@@ -64,9 +77,13 @@ def detect_inputs(seed, b, E, dtype):
     return v_prev, v_new, fired, accept, directions
 
 
-def commit_inputs(seed, b, f, E, dtype, terminal="mixed"):
+def commit_inputs(seed, b, f, E, dtype, terminal="mixed", rows="random"):
     """``(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, terminal)``;
-    ``terminal`` is "mixed" (alternating, from True), "all" or "none"."""
+    ``terminal`` is "mixed" (alternating, from True), "all" or "none";
+    ``rows`` "random" (each crossing detected with probability 1/2) or
+    "classes": rows 0, 4, 8, ... detect no crossing, rows 1, 5, ... exactly
+    one, rows 2, 6, ... all E at one x (so all are recorded, and among
+    terminal ones the first wins the tie), the rest as "random"."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(0.0, 1.0, (b, E)).astype(dtype)
     if E > 1:
@@ -84,7 +101,31 @@ def commit_inputs(seed, b, f, E, dtype, terminal="mixed"):
     ev_y = np.where(fired[:, :, None], rng.standard_normal((b, E, f)), 0.0).astype(dtype)
     flags = tuple({"mixed": i % 2 == 0, "all": True, "none": False}[terminal]
                   for i in range(E))
+    if rows == "classes":
+        cls = np.arange(b) % 4
+        newly[cls == 0] = False
+        one = np.flatnonzero(cls == 1)
+        newly[one] = False
+        newly[one, rng.integers(0, E, one.size)] = True
+        newly[cls == 2] = True
+        x[cls == 2] = x[cls == 2, :1]
+        fired &= ~newly
+        ev_t = np.where(fired, ev_t, np.nan).astype(dtype)
+        ev_y = np.where(fired[:, :, None], ev_y, 0.0).astype(dtype)
+    elif rows != "random":
+        raise ValueError(f"rows is 'random' or 'classes', got {rows!r}")
     return x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, flags
+
+
+def unaligned(t):
+    """A contiguous copy of ``t`` that starts one entry past a 16-byte
+    boundary (a view into a buffer one entry longer)."""
+    flat = torch.empty(t.numel() + 1 + 16 // t.element_size(), dtype=t.dtype, device=t.device)
+    shift = (-flat.data_ptr() // t.element_size()) % (16 // t.element_size()) + 1
+    view = flat[shift:shift + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
 
 
 def to_torch(arrays, device):

@@ -20,10 +20,14 @@ sleep, CUDA events):
 - ``fused_newton_iter`` against the plain LU of the same matrices (mixed
   active rows) at allen_cahn_full's shape and at vdp_stiff_mixed's and
   robertson_sweep's (f = 2, 3), float32 and float64;
-- ``masked_newton_update`` at allen_cahn_full's shape;
+- ``masked_newton_update`` at allen_cahn_full's shape and at f = 2, 3,
+  float32 and float64;
 - ``masked_bisect_refine`` (``tools/event_checks.py``'s inputs, mixed active
+  rows) and ``fused_event_commit`` (E = 2, terminal and marker events, mixed
   rows) at full_width's shape (b = 1024, f = 784) and vdp_marker's (b = 256,
-  f = 2), float32 and float64.
+  f = 2), float32 and float64;
+- the launch floor: a one-element PyTorch elementwise op under the same
+  timing rule.
 
 Only the wrappers' common arguments are used, so the same script times an
 older tree of the port: run as a file with ``--src``, it imports
@@ -86,6 +90,10 @@ def main(argv=None) -> int:
     def emit(**row):
         print(json.dumps({"card": card, "src": tree, **row}), flush=True)
 
+    one = torch.zeros(1, device=dev)
+    emit(kernel="launch floor", shape="Tensor.add_ on one element", dtype="float32",
+         ms=median_ms(lambda: one.add_(1.0)))
+
     for b, s in ((4, 2048), (1, 4096)):
         g = torch.Generator(device=dev).manual_seed(s)
         q = torch.randn(b, s, 40, 128, generator=g, device=dev).bfloat16()
@@ -105,13 +113,11 @@ def main(argv=None) -> int:
         emit(kernel="batched_linsolve", shape=f"b={b} f={f}", dtype=npdt.__name__,
              ms=median_ms(lambda: cuda_impl.batched_linsolve(M, rhs)),
              library_ms=median_ms(lambda: torch.linalg.solve(M, rhs)))
-        k, fk, mask, scale = newton_checks.to_torch(
-            newton_checks.newton_inputs(f + 5, b, f, npdt), dev)[2:]
-        emit(kernel="masked_newton_update", shape=f"b={b} f={f}", dtype=npdt.__name__,
-             ms=median_ms(lambda: cuda_impl.masked_newton_update(k, rhs, mask, scale)))
         for width in (2, 3, f):
-            M, _, k, fk, mask, scale = newton_checks.to_torch(
+            M, rhs, k, fk, mask, scale = newton_checks.to_torch(
                 newton_checks.newton_inputs(width + 5, b, width, npdt), dev)
+            emit(kernel="masked_newton_update", shape=f"b={b} f={width}", dtype=npdt.__name__,
+                 ms=median_ms(lambda: cuda_impl.masked_newton_update(k, rhs, mask, scale)))
             lu, perm = ref.batched_lu_factor(M)
             emit(kernel="fused_newton_iter", shape=f"b={b} f={width}", dtype=npdt.__name__,
                  ms=median_ms(lambda: cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)))
@@ -120,6 +126,10 @@ def main(argv=None) -> int:
             bargs = event_checks.to_torch(event_checks.bisect_inputs(eb + ef, eb, ef, npdt), dev)
             emit(kernel="masked_bisect_refine", shape=f"b={eb} f={ef}", dtype=npdt.__name__,
                  ms=median_ms(lambda: cuda_impl.masked_bisect_refine(*bargs)))
+            *cargs, flags = event_checks.to_torch(
+                event_checks.commit_inputs(eb + 2, eb, ef, 2, npdt, "mixed"), dev)
+            emit(kernel="fused_event_commit", shape=f"b={eb} f={ef} E=2", dtype=npdt.__name__,
+                 ms=median_ms(lambda: cuda_impl.fused_event_commit(*cargs, terminal=flags)))
     return 0
 
 

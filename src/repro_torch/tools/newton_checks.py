@@ -38,6 +38,13 @@ memory.
 an iterate ``k`` and its evaluation ``fk``, an ``active`` mask ("mixed",
 "all" or "none") and a positive (b, f) error scale.
 
+``UPDATE_WIDTHS`` are the widths at the boundaries of
+``masked_newton_update``'s layout on the card: a warp per row, each lane
+loading four of its columns (c = lane, lane + 32, ...; ``kNormBatch`` in
+``csrc/linalg_common.cuh``) before using them, so 128 columns a batch: one
+column, fewer and more columns than lanes, one batch and its neighbours,
+two batches and theirs, and widths that are not a multiple of a batch.
+
 The kernels eliminate in another order than LAPACK/cuSOLVER, so they are
 held to the plain versions at a tolerance (``tolerance``): the LU relative
 to the matrix's max-abs entry, the solutions and norms relative to their own
@@ -57,6 +64,7 @@ KINDS = ("chord", "zero_diag", "ties", "nan")
 # way (condition numbers 3.3 and 13).
 TIE_BLOCK = np.array([[3.0, -0.1, 0.1], [3.0, 4.5, 0.5], [-3.0, 0.5, 4.5]])
 WIDTHS = (1, 3, 5, 33, 128)
+UPDATE_WIDTHS = (1, 2, 31, 32, 33, 100, 127, 128, 129, 255, 256, 257)
 
 
 def tolerance(dtype) -> float:

@@ -5,6 +5,10 @@
         [--workload vdp_table3|full_width|full_width_long|ball_terminal|
                     vdp_marker|full_width_long_events|vdp_stiff_mixed|
                     robertson_sweep|allen_cahn_full|all]
+    python src/repro_torch/tools/profile_step.py --src <another tree>/src [...]
+
+``--src`` profiles the ``repro_torch`` of another tree (run as a file; it
+builds its own kernels), so two trees are compared on one card in one call.
 
 ``--fused`` profiles the fused path (``fused=True``: one ``fused_step``
 launch per step after the stage sweep) instead of the unfused one.
@@ -34,8 +38,9 @@ per workload (float32):
   (each with one such read) per loop iteration;
 - ``profile``: from ``torch.profiler`` over the no-sync steps, the device
   operations per step, the device busy time per step, the device idle share
-  of that profiled run, the busy time of the port's CUDA kernels, and the top
-  device operations by time.
+  of that profiled run, the busy time of the port's CUDA kernels in all and
+  by kernel (``port_kernels_ms_per_step``), and the top device operations by
+  time.
   ``null`` when the profiler reports no device activity.
 
 It needs a CUDA device and exits non-zero without one.
@@ -45,15 +50,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import sys
 import time
 
 import numpy as np
 import torch
 
-from ..core import make_solver, solve_ivp
-from ..kernels import ops
-from . import workloads
+# Bound by _bind (main): the tree's repro_torch, this one's or --src's.
+make_solver = solve_ivp = ops = workloads = None
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
            "interp_eval_kernel", "fused_step_kernel", "masked_bisect_refine_kernel",
@@ -105,12 +110,18 @@ def _profile(run, iters):
     by_name: dict[str, float] = {}
     for name, t in kernels:  # summed by the (80-character) name printed below
         by_name[name[:80]] = by_name.get(name[:80], 0.0) + t
-    ours = sum(t for name, t in by_name.items() if any(k in name for k in KERNELS))
+    port: dict[str, float] = {}
+    for name, t in by_name.items():
+        hits = [k for k in KERNELS if k in name]
+        if hits:
+            k = max(hits, key=len)
+            port[k] = port.get(k, 0.0) + t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(device_ops_per_step=len(kernels) / iters,
                 device_busy_ms_per_step=busy_us / 1e3 / iters,
                 device_idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
-                cuda_kernels_busy_ms_per_step=ours / 1e3 / iters,
+                cuda_kernels_busy_ms_per_step=sum(port.values()) / 1e3 / iters,
+                port_kernels_ms_per_step={k: v / 1e3 / iters for k, v in sorted(port.items())},
                 top_kernels_ms_per_step={k: v / 1e3 / iters for k, v in top})
 
 
@@ -149,25 +160,39 @@ def profile_workload(name, vf, y0, t_eval, kw, device):
 
 WORKLOADS = {
     "vdp_table3": lambda device: workloads.vdp_table3(np.float32),
-    "full_width": workloads.full_width,
-    "full_width_long": workloads.full_width_long,
+    "full_width": lambda device: workloads.full_width(device),
+    "full_width_long": lambda device: workloads.full_width_long(device),
     "ball_terminal": lambda device: workloads.ball_terminal(np.float32),
     "vdp_marker": lambda device: workloads.vdp_marker(np.float32),
-    "full_width_long_events": workloads.full_width_long_events,
+    "full_width_long_events": lambda device: workloads.full_width_long_events(device),
     "vdp_stiff_mixed": lambda device: workloads.vdp_stiff_mixed(np.float32),
     "robertson_sweep": lambda device: workloads.robertson_sweep(np.float32),
     "allen_cahn_full": lambda device: workloads.allen_cahn_full(np.float32),
 }
 
 
+def _bind(src):
+    """Import the profiled tree's repro_torch (``src``, else the one on the
+    path) into this module's globals."""
+    global make_solver, solve_ivp, ops, workloads
+    if src:
+        sys.path.insert(0, str(pathlib.Path(src).resolve()))
+    from repro_torch.core import make_solver, solve_ivp
+    from repro_torch.kernels import ops
+    from repro_torch.tools import workloads
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fused", action="store_true", help="profile fused=True")
     parser.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
+    parser.add_argument("--src", default=None,
+                        help="the src/ directory whose repro_torch to profile (run as a file)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device is available", file=sys.stderr)
         return 1
+    _bind(opts.src)
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     names = list(WORKLOADS) if opts.workload == "all" else [opts.workload]
@@ -184,7 +209,8 @@ def main(argv=None) -> int:
                 ms_per_step_no_sync=plain["ms_per_step_no_sync"],
                 device_ops_per_step=prof.get("device_ops_per_step"),
                 device_idle_share=prof.get("device_idle_share"))
-        print(json.dumps({"fused": opts.fused, **out}), flush=True)
+        print(json.dumps({"fused": opts.fused, "src": str(pathlib.Path(ops.__file__).parents[2]),
+                          **out}), flush=True)
     return 0
 
 

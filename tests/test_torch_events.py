@@ -142,6 +142,39 @@ def test_fused_event_commit_matches_jax_ref(f, E, terminal, dtype):
         _assert_outputs(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E", EC.COMMIT_EVENTS)
+@pytest.mark.parametrize("f", EC.COMMIT_WIDTHS)
+def test_fused_event_commit_widths_match_jax_ref(f, E, dtype):
+    """``fused_event_commit`` at the boundaries of the card kernel's layout
+    (``event_checks.COMMIT_WIDTHS``: rows below, at and above a 16-byte
+    chunk, whole 16-byte words or not; E = 1, 3, 64), with rows that detect
+    no crossing, one, all at one x (a tie) and a random mix."""
+    *args, flags = EC.commit_inputs(f + 7 * E, 13, f, E, dtype, "mixed", rows="classes")
+    n = np.asarray(args[2]).sum(axis=1)
+    assert (n[0::4] == 0).all() and (n[1::4] == 1).all() and (n[2::4] == E).all()
+    want = _jax(lambda: jref.fused_event_commit(*_jnp(args), terminal=flags), dtype)
+    for fn in (tref.fused_event_commit, ops.fused_event_commit):
+        got = fn(*EC.to_torch(args, "cpu"), terminal=flags)
+        _assert_outputs(got, want, dtype)
+    # Every crossing of a tied row is recorded, and the first terminal one
+    # (event 0 under "mixed") stops it with its state.
+    assert (want[6][2::4] == E).all() and want[3][2::4].all()
+    np.testing.assert_array_equal(want[5][2::4], args[1][2::4, 0])
+
+
+def test_unaligned_commit_inputs_are_views_off_a_16_byte_boundary():
+    t = torch.arange(12, dtype=torch.float32).view(3, 4)
+    u = EC.unaligned(t)
+    assert u.is_contiguous() and u.data_ptr() % 16 != 0 and torch.equal(u, t)
+    *args, flags = EC.commit_inputs(3, 5, 4, 2, np.float64, rows="classes")
+    cargs = list(EC.to_torch(args, "cpu"))
+    want = tref.fused_event_commit(*cargs, terminal=flags)
+    cargs[3], cargs[8] = EC.unaligned(cargs[3]), EC.unaligned(cargs[8])
+    got = tref.fused_event_commit(*cargs, terminal=flags)
+    assert EC.assert_bitwise("fused_event_commit", got, want) == 0.0
+
+
 def test_commit_tie_goes_to_the_first_terminal_event():
     """Two terminal crossings at the same x: the first one's state stops the
     row (strict <), and both are recorded (x <= x_stop)."""
@@ -181,6 +214,14 @@ class TestPallasInterpret:
     @pytest.mark.parametrize("f", [37, 200])
     def test_fused_event_commit(self, f):
         *args, flags = EC.commit_inputs(5 + f, 9, f, 3, np.float32)
+        want = _jax(lambda: pallas_impl.fused_event_commit(*_jnp(args), terminal=flags,
+                                                           interpret=True), np.float32)
+        _assert_outputs(tref.fused_event_commit(*EC.to_torch(args, "cpu"), terminal=flags),
+                        want, np.float32)
+
+    @pytest.mark.parametrize("f, E", [(5, 64), (783, 3), (785, 1)])
+    def test_fused_event_commit_widths(self, f, E):
+        *args, flags = EC.commit_inputs(f + E, 9, f, E, np.float32, rows="classes")
         want = _jax(lambda: pallas_impl.fused_event_commit(*_jnp(args), terminal=flags,
                                                            interpret=True), np.float32)
         _assert_outputs(tref.fused_event_commit(*EC.to_torch(args, "cpu"), terminal=flags),

@@ -358,6 +358,27 @@ class TestEventKernelsOnCard:
                                     cuda_impl.masked_bisect_refine(coeffs, *cols),
                                     tref.masked_bisect_refine(coeffs, *cols))
 
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("f", event_checks.COMMIT_WIDTHS)
+    @pytest.mark.parametrize("E", event_checks.COMMIT_EVENTS)
+    @pytest.mark.parametrize("layout", ["aligned", "y_new", "ev_y"])
+    def test_fused_event_commit_widths(self, cuda_device, dtype, f, E, layout):
+        """Rows below, at and above a 16-byte chunk and around full_width's
+        784 (whole 16-byte words or not), E = 1, 3 and 64, b = 37 rows that
+        detect no crossing, one, all at one x (a tied terminal one) and a
+        random mix; the planes 16-byte aligned (16-byte chunks) or y_new or
+        ev_y one entry off (entry by entry): bitwise, ev_y in place."""
+        *args, flags = event_checks.to_torch(
+            event_checks.commit_inputs(f + E, 37, f, E, dtype, "mixed", rows="classes"),
+            cuda_device)
+        want = tref.fused_event_commit(*args, terminal=flags)
+        ev_y = args[8].clone() if layout != "ev_y" else event_checks.unaligned(args[8])
+        if layout == "y_new":
+            args[3] = event_checks.unaligned(args[3])
+        got = cuda_impl.fused_event_commit(*args[:8], ev_y, terminal=flags)
+        assert got[2] is ev_y
+        event_checks.assert_bitwise("fused_event_commit", got, want)
+
     def test_event_limit_raises(self, cuda_device):
         *args, _ = event_checks.to_torch(event_checks.detect_inputs(0, 4, 65, np.float32),
                                          cuda_device)
@@ -482,6 +503,27 @@ class TestNewtonKernelsOnCard:
             "batched_lu_factor", "batched_linsolve", "fused_newton_iter",
             "masked_newton_update")} == {"batched_lu_factor": 1, "batched_linsolve": 2,
                                           "fused_newton_iter": 1, "masked_newton_update": 2}
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("f", NC.UPDATE_WIDTHS)
+    @pytest.mark.parametrize("active", ["mixed", "all", "none"])
+    def test_update_widths(self, cuda_device, dtype, f, active):
+        """``masked_newton_update`` at the boundaries of its layout (lanes,
+        128-column batches, widths not a multiple of one): held to the plain
+        version, and the unfused iteration bitwise equal to
+        ``fused_newton_iter`` (the same row norm)."""
+        b = 37
+        M, rhs, k, fk, mask, scale = NC.to_torch(
+            NC.newton_inputs(f + 700, b, f, dtype, "chord", active), cuda_device)
+        up = cuda_impl.masked_newton_update(k, rhs, mask, scale)
+        NC.hold("masked_newton_update", up, tref.masked_newton_update(k, rhs, mask, scale),
+                dtype)
+        assert torch.equal(up[0][~mask], k[~mask])
+        unfused = cuda_impl.masked_newton_update(k, cuda_impl.batched_linsolve(M, k - fk), mask,
+                                                 scale)
+        fused = cuda_impl.fused_newton_iter(*cuda_impl.batched_lu_factor(M), k, fk, mask, scale)
+        for a, c in zip(unfused, fused):
+            assert _same_bits(a, c)
 
     def test_scale_broadcasts(self, cuda_device):
         M, _, k, fk, mask, _ = NC.to_torch(NC.newton_inputs(1, 8, 5, np.float64), cuda_device)

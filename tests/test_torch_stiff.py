@@ -175,6 +175,32 @@ def test_plain_ops_match_pallas_interpret(dtype, f, kind):
             _t(*up_p), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("active", ["none", "all", "mixed"])
+@pytest.mark.parametrize("f", NC.UPDATE_WIDTHS)
+def test_masked_newton_update_widths_match_jax(f, active, dtype):
+    """``masked_newton_update`` at the boundaries of the card kernel's layout
+    (``newton_checks.UPDATE_WIDTHS``: lanes, batches of 128 columns, widths
+    that are not a multiple of one), inactive, all-active and mixed rows."""
+    _, rhs, k, _, mask, scale = NC.newton_inputs(f + 300, 9, f, dtype, active=active)
+    want = _jax(lambda: jref.masked_newton_update(*(jnp.asarray(a) for a in (
+        k, rhs, mask, scale))), dtype)
+    got = tref.masked_newton_update(*_t(k, rhs, mask, scale))
+    NC.hold("masked_newton_update", got, _t(*want), dtype)
+    frozen = ~torch.as_tensor(mask)
+    assert torch.equal(got[0][frozen], torch.as_tensor(k)[frozen])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("f", [1, 33, 129, 257])
+def test_masked_newton_update_widths_match_pallas_interpret(f, dtype):
+    _, rhs, k, _, mask, scale = NC.newton_inputs(f + 400, 9, f, dtype)
+    want = _jax(lambda: pallas_impl.masked_newton_update(
+        *(jnp.asarray(a) for a in (k, rhs, mask, scale)), interpret=True), dtype)
+    NC.hold("masked_newton_update", tref.masked_newton_update(*_t(k, rhs, mask, scale)),
+            _t(*want), dtype)
+
+
 # ----------------------------------------------- (c) bitwise compositions
 
 
@@ -188,6 +214,27 @@ def test_linsolve_is_lu_then_substitution_bitwise(dtype, f):
     k, fk, active, scale = _t(k, fk, active, scale)
     unfused = tref.masked_newton_update(k, tref.batched_linsolve(A, k - fk), active, scale)
     fused = tref.fused_newton_iter(*tref.batched_lu_factor(A), k, fk, active, scale)
+    assert all(torch.equal(a, c) for a, c in zip(unfused, fused))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("f", NC.UPDATE_WIDTHS)
+def test_unfused_iteration_is_fused_bitwise_at_update_widths(dtype, f):
+    """The plain unfused iteration (linsolve, then the masked update) equals
+    the plain fused one bitwise at ``masked_newton_update``'s boundary
+    widths, as the card's kernels must.  On one thread: MKL's threaded
+    getrf (PyTorch 2.13's CPU build) can stall in SLASWP on two threads from
+    f ~ 200 on."""
+    M, _, k, fk, active, scale = NC.newton_inputs(f + 500, 4, f, dtype)
+    A = torch.as_tensor(M)
+    k, fk, active, scale = _t(k, fk, active, scale)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        unfused = tref.masked_newton_update(k, tref.batched_linsolve(A, k - fk), active, scale)
+        fused = tref.fused_newton_iter(*tref.batched_lu_factor(A), k, fk, active, scale)
+    finally:
+        torch.set_num_threads(threads)
     assert all(torch.equal(a, c) for a, c in zip(unfused, fused))
 
 
