@@ -19,7 +19,10 @@ raises, and the script exits non-zero without printing a result:
                    plain version, the error ratio to the same tolerance plus
                    its rounding floor (``repro_torch.tools.step_checks``),
                    and every output must be bitwise equal to the unfused
-                   card path.  The event kernels (``masked_bisect_refine``,
+                   card path; ``fused_step_poly``'s two bodies (a warp per
+                   row, a block per row) bitwise equal to each other, with
+                   both times beside the chosen one's (``ms_by_body``).
+                   The event kernels (``masked_bisect_refine``,
                    ``fused_event_detect``, ``fused_event_commit``) at E = 2
                    over their cases (``repro_torch.tools.event_checks``) are
                    held bitwise to their plain versions, as is
@@ -44,7 +47,9 @@ raises, and the script exits non-zero without printing a result:
                    its unfused run, the JAX package's own fused workload
                    (``benchmarks/step_bench.py``: dy/dt = -y by
                    ``polynomial_term``) at b = 1024, f = 784 against the
-                   closed form and the unfused run, and full_width_long (the
+                   closed form and the unfused run, every launch on the row
+                   body of ``fused_step_poly`` (its ``body_launches``
+                   printed), and full_width_long (the
                    same network with a real step count) unfused and fused:
                    ms per step, loop iterations, exact launch counts.
 7. ``events``      the event workloads (``tools/workloads.py``), unfused and
@@ -88,7 +93,9 @@ beside the staged one's), holds ``fused_newton_iter``'s bodies (the warp
 body up to f = 32, the panel substitution, the column loop) bitwise to each
 other on every Newton case and times them side by side (``ms_by_body``),
 holds ``masked_bisect_refine`` bitwise to its plain version at every row
-segment class (f = 1-5, 783-785; aligned and unaligned coefficients), and
+segment class (f = 1-5, 783-785; aligned and unaligned coefficients),
+``fused_event_detect`` at every width of its row segment (E = 1, 2, 31-33,
+63, 64; every direction, NaN directions, NaN and +-0 values), and
 ``fused_event_commit`` at every row class of its layout (f = 1-5, 783-785;
 E = 1, 3, 64; rows with no crossing, one, all tied; planes aligned, or y_new
 or ev_y one entry off), holds ``masked_newton_update`` to its plain version
@@ -407,14 +414,20 @@ def main() -> int:
     fused_checks = {}
 
     def fused_case(kernel, shape_name, dtype, label, run_kernel, run_plain, floor_of,
-                   nbytes, flops, timed):
+                   nbytes, flops, timed, bodies=None):
         """Hold one case bitwise against the unfused card path and by
         step_checks.hold_to_plain against the plain version; time it if
-        ``timed``.  ``floor_of(y1)`` gives the ratio's rounding floor."""
+        ``timed``.  ``floor_of(y1)`` gives the ratio's rounding floor.
+        ``bodies`` (fused_step_poly): each body's run, held bitwise to the
+        default run (so the bodies to each other) and timed beside it."""
         dt_name = str(dtype).split(".")[-1]
         name = f"{kernel}[{shape_name} {dt_name} {label}]"
-        bits = step_checks.bitwise_mismatches(run_kernel(), step_checks.unfused_card(run_plain))
+        got = run_kernel()
+        bits = step_checks.bitwise_mismatches(got, step_checks.unfused_card(run_plain))
         check(not bits, f"{name}: differs bitwise from the unfused card path: {bits}")
+        for body, run in (bodies or {}).items():
+            other = step_checks.bitwise_mismatches(run(), got)
+            check(not other, f"{name}: the {body} body differs bitwise from the default: {other}")
         floor = floor_of(run_plain()[0])
         state_tol = POLY32_STATE if kernel == "fused_step_poly" and dtype == torch.float32 else None
         held = []
@@ -424,8 +437,15 @@ def main() -> int:
             held.append((worst, edge))
             return worst, rel
         if timed:
+            extra = {}
+            if bodies:
+                counts = cuda_impl.body_launches[kernel]
+                before = dict(counts)
+                run_kernel()
+                extra = dict(body=next(k for k in counts if counts[k] > before[k]),
+                             ms_by_body={k: median_ms(run) for k, run in bodies.items()})
             measure(kernel, shape_name, dtype, label, run_kernel, run_plain, nbytes, flops,
-                    compare_fn=hold)
+                    compare_fn=hold, **extra)
         else:
             hold(name, run_kernel(), run_plain(), dtype)
         agg = fused_checks.setdefault((kernel, shape_name, dt_name),
@@ -500,9 +520,10 @@ def main() -> int:
                         atol, rtol = mixed_atol(probe, cols[4]) * fac, 1e-3 * fac
                         tol_elems = {"scalar": 0, "(b,)": 2 * b, "(b,f)": 2 * b * f}[kind]
                         for want_coeffs in (False, True):
-                            def call(fn, want_coeffs=want_coeffs, atol=atol, rtol=rtol, kw=kw):
+                            def call(fn, want_coeffs=want_coeffs, atol=atol, rtol=rtol, kw=kw,
+                                     **body):
                                 return lambda: fn(y, f0, *cols, atol, rtol,
-                                                  want_coeffs=want_coeffs, **kw)
+                                                  want_coeffs=want_coeffs, **kw, **body)
                             deg = len(poly) - 1
                             fused_case(
                                 "fused_step_poly", shape_name, dtype,
@@ -514,12 +535,16 @@ def main() -> int:
                                 + e * len(poly) * f,
                                 (s * (s + 1) + 2 * deg * (s + 1) + 4 * s + 22) * b * f,
                                 timed=(tname == "dopri5" and pname == "logistic"
-                                       and kind == "scalar" and not want_coeffs))
+                                       and kind == "scalar" and not want_coeffs),
+                                bodies={body: call(cuda_impl.fused_step_poly, body=body)
+                                        for body in cuda_impl.POLY_BODIES})
     for (kernel, shape_name, dt), agg in fused_checks.items():
         poly32 = kernel == "fused_step_poly" and dt == "float32"
         emit("kernels", kernel=kernel, shape=shape_name, dtype=dt, check="all options",
              tol=tolerance(getattr(torch, dt)), state_tol=POLY32_STATE if poly32 else None,
-             knife_edge=step_checks.KNIFE_EDGE, bitwise_equal_to_unfused_card=True, **agg)
+             knife_edge=step_checks.KNIFE_EDGE, bitwise_equal_to_unfused_card=True,
+             bodies_bitwise_equal=list(cuda_impl.POLY_BODIES) if kernel == "fused_step_poly"
+             else None, **agg)
 
     # The event kernels at E = 2 (one terminal, one marker event, as on the
     # main path), over the cases of tools/event_checks.py (active, inactive
@@ -588,6 +613,22 @@ def main() -> int:
                     held.append(hold_bitwise("fused_event_commit", check_k(), run_p(), dtype))
     emit("kernels", check="event kernels, untimed cases", bitwise_equal_to_plain=True,
          cases={f"{k[0]}/{k[1]}": len(v) for k, v in event_held.items()})
+    # fused_event_detect at every width of a row's thread segment (one event
+    # a thread up to E = 32, two above), b = 37 rows, every direction in one
+    # batch and each alone, NaN directions, NaN and +-0 condition values,
+    # mixed fired and accept; bitwise.
+    detect_events = (1, 2, 31, 32, 33, 63, 64)
+    for npdt in (np.float32, np.float64):
+        for E in detect_events:
+            *dargs, cycle = event_checks.to_torch(event_checks.detect_inputs(37 * E, 37, E, npdt),
+                                                  dev)
+            for directions in (cycle, (1.0,) * E, (-1.0,) * E, (0.0,) * E, (math.nan,) * E):
+                event_checks.assert_bitwise(
+                    f"fused_event_detect[E={E} {npdt.__name__}]",
+                    cuda_impl.fused_event_detect(*dargs, directions=directions),
+                    ref.fused_event_detect(*dargs, directions=directions))
+    emit("kernels", check="fused_event_detect row segments", b=37, events=detect_events,
+         directions="cycle 0/+1/-1, all +1, all -1, all 0, all NaN", bitwise_equal_to_plain=True)
     # masked_bisect_refine at every row-segment class: f below, at and above
     # a 16-byte chunk and around full_width's 784, b = 37 rows (not a
     # multiple of a block's rows), coefficient planes 16-byte aligned (chunks,
@@ -1137,19 +1178,21 @@ def main() -> int:
     # dy/dt = -y by polynomial_term, t in [0, 2], rtol 1e-4, atol 1e-6, dense
     # output off, y0 = linspace(0.5, 1.5), here at b = 1024, f = 784.  Held
     # to the unfused card run and to the closed form y0 * exp(-t).
-    b, f = workloads.FULL["b"], workloads.FULL["f"]
-    yb = np.linspace(0.5, 1.5, b * f, dtype=np.float32).reshape(b, f)
-    decay = polynomial_term(0.0, -1.0)
+    decay, yb, _, bench_kw = workloads.step_bench()
+    b, f = yb.shape
     for method, ctl, dt0 in (("dopri5", pid_controller(), None),
                              ("heun", pid_controller(), None),
                              ("rk4", FixedController(), 0.01)):
         tab = get_tableau(method)
-        skw = dict(method=method, controller=ctl, rtol=1e-4, atol=1e-6, dense=False,
-                   t_start=0.0, t_end=2.0, dt0=dt0)
+        skw = dict(bench_kw, method=method, controller=ctl, dt0=dt0)
         fsol, wall, launches = fused_solve(f"fused/step_bench/{method}", "poly", tab.stages,
                                            decay, yb, **skw)
+        bodies = dict(cuda_impl.body_launches["fused_step_poly"])
         check(sum(launches.values()) == launches["fused_step_poly"],
               f"fused/step_bench/{method}: a kernel other than fused_step_poly launched")
+        check(bodies["row"] == launches["fused_step_poly"],
+              f"fused/step_bench/{method}: fused_step_poly's bodies {bodies}, not every launch "
+              "on the row body")
         usol, uwall = timed_solve(decay, yb, device=dev, **skw)
         usol = convert.to_numpy(usol)
         exact = yb * np.exp(-2.0)
@@ -1160,7 +1203,7 @@ def main() -> int:
         iters, uiters = int(fsol.stats["n_steps"].max()), int(usol.stats["n_steps"].max())
         emit("fused", workload="step_bench", method=method, b=b, f=f, dtype="float32",
              max_steps=iters, ms_per_step=wall / iters, unfused_ms_per_step=uwall / uiters,
-             launches=launches, vs_unfused_card=vs,
+             launches=launches, fused_step_poly_body_launches=bodies, vs_unfused_card=vs,
              exact_max_abs_err=float(np.abs(fsol.ys - exact).max()))
     # Per-feature rates with dense output on.
     rates = -np.linspace(0.5, 1.5, f)
@@ -1169,12 +1212,17 @@ def main() -> int:
     skw = dict(method="dopri5", controller=pid_controller(), rtol=1e-4, atol=1e-6)
     fsol, wall, launches = fused_solve("fused/step_bench/per_feature_dense", "poly", 7, term,
                                        yb, te, **skw)
+    bodies = dict(cuda_impl.body_launches["fused_step_poly"])
+    check(bodies["row"] == launches["fused_step_poly"],
+          f"fused/step_bench/per_feature_dense: fused_step_poly's bodies {bodies}, not every "
+          "launch on the row body")
     usol = convert.to_numpy(solve_ivp(term, yb, te, device=dev, **skw))
     exact = yb[:, None, :] * np.exp(rates[None, None, :] * te[None, :, None])
     vs = hold_f32("fused/step_bench/per_feature_dense fused vs unfused", fsol, usol,
                   float(np.abs(usol.ys - exact).max()))
     emit("fused", workload="step_bench", method="dopri5", case="per-feature, dense",
-         max_steps=int(fsol.stats["n_steps"].max()), launches=launches, vs_unfused_card=vs,
+         max_steps=int(fsol.stats["n_steps"].max()), launches=launches,
+         fused_step_poly_body_launches=bodies, vs_unfused_card=vs,
          exact_max_abs_err=float(np.abs(fsol.ys - exact).max()))
 
     # 6d. full_width_long, unfused then fused: the per-step cost at a real

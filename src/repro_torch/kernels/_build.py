@@ -115,13 +115,16 @@ def load() -> ctypes.CDLL:
         lib.rt_interp_eval.argtypes = [i, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
         lib.rt_fused_step_args_size.argtypes = []
         lib.rt_fused_step_args_size.restype = i
+        lib.rt_fused_step_max_smem.argtypes = []
+        lib.rt_fused_step_max_smem.restype = i
         lib.rt_fused_step.argtypes = [i, p, p]
-        lib.rt_fused_step_poly.argtypes = [i, p, p]
+        lib.rt_fused_step_poly.argtypes = [i, i, p, p]
         i8p = ctypes.POINTER(ctypes.c_int8)
         lib.rt_max_events.argtypes = []
         lib.rt_max_events.restype = i
         lib.rt_masked_bisect_refine.argtypes = [i] + [p] * 14 + [i64, i64, p]
-        lib.rt_fused_event_detect.argtypes = [i, p, p, p, p, i8p, i, p, p, i64, p]
+        u64 = ctypes.c_uint64
+        lib.rt_fused_event_detect.argtypes = [i, p, p, p, p, u64, u64, i, p, p, i64, p]
         lib.rt_fused_event_commit.argtypes = ([i] + [p] * 9 + [i8p, i] + [p] * 6
                                               + [i64, i64, p])
         lib.rt_linalg_max_smem.argtypes = []

@@ -23,13 +23,14 @@
 // loads.  fused_event_commit's (a warp per row) kept one 4-byte load of a
 // lane in flight at a time.  Both are laid out by row now (below): a thread
 // per 16-byte chunk, the row's bracket or header once per thread, 16-byte
-// loads and stores.
+// loads and stores.  fused_event_detect is laid out by row too, a segment of
+// threads per row, with its directions as two 64-bit masks.
 //
 // The TPU kernels carry bool outputs as int32 (a TPU layout matter); here
 // masks are bytes (torch.bool) both ways and n_new is int32.
 //
 // The event count E is at most kMaxEvents (64): the per-event directions ride
-// in the parameter space as int8, the terminal flags as one 64-bit mask, and
+// in the parameter space as two 64-bit masks, the terminal flags as one, and
 // a row's recorded crossings are one 64-bit mask in registers.  The wrappers
 // raise above it.
 
@@ -41,16 +42,6 @@ using namespace solver;
 
 constexpr int kMaxEvents = 64;
 constexpr int kThreads = 256;
-
-struct EventFlags {
-  int8_t v[kMaxEvents];
-};
-
-EventFlags load_flags(const int8_t* host, int n) {
-  EventFlags flags;
-  for (int i = 0; i < kMaxEvents; ++i) flags.v[i] = i < n ? host[i] : 0;
-  return flags;
-}
 
 unsigned long long terminal_mask(const int8_t* host, int n) {
   unsigned long long mask = 0;
@@ -157,31 +148,57 @@ __global__ void __launch_bounds__(kThreads) masked_bisect_refine_kernel(
 }
 
 // -------------------------------------------------------- fused_event_detect
-// One thread per (row, event): the directional sign-change test, masked by
-// `fired` and `accept`, and the carry of the condition values.  Expressions
-// and their order are ref.fused_event_detect's; it takes almost no time, so
-// its cost is the launch.
+// Rows by block, as in masked_bisect_refine: a row's segment of
+// 2^lanes_log2 threads (the fewest that hold E events, up to a warp; 256 >>
+// lanes_log2 rows to a block).  A thread loads accept[row] once and takes
+// its row's events e = lane and lane + 2^lanes_log2 (E <= 64: at most two),
+// every load issued before the first test.  The directions come as two
+// 64-bit masks built on the host (cuda_impl.direction_masks): bit e of
+// up_only set where direction e > 0, of down_only where it is < 0, neither
+// for either way.  The first design (a thread per (row, event)) took the
+// directions as an int8[64] parameter indexed at run time, which gave every
+// thread a 64-byte stack frame, divided a 64-bit index by E for the row and
+// reloaded accept[row] per event: 0.0072 ms at b = 1024, E = 2 on an NVIDIA
+// H100 80GB HBM3 (700 W), 0.0099 at E = 64.  This one has no stack frame
+// (ptxas) and takes 0.0058 and 0.0065 ms, within 0.0012 ms of the 0.0053 ms
+// launch floor (PERF.md).  Expressions and their order are
+// ref.fused_event_detect's; it moves a few (b, E) columns, so its cost is
+// the launch.
 template <typename T>
-__global__ void fused_event_detect_kernel(const T* __restrict__ v_prev,
-                                          const T* __restrict__ v_new,
-                                          const uint8_t* __restrict__ fired,
-                                          const uint8_t* __restrict__ accept, EventFlags dirs,
-                                          uint8_t* __restrict__ newly, T* __restrict__ v_keep,
-                                          int64_t b, int E) {
-  const int64_t n = b * E;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = i / E;
-    const int e = static_cast<int>(i - row * E);
-    const T v0 = v_prev[i], v1 = v_new[i];
+__global__ void __launch_bounds__(kThreads) fused_event_detect_kernel(
+    const T* __restrict__ v_prev, const T* __restrict__ v_new,
+    const uint8_t* __restrict__ fired, const uint8_t* __restrict__ accept,
+    unsigned long long up_only, unsigned long long down_only, uint8_t* __restrict__ newly,
+    T* __restrict__ v_keep, int b, int E, int lanes_log2) {
+  const int lane = threadIdx.x & ((1 << lanes_log2) - 1);
+  const int rows = kThreads >> lanes_log2;
+  for (int row = blockIdx.x * rows + (threadIdx.x >> lanes_log2); row < b;
+       row += gridDim.x * rows) {
+    const int64_t rb = static_cast<int64_t>(row) * E;
     const bool acc = accept[row] != 0;
-    const bool up = (v0 <= T(0)) && (v1 >= T(0));
-    const bool down = (v0 >= T(0)) && (v1 <= T(0));
-    const int d = dirs.v[e];
-    bool crossed = d > 0 ? up : (d < 0 ? down : (up || down));
-    crossed = crossed && ((v0 != T(0)) || (v1 != T(0)));
-    newly[i] = crossed && !fired[i] && acc;
-    v_keep[i] = acc ? v1 : v0;
+    T v0[2], v1[2];
+    uint8_t fd[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int e = lane + (k << lanes_log2);
+      if (e < E) {
+        v0[k] = v_prev[rb + e];
+        v1[k] = v_new[rb + e];
+        fd[k] = fired[rb + e];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int e = lane + (k << lanes_log2);
+      if (e >= E) continue;
+      const bool up = (v0[k] <= T(0)) && (v1[k] >= T(0));
+      const bool down = (v0[k] >= T(0)) && (v1[k] <= T(0));
+      bool crossed = ((up_only >> e) & 1ull) ? up : (((down_only >> e) & 1ull) ? down
+                                                                                : (up || down));
+      crossed = crossed && ((v0[k] != T(0)) || (v1[k] != T(0)));
+      newly[rb + e] = crossed && !fd[k] && acc;
+      v_keep[rb + e] = acc ? v1[k] : v0[k];
+    }
   }
 }
 
@@ -429,12 +446,19 @@ int launch_bisect(const void* c0, const void* c1, const void* c2, const void* c3
 
 template <typename T>
 int launch_detect(const void* v_prev, const void* v_new, const void* fired,
-                  const void* accept, const int8_t* dirs, int E, void* newly, void* v_keep,
-                  int64_t b, cudaStream_t stream) {
-  fused_event_detect_kernel<T><<<blocks_for(b * E, kThreads), kThreads, 0, stream>>>(
+                  const void* accept, unsigned long long up_only,
+                  unsigned long long down_only, int E, void* newly, void* v_keep, int64_t b,
+                  cudaStream_t stream) {
+  if (b > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1) return static_cast<int>(cudaSuccess);  // no rows: nothing to write
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < E && lanes_log2 < 5) ++lanes_log2;
+  const unsigned blocks = blocks_for(b, kThreads >> lanes_log2);
+  fused_event_detect_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(v_prev), static_cast<const T*>(v_new),
-      static_cast<const uint8_t*>(fired), static_cast<const uint8_t*>(accept),
-      load_flags(dirs, E), static_cast<uint8_t*>(newly), static_cast<T*>(v_keep), b, E);
+      static_cast<const uint8_t*>(fired), static_cast<const uint8_t*>(accept), up_only,
+      down_only, static_cast<uint8_t*>(newly), static_cast<T*>(v_keep), static_cast<int>(b), E,
+      lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -496,14 +520,15 @@ int rt_masked_bisect_refine(int dtype, const void* c0, const void* c1, const voi
 }
 
 int rt_fused_event_detect(int dtype, const void* v_prev, const void* v_new, const void* fired,
-                          const void* accept, const int8_t* dirs, int E, void* newly,
-                          void* v_keep, int64_t b, void* stream) {
+                          const void* accept, unsigned long long up_only,
+                          unsigned long long down_only, int E, void* newly, void* v_keep,
+                          int64_t b, void* stream) {
   if (E < 1 || E > kMaxEvents) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_detect<double>(v_prev, v_new, fired, accept, dirs, E, newly, v_keep, b,
-                                       s)
-               : launch_detect<float>(v_prev, v_new, fired, accept, dirs, E, newly, v_keep, b,
-                                      s);
+  return dtype ? launch_detect<double>(v_prev, v_new, fired, accept, up_only, down_only, E,
+                                       newly, v_keep, b, s)
+               : launch_detect<float>(v_prev, v_new, fired, accept, up_only, down_only, E,
+                                      newly, v_keep, b, s);
 }
 
 int rt_fused_event_commit(int dtype, const void* x, const void* y_ev, const void* newly,

@@ -22,8 +22,11 @@
 // each.  fused_step_poly reads y and f0 and writes the same six planes.
 //
 // Schedule.  The TPU holds a whole row in VMEM (one pass), or for f > 128
-// runs a two-phase feature-tiled grid.  Here one warp owns one row, 8 rows to
-// a block, as error_norm does, and sweeps f twice:
+// runs a two-phase feature-tiled grid.  Here two bodies:
+//
+// The warp body (fused_step, and fused_step_poly where the row body does not
+// fit): one warp owns one row, 8 rows to a block, as error_norm does, and
+// sweeps f twice:
 //   sweep 1 forms y1 and err per element and accumulates error_norm's sum of
 //           squares lane-strided, then the same xor-shuffle reduction and
 //           sqrt(sum / f); every lane then holds the ratio and runs the
@@ -33,6 +36,20 @@
 //           the (b,) columns.
 // No f limit, no shared memory, no cross-block state; sweep 2 re-reads its
 // inputs, largely from L2.
+//
+// The row body (fused_step_poly; below, with its layout): a block per row, a
+// thread per 16-byte chunk, the stage recursion run once per entry with the
+// polynomial's coefficients in registers, and the row's scaled errors, y and
+// f0 kept in shared memory for the ordered sum and the commit.  What held
+// the warp body back on fused_step_poly (PERF.md): 128 blocks for 132 SMs
+// at step_bench's b = 1024 (two warps a scheduler), one 4-byte element of a
+// lane at a time, the whole recursion run twice with its coefficients
+// reloaded at every stage.  On an NVIDIA H100 80GB HBM3 (700 W), b = 1024, f
+// = 784, dopri5, the logistic polynomial, float32: 0.080 ms the warp body,
+// 0.017 the row body, against a 0.0048 ms bound (16 MB) and a 0.0053 ms
+// launch floor.  The register-held Horner takes its coefficient count as a
+// template argument: a count read at run time put the coefficients on the
+// stack and spent a compare and a select per degree (0.026-0.029 ms).
 //
 // Bitwise agreement with the unfused card path: the combine, the stage sums
 // and the WRMS terms come from solver_common.cuh, as in fused_update,
@@ -151,46 +168,96 @@ __device__ __forceinline__ T poly_at(const Params<T>& p, int64_t c, T x) {
   return acc;
 }
 
+// poly_eval at entry c, its coefficients read from device memory.
+template <typename T>
+struct PolyAt {
+  const Params<T>& p;
+  int64_t c;
+  __device__ __forceinline__ T operator()(T x) const { return poly_at(p, c, x); }
+};
+
+constexpr int kPolyRegs = 4;  // coefficient rows the row body holds in registers
+
+// poly_eval at one entry, its NP <= kPolyRegs coefficients in registers: the
+// same multiply, then add, per degree.
+template <typename T, int NP>
+struct PolyRegs {
+  T c[NP];
+  __device__ __forceinline__ T operator()(T x) const {
+    T acc = c[NP - 1];
+#pragma unroll
+    for (int d = NP - 2; d >= 0; --d) acc = add_rn(mul_rn(acc, x), c[d]);
+    return acc;
+  }
+};
+
 template <typename T>
 struct Element {
   T y, y1, err, k0, f1;
 };
+
+// The stage recursion of rk_step at one element for the polynomial `pf`
+// (stage_accum's sum, then poly_eval), the b_sol/b_err combine and (with_f1)
+// the derivative at y1: the last stage, or pf(y1) for a non-FSAL tableau.
+// Both bodies of fused_step_poly call it, with the coefficients read from
+// device memory (PolyAt) or held in registers (PolyRegs).
+template <typename T, typename Poly>
+__device__ __forceinline__ Element<T> poly_element(const Params<T>& p, T y, T f0, T h,
+                                                   bool with_f1, Poly pf) {
+  Element<T> e;
+  e.y = y;
+  T ks[kMaxStages];
+  ks[0] = f0;
+  T last = ks[0];
+#pragma unroll
+  for (int st = 1; st < kMaxStages; ++st) {
+    if (st < p.s) {
+      const T acc = weighted_sum(p.a[st], st, [&](int j) { return ks[j]; });
+      ks[st] = pf(fma_of(h, acc, y));
+      last = ks[st];
+    }
+  }
+  T acc_sol, acc_err;
+  weighted_sums(p.b_sol, p.b_err, p.s, [&](int j) { return ks[j]; }, acc_sol, acc_err);
+  e.k0 = ks[0];
+  e.y1 = fma_of(h, acc_sol, y);
+  if (with_f1) e.f1 = p.fsal ? last : pf(e.y1);
+  e.err = h * acc_err;
+  return e;
+}
 
 // y1, err, the derivative cache k0 (f0 where given, else K[0]) and
 // (with_f1) f1 of element (row, c); i = row * f + c.
 template <typename T, bool kPoly>
 __device__ __forceinline__ Element<T> element(const Params<T>& p, int64_t i, int64_t c, T h,
                                               bool with_f1) {
-  Element<T> e;
-  e.y = p.y[i];
-  T acc_sol, acc_err;
   if constexpr (kPoly) {
-    // The stage recursion of rk_step: stage_accum's sum, then poly_eval.
-    T ks[kMaxStages];
-    ks[0] = p.K[i];  // f0
-    T last = ks[0];
-#pragma unroll
-    for (int st = 1; st < kMaxStages; ++st) {
-      if (st < p.s) {
-        const T acc = weighted_sum(p.a[st], st, [&](int j) { return ks[j]; });
-        ks[st] = poly_at(p, c, fma_of(h, acc, e.y));
-        last = ks[st];
-      }
-    }
-    weighted_sums(p.b_sol, p.b_err, p.s, [&](int j) { return ks[j]; }, acc_sol, acc_err);
-    e.k0 = ks[0];
-    e.y1 = fma_of(h, acc_sol, e.y);
-    if (with_f1) e.f1 = p.fsal ? last : poly_at(p, c, e.y1);
+    return poly_element(p, p.y[i], p.K[i], h, with_f1, PolyAt<T>{p, c});
   } else {
+    Element<T> e;
+    e.y = p.y[i];
+    T acc_sol, acc_err;
     const int64_t n = p.b * p.f;
     weighted_sums(p.b_sol, p.b_err, p.s, [&](int j) { return p.K[j * n + i]; }, acc_sol,
                   acc_err);
     e.k0 = p.f0 ? p.f0[i] : p.K[i];
     e.y1 = fma_of(h, acc_sol, e.y);
     if (with_f1) e.f1 = p.f1[i];
+    e.err = h * acc_err;
+    return e;
   }
-  e.err = h * acc_err;
-  return e;
+}
+
+// ref.hermite_coeffs' c2 and c3 at one element, one rounding per op (c1 is
+// h * k0).
+template <typename T>
+__device__ __forceinline__ T hermite_c2(T y, T y1, T k0, T f1, T h) {
+  return sub_rn(mul_rn(T(3), sub_rn(y1, y)), mul_rn(h, add_rn(mul_rn(T(2), k0), f1)));
+}
+
+template <typename T>
+__device__ __forceinline__ T hermite_c3(T y, T y1, T k0, T f1, T h) {
+  return add_rn(mul_rn(T(2), sub_rn(y, y1)), mul_rn(h, add_rn(k0, f1)));
 }
 
 // __grid_constant__: the helpers take p by reference straight from the
@@ -237,10 +304,229 @@ __global__ void fused_step_kernel(const __grid_constant__ Params<T> p) {
     p.f_out[i] = accept ? e.f1 : e.k0;
     if (p.c1) {  // ref.hermite_coeffs, one rounding per op
       p.c1[i] = mul_rn(h, e.k0);
-      p.c2[i] = sub_rn(mul_rn(T(3), sub_rn(e.y1, e.y)),
-                       mul_rn(h, add_rn(mul_rn(T(2), e.k0), e.f1)));
-      p.c3[i] = add_rn(mul_rn(T(2), sub_rn(e.y, e.y1)), mul_rn(h, add_rn(e.k0, e.f1)));
+      p.c2[i] = hermite_c2(e.y, e.y1, e.k0, e.f1, h);
+      p.c3[i] = hermite_c3(e.y, e.y1, e.k0, e.f1, h);
     }
+  }
+}
+
+// ------------------------------------------------------ the row body (poly)
+// fused_step_poly's row body: one block per row, a thread per V-entry chunk
+// (V = 16 / sizeof(T) where f % V == 0 and the vector planes start 16-byte
+// aligned, else V = 1), up to kRowThreads threads.  Three phases:
+//   1. each thread issues the loads of its chunk -- y, f0 and the chunk's NP
+//      coefficient rows (NP = npoly <= kPolyRegs; NP = 0 reads them from
+//      device memory in the chain, as the warp body does), and the next
+//      chunk's y and f0 -- then runs the stage recursion once per entry
+//      (poly_element) and writes y1, c1..c3 and, as if the row were
+//      accepted, y_out = y1 and f_out = f1; it keeps r (the scaled error),
+//      y and f0 in shared memory.  Lanes 0-6 of warp 0 also load the row's
+//      seven (b,) inputs, one a lane, and leave them in shared memory after
+//      the stages;
+//   2. warp 0 folds r^2 lane-strided in increasing c from 0 (error_norm's
+//      order: lane l takes c = l, l + 32, ...), then warp_sum and
+//      wrms_finish, so the ratio is bitwise the warp body's; it decides as
+//      the warp body does, writes the (b,) columns and leaves accept in
+//      shared memory;
+//   3. a rejected row rewrites y_out = y and f_out = f0 from shared memory.
+// Shared memory (row_smem_bytes; cuda_impl.row_smem_bytes): kRowHead bytes
+// for the seven inputs and accept, then three planes of f entries, each
+// padded to 16 bytes.
+constexpr int kRowThreads = 128;
+constexpr int kRowHead = 80;  // 8 slots of T, then accept at byte 64
+
+// Blocks an SM must hold: 8 of 128 threads (64 registers a thread) in
+// float32, 4 (128 registers) in float64.  On an H100 at b = 1024, f = 784
+// these measured fastest against 256-thread blocks and the other register
+// caps (PERF.md): in float32 all 1024 rows are resident at once.
+template <typename T>
+constexpr int row_min_blocks() {
+  return sizeof(T) == 4 ? 8 : 4;
+}
+
+template <typename T, int V>
+struct Vec {
+  T v[V];
+};
+
+// A V-entry chunk from device memory through the read-only path.
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_chunk(const T* p) {
+  if constexpr (V == 1) {
+    return Vec<T, 1>{{__ldg(p)}};
+  } else {
+    union {
+      uint4 raw;
+      Vec<T, V> c;
+    } u;
+    u.raw = __ldg(reinterpret_cast<const uint4*>(p));
+    return u.c;
+  }
+}
+
+// A V-entry chunk from shared memory.
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> shared_chunk(const T* p) {
+  if constexpr (V == 1) {
+    return Vec<T, 1>{{*p}};
+  } else {
+    union {
+      uint4 raw;
+      Vec<T, V> c;
+    } u;
+    u.raw = *reinterpret_cast<const uint4*>(p);
+    return u.c;
+  }
+}
+
+// A V-entry chunk to device or shared memory.
+template <typename T, int V>
+__device__ __forceinline__ void store_chunk(T* p, const Vec<T, V>& c) {
+  if constexpr (V == 1) {
+    *p = c.v[0];
+  } else {
+    union {
+      uint4 raw;
+      Vec<T, V> c;
+    } u;
+    u.c = c;
+    *reinterpret_cast<uint4*>(p) = u.raw;
+  }
+}
+
+// Bytes of one plane of f entries of `size` bytes, padded to 16 bytes.
+__host__ __device__ inline size_t row_plane_bytes(int64_t f, size_t size) {
+  return (static_cast<size_t>(f) * size + 15) / 16 * 16;
+}
+
+inline size_t row_smem_bytes(int64_t f, size_t size) {
+  return kRowHead + 3 * row_plane_bytes(f, size);
+}
+
+template <typename T, int V, int NP>
+__global__ void __launch_bounds__(kRowThreads, row_min_blocks<T>())
+    fused_step_poly_row_kernel(const __grid_constant__ Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int f = static_cast<int>(p.f);
+  const int plane = static_cast<int>(row_plane_bytes(f, sizeof(T)) / sizeof(T));
+  T* cols_s = reinterpret_cast<T*>(smem);
+  int* accept_s = reinterpret_cast<int*>(smem + 64);
+  T* r_s = reinterpret_cast<T*>(smem + kRowHead);
+  T* y_s = r_s + plane;
+  T* k0_s = y_s + plane;
+  const int64_t row = blockIdx.x;
+  const int64_t base = row * p.f;
+  const T h = p.safe_dt[row];
+  const int nc = f / V;
+  const int k = threadIdx.x;
+
+  // The row's (b,) inputs, one a lane, in flight while the stages run.
+  T col = T(0);
+  switch (k) {
+    case 0: col = p.dt_cur[row]; break;
+    case 1: col = p.prev_inv[row]; break;
+    case 2: col = p.prev2_inv[row]; break;
+    case 3: col = p.t[row]; break;
+    case 4: col = p.t_new[row]; break;
+    case 5: col = T(p.running[row] != 0); break;
+    case 6: col = T(p.failed && p.failed[row]); break;
+    default: break;
+  }
+
+  // 1. The stages, once per entry; the loads of a chunk before its chain,
+  // and the next chunk's y and f0 in flight while it runs.
+  Vec<T, V> y_next, f0_next;
+  if (threadIdx.x < nc) {
+    y_next = load_chunk<T, V>(p.y + base + threadIdx.x * V);
+    f0_next = load_chunk<T, V>(p.K + base + threadIdx.x * V);
+  }
+  for (int q = threadIdx.x; q < nc; q += blockDim.x) {
+    const int c0 = q * V;
+    const Vec<T, V> y = y_next, f0 = f0_next;
+    if (q + static_cast<int>(blockDim.x) < nc) {
+      y_next = load_chunk<T, V>(p.y + base + c0 + blockDim.x * V);
+      f0_next = load_chunk<T, V>(p.K + base + c0 + blockDim.x * V);
+    }
+    Vec<T, V> cf[NP > 0 ? NP : 1];
+    if constexpr (NP > 0) {
+#pragma unroll
+      for (int d = 0; d < NP; ++d) {
+        cf[d] = load_chunk<T, V>(p.poly + static_cast<int64_t>(d) * f + c0);
+      }
+    }
+    Vec<T, V> r, y1, f1;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = c0 + j;
+      Element<T> e;
+      if constexpr (NP > 0) {
+        PolyRegs<T, NP> pr;
+#pragma unroll
+        for (int d = 0; d < NP; ++d) pr.c[d] = cf[d].v[j];
+        e = poly_element(p, y.v[j], f0.v[j], h, true, pr);
+      } else {
+        e = poly_element(p, y.v[j], f0.v[j], h, true, PolyAt<T>{p, c});
+      }
+      r.v[j] = wrms_scaled(e.err, e.y, e.y1, p.atol.at(row, c), p.rtol.at(row, c));
+      y1.v[j] = e.y1;
+      f1.v[j] = e.f1;
+    }
+    // The planes as if the row were accepted; a rejected row rewrites y_out
+    // and f_out in phase 3 (the first writes are still in L2 then).
+    store_chunk<T, V>(p.y1 + base + c0, y1);
+    store_chunk<T, V>(p.y_out + base + c0, y1);
+    store_chunk<T, V>(p.f_out + base + c0, f1);
+    if (p.c1) {  // ref.hermite_coeffs, one rounding per op
+      Vec<T, V> c1, c2, c3;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        c1.v[j] = mul_rn(h, f0.v[j]);
+        c2.v[j] = hermite_c2(y.v[j], y1.v[j], f0.v[j], f1.v[j], h);
+        c3.v[j] = hermite_c3(y.v[j], y1.v[j], f0.v[j], f1.v[j], h);
+      }
+      store_chunk<T, V>(p.c1 + base + c0, c1);
+      store_chunk<T, V>(p.c2 + base + c0, c2);
+      store_chunk<T, V>(p.c3 + base + c0, c3);
+    }
+    store_chunk<T, V>(r_s + c0, r);
+    store_chunk<T, V>(y_s + c0, y);
+    store_chunk<T, V>(k0_s + c0, f0);
+  }
+  if (k < 7) cols_s[k] = col;
+  __syncthreads();
+
+  // 2. The ratio in error_norm's order, and the decision (the warp body's).
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    T sum = T(0);
+#pragma unroll 8
+    for (int c = lane; c < f; c += 32) sum = fma_of(r_s[c], r_s[c], sum);
+    T ratio = wrms_finish(warp_sum(sum), p.f);
+    const bool failed = cols_s[6] != T(0);
+    if (failed) ratio = T(INFINITY);
+    const T dt_cur = cols_s[0], pi1 = cols_s[1], pi2 = cols_s[2];
+    const Decision<T> d = p.ctrl_mode == 0 ? pid_decide(p.ctrl, ratio, dt_cur, pi1, pi2)
+                                           : Decision<T>{true, dt_cur, pi1, pi2};
+    const bool running = cols_s[5] != T(0);
+    const bool accept = d.accept && running && !failed;
+    if (lane == 0) {
+      p.ratio[row] = ratio;
+      p.accept[row] = accept;
+      p.t_out[row] = accept ? cols_s[4] : cols_s[3];
+      p.dt_out[row] = running ? d.dt_next : dt_cur;
+      p.new_inv[row] = d.new_inv;
+      p.new_inv2[row] = d.new_inv2;
+      *accept_s = accept;
+    }
+  }
+  __syncthreads();
+
+  // 3. A rejected row keeps y and f0.
+  if (*accept_s) return;
+  for (int q = threadIdx.x; q < nc; q += blockDim.x) {
+    const int c0 = q * V;
+    store_chunk<T, V>(p.y_out + base + c0, shared_chunk<T, V>(y_s + c0));
+    store_chunk<T, V>(p.f_out + base + c0, shared_chunk<T, V>(k0_s + c0));
   }
 }
 
@@ -298,14 +584,74 @@ int launch_fused_step(const FusedStepArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int V, int NP>
+int launch_row_variant(const FusedStepArgs& a, size_t smem, cudaStream_t stream) {
+  auto kernel = fused_step_poly_row_kernel<T, V, NP>;
+  // No static shared memory: up to the default 48 KiB needs no opt-in.
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = reserve_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // Whole warps, enough for a chunk each up to kRowThreads; warp 0 always.
+  const int64_t warps = (a.f / V + 31) / 32;
+  const unsigned threads =
+      32 * static_cast<unsigned>(warps < 1 ? 1 : warps > kRowThreads / 32 ? kRowThreads / 32
+                                                                             : warps);
+  kernel<<<static_cast<unsigned>(a.b), threads, smem, stream>>>(params_of<T>(a));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The coefficient count in registers up to kPolyRegs, else from device memory.
+template <typename T, int V>
+int launch_row_np(const FusedStepArgs& a, size_t smem, cudaStream_t stream) {
+  switch (a.npoly) {
+    case 1: return launch_row_variant<T, V, 1>(a, smem, stream);
+    case 2: return launch_row_variant<T, V, 2>(a, smem, stream);
+    case 3: return launch_row_variant<T, V, 3>(a, smem, stream);
+    case 4: return launch_row_variant<T, V, 4>(a, smem, stream);
+    default: return launch_row_variant<T, V, 0>(a, smem, stream);
+  }
+}
+
+template <typename T>
+int launch_row(const FusedStepArgs& a, cudaStream_t stream) {
+  if (a.s < 1 || a.s > kMaxStages || a.npoly < 1 || a.b > 0x7fffffff || a.f > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.b < 1) return static_cast<int>(cudaSuccess);  // no rows: nothing to write
+  constexpr int V = 16 / sizeof(T);
+  const auto aligned = [](const void* p) {
+    return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const bool vec = a.f % V == 0 && aligned(a.y) && aligned(a.K) && aligned(a.poly) &&
+                   aligned(a.y1) && aligned(a.y_out) && aligned(a.f_out) && aligned(a.c1) &&
+                   aligned(a.c2) && aligned(a.c3);
+  const size_t smem = row_smem_bytes(a.f, sizeof(T));
+  return vec ? launch_row_np<T, V>(a, smem, stream) : launch_row_np<T, 1>(a, smem, stream);
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C entry points
-// dtype: 0 = float32, 1 = float64.  Every entry returns cudaGetLastError().
+// dtype: 0 = float32, 1 = float64; body (fused_step_poly): 0 = warp, 1 = row.
+// Every entry returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// stage count outside [1, kMaxStages], no polynomial, an unknown body, or a
+// row whose shared memory exceeds the device's limit
+// (rt_fused_step_max_smem()).
 
 extern "C" {
 
 int rt_fused_step_args_size() { return static_cast<int>(sizeof(FusedStepArgs)); }
+
+// The dynamic shared memory the row body may ask for on the current device,
+// in bytes, or -1 if the device cannot be queried.  No variant has static
+// shared memory, so one stands for all.
+int rt_fused_step_max_smem() {
+  size_t limit = 0;
+  return dynamic_smem_limit(fused_step_poly_row_kernel<float, 4, 3>, &limit) == cudaSuccess
+             ? static_cast<int>(limit)
+             : -1;
+}
 
 int rt_fused_step(int dtype, const FusedStepArgs* args, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -313,8 +659,10 @@ int rt_fused_step(int dtype, const FusedStepArgs* args, void* stream) {
                : launch_fused_step<float, false>(*args, s);
 }
 
-int rt_fused_step_poly(int dtype, const FusedStepArgs* args, void* stream) {
+int rt_fused_step_poly(int dtype, int body, const FusedStepArgs* args, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == 1) return dtype ? launch_row<double>(*args, s) : launch_row<float>(*args, s);
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dtype ? launch_fused_step<double, true>(*args, s)
                : launch_fused_step<float, true>(*args, s);
 }

@@ -436,34 +436,7 @@ substitute_kernel(const T* __restrict__ lu, const int32_t* __restrict__ perm,
 // launch opts in to the larger dynamic shared memory, up to the device's
 // per-block limit (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KiB on an
 // H100) less the kernel's static shared memory: f <= ~14.5k (newton_iter)
-// and ~19.3k (linsolve) in float64.
-constexpr size_t kDefaultSmem = 48 * 1024;
-
-// The dynamic shared memory `kernel` may ask for on the current device.
-template <typename Kernel>
-cudaError_t dynamic_smem_limit(Kernel kernel, size_t* limit) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  if (e == cudaSuccess) *limit = static_cast<size_t>(optin) - attr.sharedSizeBytes;
-  return e;
-}
-
-// Check `smem` against the limit and, above the default, opt the kernel in.
-template <typename Kernel>
-cudaError_t reserve_smem(Kernel kernel, size_t smem) {
-  size_t limit = 0;
-  cudaError_t e = dynamic_smem_limit(kernel, &limit);
-  if (e != cudaSuccess) return e;
-  if (smem > limit) return cudaErrorInvalidValue;
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
+// and ~19.3k (linsolve) in float64 (reserve_smem, solver_common.cuh).
 
 // The elimination paths of batched_lu_factor and batched_linsolve, as
 // cuda_impl.LU_PATHS numbers them.

@@ -1,5 +1,6 @@
 // Device helpers shared by the solver kernels (solver_kernels.cu,
-// fused_step.cu and events.cu).
+// fused_step.cu, events.cu and, through linalg_common.cuh, linalg.cu), and
+// the host's shared-memory opt-in.
 //
 // Every piece of arithmetic that two kernels must round alike lives here
 // once: the weighted stage sums of stage_accum / fused_update, the WRMS terms
@@ -107,12 +108,17 @@ inline Tol<T> make_tol(const void* p, double val, int64_t rs, int64_t cs) {
   return Tol<T>{static_cast<const T*>(p), static_cast<T>(val), rs, cs};
 }
 
-// One element's term of error_norm's sum of squares:
-// sum + (err / (atol + rtol * max(|y0|, |y1|)))^2.
+// One element's scaled error err / (atol + rtol * max(|y0|, |y1|)), and its
+// term of error_norm's sum of squares: sum + r^2.
+template <typename T>
+__device__ __forceinline__ T wrms_scaled(T err, T y0, T y1, T at, T rt) {
+  const T scale = fma_of(rt, nan_max(abs_of(y0), abs_of(y1)), at);
+  return err / scale;
+}
+
 template <typename T>
 __device__ __forceinline__ T wrms_add(T sum, T err, T y0, T y1, T at, T rt) {
-  const T scale = fma_of(rt, nan_max(abs_of(y0), abs_of(y1)), at);
-  const T r = err / scale;
+  const T r = wrms_scaled(err, y0, y1, at, rt);
   return fma_of(r, r, sum);
 }
 
@@ -126,6 +132,35 @@ __device__ __forceinline__ T warp_sum(T v) {
 template <typename T>
 __device__ __forceinline__ T wrms_finish(T sum, int64_t f) {
   return sqrt_of(sum / static_cast<T>(f));
+}
+
+// Dynamic shared memory above the default needs an opt-in per kernel.
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+// The dynamic shared memory `kernel` may ask for on the current device.
+template <typename Kernel>
+cudaError_t dynamic_smem_limit(Kernel kernel, size_t* limit) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess) *limit = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  return e;
+}
+
+// Check `smem` against the limit and, above the default, opt the kernel in.
+template <typename Kernel>
+cudaError_t reserve_smem(Kernel kernel, size_t smem) {
+  size_t limit = 0;
+  cudaError_t e = dynamic_smem_limit(kernel, &limit);
+  if (e != cudaSuccess) return e;
+  if (smem > limit) return cudaErrorInvalidValue;
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace solver

@@ -10,16 +10,18 @@ is an error.  ``launches[name]`` counts the launches of each kernel, and
 nothing else adds to it; ``body_launches`` splits the count of the kernels
 with more than one body or path by the one that ran.
 
-Three kernels have more than one body, each chosen by one function here and
+Four kernels have more than one body, each chosen by one function here and
 passed to the C entry, which refuses a body that does not take the shape:
 ``flash_attention_fwd`` (``flash_body``: the wgmma body for bfloat16 with
 hd <= 128, FFMA otherwise), the elimination of ``batched_lu_factor`` and
 ``batched_linsolve`` (``lu_path``: staged in shared memory where the matrix
 fits, in device memory above that, column by column over the card from
-``LU_WIDE_F`` columns) and ``fused_newton_iter`` (``newton_iter_body``: a warp
+``LU_WIDE_F`` columns), ``fused_newton_iter`` (``newton_iter_body``: a warp
 per instance up to ``WARP_MAX_F`` columns, then the panel substitution, the
 LU streamed through shared memory, wherever its ring and vector fit; the
-column loop otherwise).  The wrappers check a body or path given by the
+column loop otherwise) and ``fused_step_poly`` (``fused_step_poly_body``: a
+block per row wherever three of the row's planes fit in shared memory, a
+warp per row otherwise).  The wrappers check a body or path given by the
 caller with the same rules and raise ``ValueError`` before any launch.
 """
 
@@ -53,10 +55,16 @@ WARP_MAX_F = 32  # kWarpMaxF of csrc/linalg.cu: a lane per row
 PANEL = 32
 PANEL_STAGES = {4: 4, 8: 3}
 
+# fused_step_poly's bodies in csrc/fused_step.cu: a warp per row, or a block
+# per row with three of the row's planes in shared memory (row_smem_bytes),
+# as fast or faster at every width measured (PERF.md).
+POLY_BODIES = {"warp": 0, "row": 1}
+
 body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
                  "batched_lu_factor": dict.fromkeys(LU_PATHS, 0),
                  "batched_linsolve": dict.fromkeys(LU_PATHS, 0),
-                 "fused_newton_iter": dict.fromkeys(NEWTON_BODIES, 0)}
+                 "fused_newton_iter": dict.fromkeys(NEWTON_BODIES, 0),
+                 "fused_step_poly": dict.fromkeys(POLY_BODIES, 0)}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -249,11 +257,13 @@ class _FusedStepArgs(ctypes.Structure):
 _CTRL_MODES = {"pid": 0, "fixed": 1}
 
 
-def _launch_fused(name, entry, y, K, f1, poly, t, t_new, dt_cur, safe_dt, running,
+def _launch_fused(name, launch, y, K, f1, poly, t, t_new, dt_cur, safe_dt, running,
                   prev_inv, prev2_inv, atol, rtol, *, b_sol, b_err, ctrl, want_coeffs,
-                  ctrl_mode, failed, f0=None, a=None, fsal=True):
+                  ctrl_mode, failed, f0=None, a=None, fsal=True, pick_body=None):
     """Check the inputs of ``fused_step``/``fused_step_poly``, allocate the
-    twelve outputs, launch, and return them as ``ref.fused_step`` does."""
+    twelve outputs, launch, and return them as ``ref.fused_step`` does.
+    ``launch(lib, code, args, stream, body)`` calls the C entry;
+    ``pick_body(lib)`` (None: one body) chooses and checks the body."""
     code = _dtype_code(name, y)
     b, f = y.shape
     s = len(b_sol)
@@ -311,10 +321,13 @@ def _launch_fused(name, entry, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runnin
     lib = _build.load()
     if lib.rt_fused_step_args_size() != ctypes.sizeof(_FusedStepArgs):
         raise RuntimeError(f"{name}: FusedStepArgs layout differs between Python and CUDA")
+    body = pick_body(lib) if pick_body else None
     with torch.cuda.device(y.device):
-        rc = entry(lib)(code, ctypes.byref(args), _stream(y.device))
+        rc = launch(lib, code, ctypes.byref(args), _stream(y.device), body)
     _raise_on(name, rc)
     launches[name] += 1
+    if body is not None:
+        body_launches[name][body] += 1
     coeffs = (y, c1, c2, c3) if want_coeffs else None
     return y1, ratio, accept, y_out, f_out, t_out, dt_out, new_inv, new_inv2, coeffs
 
@@ -327,9 +340,10 @@ def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv
     ``ref.fused_step``).  ``failed`` and ``f0`` may be None (null pointers;
     without ``f0`` the kernel reads K[0])."""
     return _launch_fused(
-        "fused_step", lambda lib: lib.rt_fused_step, y, K, f1, None, t, t_new, dt_cur,
-        safe_dt, running, prev_inv, prev2_inv, atol, rtol, b_sol=b_sol, b_err=b_err,
-        ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode, failed=failed, f0=f0)
+        "fused_step", lambda lib, code, args, stream, _: lib.rt_fused_step(code, args, stream),
+        y, K, f1, None, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
+        b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode,
+        failed=failed, f0=f0)
 
 
 @functools.lru_cache(maxsize=32)
@@ -341,29 +355,94 @@ def _poly_rows(poly, f, dtype, device):
     return torch.tensor(rows, dtype=dtype, device=device)
 
 
+def row_smem_bytes(f, itemsize):
+    """Shared memory of ``fused_step_poly``'s row body at width ``f``
+    (``row_smem_bytes`` of ``csrc/fused_step.cu``): 80 bytes for the row's
+    seven (b,) inputs and the decision, then three f-entry planes (the
+    scaled errors, y and f0), each rounded up to 16 bytes."""
+    return 80 + 3 * (-(-f * itemsize // 16) * 16)
+
+
+def fused_step_poly_body(f, itemsize, smem_limit):
+    """The body of ``fused_step_poly`` at width ``f``: ``"row"`` where its
+    shared memory fits ``smem_limit`` bytes, else ``"warp"`` (which takes
+    every width)."""
+    return "row" if row_smem_bytes(f, itemsize) <= smem_limit else "warp"
+
+
+def check_fused_step_poly_body(name, body, f, itemsize, smem_limit):
+    """Raise ValueError where the C entry would refuse ``body`` at width
+    ``f``: an unknown body, or the row body with shared memory above
+    ``smem_limit`` bytes.  Both bodies take every width that fits."""
+    _known(name, body, POLY_BODIES, "body")
+    if body == "row" and row_smem_bytes(f, itemsize) > smem_limit:
+        raise ValueError(f"{name}: the row body needs {row_smem_bytes(f, itemsize)} bytes of "
+                         f"shared memory at f = {f}, above the device's limit of {smem_limit} "
+                         f"bytes")
+
+
 def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
                     atol, rtol, *, a, c, b_sol, b_err, poly, ctrl, want_coeffs,
-                    fsal=True, ctrl_mode="pid"):
+                    fsal=True, ctrl_mode="pid", body=None):
     """CUDA ``fused_step_poly``: ``fused_step`` with the stage recursion of
     the polynomial vector field ``poly`` (and the non-FSAL trailing
-    evaluation) in the same launch (see ``ref.fused_step_poly``)."""
+    evaluation) in the same launch (see ``ref.fused_step_poly``).  ``body``
+    overrides ``fused_step_poly_body``'s choice (both give the same bits)."""
     del c  # autonomous polynomial dynamics
+    name = "fused_step_poly"
+    if body is not None:
+        _known(name, body, POLY_BODIES, "body")
     rows = _poly_rows(tuple(poly), y.shape[1], y.dtype, y.device)
+
+    def pick_body(lib):
+        f, itemsize = y.shape[1], y.element_size()
+        limit = _smem_limit(name, lib, y.device, "rt_fused_step_max_smem")
+        chosen = fused_step_poly_body(f, itemsize, limit) if body is None else body
+        check_fused_step_poly_body(name, chosen, f, itemsize, limit)
+        return chosen
+
     return _launch_fused(
-        "fused_step_poly", lambda lib: lib.rt_fused_step_poly, y, f0, None, rows, t, t_new,
-        dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol, b_sol=b_sol,
-        b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode, failed=None,
-        a=a, fsal=fsal)
+        name, lambda lib, code, args, stream, chosen: lib.rt_fused_step_poly(
+            code, POLY_BODIES[chosen], args, stream),
+        y, f0, None, rows, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
+        b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode,
+        failed=None, a=a, fsal=fsal, pick_body=pick_body)
+
+
+MAX_EVENTS = 64  # kMaxEvents of csrc/events.cu
+
+
+def _event_count(name, n, lib):
+    limit = lib.rt_max_events()
+    if not 1 <= n <= limit:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 to {limit} events, got {n}")
 
 
 def _event_flags(name, values, lib):
-    """Per-event int8 flags (a direction's sign, or a terminal flag) for the
-    kernel's parameter block; at most ``rt_max_events()`` events."""
+    """Per-event int8 flags (a terminal flag) for the kernel's parameter
+    block; at most ``rt_max_events()`` events."""
     vals = [int(np.sign(float(v))) for v in values]
-    limit = lib.rt_max_events()
-    if not 1 <= len(vals) <= limit:
-        raise ValueError(f"{name}: the CUDA kernel takes 1 to {limit} events, got {len(vals)}")
+    _event_count(name, len(vals), lib)
     return (ctypes.c_int8 * len(vals))(*vals), len(vals)
+
+
+def direction_masks(directions):
+    """``fused_event_detect``'s directions as two bit masks ``(up_only,
+    down_only)``: bit e of ``up_only`` set where ``directions[e] > 0``, of
+    ``down_only`` where it is < 0, and neither where a crossing counts either
+    way (0, or NaN, as ``ref.fused_event_detect`` reads it).  At most
+    ``MAX_EVENTS`` directions."""
+    if len(directions) > MAX_EVENTS:
+        raise ValueError(f"direction_masks: at most {MAX_EVENTS} events, got "
+                         f"{len(directions)}")
+    up_only = down_only = 0
+    for e, d in enumerate(directions):
+        d = float(d)
+        if d > 0:
+            up_only |= 1 << e
+        elif d < 0:
+            down_only |= 1 << e
+    return up_only, down_only
 
 
 def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
@@ -402,7 +481,9 @@ def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
     _check("fused_event_detect", torch.bool, fired, accept)
     _same_device("fused_event_detect", v_prev, v_new, fired, accept)
     lib = _build.load()
-    dirs, E = _event_flags("fused_event_detect", directions, lib)
+    E = len(directions)
+    _event_count("fused_event_detect", E, lib)
+    up_only, down_only = direction_masks(directions)
     b = v_prev.shape[0]
     if (v_prev.shape != (b, E) or v_new.shape != (b, E) or fired.shape != (b, E)
             or accept.shape != (b,)):
@@ -414,7 +495,8 @@ def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
     with torch.cuda.device(v_prev.device):
         rc = lib.rt_fused_event_detect(
             code, v_prev.data_ptr(), v_new.data_ptr(), fired.data_ptr(), accept.data_ptr(),
-            dirs, E, newly.data_ptr(), v_keep.data_ptr(), b, _stream(v_prev.device))
+            up_only, down_only, E, newly.data_ptr(), v_keep.data_ptr(), b,
+            _stream(v_prev.device))
     _raise_on("fused_event_detect", rc)
     launches["fused_event_detect"] += 1
     return newly, v_keep
@@ -470,17 +552,19 @@ def _square(name, A):
 _smem_limits = {}
 
 
-def _smem_limit(name, lib, device):
-    """The device's opt-in shared memory per block less the linalg kernels'
-    static shared memory (``rt_linalg_max_smem``), read once per device."""
+def _smem_limit(name, lib, device, query="rt_linalg_max_smem"):
+    """The dynamic shared memory per block that the kernels behind ``query``
+    may ask for: the device's opt-in limit less their static shared memory
+    (``rt_linalg_max_smem`` for the linalg kernels, ``rt_fused_step_max_smem``
+    for ``fused_step_poly``'s row body), read once per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _smem_limits:
+    if (query, index) not in _smem_limits:
         with torch.cuda.device(index):
-            limit = lib.rt_linalg_max_smem()
+            limit = getattr(lib, query)()
         if limit < 0:
             raise RuntimeError(f"{name}: cannot read the shared-memory limit of {device}")
-        _smem_limits[index] = limit
-    return _smem_limits[index]
+        _smem_limits[query, index] = limit
+    return _smem_limits[query, index]
 
 
 def _substitution_fits(name, f, bytes_per_feature, lib, device):

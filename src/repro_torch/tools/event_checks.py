@@ -10,8 +10,8 @@ Each input function covers the cases the kernels must get right in one batch:
 - ``bisect_inputs``: active, inactive or mixed rows (``active``), brackets
   inside [0, 1], condition values of both signs, exact zeros and NaNs;
 - ``detect_inputs``: every direction (the ``directions`` cycle 0, +1, -1),
-  values of both signs, zero at either or both endpoints, NaNs, already
-  fired cells and rejected rows;
+  values of both signs, zero (+0.0 and -0.0) at either or both endpoints,
+  NaNs, already fired cells and rejected rows;
 - ``commit_inputs``: terminal and non-terminal mixes (``terminal``), rows
   with no crossing, one or several, two terminal crossings at the same x (a
   tie), crossings after the earliest terminal one, already fired cells and
@@ -74,6 +74,9 @@ def detect_inputs(seed, b, E, dtype):
     fired = rng.uniform(size=(b, E)) < 0.2
     accept = rng.uniform(size=b) > 0.25
     directions = tuple(DIRECTIONS[i % 3] for i in range(E))
+    negative = rng.uniform(size=(2, b, E)) < 0.5  # half of the zeros are -0.0
+    v_prev[(v_prev == 0) & negative[0]] = -0.0
+    v_new[(v_new == 0) & negative[1]] = -0.0
     return v_prev, v_new, fired, accept, directions
 
 

@@ -1,7 +1,7 @@
 """Times of the redesigned kernels at the main path's shapes, for comparing
 two trees of the port on one card.
 
-    PYTHONPATH=src python -m repro_torch.tools.kernel_times [--reps 50]
+    PYTHONPATH=src python -m repro_torch.tools.kernel_times [--reps 50] [--kernels a,b]
     python src/repro_torch/tools/kernel_times.py --src <another tree>/src
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line per
@@ -26,6 +26,16 @@ sleep, CUDA events):
   rows) and ``fused_event_commit`` (E = 2, terminal and marker events, mixed
   rows) at full_width's shape (b = 1024, f = 784) and vdp_marker's (b = 256,
   f = 2), float32 and float64;
+- ``fused_step_poly`` (dopri5, the logistic polynomial, scalar tolerances,
+  ``tools/step_checks.py``'s rows) at step_bench's shape (b = 1024, f =
+  784) with and without the Hermite coefficients, float32 and float64, and
+  at narrow rows (f = 2 at b = 256 and 1024, f = 32, 64 and 128 at b = 1024,
+  float32), each body where the tree has two (``ms_by_body``);
+- ``fused_step`` (dopri5, integral controller, scalar tolerances,
+  coefficients on) at full_width's shape, float32 and float64: the control;
+- ``fused_event_detect`` (``tools/event_checks.py``'s inputs) at
+  full_width_long_events' shape (b = 1024, E = 2), vdp_marker's (b = 256, E
+  = 1) and at E = 64 (b = 1024), float32 and float64;
 - the launch floor: a one-element PyTorch elementwise op under the same
   timing rule.
 
@@ -54,14 +64,23 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--src", default=None,
                     help="the src/ directory whose repro_torch to time (run as a file)")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernel names to time (default: all)")
     args = ap.parse_args(argv)
+    chosen = set(args.kernels.split(",")) if args.kernels else None
+
+    def want(*names):
+        return chosen is None or bool(chosen.intersection(names))
+
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device is available", file=sys.stderr)
         return 1
     if args.src:
         sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+    from repro_torch.core import get_tableau, integral_controller, pid_controller
+    from repro_torch.core.stepper import _tableau_arrays
     from repro_torch.kernels import cuda_impl, ref
-    from repro_torch.tools import event_checks, newton_checks, workloads
+    from repro_torch.tools import event_checks, newton_checks, step_checks, workloads
 
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -94,7 +113,7 @@ def main(argv=None) -> int:
     emit(kernel="launch floor", shape="Tensor.add_ on one element", dtype="float32",
          ms=median_ms(lambda: one.add_(1.0)))
 
-    for b, s in ((4, 2048), (1, 4096)):
+    for b, s in ((4, 2048), (1, 4096)) if want("flash_attention_fwd") else ():
         g = torch.Generator(device=dev).manual_seed(s)
         q = torch.randn(b, s, 40, 128, generator=g, device=dev).bfloat16()
         k, v = (torch.randn(b, s, 8, 128, generator=g, device=dev).bfloat16() for _ in range(2))
@@ -106,30 +125,81 @@ def main(argv=None) -> int:
 
     b, f = workloads.STIFF["b"], workloads.ALLEN_CAHN["f"]
     for npdt in (np.float32, np.float64):
+        dt = npdt.__name__
         M, rhs = newton_checks.to_torch(newton_checks.newton_inputs(f + 5, b, f, npdt), dev)[:2]
-        emit(kernel="batched_lu_factor", shape=f"b={b} f={f}", dtype=npdt.__name__,
-             ms=median_ms(lambda: cuda_impl.batched_lu_factor(M)),
-             library_ms=median_ms(lambda: torch.linalg.lu_factor(M)))
-        emit(kernel="batched_linsolve", shape=f"b={b} f={f}", dtype=npdt.__name__,
-             ms=median_ms(lambda: cuda_impl.batched_linsolve(M, rhs)),
-             library_ms=median_ms(lambda: torch.linalg.solve(M, rhs)))
-        for width in (2, 3, f):
+        if want("batched_lu_factor"):
+            emit(kernel="batched_lu_factor", shape=f"b={b} f={f}", dtype=dt,
+                 ms=median_ms(lambda: cuda_impl.batched_lu_factor(M)),
+                 library_ms=median_ms(lambda: torch.linalg.lu_factor(M)))
+        if want("batched_linsolve"):
+            emit(kernel="batched_linsolve", shape=f"b={b} f={f}", dtype=dt,
+                 ms=median_ms(lambda: cuda_impl.batched_linsolve(M, rhs)),
+                 library_ms=median_ms(lambda: torch.linalg.solve(M, rhs)))
+        for width in (2, 3, f) if want("masked_newton_update", "fused_newton_iter") else ():
             M, rhs, k, fk, mask, scale = newton_checks.to_torch(
                 newton_checks.newton_inputs(width + 5, b, width, npdt), dev)
-            emit(kernel="masked_newton_update", shape=f"b={b} f={width}", dtype=npdt.__name__,
-                 ms=median_ms(lambda: cuda_impl.masked_newton_update(k, rhs, mask, scale)))
-            lu, perm = ref.batched_lu_factor(M)
-            emit(kernel="fused_newton_iter", shape=f"b={b} f={width}", dtype=npdt.__name__,
-                 ms=median_ms(lambda: cuda_impl.fused_newton_iter(lu, perm, k, fk, mask, scale)))
+            if want("masked_newton_update"):
+                emit(kernel="masked_newton_update", shape=f"b={b} f={width}", dtype=dt,
+                     ms=median_ms(lambda: cuda_impl.masked_newton_update(k, rhs, mask, scale)))
+            if want("fused_newton_iter"):
+                lu, perm = ref.batched_lu_factor(M)
+                emit(kernel="fused_newton_iter", shape=f"b={b} f={width}", dtype=dt,
+                     ms=median_ms(lambda: cuda_impl.fused_newton_iter(lu, perm, k, fk, mask,
+                                                                      scale)))
         for eb, ef in ((workloads.FULL["b"], workloads.FULL["f"]),
                        (workloads.MARKER["b"], 2)):
-            bargs = event_checks.to_torch(event_checks.bisect_inputs(eb + ef, eb, ef, npdt), dev)
-            emit(kernel="masked_bisect_refine", shape=f"b={eb} f={ef}", dtype=npdt.__name__,
-                 ms=median_ms(lambda: cuda_impl.masked_bisect_refine(*bargs)))
-            *cargs, flags = event_checks.to_torch(
-                event_checks.commit_inputs(eb + 2, eb, ef, 2, npdt, "mixed"), dev)
-            emit(kernel="fused_event_commit", shape=f"b={eb} f={ef} E=2", dtype=npdt.__name__,
-                 ms=median_ms(lambda: cuda_impl.fused_event_commit(*cargs, terminal=flags)))
+            if want("masked_bisect_refine"):
+                bargs = event_checks.to_torch(event_checks.bisect_inputs(eb + ef, eb, ef, npdt),
+                                              dev)
+                emit(kernel="masked_bisect_refine", shape=f"b={eb} f={ef}", dtype=dt,
+                     ms=median_ms(lambda: cuda_impl.masked_bisect_refine(*bargs)))
+            if want("fused_event_commit"):
+                *cargs, flags = event_checks.to_torch(
+                    event_checks.commit_inputs(eb + 2, eb, ef, 2, npdt, "mixed"), dev)
+                emit(kernel="fused_event_commit", shape=f"b={eb} f={ef} E=2", dtype=dt,
+                     ms=median_ms(lambda: cuda_impl.fused_event_commit(*cargs, terminal=flags)))
+        for eb, E in ((workloads.FULL["b"], 2), (workloads.MARKER["b"], 1),
+                      (workloads.FULL["b"], 64)) if want("fused_event_detect") else ():
+            *dargs, dirs = event_checks.to_torch(event_checks.detect_inputs(eb + E, eb, E, npdt),
+                                                 dev)
+            emit(kernel="fused_event_detect", shape=f"b={eb} E={E}", dtype=dt,
+                 ms=median_ms(lambda: cuda_impl.fused_event_detect(*dargs, directions=dirs)))
+
+    # The fused step kernels: fused_step_poly by body where the tree has two
+    # (a tree with one times its only body), fused_step as the control.
+    bodies = tuple(getattr(cuda_impl, "POLY_BODIES", ()))
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    tab = get_tableau("dopri5")
+    poly = (0.0, 1.0, -1.0)
+    shapes = [(workloads.FULL["b"], workloads.FULL["f"], dtype)
+              for dtype in (torch.float32, torch.float64)]
+    shapes += [(workloads.VDP["b"], 2, torch.float32)] + [
+        (workloads.FULL["b"], f, torch.float32) for f in (2, 32, 64, 128)]
+    for b, f, dtype in shapes if want("fused_step_poly", "fused_step") else ():
+        dt = str(dtype).split(".")[-1]
+        a, c, b_sol, b_err = _tableau_arrays(tab, dtype)
+        y, _, cols, _ = step_checks.step_inputs(b, f, tab.stages, dtype, dev, gen, 4.0)
+        f0 = ref.poly_eval(y, poly)
+        kw = dict(a=a, c=c, b_sol=b_sol, b_err=b_err, poly=poly, fsal=True, ctrl_mode="pid",
+                  ctrl=pid_controller().filter_params(tab.error_order))
+        coeff_cases = (False, True) if f == workloads.FULL["f"] else (False,)
+        for want_coeffs in coeff_cases if want("fused_step_poly") else ():
+            def run(want_coeffs=want_coeffs, **body):
+                return cuda_impl.fused_step_poly(y, f0, *cols, 1e-4, 1e-3,
+                                                 want_coeffs=want_coeffs, **kw, **body)
+            row = dict(kernel="fused_step_poly", shape=f"b={b} f={f} dopri5 logistic",
+                       dtype=dt, coeffs=want_coeffs, ms=median_ms(run))
+            if bodies:
+                row["ms_by_body"] = {body: median_ms(lambda body=body: run(body=body))
+                                     for body in bodies}
+            emit(**row)
+        if f == workloads.FULL["f"] and want("fused_step"):
+            y, K, cols, _ = step_checks.step_inputs(b, f, tab.stages, dtype, dev, gen)
+            ctrl = integral_controller().filter_params(tab.error_order)
+            emit(kernel="fused_step", shape=f"b={b} f={f} dopri5 integral", dtype=dt,
+                 coeffs=True, ms=median_ms(lambda: cuda_impl.fused_step(
+                     y, K, K[-1], *cols, 1e-4, 1e-3, b_sol=b_sol, b_err=b_err, ctrl=ctrl,
+                     want_coeffs=True)))
     return 0
 
 

@@ -2,16 +2,18 @@
 ``chip_smoke.py`` (``tools/workloads.py``).
 
     PYTHONPATH=src python -m repro_torch.tools.profile_step [--fused]
-        [--workload vdp_table3|full_width|full_width_long|ball_terminal|
-                    vdp_marker|full_width_long_events|vdp_stiff_mixed|
-                    robertson_sweep|allen_cahn_full|all]
+        [--workload vdp_table3|full_width|full_width_long|step_bench|
+                    ball_terminal|vdp_marker|full_width_long_events|
+                    vdp_stiff_mixed|robertson_sweep|allen_cahn_full|all]
     python src/repro_torch/tools/profile_step.py --src <another tree>/src [...]
 
 ``--src`` profiles the ``repro_torch`` of another tree (run as a file; it
 builds its own kernels), so two trees are compared on one card in one call.
 
 ``--fused`` profiles the fused path (``fused=True``: one ``fused_step``
-launch per step after the stage sweep) instead of the unfused one.
+launch per step after the stage sweep; for ``step_bench``, a polynomial
+field, one ``fused_step_poly`` launch per step and nothing else) instead of
+the unfused one.
 ``ball_terminal``, ``vdp_marker`` and ``full_width_long_events`` register
 events; the last three are the stiff workloads (kvaerno5, the chord-Newton
 kernels), the others run dopri5 (``workloads.py``).  Prints one JSON line
@@ -61,7 +63,8 @@ import torch
 make_solver = solve_ivp = ops = workloads = None
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
-           "interp_eval_kernel", "fused_step_kernel", "masked_bisect_refine_kernel",
+           "interp_eval_kernel", "fused_step_kernel", "fused_step_poly_row_kernel",
+           "masked_bisect_refine_kernel",
            "fused_event_detect_kernel", "fused_event_commit_kernel", "lu_factor_kernel",
            "linsolve_kernel", "newton_iter_kernel", "newton_iter_panel_kernel",
            "newton_iter_warp_kernel", "newton_update_kernel",
@@ -162,6 +165,7 @@ WORKLOADS = {
     "vdp_table3": lambda device: workloads.vdp_table3(np.float32),
     "full_width": lambda device: workloads.full_width(device),
     "full_width_long": lambda device: workloads.full_width_long(device),
+    "step_bench": lambda device: workloads.step_bench(np.float32),
     "ball_terminal": lambda device: workloads.ball_terminal(np.float32),
     "vdp_marker": lambda device: workloads.vdp_marker(np.float32),
     "full_width_long_events": lambda device: workloads.full_width_long_events(device),

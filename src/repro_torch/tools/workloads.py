@@ -21,6 +21,12 @@ with rejections (54 loop iterations, 49 accepted, for rows 0-31 on the CPU)
 published continuous normalising flows on MNIST spend (FFJORD, Grathwohl et
 al. 2019).  Per-step numbers come from this one.
 
+``step_bench``: the JAX package's fused workload (``benchmarks/step_bench.py``:
+exponential decay dy/dt = -y by ``polynomial_term``, dopri5 with the PID
+controller, rtol 1e-4, atol 1e-6, t in [0, 2], dense output off) at
+full_width's shape, y0 = linspace(0.5, 1.5) over the b * f entries: with
+``fused=True`` one ``fused_step_poly`` launch per step and nothing else.
+
 The event workloads:
 
 ``ball_terminal``: the JAX package's terminal case
@@ -70,7 +76,7 @@ import numpy as np
 import torch
 
 from .. import convert
-from ..core import Event
+from ..core import Event, pid_controller, polynomial_term
 
 VDP = dict(b=256, f=2, n=200, mu=2.0)
 FULL = dict(b=1024, f=784, n=64, hidden=1024)
@@ -121,6 +127,16 @@ def full_width(device, weight_scale=1.0, t_end=1.0):
 def full_width_long(device):
     """``full_width`` with a real step count (see the module docstring)."""
     return full_width(device, **LONG)
+
+
+def step_bench(dtype=np.float32):
+    """``(vf, y0, None, kw)`` of ``step_bench``; kw sets the span, the
+    controller and the tolerances, not the method."""
+    b, f = FULL["b"], FULL["f"]
+    y0 = np.linspace(0.5, 1.5, b * f, dtype=dtype).reshape(b, f)
+    kw = dict(controller=pid_controller(), rtol=1e-4, atol=1e-6, dense=False, t_start=0.0,
+              t_end=2.0)
+    return polynomial_term(0.0, -1.0), y0, None, kw
 
 
 def ball(t, y, args):

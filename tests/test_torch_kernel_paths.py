@@ -1,22 +1,30 @@
 """The choice of body or path of the kernels that have more than one, on
 the CPU: ``cuda_impl.flash_body`` (the attention's wgmma or FFMA body),
 ``cuda_impl.lu_path`` (the elimination staged in shared memory, in device
-memory, or column by column over the card) and ``cuda_impl.newton_iter_body``
-(``fused_newton_iter``'s panel or column substitution), on every boundary,
-and the wrappers' own checks, which raise ``ValueError`` wherever the C
-entries would refuse a body or path -- before any launch, so a refusal never
-reaches the card.
+memory, or column by column over the card), ``cuda_impl.newton_iter_body``
+(``fused_newton_iter``'s panel or column substitution) and
+``cuda_impl.fused_step_poly_body`` (a warp or a block per row), on every
+boundary, and the wrappers' own checks, which raise ``ValueError`` wherever
+the C entries would refuse a body or path -- before any launch, so a refusal
+never reaches the card.  Also ``cuda_impl.direction_masks``, the host's
+encoding of ``fused_event_detect``'s directions.
 
 The card tests (``tests/test_torch_kernels_card.py``) hold each body and
 path to the plain version, the staged elimination bitwise to the
-device-memory one and the panel substitution bitwise to the column one.
+device-memory one, the panel substitution bitwise to the column one and the
+row body of ``fused_step_poly`` bitwise to the warp body.
 """
 
+import math
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import cuda_impl  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.tools import event_checks  # noqa: E402
 
 # The device's opt-in shared memory per block less the linalg kernels'
 # static shared memory, as rt_linalg_max_smem() reports it on an H100
@@ -245,3 +253,127 @@ class TestNewtonIterBody:
         for body in ("warp", "panel", "column", None):
             with pytest.raises(ValueError, match="CUDA tensors"):
                 cuda_impl.fused_newton_iter(lu, perm, k, fk, active, 1e-3, body=body)
+
+
+# The device's opt-in shared memory per block on an H100 (NVIDIA H100 80GB
+# HBM3), as rt_fused_step_max_smem() reports it: the row body has no static
+# shared memory.  The widest row body there: itemsize -> f.
+H100_ROW_SMEM = 232448
+H100_ROW_MAX = {4: 19364, 8: 9682}
+ROW_LIMITS = (H100_ROW_SMEM, 163 * 1024, 48 * 1024, 1024)
+
+
+class TestFusedStepPolyBody:
+    def test_smem_layout(self):
+        # 80 bytes for the row's inputs and the decision, then r, y, f0, each
+        # padded to 16 bytes
+        assert cuda_impl.row_smem_bytes(784, 4) == 80 + 3 * 3136 == 9488
+        assert cuda_impl.row_smem_bytes(784, 8) == 80 + 3 * 6272
+        assert cuda_impl.row_smem_bytes(1, 4) == 80 + 3 * 16
+        assert cuda_impl.row_smem_bytes(5, 8) == 80 + 3 * 48
+        assert cuda_impl.row_smem_bytes(0, 4) == 80
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_h100_limits(self, itemsize):
+        f_max = H100_ROW_MAX[itemsize]
+        assert _max_fitting(cuda_impl.row_smem_bytes, itemsize, H100_ROW_SMEM) == f_max
+        for f in (1, 2, 3, 32, 128, 784, 4096, f_max):  # step_bench: 784
+            assert cuda_impl.fused_step_poly_body(f, itemsize, H100_ROW_SMEM) == "row"
+        for f in (f_max + 1, 10**6):
+            assert cuda_impl.fused_step_poly_body(f, itemsize, H100_ROW_SMEM) == "warp"
+
+    @pytest.mark.parametrize("limit", ROW_LIMITS)
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_boundaries(self, itemsize, limit):
+        r_max = _max_fitting(cuda_impl.row_smem_bytes, itemsize, limit)
+        widths = {1, 2, 31, 33, 784, r_max, r_max + 1}
+        for f in sorted(widths - {0}):
+            body = cuda_impl.fused_step_poly_body(f, itemsize, limit)
+            assert body == ("row" if f <= r_max else "warp")
+            cuda_impl.check_fused_step_poly_body("x", body, f, itemsize, limit)
+            cuda_impl.check_fused_step_poly_body("x", "warp", f, itemsize, limit)
+            if f <= r_max:
+                cuda_impl.check_fused_step_poly_body("x", "row", f, itemsize, limit)
+            else:
+                with pytest.raises(ValueError, match="the row body needs"):
+                    cuda_impl.check_fused_step_poly_body("x", "row", f, itemsize, limit)
+
+    def test_only_the_warp_body_below_a_row(self):
+        # 1024 bytes hold a float32 row of f <= 76 only
+        assert _max_fitting(cuda_impl.row_smem_bytes, 4, 1024) == 76
+        assert cuda_impl.fused_step_poly_body(76, 4, 1024) == "row"
+        assert cuda_impl.fused_step_poly_body(77, 4, 1024) == "warp"
+        with pytest.raises(ValueError, match="the row body needs 1040 bytes"):
+            cuda_impl.check_fused_step_poly_body("x", "row", 77, 4, 1024)
+
+    def test_unknown_body(self):
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.check_fused_step_poly_body("x", "block", 784, 4, H100_ROW_SMEM)
+
+    def test_wrapper_refuses_an_unknown_body_before_the_launch(self):
+        b, f = 2, 4
+        y = torch.ones(b, f)
+        cols = [torch.ones(b) for _ in range(4)]
+        mask = torch.ones(b, dtype=torch.bool)
+        kw = dict(a=np.zeros((2, 2)), c=np.zeros(2), b_sol=[0.5, 0.5], b_err=[0.5, -0.5],
+                  poly=(0.0, -1.0), ctrl=(0.7, 0.0, 0.0, 0.9, 0.2, 10.0, 0.0, math.inf),
+                  want_coeffs=False, fsal=False)
+        args = (y, -y, *cols, mask, torch.ones(b), torch.ones(b), 1e-6, 1e-4)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.fused_step_poly(*args, body="block", **kw)
+        # a known body goes on to the device check
+        for body in ("warp", "row", None):
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                cuda_impl.fused_step_poly(*args, body=body, **kw)
+
+
+SIGNS = (-2.5, -1.0, -0.0, 0.0, 1.0, 3.0, math.nan)
+
+
+def _crossed_by_masks(v_prev, v_new, fired, accept, up_only, down_only):
+    """fused_event_detect's test as the kernel runs it, from the two masks."""
+    up = (v_prev <= 0) & (v_new >= 0)
+    down = (v_prev >= 0) & (v_new <= 0)
+    E = v_prev.shape[1]
+    u = torch.tensor([bool(up_only >> e & 1) for e in range(E)])
+    d = torch.tensor([bool(down_only >> e & 1) for e in range(E)])
+    crossed = torch.where(u, up, torch.where(d, down, up | down))
+    crossed = crossed & ((v_prev != 0) | (v_new != 0))
+    return crossed & ~fired & accept[:, None], torch.where(accept[:, None], v_new, v_prev)
+
+
+class TestDirectionMasks:
+    @pytest.mark.parametrize("E", [1, 64])
+    @pytest.mark.parametrize("sign", SIGNS)
+    def test_every_sign(self, E, sign):
+        up_only, down_only = cuda_impl.direction_masks((sign,) * E)
+        full = (1 << E) - 1
+        assert up_only == (full if sign > 0 else 0)
+        assert down_only == (full if sign < 0 else 0)
+
+    @pytest.mark.parametrize("E", [1, 2, 63, 64])
+    def test_mixed_directions(self, E):
+        rng = np.random.default_rng(E)
+        directions = tuple(float(rng.choice(SIGNS)) for _ in range(E))
+        up_only, down_only = cuda_impl.direction_masks(directions)
+        assert up_only < 2**64 and down_only < 2**64 and not up_only & down_only
+        for e, d in enumerate(directions):
+            assert bool(up_only >> e & 1) == (d > 0)
+            assert bool(down_only >> e & 1) == (d < 0)
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("E", [1, 64])
+    def test_masks_decide_as_the_plain_version(self, dtype, E):
+        """The kernel's crossing test, run from the masks on the CPU, equals
+        ref.fused_event_detect bitwise for every direction."""
+        *args, cycle = event_checks.to_torch(event_checks.detect_inputs(E, 97, E, dtype), "cpu")
+        rng = np.random.default_rng(E + 1)
+        mixed = tuple(float(rng.choice(SIGNS)) for _ in range(E))
+        for directions in (cycle, mixed, *((s,) * E for s in SIGNS)):
+            masks = cuda_impl.direction_masks(directions)
+            event_checks.assert_bitwise("detect", _crossed_by_masks(*args, *masks),
+                                        ref.fused_event_detect(*args, directions=directions))
+
+    def test_too_many_events(self):
+        with pytest.raises(ValueError, match="at most 64 events"):
+            cuda_impl.direction_masks((1.0,) * 65)

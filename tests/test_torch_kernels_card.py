@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card, the fused
-step kernels bitwise against the unfused card path, the event kernels
-bitwise against their plain versions, and the chord-Newton kernels against
-theirs (at a tolerance: LAPACK/cuSOLVER eliminate in another order) with the
+step kernels bitwise against the unfused card path (``fused_step_poly``'s
+row body bitwise against its warp body too), the event kernels bitwise
+against their plain versions, and the chord-Newton kernels against theirs
+(at a tolerance: LAPACK/cuSOLVER eliminate in another order) with the
 unfused Newton iteration bitwise equal to the fused one.
 
 These tests need a CUDA device and skip without one; they import no JAX, so
@@ -237,6 +238,117 @@ class TestFusedStepOnCard:
                           POLY32_STATE if dtype == torch.float32 else None)
 
 
+# fused_step_poly's widths: the narrow vdp-like rows, around a warp (31, 33)
+# and around step_bench's 784 (whole 16-byte chunks or not); test_widest_row
+# takes the widest row body and the first width past it.
+POLY_WIDTHS = (1, 2, 31, 33, 783, 784, 785)
+POLY_COEFFS = {"logistic": (0.0, 1.0, -1.0), "constant": (0.25,),
+               # degree 5: the row body reads these from device memory
+               "quintic": (0.1, -1.0, 0.5, -0.25, 0.05, -0.01)}
+POLY_METHODS = {"dopri5": "pid", "heun": "pid", "rk4": "fixed", "euler": "fixed"}
+
+
+def _poly_case(device, dtype, b, f, method, poly, seed):
+    """Inputs of one fused_step_poly call: ``(y, f0, cols)`` and the keyword
+    arguments but ``want_coeffs``."""
+    tab = get_tableau(method)
+    mode = POLY_METHODS[method]
+    ctl = pid_controller() if mode == "pid" else FixedController()
+    a, c, b_sol, b_err = _tableau_arrays(tab, dtype)
+    coeffs = (POLY_COEFFS[poly] if poly != "per_feature"
+              else (0.5, tuple(np.linspace(-1.5, -0.5, f).tolist())))
+    y, _, cols, _ = step_inputs(b, f, tab.stages, dtype, device, _gen(seed), 4.0)
+    f0 = tref.poly_eval(y, coeffs)
+    kw = dict(a=a, c=c, b_sol=b_sol, b_err=b_err, poly=coeffs,
+              ctrl=ctl.filter_params(tab.error_order), fsal=tab.fsal, ctrl_mode=mode)
+    return y, f0, cols, kw
+
+
+def _hold_poly_bodies(y, f0, cols, kw, tols):
+    """The row body bitwise equal to the warp body and to the unfused card
+    path, and held to the plain version, for each (atol, rtol) of ``tols``,
+    with and without the Hermite coefficients; each body counted."""
+    for atol, rtol in tols:
+        for want_coeffs in (True, False):
+            args = (y, f0, *cols, atol, rtol)
+            kwc = dict(kw, want_coeffs=want_coeffs)
+            before = dict(cuda_impl.body_launches["fused_step_poly"])
+            row = cuda_impl.fused_step_poly(*args, body="row", **kwc)
+            warp = cuda_impl.fused_step_poly(*args, body="warp", **kwc)
+            assert cuda_impl.body_launches["fused_step_poly"] == {
+                "warp": before["warp"] + 1, "row": before["row"] + 1}
+            assert bitwise_mismatches(row, warp) == {}
+            assert bitwise_mismatches(
+                row, unfused_card(lambda: tref.fused_step_poly(*args, **kwc))) == {}
+            want = tref.fused_step_poly(*args, **kwc)
+            K = tref.poly_stages(y, f0, cols[3], kw["a"], kw["poly"])
+            hold_to_plain("fused_step_poly", row, want,
+                          ratio_floor(y, want[0], K, cols[3], kw["b_err"], atol, rtol),
+                          POLY32_STATE if y.dtype == torch.float32 else None)
+
+
+def _tol_shapes(b, f, dtype, device):
+    """A scalar, a (b,) and a (b, f) tolerance pair."""
+    g = _gen(b * f)
+
+    def fac(*shape):
+        return (1.0 + torch.rand(*shape, generator=g, dtype=dtype)).to(device)
+
+    return ((1e-4, 1e-3), (1e-4 * fac(b), 1e-3 * fac(b)), (1e-4 * fac(b, f), 1e-3 * fac(b, f)))
+
+
+class TestFusedStepPolyBodies:
+    """``fused_step_poly``'s row body against its warp body, the unfused card
+    path (both bitwise) and the plain version, over the widths at the
+    boundaries of its layout, FSAL and non-FSAL tableaus, the PID and fixed
+    controllers, scalar, per-feature and degree-5 polynomials, mixed running
+    rows and every tolerance shape."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", POLY_WIDTHS)
+    @pytest.mark.parametrize("method", list(POLY_METHODS))
+    @pytest.mark.parametrize("poly", ["logistic", "per_feature", "constant", "quintic"])
+    def test_row_equals_warp(self, cuda_device, dtype, f, method, poly):
+        b = 37
+        y, f0, cols, kw = _poly_case(cuda_device, dtype, b, f, method, poly, b + f)
+        _hold_poly_bodies(y, f0, cols, kw, _tol_shapes(b, f, dtype, cuda_device))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", [33, 784])
+    @pytest.mark.parametrize("plane", ["y", "f0"])
+    def test_unaligned_planes(self, cuda_device, dtype, f, plane):
+        """A plane one entry past a 16-byte boundary: entry by entry."""
+        b = 37
+        y, f0, cols, kw = _poly_case(cuda_device, dtype, b, f, "dopri5", "logistic", f)
+        if plane == "y":
+            y = event_checks.unaligned(y)
+        else:
+            f0 = event_checks.unaligned(f0)
+        _hold_poly_bodies(y, f0, cols, kw, _tol_shapes(b, f, dtype, cuda_device))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_widest_row(self, cuda_device, dtype):
+        """The widest f whose row fits the device's shared memory takes the
+        row body by default; one more takes the warp body, and the row body
+        is refused before the launch."""
+        lib = _build.load()
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        limit = lib.rt_fused_step_max_smem()
+        f = max(w for w in range(1, limit) if cuda_impl.row_smem_bytes(w, itemsize) <= limit)
+        for width, body in ((f, "row"), (f + 1, "warp")):
+            assert cuda_impl.fused_step_poly_body(width, itemsize, limit) == body
+            y, f0, cols, kw = _poly_case(cuda_device, dtype, 3, width, "dopri5", "logistic", 3)
+            before = dict(cuda_impl.body_launches["fused_step_poly"])
+            cuda_impl.fused_step_poly(y, f0, *cols, 1e-4, 1e-3, want_coeffs=True, **kw)
+            assert cuda_impl.body_launches["fused_step_poly"][body] == before[body] + 1
+            if body == "row":
+                _hold_poly_bodies(y, f0, cols, kw, [(1e-4, 1e-3)])
+            else:
+                with pytest.raises(ValueError, match="the row body needs"):
+                    cuda_impl.fused_step_poly(y, f0, *cols, 1e-4, 1e-3, want_coeffs=True,
+                                              body="row", **kw)
+
+
 @pytest.mark.parametrize("method", ["dopri5", "tsit5", "heun"])
 def test_fused_solve_counts_launches_and_matches_unfused(cuda_device, method):
     """A float64 fused solve takes the unfused solve's steps, with one
@@ -317,6 +429,23 @@ class TestEventKernelsOnCard:
         for directions in (dirs, (1.0,) * E, (-1.0,) * E):
             event_checks.assert_bitwise(
                 "fused_event_detect", cuda_impl.fused_event_detect(*args, directions=directions),
+                tref.fused_event_detect(*args, directions=directions))
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("b", [1, 37, 1024])
+    @pytest.mark.parametrize("E", [1, 2, 31, 32, 33, 63, 64])
+    def test_fused_event_detect_layouts(self, cuda_device, dtype, b, E):
+        """A row's segment of threads at every width (one event a thread up
+        to 32, two above), every direction in one batch and each alone, NaN
+        directions, NaN and +-0 condition values, mixed fired and accept."""
+        *args, cycle = event_checks.to_torch(event_checks.detect_inputs(b * E, b, E, dtype),
+                                             cuda_device)
+        rng = np.random.default_rng(E)
+        mixed = tuple(float(d) for d in rng.choice([-2.0, -1.0, -0.0, 0.0, 1.0, 3.0, np.nan], E))
+        for directions in (cycle, mixed, (1.0,) * E, (-1.0,) * E, (0.0,) * E, (np.nan,) * E):
+            event_checks.assert_bitwise(
+                f"fused_event_detect[b={b} E={E}]",
+                cuda_impl.fused_event_detect(*args, directions=directions),
                 tref.fused_event_detect(*args, directions=directions))
 
     @pytest.mark.parametrize("dtype", [np.float32, np.float64])
