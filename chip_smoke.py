@@ -19,9 +19,12 @@ raises, and the script exits non-zero without printing a result:
                    plain version, the error ratio to the same tolerance plus
                    its rounding floor (``repro_torch.tools.step_checks``),
                    and every output must be bitwise equal to the unfused
-                   card path; ``fused_step_poly``'s two bodies (a warp per
-                   row, a block per row) bitwise equal to each other, with
-                   both times beside the chosen one's (``ms_by_body``).
+                   card path; each kernel's two bodies (a warp per row, a
+                   block per row) bitwise equal to each other, with both
+                   times beside the chosen one's (``ms_by_body``), and
+                   ``fused_step``'s launches by body.  ``stage_accum`` at
+                   every stage count j = 1..7, in 16-byte chunks and entry
+                   by entry (odd f, K off a 16-byte boundary).
                    The event kernels (``masked_bisect_refine``,
                    ``fused_event_detect``, ``fused_event_commit``) at E = 2
                    over their cases (``repro_torch.tools.event_checks``) are
@@ -49,7 +52,9 @@ raises, and the script exits non-zero without printing a result:
                    ``polynomial_term``) at b = 1024, f = 784 against the
                    closed form and the unfused run, every launch on the row
                    body of ``fused_step_poly`` (its ``body_launches``
-                   printed), and full_width_long (the
+                   printed; so ``fused_step``'s at full_width and
+                   full_width_long, and every fused solve's on the body
+                   ``fused_step_body`` picks), and full_width_long (the
                    same network with a real step count) unfused and fused:
                    ms per step, loop iterations, exact launch counts.
 7. ``events``      the event workloads (``tools/workloads.py``), unfused and
@@ -64,7 +69,9 @@ raises, and the script exits non-zero without printing a result:
                    ``vdp_stiff_mixed``, ``robertson_sweep`` and
                    ``allen_cahn_full`` (b = 1024), unfused and fused: every
                    row SUCCESS, exact launch counts of the four Newton
-                   kernels (> 0 on their path, 0 on the other), fused equal
+                   kernels (> 0 on their path, 0 on the other), every
+                   ``fused_step`` launch on the body ``fused_step_body``
+                   picks, fused equal
                    to unfused bitwise, rows 0-31 solved alone equal to the
                    same rows of the batch bitwise (all but ``n_f_evals``),
                    float64 card solves of rows 0-7 against the CPU's.
@@ -380,15 +387,40 @@ def main() -> int:
                     cuda_impl.interp_eval(coeffs, xw, mw, out.clone(), cursor),
                     ref.interp_eval_window(coeffs, xw, mw, out, cursor), dtype)
 
+    # stage_accum at every stage count of a tableau of up to kMaxStages = 8
+    # stages (j = 1..7) on both of its paths: 16-byte chunks (f % V == 0 and
+    # every plane aligned) and entry by entry (an odd width; K one entry off
+    # a 16-byte boundary); rows narrower than a warp share a block.
+    accum_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for b, f, offset in ((37, 784, 0), (37, 783, 0), (37, 784, 1), (5, 1, 0), (300, 2, 1),
+                             (3, 1000, 0)):
+            y = torch.randn(b, f, generator=gen, dtype=dtype).to(dev)
+            dt = 0.1 * torch.rand(b, generator=gen, dtype=dtype).to(dev)
+            flat = torch.randn(7 * b * f + offset, generator=gen, dtype=dtype).to(dev)
+            a = coef_rng.standard_normal(7)
+            for j in range(1, 8):
+                Kj = flat[offset:offset + j * b * f].view(j, b, f)
+                compare(f"stage_accum[b={b} f={f} K offset={offset} j={j}]",
+                        cuda_impl.stage_accum(y, dt, Kj, a[:j]), ref.stage_accum(y, dt, Kj, a[:j]),
+                        dtype)
+                accum_cases += 1
+    emit("kernels", kernel="stage_accum", check="j = 1..7, chunked and entry by entry",
+         cases=accum_cases, tol={"float32": tolerance(torch.float32),
+                                 "float64": tolerance(torch.float64)})
+
     # The fused step kernels, against their plain versions (ref.fused_step,
     # ref.fused_step_poly) on the same card tensors, over every option:
     # float32/float64, pid (integral_controller's exponents, where b2 = b3 =
     # 0, and pid_controller's) and fixed mode, the three tolerance shapes,
-    # coefficients on and off, `failed` null and set.  atol is picked as
+    # coefficients on and off, `failed` null and set, `f0` null and set (the
+    # stiff fused step passes both).  atol is picked as
     # tests/test_fused_step.py picks it, so the running rows mix accepts and
     # rejects.  The comparison rule (every output, the error ratio to its
     # rounding floor) is step_checks.hold_to_plain; each case must also be
-    # bitwise equal to the unfused card path (step_checks.unfused_card).
+    # bitwise equal to the unfused card path (step_checks.unfused_card), and
+    # each kernel's two bodies (a warp per row, a block per row) bitwise equal
+    # to each other.
     def mixed_atol(probe, running):
         """The atol at which the running rows' ratios straddle 1: ratio ~
         1/atol here, so rescale the probe's ratios (taken at atol 0.05)
@@ -418,8 +450,8 @@ def main() -> int:
         """Hold one case bitwise against the unfused card path and by
         step_checks.hold_to_plain against the plain version; time it if
         ``timed``.  ``floor_of(y1)`` gives the ratio's rounding floor.
-        ``bodies`` (fused_step_poly): each body's run, held bitwise to the
-        default run (so the bodies to each other) and timed beside it."""
+        ``bodies``: each body's run, held bitwise to the default run (so the
+        bodies to each other) and timed beside it."""
         dt_name = str(dtype).split(".")[-1]
         name = f"{kernel}[{shape_name} {dt_name} {label}]"
         got = run_kernel()
@@ -467,6 +499,7 @@ def main() -> int:
                 mode = "fixed" if cname == "fixed" else "pid"
                 ctrl = ctl.filter_params(tab.error_order)
                 y, K, cols, failed_rows = step_checks.step_inputs(b, f, s, dtype, dev, gen)
+                f0_plane = torch.randn(b, f, generator=gen, dtype=dtype).to(dev)
                 for kind in ("scalar", "(b,)", "(b,f)"):
                     fac = tol_factors(kind, b, f, dtype)
                     probe = ref.fused_step(y, K, K[-1], *cols, 0.05 * fac, 1e-3 * fac,
@@ -475,27 +508,32 @@ def main() -> int:
                     atol, rtol = mixed_atol(probe, cols[4]) * fac, 1e-3 * fac
                     tol_elems = {"scalar": 0, "(b,)": 2 * b, "(b,f)": 2 * b * f}[kind]
                     for want_coeffs in (True, False):
-                        for failed in (None, failed_rows):
-                            def call(fn, failed=failed, want_coeffs=want_coeffs, atol=atol,
-                                     rtol=rtol):
+                        for failed, f0 in ((None, None), (failed_rows, None),
+                                           (failed_rows, f0_plane)):
+                            def call(fn, failed=failed, f0=f0, want_coeffs=want_coeffs,
+                                     atol=atol, rtol=rtol, **body):
                                 return lambda: fn(y, K, K[-1], *cols, atol, rtol,
                                                   b_sol=b_sol, b_err=b_err, ctrl=ctrl,
                                                   want_coeffs=want_coeffs, ctrl_mode=mode,
-                                                  failed=failed)
+                                                  failed=failed, f0=f0, **body)
                             fused_case(
                                 "fused_step", shape_name, dtype,
                                 f"{cname} tol={kind} coeffs={want_coeffs} "
-                                f"failed={'set' if failed is not None else 'null'}",
+                                f"failed={'set' if failed is not None else 'null'} "
+                                f"f0={'set' if f0 is not None else 'null'}",
                                 call(cuda_impl.fused_step), call(ref.fused_step),
                                 lambda y1, atol=atol, rtol=rtol: step_checks.ratio_floor(
                                     y, y1, K, cols[3], b_err, atol, rtol),
-                                # Inputs y and K; f1 is K[s-1] (the FSAL stage),
-                                # the same memory, read once.
-                                step_bytes(e, b, f, s + 1, 3 + 3 * want_coeffs, tol_elems,
-                                           failed is not None),
+                                # Inputs y and K (and f0 where set); f1 is
+                                # K[s-1] (the FSAL stage), the same memory,
+                                # read once.
+                                step_bytes(e, b, f, s + 1 + (f0 is not None),
+                                           3 + 3 * want_coeffs, tol_elems, failed is not None),
                                 (4 * s + 22) * b * f,
                                 timed=(cname == "pid/integral" and kind == "scalar"
-                                       and want_coeffs and failed is None))
+                                       and want_coeffs and failed is None),
+                                bodies={body: call(cuda_impl.fused_step, body=body)
+                                        for body in cuda_impl.STEP_BODIES})
             # fused_step_poly: FSAL (dopri5), non-FSAL (heun), fixed (rk4);
             # a scalar logistic polynomial and a per-feature one.
             per_feature = tuple(np.linspace(-1.5, -0.5, f).tolist())
@@ -543,8 +581,10 @@ def main() -> int:
         emit("kernels", kernel=kernel, shape=shape_name, dtype=dt, check="all options",
              tol=tolerance(getattr(torch, dt)), state_tol=POLY32_STATE if poly32 else None,
              knife_edge=step_checks.KNIFE_EDGE, bitwise_equal_to_unfused_card=True,
-             bodies_bitwise_equal=list(cuda_impl.POLY_BODIES) if kernel == "fused_step_poly"
-             else None, **agg)
+             bodies_bitwise_equal=list(cuda_impl.POLY_BODIES if kernel == "fused_step_poly"
+                                       else cuda_impl.STEP_BODIES), **agg)
+    emit("kernels", kernel="fused_step", check="launches by body over the cases above",
+         body_launches=dict(cuda_impl.body_launches["fused_step"]))
 
     # The event kernels at E = 2 (one terminal, one marker event, as on the
     # main path), over the cases of tools/event_checks.py (active, inactive
@@ -1105,8 +1145,18 @@ def main() -> int:
                                        and np.array_equal(got.stats["n_steps"],
                                                           want.stats["n_steps"])))
 
+    def step_bodies(label, n, f, itemsize=4):
+        """fused_step's launches by body since the last reset: all ``n`` must
+        have taken the body ``fused_step_body`` picks at width ``f``."""
+        bodies = dict(cuda_impl.body_launches["fused_step"])
+        body = cuda_impl.fused_step_body(f, itemsize, _build.load().rt_fused_step_max_smem())
+        check(bodies[body] == n and sum(bodies.values()) == n,
+              f"{label}: fused_step bodies {bodies}, want {n} {body}")
+        return bodies
+
     def fused_solve(label, path, stages, *args, fsal=True, **kw):
-        """A fused solve on the card with exact launch counts; returns the
+        """A fused solve on the card with exact launch counts, every
+        fused_step launch on the body fused_step_body picks; returns the
         numpy solution, its wall time and its launches."""
         dense = kw.get("dense", True) and len(args) > 2 and args[2] is not None
         solve_ivp(*args, device=dev, fused=True, **kw)  # warm-up
@@ -1120,7 +1170,11 @@ def main() -> int:
         check(np.array_equal(out.stats["n_fused_steps"], out.stats["n_steps"])
               and int(out.stats["fused_fallback_reason"].max()) == 0,
               f"{label}: the fused path did not run every step")
+        fused_step_bodies[label] = step_bodies(label, launches["fused_step"],
+                                               args[1].shape[1], args[1].itemsize)
         return out, wall, launches
+
+    fused_step_bodies = {}  # fused_step's launches by body, per fused solve
 
     # 6a. vdp_table3, dopri5 and tsit5, float32 and float64.
     vf, y32, t32, kw = workloads.vdp_table3(np.float32)
@@ -1145,7 +1199,9 @@ def main() -> int:
         iters, uiters = int(f32.stats["n_steps"].max()), int(u32.stats["n_steps"].max())
         emit("fused", workload="vdp_table3", method=method, dtype="float32",
              max_steps=iters, ms_per_step=wall / iters, unfused_ms_per_step=uwall / uiters,
-             launches=launches, float64_unfused_max_abs_diff=d64,
+             launches=launches,
+             fused_step_body_launches=fused_step_bodies[f"fused/vdp_table3/{method}"],
+             float64_unfused_max_abs_diff=d64,
              float64_bitwise_equal=bool(np.array_equal(f64.ys, u64.ys)),
              vs_cpu_fused=hold_f32(f"fused/vdp_table3/{method} card vs CPU", f32, cpu,
                                    float(np.abs(f32.ys - truth.ys).max())),
@@ -1158,6 +1214,9 @@ def main() -> int:
     vf, y0, te, kw = workloads.full_width(dev)
     ffull, wall, launches = fused_solve("fused/full_width", "fused", 7, vf, y0, te, **kw)
     main_path_launches["fused/full_width"] = launches
+    check(fused_step_bodies["fused/full_width"]["row"] == launches["fused_step"] > 0,
+          f"fused/full_width: fused_step bodies {fused_step_bodies['fused/full_width']}, not "
+          "every launch on the row body")
     args64 = {k: v.double() for k, v in kw["args"].items()}
     truth = convert.to_numpy(solve_ivp(vf, y0[:32].astype(np.float64), te.astype(np.float64),
                                        device=dev, **{**kw, "args": args64, "atol": 1e-9,
@@ -1171,7 +1230,8 @@ def main() -> int:
           f"step counts match, max ys diff {diff}")
     iters = int(ffull.stats["n_steps"].max())
     emit("fused", workload="full_width", method="dopri5", dtype="float32", max_steps=iters,
-         ms_per_step=wall / iters, launches=launches, vs_unfused_card=vs,
+         ms_per_step=wall / iters, launches=launches,
+         fused_step_body_launches=fused_step_bodies["fused/full_width"], vs_unfused_card=vs,
          independence=dict(steps_match_of_32=match, max_abs_diff=diff))
 
     # 6c. The JAX package's fused workload (benchmarks/step_bench.py):
@@ -1239,6 +1299,10 @@ def main() -> int:
         iters = int(out.stats["n_steps"].max())
         want = expected_launches(7, iters, path)
         check(launches == want, f"full_width_long/{path}: launches {launches} != {want}")
+        bodies = step_bodies(f"full_width_long/{path}", want["fused_step"], y0.shape[1])
+        check(bodies["row"] == want["fused_step"],
+              f"full_width_long/{path}: fused_step bodies {bodies}, not every launch on the "
+              "row body")
         check(np.isfinite(out.ys).all() and (out.status == 0).all(),
               f"full_width_long/{path}: output not finite or not SUCCESS")
         long_runs[path] = out
@@ -1246,7 +1310,7 @@ def main() -> int:
              weight_scale=workloads.LONG["weight_scale"], t_end=workloads.LONG["t_end"],
              max_steps=iters, mean_steps=float(out.stats["n_steps"].mean()),
              mean_accepted=float(out.stats["n_accepted"].mean()), wall_ms=wall,
-             ms_per_step=wall / iters, launches=launches)
+             ms_per_step=wall / iters, launches=launches, fused_step_body_launches=bodies)
     check(np.array_equal(long_runs["fused"].stats["n_fused_steps"],
                          long_runs["fused"].stats["n_steps"]),
           "full_width_long: the fused path did not run every step")
@@ -1457,6 +1521,7 @@ def main() -> int:
                   and sum(bodies.values()) == want["fused_newton_iter"],
                   f"stiff/{name}/{path}: fused_newton_iter bodies {bodies}, want "
                   f"{want['fused_newton_iter']} {body}")
+            step_body = step_bodies(f"stiff/{name}/{path}", want["fused_step"], y0.shape[1])
             check(bool((out.status == 0).all()) and np.isfinite(out.ys).all(),
                   f"stiff/{name}/{path}: status {np.bincount(out.status)}")
             runs[path] = out
@@ -1468,7 +1533,7 @@ def main() -> int:
                  n_jac_evals=spread(out.stats["n_jac_evals"]),
                  n_f_evals=int(out.stats["n_f_evals"][0]), wall_ms=wall,
                  ms_per_step=wall / iters, launches=launches, elimination_paths=paths,
-                 newton_iter_bodies=bodies)
+                 newton_iter_bodies=bodies, fused_step_body_launches=step_body)
         check(stiff_equal(runs["fused"], runs["unfused"]),
               f"stiff/{name}: fused and unfused card solves differ")
         # Per-instance independence, now with per-row Newton masks: rows

@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
         lib.rt_fused_step_args_size.restype = i
         lib.rt_fused_step_max_smem.argtypes = []
         lib.rt_fused_step_max_smem.restype = i
-        lib.rt_fused_step.argtypes = [i, p, p]
+        lib.rt_fused_step.argtypes = [i, i, p, p]
         lib.rt_fused_step_poly.argtypes = [i, i, p, p]
         i8p = ctypes.POINTER(ctypes.c_int8)
         lib.rt_max_events.argtypes = []

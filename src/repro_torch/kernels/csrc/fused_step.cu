@@ -24,9 +24,8 @@
 // Schedule.  The TPU holds a whole row in VMEM (one pass), or for f > 128
 // runs a two-phase feature-tiled grid.  Here two bodies:
 //
-// The warp body (fused_step, and fused_step_poly where the row body does not
-// fit): one warp owns one row, 8 rows to a block, as error_norm does, and
-// sweeps f twice:
+// The warp body (where the row body does not fit): one warp owns one row, 8
+// rows to a block, as error_norm does, and sweeps f twice:
 //   sweep 1 forms y1 and err per element and accumulates error_norm's sum of
 //           squares lane-strided, then the same xor-shuffle reduction and
 //           sqrt(sum / f); every lane then holds the ratio and runs the
@@ -37,12 +36,14 @@
 // No f limit, no shared memory, no cross-block state; sweep 2 re-reads its
 // inputs, largely from L2.
 //
-// The row body (fused_step_poly; below, with its layout): a block per row, a
-// thread per 16-byte chunk, the stage recursion run once per entry with the
-// polynomial's coefficients in registers, and the row's scaled errors, y and
-// f0 kept in shared memory for the ordered sum and the commit.  What held
-// the warp body back on fused_step_poly (PERF.md): 128 blocks for 132 SMs
-// at step_bench's b = 1024 (two warps a scheduler), one 4-byte element of a
+// The row bodies (below, with their layout): a block per row, a thread per
+// 16-byte chunk, and the row's scaled errors, y and k0 kept in shared memory
+// for the ordered sum and the commit (row_finish, one copy for both).
+// fused_step_poly's runs the stage recursion once per entry with the
+// polynomial's coefficients in registers; fused_step's issues the chunk's
+// stage loads together, its stage count a template argument.  What held the
+// warp body back on fused_step_poly (PERF.md): 128 blocks for 132 SMs at
+// step_bench's b = 1024 (two warps a scheduler), one 4-byte element of a
 // lane at a time, the whole recursion run twice with its coefficients
 // reloaded at every stage.  On an NVIDIA H100 80GB HBM3 (700 W), b = 1024, f
 // = 784, dopri5, the logistic polynomial, float32: 0.080 ms the warp body,
@@ -344,56 +345,6 @@ constexpr int row_min_blocks() {
   return sizeof(T) == 4 ? 8 : 4;
 }
 
-template <typename T, int V>
-struct Vec {
-  T v[V];
-};
-
-// A V-entry chunk from device memory through the read-only path.
-template <typename T, int V>
-__device__ __forceinline__ Vec<T, V> load_chunk(const T* p) {
-  if constexpr (V == 1) {
-    return Vec<T, 1>{{__ldg(p)}};
-  } else {
-    union {
-      uint4 raw;
-      Vec<T, V> c;
-    } u;
-    u.raw = __ldg(reinterpret_cast<const uint4*>(p));
-    return u.c;
-  }
-}
-
-// A V-entry chunk from shared memory.
-template <typename T, int V>
-__device__ __forceinline__ Vec<T, V> shared_chunk(const T* p) {
-  if constexpr (V == 1) {
-    return Vec<T, 1>{{*p}};
-  } else {
-    union {
-      uint4 raw;
-      Vec<T, V> c;
-    } u;
-    u.raw = *reinterpret_cast<const uint4*>(p);
-    return u.c;
-  }
-}
-
-// A V-entry chunk to device or shared memory.
-template <typename T, int V>
-__device__ __forceinline__ void store_chunk(T* p, const Vec<T, V>& c) {
-  if constexpr (V == 1) {
-    *p = c.v[0];
-  } else {
-    union {
-      uint4 raw;
-      Vec<T, V> c;
-    } u;
-    u.c = c;
-    *reinterpret_cast<uint4*>(p) = u.raw;
-  }
-}
-
 // Bytes of one plane of f entries of `size` bytes, padded to 16 bytes.
 __host__ __device__ inline size_t row_plane_bytes(int64_t f, size_t size) {
   return (static_cast<size_t>(f) * size + 15) / 16 * 16;
@@ -403,17 +354,85 @@ inline size_t row_smem_bytes(int64_t f, size_t size) {
   return kRowHead + 3 * row_plane_bytes(f, size);
 }
 
+// Entries of one such plane: the stride of the row bodies' shared planes.
+__device__ __forceinline__ int row_plane(int f, size_t size) {
+  return static_cast<int>(row_plane_bytes(f, size) / size);
+}
+
+// The row's (b,) input that lane k of a row body loads (k < 7), else 0.
+template <typename T>
+__device__ __forceinline__ T row_column(const Params<T>& p, int64_t row, int k) {
+  switch (k) {
+    case 0: return p.dt_cur[row];
+    case 1: return p.prev_inv[row];
+    case 2: return p.prev2_inv[row];
+    case 3: return p.t[row];
+    case 4: return p.t_new[row];
+    case 5: return T(p.running[row] != 0);
+    case 6: return T(p.failed && p.failed[row]);
+    default: return T(0);
+  }
+}
+
+// Phases 2 and 3 of both row bodies, once phase 1 has left the row's scaled
+// errors r, y and k0 in shared memory and `col` is row_column's input.
+template <typename T, int V>
+__device__ __forceinline__ void row_finish(const Params<T>& p, int64_t row, T col,
+                                           unsigned char* smem) {
+  const int f = static_cast<int>(p.f);
+  const int nc = f / V;
+  const int64_t base = row * p.f;
+  T* cols_s = reinterpret_cast<T*>(smem);
+  int* accept_s = reinterpret_cast<int*>(smem + 64);
+  const T* r_s = reinterpret_cast<const T*>(smem + kRowHead);
+  const T* y_s = r_s + row_plane(f, sizeof(T));
+  const T* k0_s = y_s + row_plane(f, sizeof(T));
+  if (threadIdx.x < 7) cols_s[threadIdx.x] = col;
+  __syncthreads();
+
+  // 2. The ratio in error_norm's order, and the decision (the warp body's).
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    T sum = T(0);
+#pragma unroll 8
+    for (int c = lane; c < f; c += 32) sum = fma_of(r_s[c], r_s[c], sum);
+    T ratio = wrms_finish(warp_sum(sum), p.f);
+    const bool failed = cols_s[6] != T(0);
+    if (failed) ratio = T(INFINITY);
+    const T dt_cur = cols_s[0], pi1 = cols_s[1], pi2 = cols_s[2];
+    const Decision<T> d = p.ctrl_mode == 0 ? pid_decide(p.ctrl, ratio, dt_cur, pi1, pi2)
+                                           : Decision<T>{true, dt_cur, pi1, pi2};
+    const bool running = cols_s[5] != T(0);
+    const bool accept = d.accept && running && !failed;
+    if (lane == 0) {
+      p.ratio[row] = ratio;
+      p.accept[row] = accept;
+      p.t_out[row] = accept ? cols_s[4] : cols_s[3];
+      p.dt_out[row] = running ? d.dt_next : dt_cur;
+      p.new_inv[row] = d.new_inv;
+      p.new_inv2[row] = d.new_inv2;
+      *accept_s = accept;
+    }
+  }
+  __syncthreads();
+
+  // 3. A rejected row keeps y and k0.
+  if (*accept_s) return;
+  for (int q = threadIdx.x; q < nc; q += blockDim.x) {
+    const int c0 = q * V;
+    store_chunk<T, V>(p.y_out + base + c0, shared_chunk<T, V>(y_s + c0));
+    store_chunk<T, V>(p.f_out + base + c0, shared_chunk<T, V>(k0_s + c0));
+  }
+}
+
 template <typename T, int V, int NP>
 __global__ void __launch_bounds__(kRowThreads, row_min_blocks<T>())
     fused_step_poly_row_kernel(const __grid_constant__ Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int f = static_cast<int>(p.f);
-  const int plane = static_cast<int>(row_plane_bytes(f, sizeof(T)) / sizeof(T));
-  T* cols_s = reinterpret_cast<T*>(smem);
-  int* accept_s = reinterpret_cast<int*>(smem + 64);
   T* r_s = reinterpret_cast<T*>(smem + kRowHead);
-  T* y_s = r_s + plane;
-  T* k0_s = y_s + plane;
+  T* y_s = r_s + row_plane(f, sizeof(T));
+  T* k0_s = y_s + row_plane(f, sizeof(T));
   const int64_t row = blockIdx.x;
   const int64_t base = row * p.f;
   const T h = p.safe_dt[row];
@@ -421,17 +440,7 @@ __global__ void __launch_bounds__(kRowThreads, row_min_blocks<T>())
   const int k = threadIdx.x;
 
   // The row's (b,) inputs, one a lane, in flight while the stages run.
-  T col = T(0);
-  switch (k) {
-    case 0: col = p.dt_cur[row]; break;
-    case 1: col = p.prev_inv[row]; break;
-    case 2: col = p.prev2_inv[row]; break;
-    case 3: col = p.t[row]; break;
-    case 4: col = p.t_new[row]; break;
-    case 5: col = T(p.running[row] != 0); break;
-    case 6: col = T(p.failed && p.failed[row]); break;
-    default: break;
-  }
+  const T col = row_column(p, row, k);
 
   // 1. The stages, once per entry; the loads of a chunk before its chain,
   // and the next chunk's y and f0 in flight while it runs.
@@ -492,42 +501,100 @@ __global__ void __launch_bounds__(kRowThreads, row_min_blocks<T>())
     store_chunk<T, V>(y_s + c0, y);
     store_chunk<T, V>(k0_s + c0, f0);
   }
-  if (k < 7) cols_s[k] = col;
-  __syncthreads();
+  row_finish<T, V>(p, row, col, smem);
+}
 
-  // 2. The ratio in error_norm's order, and the decision (the warp body's).
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    T sum = T(0);
-#pragma unroll 8
-    for (int c = lane; c < f; c += 32) sum = fma_of(r_s[c], r_s[c], sum);
-    T ratio = wrms_finish(warp_sum(sum), p.f);
-    const bool failed = cols_s[6] != T(0);
-    if (failed) ratio = T(INFINITY);
-    const T dt_cur = cols_s[0], pi1 = cols_s[1], pi2 = cols_s[2];
-    const Decision<T> d = p.ctrl_mode == 0 ? pid_decide(p.ctrl, ratio, dt_cur, pi1, pi2)
-                                           : Decision<T>{true, dt_cur, pi1, pi2};
-    const bool running = cols_s[5] != T(0);
-    const bool accept = d.accept && running && !failed;
-    if (lane == 0) {
-      p.ratio[row] = ratio;
-      p.accept[row] = accept;
-      p.t_out[row] = accept ? cols_s[4] : cols_s[3];
-      p.dt_out[row] = running ? d.dt_next : dt_cur;
-      p.new_inv[row] = d.new_inv;
-      p.new_inv2[row] = d.new_inv2;
-      *accept_s = accept;
-    }
-  }
-  __syncthreads();
+// --------------------------------------------------- the row body (K planes)
+// fused_step's row body: fused_step_poly's row body with the s stage planes
+// K as the stage source.  One block per row, a thread per V-entry chunk (V =
+// 16 / sizeof(T) where f % V == 0 and every plane starts 16-byte aligned,
+// else V = 1), the stage count S a template argument.  Phase 1: each thread
+// issues its chunk's S K loads, y's and, where they are not already among
+// them, f1's (FSAL: f1 is the plane K[S-1], compared by pointer) and f0's
+// before the first fma; forms y1 and err with fused_update's sums
+// (weighted_sums_n: acc from 0, fma(w_j, K_j, acc) for j ascending, the
+// bits of the warp body's weighted_sums); writes y1, c1..c3, and y_out = y1,
+// f_out = f1 as if the row were accepted; and keeps r, y and k0 (f0 where
+// given, else K[0]) in shared memory.  Phases 2 and 3 are row_finish.  What
+// held the warp body back, as on fused_step_poly: 128 blocks for 132 SMs at
+// b = 1024, one 4-byte element of a lane at a time behind a run-time stage
+// count, and every plane read twice (two sweeps).
+//
+// Threads a block and blocks an SM must hold: 128 and 6 (80 registers a
+// thread) in float32, 256 and 2 (128) in float64.  On an H100 at b = 1024
+// these measured fastest against the row body of fused_step_poly's 128 and
+// 8 (64 registers; the float32 variants of 6 to 8 stages spilled up to 48
+// bytes, and rows of f <= 128 ran 10-15 % slower) and 256 threads in
+// float32 (PERF.md).
+template <typename T>
+constexpr int step_row_threads() {
+  return sizeof(T) == 4 ? 128 : 256;
+}
 
-  // 3. A rejected row keeps y and f0.
-  if (*accept_s) return;
+template <typename T>
+constexpr int step_row_min_blocks() {
+  return sizeof(T) == 4 ? 6 : 2;
+}
+
+template <typename T, int V, int S>
+__global__ void __launch_bounds__(step_row_threads<T>(), step_row_min_blocks<T>())
+    fused_step_row_kernel(const __grid_constant__ Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int f = static_cast<int>(p.f);
+  T* r_s = reinterpret_cast<T*>(smem + kRowHead);
+  T* y_s = r_s + row_plane(f, sizeof(T));
+  T* k0_s = y_s + row_plane(f, sizeof(T));
+  const int64_t row = blockIdx.x;
+  const int64_t n = p.b * p.f;  // K[j] is plane j
+  const int64_t base = row * p.f;
+  const T h = p.safe_dt[row];
+  const int nc = f / V;
+  const bool f1_is_last = p.f1 == p.K + (S - 1) * n;
+
+  // The row's (b,) inputs, one a lane, in flight while the chunks load.
+  const T col = row_column(p, row, threadIdx.x);
+
   for (int q = threadIdx.x; q < nc; q += blockDim.x) {
     const int c0 = q * V;
-    store_chunk<T, V>(p.y_out + base + c0, shared_chunk<T, V>(y_s + c0));
-    store_chunk<T, V>(p.f_out + base + c0, shared_chunk<T, V>(k0_s + c0));
+    Vec<T, V> ks[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) ks[j] = load_chunk<T, V>(p.K + j * n + base + c0);
+    const Vec<T, V> y = load_chunk<T, V>(p.y + base + c0);
+    const Vec<T, V> f1 = f1_is_last ? ks[S - 1] : load_chunk<T, V>(p.f1 + base + c0);
+    const Vec<T, V> k0 = p.f0 ? load_chunk<T, V>(p.f0 + base + c0) : ks[0];
+    Vec<T, V> r, y1;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      T acc_sol, acc_err;
+      weighted_sums_n<S>(p.b_sol, p.b_err, [&](int j) { return ks[j].v[e]; }, acc_sol,
+                         acc_err);
+      y1.v[e] = fma_of(h, acc_sol, y.v[e]);
+      const T err = h * acc_err;
+      r.v[e] = wrms_scaled(err, y.v[e], y1.v[e], p.atol.at(row, c0 + e),
+                           p.rtol.at(row, c0 + e));
+    }
+    // The planes as if the row were accepted; phase 3 rewrites a rejected
+    // row's y_out and f_out.
+    store_chunk<T, V>(p.y1 + base + c0, y1);
+    store_chunk<T, V>(p.y_out + base + c0, y1);
+    store_chunk<T, V>(p.f_out + base + c0, f1);
+    if (p.c1) {  // ref.hermite_coeffs, one rounding per op
+      Vec<T, V> c1, c2, c3;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        c1.v[e] = mul_rn(h, k0.v[e]);
+        c2.v[e] = hermite_c2(y.v[e], y1.v[e], k0.v[e], f1.v[e], h);
+        c3.v[e] = hermite_c3(y.v[e], y1.v[e], k0.v[e], f1.v[e], h);
+      }
+      store_chunk<T, V>(p.c1 + base + c0, c1);
+      store_chunk<T, V>(p.c2 + base + c0, c2);
+      store_chunk<T, V>(p.c3 + base + c0, c3);
+    }
+    store_chunk<T, V>(r_s + c0, r);
+    store_chunk<T, V>(y_s + c0, y);
+    store_chunk<T, V>(k0_s + c0, k0);
   }
+  row_finish<T, V>(p, row, col, smem);
 }
 
 template <typename T>
@@ -584,19 +651,20 @@ int launch_fused_step(const FusedStepArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V, int NP>
-int launch_row_variant(const FusedStepArgs& a, size_t smem, cudaStream_t stream) {
-  auto kernel = fused_step_poly_row_kernel<T, V, NP>;
+// A row body's launch: a block per row of up to kThreads threads, `smem`
+// bytes of dynamic shared memory (row_smem_bytes), V entries a thread.
+template <typename T, int V, int kThreads = kRowThreads, typename Kernel>
+int launch_row_kernel(Kernel kernel, const FusedStepArgs& a, size_t smem,
+                      cudaStream_t stream) {
   // No static shared memory: up to the default 48 KiB needs no opt-in.
   if (smem > kDefaultSmem) {
     const cudaError_t e = reserve_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // Whole warps, enough for a chunk each up to kRowThreads; warp 0 always.
+  // Whole warps, enough for a chunk each up to kThreads; warp 0 always.
   const int64_t warps = (a.f / V + 31) / 32;
   const unsigned threads =
-      32 * static_cast<unsigned>(warps < 1 ? 1 : warps > kRowThreads / 32 ? kRowThreads / 32
-                                                                             : warps);
+      32 * static_cast<unsigned>(warps < 1 ? 1 : warps > kThreads / 32 ? kThreads / 32 : warps);
   kernel<<<static_cast<unsigned>(a.b), threads, smem, stream>>>(params_of<T>(a));
   return static_cast<int>(cudaGetLastError());
 }
@@ -605,12 +673,52 @@ int launch_row_variant(const FusedStepArgs& a, size_t smem, cudaStream_t stream)
 template <typename T, int V>
 int launch_row_np(const FusedStepArgs& a, size_t smem, cudaStream_t stream) {
   switch (a.npoly) {
-    case 1: return launch_row_variant<T, V, 1>(a, smem, stream);
-    case 2: return launch_row_variant<T, V, 2>(a, smem, stream);
-    case 3: return launch_row_variant<T, V, 3>(a, smem, stream);
-    case 4: return launch_row_variant<T, V, 4>(a, smem, stream);
-    default: return launch_row_variant<T, V, 0>(a, smem, stream);
+    case 1: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 1>, a, smem, stream);
+    case 2: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 2>, a, smem, stream);
+    case 3: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 3>, a, smem, stream);
+    case 4: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 4>, a, smem, stream);
+    default:
+      return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 0>, a, smem, stream);
   }
+}
+
+template <typename T, int V, typename Kernel>
+int launch_step_row_kernel(Kernel kernel, const FusedStepArgs& a, size_t smem,
+                           cudaStream_t stream) {
+  return launch_row_kernel<T, V, step_row_threads<T>()>(kernel, a, smem, stream);
+}
+
+// fused_step's row body at the stage count s.
+template <typename T, int V>
+int launch_step_row_s(const FusedStepArgs& a, size_t smem, cudaStream_t stream) {
+  static_assert(kMaxStages == 8, "launch_step_row_s instantiates counts 1..8");
+  switch (a.s) {
+    case 1: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 1>, a, smem, stream);
+    case 2: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 2>, a, smem, stream);
+    case 3: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 3>, a, smem, stream);
+    case 4: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 4>, a, smem, stream);
+    case 5: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 5>, a, smem, stream);
+    case 6: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 6>, a, smem, stream);
+    case 7: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 7>, a, smem, stream);
+    case 8: return launch_step_row_kernel<T, V>(fused_step_row_kernel<T, V, 8>, a, smem, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_step_row(const FusedStepArgs& a, cudaStream_t stream) {
+  if (a.s < 1 || a.s > kMaxStages || a.b > 0x7fffffff || a.f > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.b < 1) return static_cast<int>(cudaSuccess);  // no rows: nothing to write
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = a.f % V == 0 && aligned16(a.y) && aligned16(a.K) && aligned16(a.f1) &&
+                   aligned16(a.f0) && aligned16(a.y1) && aligned16(a.y_out) &&
+                   aligned16(a.f_out) && aligned16(a.c1) && aligned16(a.c2) &&
+                   aligned16(a.c3);
+  const size_t smem = row_smem_bytes(a.f, sizeof(T));
+  return vec ? launch_step_row_s<T, V>(a, smem, stream)
+             : launch_step_row_s<T, 1>(a, smem, stream);
 }
 
 template <typename T>
@@ -620,12 +728,9 @@ int launch_row(const FusedStepArgs& a, cudaStream_t stream) {
   }
   if (a.b < 1) return static_cast<int>(cudaSuccess);  // no rows: nothing to write
   constexpr int V = 16 / sizeof(T);
-  const auto aligned = [](const void* p) {
-    return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-  };
-  const bool vec = a.f % V == 0 && aligned(a.y) && aligned(a.K) && aligned(a.poly) &&
-                   aligned(a.y1) && aligned(a.y_out) && aligned(a.f_out) && aligned(a.c1) &&
-                   aligned(a.c2) && aligned(a.c3);
+  const bool vec = a.f % V == 0 && aligned16(a.y) && aligned16(a.K) && aligned16(a.poly) &&
+                   aligned16(a.y1) && aligned16(a.y_out) && aligned16(a.f_out) &&
+                   aligned16(a.c1) && aligned16(a.c2) && aligned16(a.c3);
   const size_t smem = row_smem_bytes(a.f, sizeof(T));
   return vec ? launch_row_np<T, V>(a, smem, stream) : launch_row_np<T, 1>(a, smem, stream);
 }
@@ -633,7 +738,7 @@ int launch_row(const FusedStepArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // ------------------------------------------------------------- C entry points
-// dtype: 0 = float32, 1 = float64; body (fused_step_poly): 0 = warp, 1 = row.
+// dtype: 0 = float32, 1 = float64; body: 0 = warp, 1 = row.
 // Every entry returns cudaGetLastError(), or cudaErrorInvalidValue for a
 // stage count outside [1, kMaxStages], no polynomial, an unknown body, or a
 // row whose shared memory exceeds the device's limit
@@ -653,8 +758,12 @@ int rt_fused_step_max_smem() {
              : -1;
 }
 
-int rt_fused_step(int dtype, const FusedStepArgs* args, void* stream) {
+int rt_fused_step(int dtype, int body, const FusedStepArgs* args, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    return dtype ? launch_step_row<double>(*args, s) : launch_step_row<float>(*args, s);
+  }
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dtype ? launch_fused_step<double, false>(*args, s)
                : launch_fused_step<float, false>(*args, s);
 }

@@ -91,6 +91,92 @@ __device__ __forceinline__ T weighted_sum(const Coeffs<T>& w, int n, Load k) {
   return acc;
 }
 
+// weighted_sum and weighted_sums with the count N a template argument: every
+// k(j) is taken before the first fma, with no run-time select, so the loads
+// behind them issue together; then the same fmas in the same order, so the
+// same bits as the run-time versions at n = N.
+template <int N, typename T, typename Load>
+__device__ __forceinline__ T weighted_sum_n(const Coeffs<T>& w, Load k) {
+  T kj[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) kj[j] = k(j);
+  T acc = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc = fma_of(w.v[j], kj[j], acc);
+  return acc;
+}
+
+template <int N, typename T, typename Load>
+__device__ __forceinline__ void weighted_sums_n(const Coeffs<T>& w1, const Coeffs<T>& w2,
+                                                Load k, T& acc1, T& acc2) {
+  T kj[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) kj[j] = k(j);
+  acc1 = T(0);
+  acc2 = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    acc1 = fma_of(w1.v[j], kj[j], acc1);
+    acc2 = fma_of(w2.v[j], kj[j], acc2);
+  }
+}
+
+// V entries of T: one 16-byte chunk (V = 16 / sizeof(T)), or one entry.
+template <typename T, int V>
+struct Vec {
+  T v[V];
+};
+
+// A V-entry chunk from device memory through the read-only path.
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_chunk(const T* p) {
+  if constexpr (V == 1) {
+    return Vec<T, 1>{{__ldg(p)}};
+  } else {
+    union {
+      uint4 raw;
+      Vec<T, V> c;
+    } u;
+    u.raw = __ldg(reinterpret_cast<const uint4*>(p));
+    return u.c;
+  }
+}
+
+// A V-entry chunk from shared memory.
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> shared_chunk(const T* p) {
+  if constexpr (V == 1) {
+    return Vec<T, 1>{{*p}};
+  } else {
+    union {
+      uint4 raw;
+      Vec<T, V> c;
+    } u;
+    u.raw = *reinterpret_cast<const uint4*>(p);
+    return u.c;
+  }
+}
+
+// A V-entry chunk to device or shared memory.
+template <typename T, int V>
+__device__ __forceinline__ void store_chunk(T* p, const Vec<T, V>& c) {
+  if constexpr (V == 1) {
+    *p = c.v[0];
+  } else {
+    union {
+      uint4 raw;
+      Vec<T, V> c;
+    } u;
+    u.c = c;
+    *reinterpret_cast<uint4*>(p) = u.raw;
+  }
+}
+
+// A null pointer, or one on a 16-byte boundary.
+inline bool aligned16(const void* p) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // A scalar, (b,) or (b, f) tolerance: by value when p is null, else through
 // (row, column) strides, 0 on a broadcast axis.
 template <typename T>

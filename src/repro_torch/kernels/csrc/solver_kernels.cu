@@ -31,19 +31,45 @@ int blocks_for(int64_t n, int threads) {
 // ---------------------------------------------------------------- stage_accum
 // Replaces pallas_impl.stage_accum (:123, body _stage_accum_kernel :115).
 // out = y + dt[row] * sum_j a_j K[j], summed in ref.stage_accum's order
-// (j = 0, 1, ...).  Bound: (j + 2) * b * f elements read and written.  One
-// thread per (b, f) element, neighbouring threads on neighbouring addresses,
-// so every stage plane is read once with coalesced loads; the coefficients
-// ride in the kernel's parameter space (by value), not in device memory.
-template <typename T>
-__global__ void stage_accum_kernel(const T* __restrict__ y, const T* __restrict__ dt,
-                                   const T* __restrict__ K, Coeffs<T> a, int nj,
-                                   T* __restrict__ out, int64_t b, int64_t f) {
-  const int64_t n = b * f;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const T acc = weighted_sum(a, nj, [&](int j) { return K[j * n + i]; });
-    out[i] = fma_of(dt[i / f], acc, y[i]);
+// (j = 0, 1, ...).  Bound: (nj + 2) * b * f elements read and written.
+//
+// Laid out by row: blockIdx.x * blockDim.y + threadIdx.y is the row (the x
+// axis of the grid holds 2^31 - 1 blocks, the y axis 65535), threadIdx.x and
+// blockIdx.y its V-entry chunks (V = 16 / sizeof(T) where f % V == 0 and y,
+// K and out start 16-byte aligned, else V = 1); a row narrower than a warp
+// shares its block with others.  A thread reads dt[row] once, indexes within
+// its row in 32 bits, and issues all nj K chunks and y's chunk before the
+// first fma: the stage count NJ is a template argument (weighted_sum_n), so
+// no load waits behind a run-time select.  The first design (one 4-byte
+// element a thread, a 64-bit division per element for dt's row, the count
+// read at run time with each load behind the fma before it) kept one load of
+// a thread in flight: 0.0151 ms at full_width's shape against a 0.0053 ms
+// bound on an NVIDIA H100 80GB HBM3 (PERF.md).
+constexpr int kAccumThreads = 256;
+
+template <typename T, int NJ, int V>
+__global__ void __launch_bounds__(kAccumThreads)
+    stage_accum_kernel(const T* __restrict__ y, const T* __restrict__ dt,
+                       const T* __restrict__ K, Coeffs<T> a, T* __restrict__ out, int64_t b,
+                       int f) {
+  const int64_t row = blockIdx.x * (int64_t)blockDim.y + threadIdx.y;
+  if (row >= b) return;
+  const int64_t plane = b * f;  // K[j] is plane j
+  const int64_t base = row * f;
+  const int nc = f / V;
+  const T h = dt[row];
+  for (int q = blockIdx.y * blockDim.x + threadIdx.x; q < nc; q += gridDim.y * blockDim.x) {
+    const int c0 = q * V;
+    Vec<T, V> kc[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) kc[j] = load_chunk<T, V>(K + j * plane + base + c0);
+    const Vec<T, V> yc = load_chunk<T, V>(y + base + c0);
+    Vec<T, V> o;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      o.v[e] = fma_of(h, weighted_sum_n<NJ>(a, [&](int j) { return kc[j].v[e]; }), yc.v[e]);
+    }
+    store_chunk<T, V>(out + base + c0, o);
   }
 }
 
@@ -128,13 +154,59 @@ __global__ void interp_eval_kernel(const T* __restrict__ c0, const T* __restrict
   }
 }
 
+template <typename T, int NJ, int V>
+int launch_stage_accum_n(const T* y, const T* dt, const T* K, const Coeffs<T>& a, T* out,
+                         int64_t b, int f, cudaStream_t stream) {
+  // Threads of a row: up to a warp, its chunk count rounded up to a power of
+  // two, and the rest of the block takes further rows; above a warp, blocks
+  // of at most kAccumThreads a row, the chunks spread evenly over whole
+  // warps.
+  const int nc = f / V;
+  const int64_t chunk_blocks = (nc + kAccumThreads - 1) / kAccumThreads;
+  int tx = 1;
+  while (tx < nc && tx < 32) tx *= 2;
+  if (nc > 32) tx = static_cast<int>((nc + chunk_blocks - 1) / chunk_blocks + 31) / 32 * 32;
+  const int ty = kAccumThreads / tx;
+  const int64_t row_blocks = (b + ty - 1) / ty;
+  const dim3 grid(static_cast<unsigned>(row_blocks),
+                  static_cast<unsigned>(chunk_blocks < 65535 ? chunk_blocks : 65535));
+  stage_accum_kernel<T, NJ, V><<<grid, dim3(tx, ty), 0, stream>>>(y, dt, K, a, out, b, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_stage_accum_v(const T* y, const T* dt, const T* K, const Coeffs<T>& a, int nj,
+                         T* out, int64_t b, int f, cudaStream_t stream) {
+  switch (nj) {
+    case 1: return launch_stage_accum_n<T, 1, V>(y, dt, K, a, out, b, f, stream);
+    case 2: return launch_stage_accum_n<T, 2, V>(y, dt, K, a, out, b, f, stream);
+    case 3: return launch_stage_accum_n<T, 3, V>(y, dt, K, a, out, b, f, stream);
+    case 4: return launch_stage_accum_n<T, 4, V>(y, dt, K, a, out, b, f, stream);
+    case 5: return launch_stage_accum_n<T, 5, V>(y, dt, K, a, out, b, f, stream);
+    case 6: return launch_stage_accum_n<T, 6, V>(y, dt, K, a, out, b, f, stream);
+    case 7: return launch_stage_accum_n<T, 7, V>(y, dt, K, a, out, b, f, stream);
+    case 8: return launch_stage_accum_n<T, 8, V>(y, dt, K, a, out, b, f, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int launch_stage_accum(const void* y, const void* dt, const void* K, const double* coeffs,
                        int nj, void* out, int64_t b, int64_t f, cudaStream_t stream) {
-  stage_accum_kernel<T><<<blocks_for(b * f, kThreads), kThreads, 0, stream>>>(
-      static_cast<const T*>(y), static_cast<const T*>(dt), static_cast<const T*>(K),
-      load_coeffs<T>(coeffs, nj), nj, static_cast<T*>(out), b, f);
-  return static_cast<int>(cudaGetLastError());
+  static_assert(kMaxStages == 8, "launch_stage_accum_v instantiates counts 1..8");
+  if (nj < 1 || nj > kMaxStages || b > 0x7fffffff || f > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b < 1 || f < 1) return static_cast<int>(cudaSuccess);  // nothing to write
+  constexpr int V = 16 / sizeof(T);
+  const auto yp = static_cast<const T*>(y), dp = static_cast<const T*>(dt),
+             kp = static_cast<const T*>(K);
+  const auto op = static_cast<T*>(out);
+  const Coeffs<T> a = load_coeffs<T>(coeffs, nj);
+  const int fi = static_cast<int>(f);
+  return f % V == 0 && aligned16(y) && aligned16(K) && aligned16(out)
+             ? launch_stage_accum_v<T, V>(yp, dp, kp, a, nj, op, b, fi, stream)
+             : launch_stage_accum_v<T, 1>(yp, dp, kp, a, nj, op, b, fi, stream);
 }
 
 template <typename T>

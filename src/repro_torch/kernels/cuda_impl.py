@@ -10,7 +10,7 @@ is an error.  ``launches[name]`` counts the launches of each kernel, and
 nothing else adds to it; ``body_launches`` splits the count of the kernels
 with more than one body or path by the one that ran.
 
-Four kernels have more than one body, each chosen by one function here and
+Five kernels have more than one body, each chosen by one function here and
 passed to the C entry, which refuses a body that does not take the shape:
 ``flash_attention_fwd`` (``flash_body``: the wgmma body for bfloat16 with
 hd <= 128, FFMA otherwise), the elimination of ``batched_lu_factor`` and
@@ -19,9 +19,10 @@ fits, in device memory above that, column by column over the card from
 ``LU_WIDE_F`` columns), ``fused_newton_iter`` (``newton_iter_body``: a warp
 per instance up to ``WARP_MAX_F`` columns, then the panel substitution, the
 LU streamed through shared memory, wherever its ring and vector fit; the
-column loop otherwise) and ``fused_step_poly`` (``fused_step_poly_body``: a
+column loop otherwise), ``fused_step_poly`` (``fused_step_poly_body``: a
 block per row wherever three of the row's planes fit in shared memory, a
-warp per row otherwise).  The wrappers check a body or path given by the
+warp per row otherwise) and ``fused_step`` (``fused_step_body``: the same
+rule).  The wrappers check a body or path given by the
 caller with the same rules and raise ``ValueError`` before any launch.
 """
 
@@ -57,14 +58,18 @@ PANEL_STAGES = {4: 4, 8: 3}
 
 # fused_step_poly's bodies in csrc/fused_step.cu: a warp per row, or a block
 # per row with three of the row's planes in shared memory (row_smem_bytes),
-# as fast or faster at every width measured (PERF.md).
+# as fast or faster at every width measured (PERF.md).  fused_step has the
+# same two, numbered alike: its row body reads the s stage planes where
+# fused_step_poly's runs the recursion, in the same shared memory.
 POLY_BODIES = {"warp": 0, "row": 1}
+STEP_BODIES = POLY_BODIES
 
 body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
                  "batched_lu_factor": dict.fromkeys(LU_PATHS, 0),
                  "batched_linsolve": dict.fromkeys(LU_PATHS, 0),
                  "fused_newton_iter": dict.fromkeys(NEWTON_BODIES, 0),
-                 "fused_step_poly": dict.fromkeys(POLY_BODIES, 0)}
+                 "fused_step_poly": dict.fromkeys(POLY_BODIES, 0),
+                 "fused_step": dict.fromkeys(STEP_BODIES, 0)}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -334,16 +339,20 @@ def _launch_fused(name, launch, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runni
 
 def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
                atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
-               failed=None, f0=None):
+               failed=None, f0=None, body=None):
     """CUDA ``fused_step``: one launch for the combine, the WRMS ratio, the
     controller, the masked commit and the Hermite coefficients (see
     ``ref.fused_step``).  ``failed`` and ``f0`` may be None (null pointers;
-    without ``f0`` the kernel reads K[0])."""
+    without ``f0`` the kernel reads K[0]).  ``body`` overrides
+    ``fused_step_body``'s choice (both give the same bits)."""
+    name = "fused_step"
     return _launch_fused(
-        "fused_step", lambda lib, code, args, stream, _: lib.rt_fused_step(code, args, stream),
+        name, lambda lib, code, args, stream, chosen: lib.rt_fused_step(
+            code, STEP_BODIES[chosen], args, stream),
         y, K, f1, None, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
         b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode,
-        failed=failed, f0=f0)
+        failed=failed, f0=f0,
+        pick_body=_row_body_picker(name, body, y))
 
 
 @functools.lru_cache(maxsize=32)
@@ -370,15 +379,38 @@ def fused_step_poly_body(f, itemsize, smem_limit):
     return "row" if row_smem_bytes(f, itemsize) <= smem_limit else "warp"
 
 
+# fused_step's row body keeps fused_step_poly's shared memory, so its rule.
+fused_step_body = fused_step_poly_body
+
+
 def check_fused_step_poly_body(name, body, f, itemsize, smem_limit):
     """Raise ValueError where the C entry would refuse ``body`` at width
     ``f``: an unknown body, or the row body with shared memory above
-    ``smem_limit`` bytes.  Both bodies take every width that fits."""
+    ``smem_limit`` bytes.  Both bodies take every width that fits; the same
+    holds for ``fused_step``'s."""
     _known(name, body, POLY_BODIES, "body")
     if body == "row" and row_smem_bytes(f, itemsize) > smem_limit:
         raise ValueError(f"{name}: the row body needs {row_smem_bytes(f, itemsize)} bytes of "
                          f"shared memory at f = {f}, above the device's limit of {smem_limit} "
                          f"bytes")
+
+
+def _row_body_picker(name, body, y):
+    """Check a caller's ``body`` now, before any launch, and return
+    ``pick_body(lib)`` for ``_launch_fused``: the body ``fused_step_poly_body``
+    picks at ``y``'s width and the device's shared memory (or the caller's),
+    checked against that limit."""
+    if body is not None:
+        _known(name, body, POLY_BODIES, "body")
+
+    def pick_body(lib):
+        f, itemsize = y.shape[1], y.element_size()
+        limit = _smem_limit(name, lib, y.device, "rt_fused_step_max_smem")
+        chosen = fused_step_poly_body(f, itemsize, limit) if body is None else body
+        check_fused_step_poly_body(name, chosen, f, itemsize, limit)
+        return chosen
+
+    return pick_body
 
 
 def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
@@ -390,17 +422,8 @@ def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_i
     overrides ``fused_step_poly_body``'s choice (both give the same bits)."""
     del c  # autonomous polynomial dynamics
     name = "fused_step_poly"
-    if body is not None:
-        _known(name, body, POLY_BODIES, "body")
+    pick_body = _row_body_picker(name, body, y)
     rows = _poly_rows(tuple(poly), y.shape[1], y.dtype, y.device)
-
-    def pick_body(lib):
-        f, itemsize = y.shape[1], y.element_size()
-        limit = _smem_limit(name, lib, y.device, "rt_fused_step_max_smem")
-        chosen = fused_step_poly_body(f, itemsize, limit) if body is None else body
-        check_fused_step_poly_body(name, chosen, f, itemsize, limit)
-        return chosen
-
     return _launch_fused(
         name, lambda lib, code, args, stream, chosen: lib.rt_fused_step_poly(
             code, POLY_BODIES[chosen], args, stream),
@@ -556,7 +579,8 @@ def _smem_limit(name, lib, device, query="rt_linalg_max_smem"):
     """The dynamic shared memory per block that the kernels behind ``query``
     may ask for: the device's opt-in limit less their static shared memory
     (``rt_linalg_max_smem`` for the linalg kernels, ``rt_fused_step_max_smem``
-    for ``fused_step_poly``'s row body), read once per device."""
+    for the row bodies of ``fused_step`` and ``fused_step_poly``), read once per
+    device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     if (query, index) not in _smem_limits:
         with torch.cuda.device(index):

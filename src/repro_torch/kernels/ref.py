@@ -117,6 +117,9 @@ def batched_linsolve(A, rhs):
     return _lu_solve_perm(lu, perm, rhs)
 
 
+LU_BATCHED_MAX_F = 128  # the widest batch factored in one LAPACK call
+
+
 def batched_lu_factor(A):
     """Batched partial-pivoted LU factorization: factor ONCE per solver step.
 
@@ -127,8 +130,18 @@ def batched_lu_factor(A):
     with ``A[permutation] == L @ U`` -- a permutation, as ``lax.linalg.lu``
     returns it, not LAPACK's sequential row swaps.  A zero pivot is not an
     error: its column is left unscaled and the substitution divides by it.
+
+    Above ``LU_BATCHED_MAX_F`` columns each matrix is factored on its own:
+    PyTorch's CPU build (MKL getrf) factors a batch of two or more matrices
+    from f = 151 on wrong once the process has set more than one thread
+    ("Parameter 6 was incorrect on entry to SLASWP") and then never returns;
+    one matrix at a time returns at every width.
     """
-    lu, pivots, _ = torch.linalg.lu_factor_ex(A)
+    if A.shape[-1] > LU_BATCHED_MAX_F and A.shape[0] > 1:
+        parts = [torch.linalg.lu_factor_ex(A[i:i + 1]) for i in range(A.shape[0])]
+        lu, pivots = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    else:
+        lu, pivots, _ = torch.linalg.lu_factor_ex(A)
     # A = P L U, so (P^T A)[i] = A[perm[i]] with P[perm[i], i] == 1.
     P, _, _ = torch.lu_unpack(lu, pivots, unpack_data=False)
     # LAPACK hands back column-major factors; the op's are row-major.

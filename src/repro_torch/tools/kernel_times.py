@@ -32,7 +32,14 @@ sleep, CUDA events):
   at narrow rows (f = 2 at b = 256 and 1024, f = 32, 64 and 128 at b = 1024,
   float32), each body where the tree has two (``ms_by_body``);
 - ``fused_step`` (dopri5, integral controller, scalar tolerances,
-  coefficients on) at full_width's shape, float32 and float64: the control;
+  coefficients on, f1 = K[-1]) at full_width's shape, float32 and float64,
+  and at narrow rows (f = 2 at b = 256, f = 32 and 128 at b = 1024, float32),
+  and kvaerno5's fused step at allen_cahn_full's shape (b = 1024, f = 128,
+  ``failed`` and ``f0`` set, float32 and float64), each body where the tree
+  has two (``ms_by_body``);
+- ``stage_accum`` at every stage count j = 1..6 of a dopri5 step, at
+  full_width's shape (b = 1024, f = 784) and vdp_table3's (b = 256, f = 2),
+  float32 and float64;
 - ``fused_event_detect`` (``tools/event_checks.py``'s inputs) at
   full_width_long_events' shape (b = 1024, E = 2), vdp_marker's (b = 256, E
   = 1) and at E = 64 (b = 1024), float32 and float64;
@@ -49,6 +56,7 @@ a CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import pathlib
 import statistics
@@ -165,9 +173,23 @@ def main(argv=None) -> int:
             emit(kernel="fused_event_detect", shape=f"b={eb} E={E}", dtype=dt,
                  ms=median_ms(lambda: cuda_impl.fused_event_detect(*dargs, directions=dirs)))
 
-    # The fused step kernels: fused_step_poly by body where the tree has two
-    # (a tree with one times its only body), fused_step as the control.
+    for (b, f), npdt in itertools.product(
+            ((workloads.FULL["b"], workloads.FULL["f"]), (workloads.VDP["b"], 2)),
+            (np.float32, np.float64)) if want("stage_accum") else ():
+        dtype = torch.float32 if npdt == np.float32 else torch.float64
+        gen = torch.Generator(device="cpu").manual_seed(b + f)
+        y = torch.randn(b, f, generator=gen, dtype=dtype).to(dev)
+        dt = 0.1 * torch.rand(b, generator=gen, dtype=dtype).to(dev)
+        K = torch.randn(7, b, f, generator=gen, dtype=dtype).to(dev)
+        a = np.random.default_rng(0).standard_normal(7)
+        for j in range(1, 7):
+            emit(kernel="stage_accum", shape=f"b={b} f={f} j={j}", dtype=npdt.__name__,
+                 ms=median_ms(lambda j=j: cuda_impl.stage_accum(y, dt, K[:j], a[:j])))
+
+    # The fused step kernels: fused_step_poly and fused_step by body where
+    # the tree has two (a tree with one times its only body).
     bodies = tuple(getattr(cuda_impl, "POLY_BODIES", ()))
+    step_bodies = tuple(getattr(cuda_impl, "STEP_BODIES", ()))
     gen = torch.Generator(device="cpu").manual_seed(0)
     tab = get_tableau("dopri5")
     poly = (0.0, 1.0, -1.0)
@@ -175,6 +197,14 @@ def main(argv=None) -> int:
               for dtype in (torch.float32, torch.float64)]
     shapes += [(workloads.VDP["b"], 2, torch.float32)] + [
         (workloads.FULL["b"], f, torch.float32) for f in (2, 32, 64, 128)]
+
+    def step_row(shape, dt, run):
+        row = dict(kernel="fused_step", shape=shape, dtype=dt, coeffs=True, ms=median_ms(run))
+        if step_bodies:
+            row["ms_by_body"] = {body: median_ms(lambda body=body: run(body=body))
+                                 for body in step_bodies}
+        emit(**row)
+
     for b, f, dtype in shapes if want("fused_step_poly", "fused_step") else ():
         dt = str(dtype).split(".")[-1]
         a, c, b_sol, b_err = _tableau_arrays(tab, dtype)
@@ -193,13 +223,29 @@ def main(argv=None) -> int:
                 row["ms_by_body"] = {body: median_ms(lambda body=body: run(body=body))
                                      for body in bodies}
             emit(**row)
-        if f == workloads.FULL["f"] and want("fused_step"):
+        if f in (2, 32, 128, workloads.FULL["f"]) and want("fused_step"):
             y, K, cols, _ = step_checks.step_inputs(b, f, tab.stages, dtype, dev, gen)
             ctrl = integral_controller().filter_params(tab.error_order)
-            emit(kernel="fused_step", shape=f"b={b} f={f} dopri5 integral", dtype=dt,
-                 coeffs=True, ms=median_ms(lambda: cuda_impl.fused_step(
-                     y, K, K[-1], *cols, 1e-4, 1e-3, b_sol=b_sol, b_err=b_err, ctrl=ctrl,
-                     want_coeffs=True)))
+
+            def run(**body):
+                return cuda_impl.fused_step(y, K, K[-1], *cols, 1e-4, 1e-3, b_sol=b_sol,
+                                            b_err=b_err, ctrl=ctrl, want_coeffs=True, **body)
+            step_row(f"b={b} f={f} dopri5 integral", dt, run)
+    # kvaerno5's fused step at allen_cahn_full's shape: failed and f0 set.
+    stiff = get_tableau("kvaerno5")
+    for dtype in (torch.float32, torch.float64) if want("fused_step") else ():
+        dt = str(dtype).split(".")[-1]
+        b, f = workloads.STIFF["b"], workloads.ALLEN_CAHN["f"]
+        _, _, b_sol, b_err = _tableau_arrays(stiff, dtype)
+        y, K, cols, failed = step_checks.step_inputs(b, f, stiff.stages, dtype, dev, gen)
+        f0 = torch.randn(b, f, generator=gen, dtype=dtype).to(dev)
+        ctrl = pid_controller().filter_params(stiff.error_order)
+
+        def run(**body):
+            return cuda_impl.fused_step(y, K, K[-1], *cols, 1e-7, 1e-4, b_sol=b_sol,
+                                        b_err=b_err, ctrl=ctrl, want_coeffs=True,
+                                        failed=failed, f0=f0, **body)
+        step_row(f"b={b} f={f} kvaerno5 pid failed f0", dt, run)
     return 0
 
 

@@ -3,7 +3,8 @@ the CPU: ``cuda_impl.flash_body`` (the attention's wgmma or FFMA body),
 ``cuda_impl.lu_path`` (the elimination staged in shared memory, in device
 memory, or column by column over the card), ``cuda_impl.newton_iter_body``
 (``fused_newton_iter``'s panel or column substitution) and
-``cuda_impl.fused_step_poly_body`` (a warp or a block per row), on every
+``cuda_impl.fused_step_poly_body`` and ``cuda_impl.fused_step_body`` (a
+warp or a block per row), on every
 boundary, and the wrappers' own checks, which raise ``ValueError`` wherever
 the C entries would refuse a body or path -- before any launch, so a refusal
 never reaches the card.  Also ``cuda_impl.direction_masks``, the host's
@@ -12,10 +13,12 @@ encoding of ``fused_event_detect``'s directions.
 The card tests (``tests/test_torch_kernels_card.py``) hold each body and
 path to the plain version, the staged elimination bitwise to the
 device-memory one, the panel substitution bitwise to the column one and the
-row body of ``fused_step_poly`` bitwise to the warp body.
+row bodies of ``fused_step_poly`` and ``fused_step`` bitwise to their warp
+bodies.
 """
 
 import math
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -325,6 +328,100 @@ class TestFusedStepPolyBody:
         for body in ("warp", "row", None):
             with pytest.raises(ValueError, match="CUDA tensors"):
                 cuda_impl.fused_step_poly(*args, body=body, **kw)
+
+
+class TestFusedStepBody:
+    """``fused_step``'s body: its row body has ``fused_step_poly``'s shared
+    memory (``row_smem_bytes``), so the same limits."""
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_h100_limits(self, itemsize):
+        f_max = H100_ROW_MAX[itemsize]
+        # vdp_table3 2, robertson 3, allen_cahn_full 128, full_width 784
+        for f in (1, 2, 3, 5, 32, 128, 784, 4096, f_max):
+            assert cuda_impl.fused_step_body(f, itemsize, H100_ROW_SMEM) == "row"
+            cuda_impl.check_fused_step_poly_body("x", "row", f, itemsize, H100_ROW_SMEM)
+        for f in (f_max + 1, 10**6):
+            assert cuda_impl.fused_step_body(f, itemsize, H100_ROW_SMEM) == "warp"
+            with pytest.raises(ValueError, match="the row body needs"):
+                cuda_impl.check_fused_step_poly_body("x", "row", f, itemsize, H100_ROW_SMEM)
+
+    @pytest.mark.parametrize("limit", ROW_LIMITS)
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_boundaries(self, itemsize, limit):
+        r_max = _max_fitting(cuda_impl.row_smem_bytes, itemsize, limit)
+        for f in sorted({1, 2, 3, 31, 33, 128, 784, r_max, r_max + 1} - {0}):
+            body = cuda_impl.fused_step_body(f, itemsize, limit)
+            assert body == ("row" if f <= r_max else "warp")
+            assert body == cuda_impl.fused_step_poly_body(f, itemsize, limit)
+            cuda_impl.check_fused_step_poly_body("x", body, f, itemsize, limit)
+            cuda_impl.check_fused_step_poly_body("x", "warp", f, itemsize, limit)
+            if f > r_max:
+                with pytest.raises(ValueError, match="the row body needs"):
+                    cuda_impl.check_fused_step_poly_body("x", "row", f, itemsize, limit)
+
+    @pytest.mark.parametrize("body", ["block", "poly", 1, None])
+    def test_unknown_body(self, body):
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.check_fused_step_poly_body("x", body, 784, 4, H100_ROW_SMEM)
+
+    def test_bodies_are_numbered_as_the_entry_takes_them(self):
+        assert cuda_impl.STEP_BODIES == {"warp": 0, "row": 1}
+        assert cuda_impl.body_launches["fused_step"].keys() == cuda_impl.STEP_BODIES.keys()
+
+    @staticmethod
+    def _args(b=2, f=4):
+        y = torch.ones(b, f)
+        K = torch.ones(2, b, f)
+        cols = [torch.ones(b) for _ in range(4)]
+        mask = torch.ones(b, dtype=torch.bool)
+        kw = dict(b_sol=[0.5, 0.5], b_err=[0.5, -0.5],
+                  ctrl=(0.7, 0.0, 0.0, 0.9, 0.2, 10.0, 0.0, math.inf), want_coeffs=False)
+        return (y, K, K[-1], *cols, mask, torch.ones(b), torch.ones(b), 1e-6, 1e-4), kw
+
+    @pytest.mark.parametrize("body", ["block", "poly", 2])
+    def test_wrapper_refuses_an_unknown_body_before_the_launch(self, body):
+        args, kw = self._args()
+        before = dict(cuda_impl.launches)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.fused_step(*args, body=body, **kw)
+        assert cuda_impl.launches == before
+
+    @pytest.mark.parametrize("body", ["warp", "row", None])
+    def test_wrapper_takes_a_known_body_to_the_device_check(self, body):
+        args, kw = self._args()
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_impl.fused_step(*args, body=body, **kw)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_impl.fused_step(*args, body=body, failed=args[7], f0=args[0], **kw)
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_row_body_refused_where_the_row_does_not_fit(self, itemsize):
+        """The picker checks the caller's body against the device's limit
+        before the launch: the row body past the widest row raises, the
+        default falls back to the warp body there."""
+        y = torch.ones(1, H100_ROW_MAX[itemsize] + 1,
+                       dtype=torch.float32 if itemsize == 4 else torch.float64)
+
+        class Lib:
+            @staticmethod
+            def rt_fused_step_max_smem():
+                return H100_ROW_SMEM
+
+        device = torch.device("cuda", 7)  # a device index no test leaves a limit for
+        cuda_impl._smem_limits[("rt_fused_step_max_smem", 7)] = H100_ROW_SMEM
+        try:
+            y_dev = mock.Mock(wraps=y, shape=y.shape, device=device)
+            y_dev.element_size.return_value = itemsize
+            pick = cuda_impl._row_body_picker("fused_step", "row", y_dev)
+            with pytest.raises(ValueError, match="the row body needs"):
+                pick(Lib)
+            pick = cuda_impl._row_body_picker("fused_step", None, y_dev)
+            assert pick(Lib) == "warp"
+            y_dev.shape = (1, H100_ROW_MAX[itemsize])
+            assert pick(Lib) == "row"
+        finally:
+            del cuda_impl._smem_limits[("rt_fused_step_max_smem", 7)]
 
 
 SIGNS = (-2.5, -1.0, -0.0, 0.0, 1.0, 3.0, math.nan)

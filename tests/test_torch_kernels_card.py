@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card, the fused
-step kernels bitwise against the unfused card path (``fused_step_poly``'s
-row body bitwise against its warp body too), the event kernels bitwise
+step kernels bitwise against the unfused card path (the row bodies of
+``fused_step`` and ``fused_step_poly`` bitwise against their warp bodies
+too), ``stage_accum`` at every stage count on both of its layouts, the event
+kernels bitwise
 against their plain versions, and the chord-Newton kernels against theirs
 (at a tolerance: LAPACK/cuSOLVER eliminate in another order) with the
 unfused Newton iteration bitwise equal to the fused one.
@@ -347,6 +349,158 @@ class TestFusedStepPolyBodies:
                 with pytest.raises(ValueError, match="the row body needs"):
                     cuda_impl.fused_step_poly(y, f0, *cols, 1e-4, 1e-3, want_coeffs=True,
                                               body="row", **kw)
+
+
+# fused_step's widths: one entry, the narrow vdp / robertson rows, a row
+# narrower than a float32 chunk's multiple, a warp, allen_cahn_full's 128 and
+# full_width's 784; test_widest_row takes the widest row body.
+STEP_WIDTHS = (1, 2, 3, 5, 32, 128, 784)
+# Tableau -> controller mode: FSAL and adaptive, non-FSAL and adaptive (f1 a
+# plane of its own), fixed, and the stiff path's (the fused DIRK step passes
+# failed and f0).
+STEP_METHODS = {"dopri5": "pid", "heun": "pid", "rk4": "fixed", "kvaerno5": "pid"}
+
+
+def _step_case(device, dtype, b, f, method, seed):
+    """Inputs of one fused_step call: ``(y, K, f1, cols, failed, f0)`` and
+    the keyword arguments but ``want_coeffs``, ``failed`` and ``f0``.  f1 is
+    K[-1] for an FSAL tableau, else a plane of its own."""
+    tab = get_tableau(method)
+    mode = STEP_METHODS[method]
+    ctl = pid_controller() if mode == "pid" else FixedController()
+    _, _, b_sol, b_err = _tableau_arrays(tab, dtype)
+    g = _gen(seed)
+    y, K, cols, failed = step_inputs(b, f, tab.stages, dtype, device, g)
+    f1 = K[-1] if tab.fsal else torch.randn(b, f, generator=g, dtype=dtype).to(device)
+    f0 = torch.randn(b, f, generator=g, dtype=dtype).to(device)
+    kw = dict(b_sol=b_sol, b_err=b_err, ctrl=ctl.filter_params(tab.error_order),
+              ctrl_mode=mode)
+    return y, K, f1, cols, failed, f0, kw
+
+
+def _hold_step_bodies(y, K, f1, cols, kw, tols, extras):
+    """fused_step's row body bitwise equal to its warp body and to the
+    unfused card path, and held to the plain version, for each (atol, rtol)
+    of ``tols`` and each ``(failed, f0)`` of ``extras``, with and without the
+    Hermite coefficients; each body counted."""
+    for (atol, rtol), (failed, f0) in ((t, e) for t in tols for e in extras):
+        for want_coeffs in (True, False):
+            args = (y, K, f1, *cols, atol, rtol)
+            kwc = dict(kw, want_coeffs=want_coeffs, failed=failed, f0=f0)
+            before = dict(cuda_impl.body_launches["fused_step"])
+            row = cuda_impl.fused_step(*args, body="row", **kwc)
+            warp = cuda_impl.fused_step(*args, body="warp", **kwc)
+            assert cuda_impl.body_launches["fused_step"] == {
+                "warp": before["warp"] + 1, "row": before["row"] + 1}
+            assert bitwise_mismatches(row, warp) == {}
+            assert bitwise_mismatches(
+                row, unfused_card(lambda: tref.fused_step(*args, **kwc))) == {}
+            want = tref.fused_step(*args, **kwc)
+            hold_to_plain("fused_step", row, want,
+                          ratio_floor(y, want[0], K, cols[3], kw["b_err"], atol, rtol))
+            if failed is not None:
+                assert not bool(row[2][failed].any())
+
+
+class TestFusedStepBodies:
+    """``fused_step``'s row body against its warp body, the unfused card path
+    (both bitwise) and the plain version: at the widths around its layout,
+    FSAL (f1 = K[-1], read once) and non-FSAL tableaus, the PID and fixed
+    controllers, ``failed`` and ``f0`` null and set, every tolerance shape,
+    coefficients on and off, and planes off a 16-byte boundary."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", STEP_WIDTHS)
+    @pytest.mark.parametrize("method", list(STEP_METHODS))
+    def test_row_equals_warp(self, cuda_device, dtype, f, method):
+        b = 37
+        y, K, f1, cols, failed, f0, kw = _step_case(cuda_device, dtype, b, f, method, b + f)
+        _hold_step_bodies(y, K, f1, cols, kw, _tol_shapes(b, f, dtype, cuda_device),
+                          ((None, None), (failed, None), (failed, f0)))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", [33, 784])
+    @pytest.mark.parametrize("plane", ["y", "K", "f1", "f0"])
+    def test_unaligned_planes(self, cuda_device, dtype, f, plane):
+        """A plane one entry past a 16-byte boundary: entry by entry."""
+        b = 37
+        y, K, f1, cols, failed, f0, kw = _step_case(cuda_device, dtype, b, f, "heun", f)
+        if plane == "y":
+            y = event_checks.unaligned(y)
+        elif plane == "K":
+            K = event_checks.unaligned(K)
+        elif plane == "f1":
+            f1 = event_checks.unaligned(f1)
+        else:
+            f0 = event_checks.unaligned(f0)
+        _hold_step_bodies(y, K, f1, cols, kw, _tol_shapes(b, f, dtype, cuda_device),
+                          ((failed, f0),))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_widest_row(self, cuda_device, dtype):
+        """The widest f whose row fits takes the row body by default; one
+        more takes the warp body, and the row body is refused before the
+        launch."""
+        lib = _build.load()
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        limit = lib.rt_fused_step_max_smem()
+        f = max(w for w in range(1, limit) if cuda_impl.row_smem_bytes(w, itemsize) <= limit)
+        for width, body in ((f, "row"), (f + 1, "warp")):
+            assert cuda_impl.fused_step_body(width, itemsize, limit) == body
+            y, K, f1, cols, failed, f0, kw = _step_case(cuda_device, dtype, 3, width,
+                                                        "dopri5", 3)
+            before = dict(cuda_impl.body_launches["fused_step"])
+            cuda_impl.fused_step(y, K, f1, *cols, 1e-4, 1e-3, want_coeffs=True, **kw)
+            assert cuda_impl.body_launches["fused_step"][body] == before[body] + 1
+            if body == "row":
+                _hold_step_bodies(y, K, f1, cols, kw, [(1e-4, 1e-3)],
+                                  ((None, None), (failed, f0)))
+            else:
+                with pytest.raises(ValueError, match="the row body needs"):
+                    cuda_impl.fused_step(y, K, f1, *cols, 1e-4, 1e-3, want_coeffs=True,
+                                         body="row", **kw)
+
+    def test_entry_refuses_an_unknown_body(self, cuda_device):
+        y, K, f1, cols, _, _, kw = _step_case(cuda_device, torch.float32, 3, 8, "dopri5", 1)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.fused_step(y, K, f1, *cols, 1e-4, 1e-3, want_coeffs=False, body="block",
+                                 **kw)
+        args = cuda_impl._FusedStepArgs()
+        stream = cuda_impl._stream(cuda_device)
+        assert _build.load().rt_fused_step(0, 2, cuda_impl.ctypes.byref(args), stream) != 0
+
+
+class TestStageAccumOnCard:
+    """``stage_accum`` against its plain version at every stage count its
+    entry instantiates from a tableau (j = 1..7), on its 16-byte chunks and
+    entry by entry (odd f, y or K off a 16-byte boundary), with rows
+    narrower than a warp sharing a block."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("b, f", [(5, 1), (300, 2), (37, 3), (37, 33), (37, 783),
+                                      (37, 784), (37, 785), (3, 5000)])
+    @pytest.mark.parametrize("layout", ["aligned", "y", "K"])
+    def test_against_plain(self, cuda_device, dtype, b, f, layout):
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        g = _gen(b * f)
+        y = torch.randn(b, f, generator=g, dtype=dtype).to(cuda_device)
+        dt = torch.rand(b, generator=g, dtype=dtype).to(cuda_device)
+        K = torch.randn(7, b, f, generator=g, dtype=dtype).to(cuda_device)
+        a = np.random.default_rng(f).standard_normal(7)
+        if layout == "y":
+            y = event_checks.unaligned(y)
+        for j in range(1, 8):
+            Kj = event_checks.unaligned(K[:j]) if layout == "K" else K[:j]
+            torch.testing.assert_close(cuda_impl.stage_accum(y, dt, Kj, a[:j]),
+                                       tref.stage_accum(y, dt, Kj, a[:j]), rtol=tol, atol=tol)
+
+    def test_entry_refuses_a_stage_count(self, cuda_device):
+        y = torch.ones(2, 4, device=cuda_device)
+        lib = _build.load()
+        arr = (cuda_impl.ctypes.c_double * 9)(*([1.0] * 9))
+        for nj in (0, 9):
+            assert lib.rt_stage_accum(0, y.data_ptr(), y.data_ptr(), y.data_ptr(), arr, nj,
+                                      y.data_ptr(), 2, 4, cuda_impl._stream(cuda_device)) != 0
 
 
 @pytest.mark.parametrize("method", ["dopri5", "tsit5", "heun"])

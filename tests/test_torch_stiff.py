@@ -222,19 +222,12 @@ def test_linsolve_is_lu_then_substitution_bitwise(dtype, f):
 def test_unfused_iteration_is_fused_bitwise_at_update_widths(dtype, f):
     """The plain unfused iteration (linsolve, then the masked update) equals
     the plain fused one bitwise at ``masked_newton_update``'s boundary
-    widths, as the card's kernels must.  On one thread: MKL's threaded
-    getrf (PyTorch 2.13's CPU build) can stall in SLASWP on two threads from
-    f ~ 200 on."""
+    widths, as the card's kernels must, on the module's two threads."""
     M, _, k, fk, active, scale = NC.newton_inputs(f + 500, 4, f, dtype)
     A = torch.as_tensor(M)
     k, fk, active, scale = _t(k, fk, active, scale)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        unfused = tref.masked_newton_update(k, tref.batched_linsolve(A, k - fk), active, scale)
-        fused = tref.fused_newton_iter(*tref.batched_lu_factor(A), k, fk, active, scale)
-    finally:
-        torch.set_num_threads(threads)
+    unfused = tref.masked_newton_update(k, tref.batched_linsolve(A, k - fk), active, scale)
+    fused = tref.fused_newton_iter(*tref.batched_lu_factor(A), k, fk, active, scale)
     assert all(torch.equal(a, c) for a, c in zip(unfused, fused))
 
 
