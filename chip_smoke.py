@@ -29,7 +29,9 @@ raises, and the script exits non-zero without printing a result:
                    ``fused_event_detect``, ``fused_event_commit``) at E = 2
                    over their cases (``repro_torch.tools.event_checks``) are
                    held bitwise to their plain versions, as is
-                   ``interp_eval``.  The chord-Newton kernels
+                   ``interp_eval`` (its window too).  ``error_norm`` (each
+                   tolerance shape its own row and bound) and
+                   ``interp_eval`` are timed by body (``ms_by_body``).  The chord-Newton kernels
                    (``batched_lu_factor``, ``batched_linsolve``,
                    ``fused_newton_iter``, ``masked_newton_update``) at the
                    stiff workloads' shapes over their cases
@@ -105,7 +107,13 @@ segment class (f = 1-5, 783-785; aligned and unaligned coefficients),
 63, 64; every direction, NaN directions, NaN and +-0 values), and
 ``fused_event_commit`` at every row class of its layout (f = 1-5, 783-785;
 E = 1, 3, 64; rows with no crossing, one, all tied; planes aligned, or y_new
-or ev_y one entry off), holds ``masked_newton_update`` to its plain version
+or ev_y one entry off), ``error_norm`` at the widths around its layout
+(``dense_checks.ERROR_NORM_WIDTHS``, every tolerance shape, err aligned or
+one entry off; both bodies to the plain version and bitwise to each other,
+and each, patched into the unfused card path, bitwise to both of
+``fused_step``'s bodies' ratio) and ``interp_eval`` at the same widths (every
+mask kind, out aligned or one entry off, the window with cursors inside and
+past either end; both bodies bitwise), holds ``masked_newton_update`` to its plain version
 and the unfused Newton iteration bitwise to the fused one at the update's
 boundary widths (``newton_checks.UPDATE_WIDTHS``), prints the launch floor
 (a one-element PyTorch op under the same timing rule), and holds the
@@ -113,7 +121,10 @@ substitution kernels above their old 48 KiB shared-memory limit
 (f = 4096 and 8192, float64, 1e-12, equal permutations, both Newton bodies
 bitwise equal).  The ``stiff`` and ``lm`` phases check that the main path
 took the staged elimination, the Newton body ``newton_iter_body`` picks
-(the panel substitution at allen_cahn_full) and the wgmma body.
+(the panel substitution at allen_cahn_full) and the wgmma body; phases
+``vdp_table3`` and ``full_width`` that every ``error_norm`` and
+``interp_eval`` launch took the body ``error_norm_body`` and
+``interp_eval_body`` pick (warp and cell at f = 2, row at f = 784).
 
 Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -221,7 +232,8 @@ def main() -> int:
     )
     from repro_torch.core.stepper import _tableau_arrays
     from repro_torch.kernels import _build, cuda_impl, ops, ref
-    from repro_torch.tools import event_checks, newton_checks, step_checks, workloads
+    from repro_torch.tools import dense_checks, event_checks, newton_checks, step_checks
+    from repro_torch.tools import workloads
     from repro_torch.tools.step_checks import POLY32_STATE, tolerance
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -360,7 +372,12 @@ def main() -> int:
                 measure("error_norm", shape_name, dtype, label,
                         lambda: cuda_impl.error_norm(err, y, K[1], atol, rtol),
                         lambda: ref.error_norm(err, y, K[1], atol, rtol),
-                        e * (3 * b * f + tol_elems + b), 7 * b * f)
+                        e * (3 * b * f + tol_elems + b), 7 * b * f,
+                        body=cuda_impl.error_norm_body(f),
+                        ms_by_body={body: median_ms(
+                            lambda body=body: cuda_impl.error_norm(err, y, K[1], atol, rtol,
+                                                                   body=body))
+                                    for body in cuda_impl.ERROR_NORM_BODIES})
             # A dense-output write as a step makes it: each row passes a few
             # consecutive eval points (3 here) at its own place in the grid.
             coeffs = tuple(r(b, f) for _ in range(4))
@@ -372,20 +389,26 @@ def main() -> int:
             cells, rows_hit = int(mask.sum()), int(mask.any(dim=1).sum())
             # The kernel writes the masked cells of `out` in place; the check
             # runs it on a copy, so a write to an unmasked cell shows up.  Its
-            # Horner rounds as the plain version's does: held bitwise.
+            # Horner rounds as the plain version's does: held bitwise.  Its
+            # bound: the masked cells written, the coefficients of the rows
+            # with one and the masked cells' positions read, the b * n mask
+            # bytes scanned.
             measure("interp_eval", shape_name, dtype, "mask=3 of n per row",
                     lambda: cuda_impl.interp_eval(coeffs, x, mask, out),
                     lambda: ref.interp_eval(coeffs, x, mask, out),
-                    e * (cells * f + 4 * rows_hit * f + b * n) + b * n, 6 * cells * f,
+                    e * (cells * f + 4 * rows_hit * f + cells) + b * n, 6 * cells * f,
                     check_kernel=lambda: cuda_impl.interp_eval(coeffs, x, mask, out.clone()),
-                    compare_fn=hold_bitwise, held="bitwise")
+                    compare_fn=hold_bitwise, held="bitwise", body=cuda_impl.interp_eval_body(f),
+                    ms_by_body={body: median_ms(
+                        lambda body=body: cuda_impl.interp_eval(coeffs, x, mask, out, body=body))
+                                for body in cuda_impl.INTERP_BODIES})
             # The windowed write (dense_window > 0) goes through the same kernel.
             W = 8
             cursor = torch.randint(0, n - W + 1, (b,), generator=gen).to(dev)
             xw, mw = x[:, :W].contiguous(), (torch.rand(b, W, generator=gen) < 0.4).to(dev)
-            compare("interp_eval[window]",
-                    cuda_impl.interp_eval(coeffs, xw, mw, out.clone(), cursor),
-                    ref.interp_eval_window(coeffs, xw, mw, out, cursor), dtype)
+            hold_bitwise("interp_eval[window]",
+                         cuda_impl.interp_eval(coeffs, xw, mw, out.clone(), cursor),
+                         ref.interp_eval_window(coeffs, xw, mw, out, cursor), dtype)
 
     # stage_accum at every stage count of a tableau of up to kMaxStages = 8
     # stages (j = 1..7) on both of its paths: 16-byte chunks (f % V == 0 and
@@ -688,6 +711,95 @@ def main() -> int:
                     ref.masked_bisect_refine(coeffs, *cols))
     emit("kernels", check="masked_bisect_refine row segments", b=37, widths=widths,
          coefficients=["16-byte aligned", "one entry off"], bitwise_equal_to_plain=True)
+    # error_norm and interp_eval at the widths around their layouts
+    # (dense_checks.ERROR_NORM_WIDTHS: rows sharing a block, a warp, whole
+    # 16-byte chunks or not), b = 37 rows.  error_norm: every tolerance shape,
+    # err aligned or one entry off, both bodies held to the plain version and
+    # bitwise to each other; each body patched into the unfused card path
+    # gives bitwise the err_ratio of both of fused_step's bodies (dopri5, the
+    # same step inputs; the fold order the fused kernels share).  interp_eval:
+    # every mask kind, both bodies bitwise to the plain version on a copy of
+    # out; the window (W = 8 of n = 20) with cursors at 0 and n - W against
+    # ref.interp_eval_window, and past either end of the buffer, where only
+    # the cells inside it are written.
+    dopri5 = get_tableau("dopri5")
+    norm_cases = ratio_cases = interp_cases = 0
+    for npdt in (np.float32, np.float64):
+        dtype = torch.float32 if npdt == np.float32 else torch.float64
+        _, _, b_sol, b_err = _tableau_arrays(dopri5, dtype)
+        step_kw = dict(b_sol=b_sol, b_err=b_err, want_coeffs=False,
+                       ctrl=pid_controller().filter_params(dopri5.error_order))
+        for f in dense_checks.ERROR_NORM_WIDTHS:
+            for kind in dense_checks.TOL_KINDS:
+                err, y0, y1, atol, rtol = (
+                    torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+                    for a in dense_checks.norm_inputs(f, 37, f, npdt, kind))
+                for e_in in (err, event_checks.unaligned(err)):
+                    want = ref.error_norm(e_in, y0, y1, atol, rtol)
+                    got = {body: cuda_impl.error_norm(e_in, y0, y1, atol, rtol, body=body)
+                           for body in cuda_impl.ERROR_NORM_BODIES}
+                    for body, g in got.items():
+                        compare(f"error_norm[f={f} tol={kind} body={body}]", g, want, dtype)
+                    check(torch.equal(got["row"], got["warp"]),
+                          f"error_norm[f={f} tol={kind}]: the bodies differ bitwise")
+                    norm_cases += 1
+            y, K, cols, _ = step_checks.step_inputs(37, f, dopri5.stages, dtype, dev, gen)
+            for kind in dense_checks.TOL_KINDS:
+                fac = tol_factors({"row": "(b,)", "full": "(b,f)"}.get(kind, kind), 37, f, dtype)
+                args = (y, K, K[-1], *cols, 1e-4 * fac, 1e-3 * fac)
+                fused = [cuda_impl.fused_step(*args, body=body, **step_kw)[1]
+                         for body in cuda_impl.STEP_BODIES]
+                for norm_body in cuda_impl.ERROR_NORM_BODIES:
+                    def unfused(norm_body=norm_body, args=args):
+                        def norm(*a):
+                            return cuda_impl.error_norm(*a, body=norm_body)
+                        with mock.patch.object(ref, "error_norm", norm):
+                            return ref.fused_step(*args, **step_kw)
+
+                    ratio = step_checks.unfused_card(unfused)[1]
+                    check(all(torch.equal(r, ratio) for r in fused),
+                          f"error_norm[f={f} tol={kind} body={norm_body}]: the unfused card "
+                          f"path's err_ratio differs bitwise from fused_step's")
+                    ratio_cases += 1
+            for kind in dense_checks.MASK_KINDS:
+                coeffs, x, mask, out = (
+                    tuple(torch.from_numpy(c).to(dev) for c in a) if isinstance(a, tuple)
+                    else torch.from_numpy(a).to(dev)
+                    for a in dense_checks.interp_inputs(f, 37, 40, f, npdt, kind))
+                want = ref.interp_eval(coeffs, x, mask, out)
+                for body in cuda_impl.INTERP_BODIES:
+                    for dest in (out.clone(), event_checks.unaligned(out)):
+                        hold_bitwise(f"interp_eval[f={f} mask={kind} body={body}]",
+                                     cuda_impl.interp_eval(coeffs, x, mask, dest, body=body),
+                                     want, dtype)
+                        interp_cases += 1
+            coeffs, x, mask, _ = (
+                tuple(torch.from_numpy(c).to(dev) for c in a) if isinstance(a, tuple)
+                else torch.from_numpy(a).to(dev)
+                for a in dense_checks.interp_inputs(f, 6, 8, f, npdt, "run3"))
+            out = torch.randn(6, 20, f, generator=gen, dtype=dtype).to(dev)
+            inside = torch.tensor([0, 12, 0, 12, 5, 12], device=dev)
+            past = torch.tensor([15, 19, 20, -3, -8, 40], device=dev)
+            values = ref.interp_eval(coeffs, x, torch.ones_like(mask), torch.zeros_like(out[:, :8]))
+            past_want = out.clone()
+            for r_, w_ in mask.nonzero().tolist():
+                col = int(past[r_]) + w_
+                if 0 <= col < 20:
+                    past_want[r_, col] = values[r_, w_]
+            for body in cuda_impl.INTERP_BODIES:
+                hold_bitwise(f"interp_eval[window f={f} body={body}]",
+                             cuda_impl.interp_eval(coeffs, x, mask, out.clone(), inside,
+                                                   body=body),
+                             ref.interp_eval_window(coeffs, x, mask, out, inside), dtype)
+                hold_bitwise(f"interp_eval[window past the buffer f={f} body={body}]",
+                             cuda_impl.interp_eval(coeffs, x, mask, out.clone(), past, body=body),
+                             past_want, dtype)
+                interp_cases += 2
+    emit("kernels", check="error_norm and interp_eval widths", b=37,
+         widths=dense_checks.ERROR_NORM_WIDTHS, tolerances=dense_checks.TOL_KINDS,
+         masks=dense_checks.MASK_KINDS, error_norm_cases=norm_cases,
+         fused_ratio_bitwise_cases=ratio_cases, interp_eval_bitwise_cases=interp_cases,
+         tol={"float32": tolerance(torch.float32), "float64": tolerance(torch.float64)})
     # fused_event_commit at every row class of its layout (a thread per
     # 16-byte chunk where the planes start 16-byte aligned and a row is whole
     # 16-byte words, entry by entry otherwise): event_checks.COMMIT_WIDTHS x
@@ -1027,6 +1139,17 @@ def main() -> int:
         torch.cuda.synchronize()
         return sol, (time.perf_counter() - t0) * 1e3
 
+    def dense_bodies(label, f, launches):
+        """Every error_norm and interp_eval launch of the solve just run on
+        the body cuda_impl's helpers pick at width f."""
+        got = {k: {body: c for body, c in cuda_impl.body_launches[k].items() if c}
+               for k in ("error_norm", "interp_eval")}
+        want = {"error_norm": {cuda_impl.error_norm_body(f): launches["error_norm"]},
+                "interp_eval": {cuda_impl.interp_eval_body(f): launches["interp_eval"]}}
+        want = {k: {body: c for body, c in v.items() if c} for k, v in want.items()}
+        check(got == want, f"{label}: error_norm/interp_eval bodies {got} != {want}")
+        return got
+
     def expected_launches(stages, iters, path="unfused", fsal=True, dense=True):
         """Launches of a solve of ``iters`` loop iterations.  ``path``:
         "unfused", "fused" (general vf) or "poly" (fused, polynomial vf)."""
@@ -1052,6 +1175,7 @@ def main() -> int:
         reset_launches()
         sol, wall = timed_solve(vf, y32, t32, device=dev, **kw)
         launches = dict(ops.launches)
+        bodies = dense_bodies(f"vdp_table3/{method}", y32.shape[1], launches)
         card = convert.to_numpy(sol)
         iters = int(card.stats["n_steps"].max())
         want = expected_launches(7, iters)
@@ -1089,7 +1213,7 @@ def main() -> int:
         emit("vdp_table3", method=method, dtype="float32", b=len(y32),
              mean_steps=float(card.stats["n_steps"].mean()), max_steps=iters, wall_ms=wall,
              ms_per_step=wall / iters, launches=launches, launches_expected=want,
-             cpu_max_abs_diff=d32, global_err_vs_tol1e10=global_err,
+             bodies=bodies, cpu_max_abs_diff=d32, global_err_vs_tol1e10=global_err,
              instances_equal_steps=int(same.sum()), max_abs_diff_equal_steps=d32_same,
              max_step_count_diff=int(dsteps.max()), float64_cpu_max_abs_diff=d64)
 
@@ -1102,6 +1226,7 @@ def main() -> int:
     reset_launches()
     sol, wall = timed_solve(vf, y0, te, device=dev, **kw)
     launches = dict(ops.launches)
+    bodies = dense_bodies("full_width", y0.shape[1], launches)
     main_path_launches["full_width"] = launches
     peak = torch.cuda.max_memory_allocated()
     full = convert.to_numpy(sol)
@@ -1123,7 +1248,8 @@ def main() -> int:
         indep[label] = dict(steps_match_of_32=match, max_abs_diff=diff)
     emit("full_width", b=b, f=f, hidden=workloads.FULL["hidden"], n_eval=n, dtype="float32",
          mean_steps=float(full.stats["n_steps"].mean()), max_steps=iters, wall_ms=wall,
-         ms_per_step=wall / iters, launches=launches, max_memory_allocated=peak,
+         ms_per_step=wall / iters, launches=launches, bodies=bodies,
+         max_memory_allocated=peak,
          ys_bytes=b * n * f * 4, independence=indep)
 
     # -------------------------------------------------------------- 6. fused
@@ -1729,6 +1855,9 @@ def main() -> int:
             "library_ms": (statistics.fmean(r["library_ms"] for r in main)
                            if main[0]["library_ms"] is not None else None),
         })
+        if len(main) > 1:  # each case its own time and bound (error_norm's tolerances)
+            summary[-1]["by_case"] = {r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                                                      bound_ms=r["bound_ms"]) for r in main}
     check(all(math.isfinite(s["ms"]) for s in summary), "kernel timings are not finite")
     check(all(s["launches"] > 0 for s in summary),
           f"a kernel was not launched on its path: {[s['name'] for s in summary]}")

@@ -110,9 +110,9 @@ def load() -> ctypes.CDLL:
         lib.rt_error_string.restype = ctypes.c_char_p
         lib.rt_stage_accum.argtypes = [i, p, p, p, dp, i, p, i64, i64, p]
         lib.rt_fused_update.argtypes = [i, p, p, p, dp, dp, i, p, p, i64, i64, p]
-        lib.rt_error_norm.argtypes = [i, p, p, p, p, d, i64, i64, p, d, i64, i64, p,
+        lib.rt_error_norm.argtypes = [i, i, p, p, p, p, d, i64, i64, p, d, i64, i64, p,
                                       i64, i64, p]
-        lib.rt_interp_eval.argtypes = [i, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
+        lib.rt_interp_eval.argtypes = [i, i, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
         lib.rt_fused_step_args_size.argtypes = []
         lib.rt_fused_step_args_size.restype = i
         lib.rt_fused_step_max_smem.argtypes = []

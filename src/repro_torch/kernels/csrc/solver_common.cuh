@@ -178,20 +178,47 @@ inline bool aligned16(const void* p) {
 }
 
 // A scalar, (b,) or (b, f) tolerance: by value when p is null, else through
-// (row, column) strides, 0 on a broadcast axis.
+// (row, column) strides, 0 on a broadcast axis.  `mode` says how a kernel
+// laid out in V-entry chunks reads a row of it (make_tol's V): one value a
+// row (kTolRow: by value, or a (b,) tolerance read once a row), a chunk at a
+// time (kTolChunk: unit column stride, on a 16-byte boundary, rows a whole
+// number of chunks apart), or entry by entry (kTolEntry).
+enum TolMode : int { kTolRow = 0, kTolChunk = 1, kTolEntry = 2 };
+
 template <typename T>
 struct Tol {
   const T* p;
   T val;
   int64_t rs, cs;
+  int mode;
   __device__ __forceinline__ T at(int64_t row, int64_t c) const {
     return p ? p[row * rs + c * cs] : val;
+  }
+  // Row `row` alone, its columns from 0; a value a row is read here, once.
+  __device__ __forceinline__ Tol row_of(int64_t row) const {
+    if (!p) return *this;
+    if (mode == kTolRow) return Tol{nullptr, __ldg(p + row * rs), 0, 0, kTolRow};
+    return Tol{p + row * rs, val, 0, cs, mode};
+  }
+  // Columns c .. c + V - 1 of a row_of view.  kEntries false: the caller
+  // knows the mode is kTolRow, so no pointer is kept.
+  template <int V, bool kEntries>
+  __device__ __forceinline__ Vec<T, V> chunk(int c) const {
+    if (kEntries && mode == kTolChunk) return load_chunk<T, V>(p + c);
+    Vec<T, V> o;
+#pragma unroll
+    for (int e = 0; e < V; ++e) o.v[e] = kEntries && mode == kTolEntry ? __ldg(p + (c + e) * cs) : val;
+    return o;
   }
 };
 
 template <typename T>
-inline Tol<T> make_tol(const void* p, double val, int64_t rs, int64_t cs) {
-  return Tol<T>{static_cast<const T*>(p), static_cast<T>(val), rs, cs};
+inline Tol<T> make_tol(const void* p, double val, int64_t rs, int64_t cs, int V = 1) {
+  const auto tp = static_cast<const T*>(p);
+  const int mode = !tp || cs == 0 ? kTolRow
+                   : V > 1 && cs == 1 && aligned16(tp) && rs % V == 0 ? kTolChunk
+                                                                      : kTolEntry;
+  return Tol<T>{tp, static_cast<T>(val), rs, cs, mode};
 }
 
 // One element's scaled error err / (atol + rtol * max(|y0|, |y1|)), and its
@@ -207,6 +234,12 @@ __device__ __forceinline__ T wrms_add(T sum, T err, T y0, T y1, T at, T rt) {
   const T r = wrms_scaled(err, y0, y1, at, rt);
   return fma_of(r, r, sum);
 }
+
+// error_norm's sum of squares has one fixed order, which every kernel that
+// computes a WRMS ratio keeps (solver_kernels.cu's error_norm bodies,
+// fused_step.cu's warp body and row_finish), so a fused step's ratio is
+// bitwise its unfused step's: lane l of a warp folds wrms_add for c = l,
+// l + 32, ... in increasing c, then warp_sum, then wrms_finish.
 
 // Sum over the warp by xor butterfly: every lane ends with the same bits.
 template <typename T>

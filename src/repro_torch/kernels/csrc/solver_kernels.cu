@@ -98,11 +98,20 @@ __global__ void fused_update_kernel(const T* __restrict__ y, const T* __restrict
 // Replaces pallas_impl.error_norm (:167, body _error_norm_kernel :149).
 // Per-row WRMS of err / (atol + rtol * max(|y0|, |y1|)).  Bound: 3 * b * f
 // elements (5 with (b, f) tolerances).  The TPU walks the feature tiles as a
-// sequential grid axis with _init/_finalize on an output block; here one warp
-// owns one row and loops over f itself (coalesced, lane-strided), then a
-// shuffle reduction and sqrt(sum / f) -- no cross-block state.  8 rows to a
-// block.  Tolerances come in through (row, column) strides, 0 for a broadcast
-// axis; a null pointer means the scalar passed by value.
+// sequential grid axis with _init/_finalize on an output block; here a row is
+// reduced inside one block, with no cross-block state.  Both bodies fold the
+// sum of squares in the one order of solver_common.cuh (lane l takes c = l,
+// l + 32, ...; warp_sum; wrms_finish), the fused step kernels' order, so the
+// card's fused step computes bitwise its unfused step's ratio: the loads may
+// be reordered and widened, the fold may not.  cuda_impl.error_norm_body picks
+// the body.
+//
+// The warp body, the first design: one warp owns one row and loops over f
+// itself (coalesced, lane-strided), then a shuffle reduction and sqrt(sum /
+// f).  8 rows to a block.  Tolerances come in through (row, column) strides,
+// 0 for a broadcast axis; a null pointer means the scalar passed by value.
+// It takes the narrow rows, where it was as fast as the row body or faster,
+// and the rows too wide for the row body's shared memory.
 template <typename T>
 __global__ void error_norm_kernel(const T* __restrict__ err, const T* __restrict__ y0,
                                   const T* __restrict__ y1, Tol<T> atol, Tol<T> rtol,
@@ -120,57 +129,217 @@ __global__ void error_norm_kernel(const T* __restrict__ err, const T* __restrict
   if (lane == 0) out[row] = wrms_finish(sum, f);
 }
 
+// The row body: a block per row, or rows narrower than a warp's worth of
+// chunks sharing a block (blockDim.y rows), a thread per V-entry chunk (V =
+// 16 / sizeof(T) where f % V == 0 and err, y0, y1 start 16-byte aligned, else
+// V = 1).  Phase 1: each thread issues every load of its chunk before the
+// chunk's first division -- err, y0, y1 and any tolerance read by chunk or
+// entry (Tol's mode) -- and writes r = wrms_scaled(...) to shared memory.
+// Phase 2: one warp a row folds r^2 in error_norm's order, as row_finish
+// does in fused_step.cu.  The whole row sits in shared memory, so the body
+// takes f <= kNormRowMaxF (cuda_impl.NORM_ROW_MAX_F; 32 KB a row in
+// float64); wider rows take the warp body.  kEntries false (both tolerances
+// values a row, as the solver passes them) keeps no tolerance pointer in
+// registers: 31 registers against 48 in float32 at V = 4.  Measured on an
+// NVIDIA H100 80GB HBM3 (PERF.md): the warp body read 9.6 MB in 0.0205 ms at
+// full_width's shape, this body 0.0108; capping it at 32 registers (every
+// row resident at once, with tolerance pointers) spilled and ran 0.0149; two
+// chunks a thread ran 0.0119.
+constexpr int kNormThreads = 256;
+constexpr int kNormRowMaxF = 4096;
+
+template <typename T, int V, bool kEntries>
+__global__ void __launch_bounds__(kNormThreads)
+    error_norm_row_kernel(const T* __restrict__ err, const T* __restrict__ y0,
+                          const T* __restrict__ y1, Tol<T> atol, Tol<T> rtol,
+                          T* __restrict__ out, int64_t b, int f) {
+  extern __shared__ __align__(16) unsigned char norm_smem[];
+  T* r_s = reinterpret_cast<T*>(norm_smem);
+  const int64_t row0 = blockIdx.x * (int64_t)blockDim.y;
+  const int64_t row = row0 + threadIdx.y;
+  if (row < b) {
+    const int64_t base = row * f;
+    const Tol<T> at = atol.row_of(row), rt = rtol.row_of(row);
+    T* r_row = r_s + threadIdx.y * f;
+    for (int q = threadIdx.x; q < f / V; q += blockDim.x) {
+      const int c = q * V;
+      const Vec<T, V> e = load_chunk<T, V>(err + base + c), a = load_chunk<T, V>(y0 + base + c),
+                      y = load_chunk<T, V>(y1 + base + c),
+                      ta = at.template chunk<V, kEntries>(c),
+                      tr = rt.template chunk<V, kEntries>(c);
+      Vec<T, V> r;
+#pragma unroll
+      for (int j = 0; j < V; ++j) r.v[j] = wrms_scaled(e.v[j], a.v[j], y.v[j], ta.v[j], tr.v[j]);
+      store_chunk<T, V>(r_row + c, r);
+    }
+  }
+  __syncthreads();
+  // Warp w folds the block's rows w, w + nwarps, ...
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31;
+  const int nwarps = blockDim.x * blockDim.y / 32;
+  for (int rl = tid >> 5; rl < static_cast<int>(blockDim.y) && row0 + rl < b; rl += nwarps) {
+    const T* r_row = r_s + rl * f;
+    T s = T(0);
+#pragma unroll 8
+    for (int c = lane; c < f; c += 32) s = fma_of(r_row[c], r_row[c], s);
+    s = warp_sum(s);
+    if (lane == 0) out[row0 + rl] = wrms_finish(s, f);
+  }
+}
+
 // ---------------------------------------------------------------- interp_eval
 // Replaces pallas_impl.interp_eval (:226, body _interp_kernel :216).
 // where(mask, Horner cubic(x), out).  The Pallas kernel reads and rewrites
 // the whole (b, n, f) buffer every step; most cells are unmasked on any one
-// step, so here one warp owns one (row, point) cell, returns at once when the
-// cell is unmasked, and otherwise writes only that cell's f values IN PLACE.
-// Bound: masked cells x f written, the coefficients of those rows read, plus
-// b * n positions and masks.  With a non-null cursor the (b, W) positions and
-// masks address the window out[row, cursor[row] + w, :] (windowed dense
-// output), so the window is written straight into the buffer with no
-// gather/scatter round trip.  Horner rounds each multiply and add on its own
+// step, so here only the masked cells' f values are written, IN PLACE, and
+// unmasked cells are neither read nor written.  Bound: masked cells x f
+// written, the coefficients of the rows with a masked cell and the masked
+// cells' positions read, plus the b * n mask bytes scanned (an unmasked
+// cell's position is never read).  With a non-null cursor the (b, W)
+// positions and masks address the window out[row, cursor[row] + w, :]
+// (windowed dense output), so the window is written straight into the buffer
+// with no gather/scatter round trip; a column outside [0, n) is never
+// written.  Horner rounds each multiply and add on its own
 // (solver_common.cuh's horner_rn), as the plain version does, so the cells
 // equal ref.interp_eval's bitwise and the event localizer's interpolant
 // (events.cu) is the dense output's.
-template <typename T>
-__global__ void interp_eval_kernel(const T* __restrict__ c0, const T* __restrict__ c1,
-                                   const T* __restrict__ c2, const T* __restrict__ c3,
-                                   const T* __restrict__ x, const uint8_t* __restrict__ mask,
-                                   const int64_t* __restrict__ cursor, T* __restrict__ out,
-                                   int64_t b, int64_t nw, int64_t n, int64_t f) {
-  const int lane = threadIdx.x & 31;
-  const int64_t cell = blockIdx.x * (int64_t)kWarpsPerBlock + (threadIdx.x >> 5);
+// cuda_impl.interp_eval_body picks the body.  The first design (a warp a
+// cell, 8 cells a block, every warp reading its mask byte, each masked cell
+// re-reading its row's four coefficient rows) took 0.0225 ms at full_width's
+// shape on an NVIDIA H100 80GB HBM3 (PERF.md).
+//
+// The row body: laid out by row as stage_accum is (rows on blockIdx.x,
+// sharing a block when narrower than a warp's worth of chunks; V-entry chunks
+// on threadIdx.x and blockIdx.y, V = 16 / sizeof(T) where f % V == 0 and out
+// and the four coefficient planes start 16-byte aligned, else V = 1).  The
+// block's warps ballot its rows' mask bytes, kInterpWords 32-column words a
+// row at a time, into shared memory; a row with no masked cell loads nothing
+// more; otherwise each thread loads its four coefficient chunks once, into
+// registers, and for each masked column (its bits in order) reads x and
+// stores one chunk of out[row, col, :].
+constexpr int kInterpThreads = 256;
+constexpr int kInterpWords = 8;
+
+template <typename T, int V>
+__global__ void interp_eval_row_kernel(const T* __restrict__ c0, const T* __restrict__ c1,
+                                       const T* __restrict__ c2, const T* __restrict__ c3,
+                                       const T* __restrict__ x,
+                                       const uint8_t* __restrict__ mask,
+                                       const int64_t* __restrict__ cursor,
+                                       T* __restrict__ out, int64_t b, int nw, int64_t n,
+                                       int f) {
+  __shared__ unsigned bits_s[kInterpThreads * kInterpWords];
+  const int64_t row0 = blockIdx.x * (int64_t)blockDim.y;
+  const int rows = b - row0 < blockDim.y ? static_cast<int>(b - row0) : blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x * blockDim.y / 32;
+  const bool live = static_cast<int>(threadIdx.y) < rows;
+  const int64_t row = row0 + threadIdx.y;
+  const int nc = f / V;
+  const int64_t shift = live && cursor ? cursor[row] : 0;
+  const unsigned* my_bits = bits_s + threadIdx.y * kInterpWords;
+  const int words = (nw + 31) / 32;
+  for (int w0 = 0; w0 < words; w0 += kInterpWords) {
+    const int tw = min(kInterpWords, words - w0);
+    for (int p = warp; p < rows * tw; p += nwarps) {
+      const int rl = p / tw, j = p - rl * tw;
+      const int w = (w0 + j) * 32 + lane;
+      const bool set = w < nw && mask[(row0 + rl) * nw + w] != 0;
+      const unsigned word = __ballot_sync(0xffffffffu, set);
+      if (lane == 0) bits_s[rl * kInterpWords + j] = word;
+    }
+    __syncthreads();
+    unsigned any = 0;
+    for (int j = 0; j < tw && live; ++j) any |= my_bits[j];
+    if (any) {
+      for (int q = blockIdx.y * blockDim.x + threadIdx.x; q < nc;
+           q += gridDim.y * blockDim.x) {
+        const int64_t cb = row * f + q * V;
+        const Vec<T, V> a0 = load_chunk<T, V>(c0 + cb), a1 = load_chunk<T, V>(c1 + cb),
+                        a2 = load_chunk<T, V>(c2 + cb), a3 = load_chunk<T, V>(c3 + cb);
+        for (int j = 0; j < tw; ++j) {
+          for (unsigned word = my_bits[j]; word; word &= word - 1) {
+            const int w = (w0 + j) * 32 + __ffs(word) - 1;
+            const int64_t col = w + shift;
+            if (col < 0 || col >= n) continue;  // a bad cursor never writes outside out
+            const T xv = __ldg(x + row * nw + w);
+            Vec<T, V> o;
+#pragma unroll
+            for (int e = 0; e < V; ++e) o.v[e] = horner_rn(a0.v[e], a1.v[e], a2.v[e], a3.v[e], xv);
+            store_chunk<T, V>(out + (row * n + col) * f + q * V, o);
+          }
+        }
+      }
+    }
+    if (w0 + kInterpWords < words) __syncthreads();  // before the bits are rewritten
+  }
+}
+
+// The cell body, for narrow rows: a thread a (row, point) cell, which
+// returns at once when the cell is unmasked and otherwise writes the cell's
+// f values chunk by chunk, reading its row's coefficients as it goes.
+constexpr int kCellThreads = 256;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kCellThreads)
+    interp_eval_cell_kernel(const T* __restrict__ c0, const T* __restrict__ c1,
+                            const T* __restrict__ c2, const T* __restrict__ c3,
+                            const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                            const int64_t* __restrict__ cursor, T* __restrict__ out, int64_t b,
+                            int64_t nw, int64_t n, int f) {
+  const int64_t cell = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (cell >= b * nw || !mask[cell]) return;
-  const int64_t row = cell / nw;
-  const int64_t col = cell % nw + (cursor ? cursor[row] : 0);
+  // 32-bit division wherever the cell count allows it (a 64-bit one is a
+  // long call).
+  const int64_t row = b * nw <= 0xffffffffLL
+                          ? static_cast<int64_t>(static_cast<uint32_t>(cell) /
+                                                 static_cast<uint32_t>(nw))
+                          : cell / nw;
+  const int64_t col = cell - row * nw + (cursor ? cursor[row] : 0);
   if (col < 0 || col >= n) return;  // a bad cursor never writes outside out
-  const T xv = x[cell];
+  const T xv = __ldg(x + cell);
   const int64_t cb = row * f;
   T* o = out + (row * n + col) * f;
-  for (int64_t c = lane; c < f; c += 32) {
-    o[c] = horner_rn(c0[cb + c], c1[cb + c], c2[cb + c], c3[cb + c], xv);
+  for (int c = 0; c < f; c += V) {
+    const Vec<T, V> a0 = load_chunk<T, V>(c0 + cb + c), a1 = load_chunk<T, V>(c1 + cb + c),
+                    a2 = load_chunk<T, V>(c2 + cb + c), a3 = load_chunk<T, V>(c3 + cb + c);
+    Vec<T, V> r;
+#pragma unroll
+    for (int e = 0; e < V; ++e) r.v[e] = horner_rn(a0.v[e], a1.v[e], a2.v[e], a3.v[e], xv);
+    store_chunk<T, V>(o + c, r);
   }
+}
+
+// The launch shape of the kernels laid out by row (stage_accum,
+// interp_eval's row body) for nc chunks a row: up to a warp, the chunk count
+// rounded up to a power of two, and the rest of the block takes further rows;
+// above a warp, blocks of at most `threads` a row, the chunks spread evenly
+// over whole warps and over blockIdx.y.
+struct RowShape {
+  dim3 grid, block;
+};
+
+inline RowShape row_shape(int nc, int64_t b, int threads) {
+  const int64_t chunk_blocks = (nc + threads - 1) / threads;
+  int tx = 1;
+  while (tx < nc && tx < 32) tx *= 2;
+  if (nc > 32) tx = static_cast<int>((nc + chunk_blocks - 1) / chunk_blocks + 31) / 32 * 32;
+  const int ty = threads / tx;
+  const int64_t row_blocks = (b + ty - 1) / ty;
+  return RowShape{dim3(static_cast<unsigned>(row_blocks > 0 ? row_blocks : 1),
+                       static_cast<unsigned>(chunk_blocks < 1       ? 1
+                                             : chunk_blocks < 65535 ? chunk_blocks
+                                                                    : 65535)),
+                  dim3(tx, ty)};
 }
 
 template <typename T, int NJ, int V>
 int launch_stage_accum_n(const T* y, const T* dt, const T* K, const Coeffs<T>& a, T* out,
                          int64_t b, int f, cudaStream_t stream) {
-  // Threads of a row: up to a warp, its chunk count rounded up to a power of
-  // two, and the rest of the block takes further rows; above a warp, blocks
-  // of at most kAccumThreads a row, the chunks spread evenly over whole
-  // warps.
-  const int nc = f / V;
-  const int64_t chunk_blocks = (nc + kAccumThreads - 1) / kAccumThreads;
-  int tx = 1;
-  while (tx < nc && tx < 32) tx *= 2;
-  if (nc > 32) tx = static_cast<int>((nc + chunk_blocks - 1) / chunk_blocks + 31) / 32 * 32;
-  const int ty = kAccumThreads / tx;
-  const int64_t row_blocks = (b + ty - 1) / ty;
-  const dim3 grid(static_cast<unsigned>(row_blocks),
-                  static_cast<unsigned>(chunk_blocks < 65535 ? chunk_blocks : 65535));
-  stage_accum_kernel<T, NJ, V><<<grid, dim3(tx, ty), 0, stream>>>(y, dt, K, a, out, b, f);
+  const RowShape s = row_shape(f / V, b, kAccumThreads);
+  stage_accum_kernel<T, NJ, V><<<s.grid, s.block, 0, stream>>>(y, dt, K, a, out, b, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,31 +389,113 @@ int launch_fused_update(const void* y, const void* K, const void* dt, const doub
   return static_cast<int>(cudaGetLastError());
 }
 
+// error_norm's bodies, numbered as cuda_impl.ERROR_NORM_BODIES.
+constexpr int kNormWarpBody = 0, kNormRowBody = 1;
+
+template <typename T, int V, bool kEntries>
+int launch_error_norm_row(const T* err, const T* y0, const T* y1, const Tol<T>& atol,
+                          const Tol<T>& rtol, T* out, int64_t b, int f, cudaStream_t stream) {
+  // A row of more than a warp's worth of chunks has a block of its own (up to
+  // kNormThreads threads); narrower rows share one, each with the power of
+  // two of threads at or above its chunk count.  The rows' scaled errors sit
+  // in shared memory.
+  const int nc = f / V;
+  int tx = 1;
+  while (tx < nc && tx < 32) tx *= 2;
+  if (nc > 32) tx = ((nc < kNormThreads ? nc : kNormThreads) + 31) / 32 * 32;
+  const int ty = nc > 32 ? 1 : kNormThreads / tx;
+  const int64_t blocks = (b + ty - 1) / ty;
+  error_norm_row_kernel<T, V, kEntries>
+      <<<static_cast<unsigned>(blocks > 0 ? blocks : 1), dim3(tx, ty),
+         static_cast<size_t>(ty) * f * sizeof(T), stream>>>(err, y0, y1, atol, rtol, out, b, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Tolerances that are values a row (scalar or (b,), the solver's) take the
+// variant that keeps no tolerance pointer in registers.
+template <typename T, int V>
+int launch_error_norm_rows(const void* err, const void* y0, const void* y1, const void* atol,
+                           double atol_val, int64_t atol_rs, int64_t atol_cs, const void* rtol,
+                           double rtol_val, int64_t rtol_rs, int64_t rtol_cs, void* out,
+                           int64_t b, int f, cudaStream_t stream) {
+  const auto ep = static_cast<const T*>(err), ap = static_cast<const T*>(y0),
+             bp = static_cast<const T*>(y1);
+  const auto op = static_cast<T*>(out);
+  const Tol<T> at = make_tol<T>(atol, atol_val, atol_rs, atol_cs, V),
+               rt = make_tol<T>(rtol, rtol_val, rtol_rs, rtol_cs, V);
+  return at.mode == kTolRow && rt.mode == kTolRow
+             ? launch_error_norm_row<T, V, false>(ep, ap, bp, at, rt, op, b, f, stream)
+             : launch_error_norm_row<T, V, true>(ep, ap, bp, at, rt, op, b, f, stream);
+}
+
 template <typename T>
-int launch_error_norm(const void* err, const void* y0, const void* y1, const void* atol,
-                      double atol_val, int64_t atol_rs, int64_t atol_cs, const void* rtol,
-                      double rtol_val, int64_t rtol_rs, int64_t rtol_cs, void* out,
-                      int64_t b, int64_t f, cudaStream_t stream) {
-  const int blocks = static_cast<int>((b + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  error_norm_kernel<T><<<blocks > 0 ? blocks : 1, 32 * kWarpsPerBlock, 0, stream>>>(
-      static_cast<const T*>(err), static_cast<const T*>(y0), static_cast<const T*>(y1),
-      make_tol<T>(atol, atol_val, atol_rs, atol_cs), make_tol<T>(rtol, rtol_val, rtol_rs, rtol_cs),
-      static_cast<T*>(out), b, f);
+int launch_error_norm(int body, const void* err, const void* y0, const void* y1,
+                      const void* atol, double atol_val, int64_t atol_rs, int64_t atol_cs,
+                      const void* rtol, double rtol_val, int64_t rtol_rs, int64_t rtol_cs,
+                      void* out, int64_t b, int64_t f, cudaStream_t stream) {
+  if (body == kNormWarpBody) {
+    const int blocks = static_cast<int>((b + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    error_norm_kernel<T><<<blocks > 0 ? blocks : 1, 32 * kWarpsPerBlock, 0, stream>>>(
+        static_cast<const T*>(err), static_cast<const T*>(y0), static_cast<const T*>(y1),
+        make_tol<T>(atol, atol_val, atol_rs, atol_cs),
+        make_tol<T>(rtol, rtol_val, rtol_rs, rtol_cs), static_cast<T*>(out), b, f);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (body != kNormRowBody || b > 0x7fffffff || f > kNormRowMaxF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int V = 16 / sizeof(T);
+  const int fi = static_cast<int>(f);
+  return f % V == 0 && aligned16(err) && aligned16(y0) && aligned16(y1)
+             ? launch_error_norm_rows<T, V>(err, y0, y1, atol, atol_val, atol_rs, atol_cs, rtol,
+                                           rtol_val, rtol_rs, rtol_cs, out, b, fi, stream)
+             : launch_error_norm_rows<T, 1>(err, y0, y1, atol, atol_val, atol_rs, atol_cs, rtol,
+                                           rtol_val, rtol_rs, rtol_cs, out, b, fi, stream);
+}
+
+// interp_eval's bodies, numbered as cuda_impl.INTERP_BODIES.
+constexpr int kInterpCellBody = 0, kInterpRowBody = 1;
+
+template <typename T, int V>
+int launch_interp_eval_v(int body, const T* c0, const T* c1, const T* c2, const T* c3,
+                         const T* x, const uint8_t* mask, const int64_t* cursor, T* out,
+                         int64_t b, int64_t nw, int64_t n, int f, cudaStream_t stream) {
+  if (body == kInterpCellBody) {
+    const int64_t blocks = (b * nw + kCellThreads - 1) / kCellThreads;
+    interp_eval_cell_kernel<T, V>
+        <<<static_cast<unsigned>(blocks > 0 ? blocks : 1), kCellThreads, 0, stream>>>(
+            c0, c1, c2, c3, x, mask, cursor, out, b, nw, n, f);
+  } else {
+    const RowShape s = row_shape(f / V, b, kInterpThreads);
+    interp_eval_row_kernel<T, V><<<s.grid, s.block, 0, stream>>>(
+        c0, c1, c2, c3, x, mask, cursor, out, b, static_cast<int>(nw), n, f);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_interp_eval(const void* c0, const void* c1, const void* c2, const void* c3,
-                       const void* x, const void* mask, const void* cursor, void* out,
-                       int64_t b, int64_t nw, int64_t n, int64_t f, cudaStream_t stream) {
-  const int64_t blocks = (b * nw + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  interp_eval_kernel<T><<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
-                          32 * kWarpsPerBlock, 0, stream>>>(
-      static_cast<const T*>(c0), static_cast<const T*>(c1), static_cast<const T*>(c2),
-      static_cast<const T*>(c3), static_cast<const T*>(x),
-      static_cast<const uint8_t*>(mask), static_cast<const int64_t*>(cursor),
-      static_cast<T*>(out), b, nw, n, f);
-  return static_cast<int>(cudaGetLastError());
+int launch_interp_eval(int body, const void* c0, const void* c1, const void* c2,
+                       const void* c3, const void* x, const void* mask, const void* cursor,
+                       void* out, int64_t b, int64_t nw, int64_t n, int64_t f,
+                       cudaStream_t stream) {
+  if ((body != kInterpCellBody && body != kInterpRowBody) || b > 0x7fffffff ||
+      nw > 0x7fffffff || f > 0x7fffffff || b * nw > (int64_t{1} << 38)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int V = 16 / sizeof(T);
+  const auto p0 = static_cast<const T*>(c0), p1 = static_cast<const T*>(c1),
+             p2 = static_cast<const T*>(c2), p3 = static_cast<const T*>(c3),
+             xp = static_cast<const T*>(x);
+  const auto mp = static_cast<const uint8_t*>(mask);
+  const auto cp = static_cast<const int64_t*>(cursor);
+  const auto op = static_cast<T*>(out);
+  const int fi = static_cast<int>(f);
+  return f % V == 0 && aligned16(out) && aligned16(c0) && aligned16(c1) && aligned16(c2) &&
+                 aligned16(c3)
+             ? launch_interp_eval_v<T, V>(body, p0, p1, p2, p3, xp, mp, cp, op, b, nw, n, fi,
+                                          stream)
+             : launch_interp_eval_v<T, 1>(body, p0, p1, p2, p3, xp, mp, cp, op, b, nw, n, fi,
+                                          stream);
 }
 
 }  // namespace
@@ -276,25 +527,25 @@ int rt_fused_update(int dtype, const void* y, const void* K, const void* dt,
                : launch_fused_update<float>(y, K, dt, b_sol, b_err, ns, y1, err, b, f, s);
 }
 
-int rt_error_norm(int dtype, const void* err, const void* y0, const void* y1,
+int rt_error_norm(int dtype, int body, const void* err, const void* y0, const void* y1,
                   const void* atol, double atol_val, int64_t atol_rs, int64_t atol_cs,
                   const void* rtol, double rtol_val, int64_t rtol_rs, int64_t rtol_cs,
                   void* out, int64_t b, int64_t f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_error_norm<double>(err, y0, y1, atol, atol_val, atol_rs, atol_cs,
+  return dtype ? launch_error_norm<double>(body, err, y0, y1, atol, atol_val, atol_rs, atol_cs,
                                            rtol, rtol_val, rtol_rs, rtol_cs, out, b, f, s)
-               : launch_error_norm<float>(err, y0, y1, atol, atol_val, atol_rs, atol_cs,
+               : launch_error_norm<float>(body, err, y0, y1, atol, atol_val, atol_rs, atol_cs,
                                           rtol, rtol_val, rtol_rs, rtol_cs, out, b, f, s);
 }
 
-int rt_interp_eval(int dtype, const void* c0, const void* c1, const void* c2, const void* c3,
-                   const void* x, const void* mask, const void* cursor, void* out,
-                   int64_t b, int64_t nw, int64_t n, int64_t f, void* stream) {
+int rt_interp_eval(int dtype, int body, const void* c0, const void* c1, const void* c2,
+                   const void* c3, const void* x, const void* mask, const void* cursor,
+                   void* out, int64_t b, int64_t nw, int64_t n, int64_t f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_interp_eval<double>(c0, c1, c2, c3, x, mask, cursor, out, b, nw, n,
-                                            f, s)
-               : launch_interp_eval<float>(c0, c1, c2, c3, x, mask, cursor, out, b, nw, n,
-                                           f, s);
+  return dtype ? launch_interp_eval<double>(body, c0, c1, c2, c3, x, mask, cursor, out, b, nw,
+                                            n, f, s)
+               : launch_interp_eval<float>(body, c0, c1, c2, c3, x, mask, cursor, out, b, nw,
+                                           n, f, s);
 }
 
 }  // extern "C"

@@ -10,7 +10,7 @@ is an error.  ``launches[name]`` counts the launches of each kernel, and
 nothing else adds to it; ``body_launches`` splits the count of the kernels
 with more than one body or path by the one that ran.
 
-Five kernels have more than one body, each chosen by one function here and
+Seven kernels have more than one body, each chosen by one function here and
 passed to the C entry, which refuses a body that does not take the shape:
 ``flash_attention_fwd`` (``flash_body``: the wgmma body for bfloat16 with
 hd <= 128, FFMA otherwise), the elimination of ``batched_lu_factor`` and
@@ -21,9 +21,14 @@ per instance up to ``WARP_MAX_F`` columns, then the panel substitution, the
 LU streamed through shared memory, wherever its ring and vector fit; the
 column loop otherwise), ``fused_step_poly`` (``fused_step_poly_body``: a
 block per row wherever three of the row's planes fit in shared memory, a
-warp per row otherwise) and ``fused_step`` (``fused_step_body``: the same
-rule).  The wrappers check a body or path given by the
-caller with the same rules and raise ``ValueError`` before any launch.
+warp per row otherwise), ``fused_step`` (``fused_step_body``: the same
+rule), ``error_norm`` (``error_norm_body``: a block per row above
+``NORM_WARP_MAX_F`` entries up to ``NORM_ROW_MAX_F``, whose row fits in
+shared memory, a warp per row otherwise) and ``interp_eval``
+(``interp_eval_body``: a thread per cell up to ``INTERP_CELL_MAX_F`` entries,
+a block per row above; either body takes every shape).
+The wrappers check a body or path given by the caller with the same rules
+and raise ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
@@ -64,12 +69,30 @@ PANEL_STAGES = {4: 4, 8: 3}
 POLY_BODIES = {"warp": 0, "row": 1}
 STEP_BODIES = POLY_BODIES
 
+# error_norm's bodies in csrc/solver_kernels.cu: a warp per row,
+# lane-strided (the first design), or a block per row, 16-byte chunks and the
+# scaled errors folded from shared memory, which holds the whole row.  Both
+# fold in the fused step kernels' order, so they give the same bits.  On an
+# H100 the warp body was as fast or faster up to f = 64 and the row body from
+# f = 96 on (b = 1024, float32; PERF.md).
+ERROR_NORM_BODIES = {"warp": 0, "row": 1}
+NORM_WARP_MAX_F = 64  # the widest row that takes the warp body below the row body
+NORM_ROW_MAX_F = 4096  # the widest row the row body takes (kNormRowMaxF)
+# interp_eval's bodies: a thread per (row, point) cell, or a block per row
+# (the mask ballotted into shared memory, each thread's coefficient chunks
+# read once); each writes the masked cells only, with the same bits.  The
+# cell body was the faster up to f = 32, the row body from f = 48 on.
+INTERP_BODIES = {"cell": 0, "row": 1}
+INTERP_CELL_MAX_F = 32  # the widest row that takes the cell body
+
 body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
                  "batched_lu_factor": dict.fromkeys(LU_PATHS, 0),
                  "batched_linsolve": dict.fromkeys(LU_PATHS, 0),
                  "fused_newton_iter": dict.fromkeys(NEWTON_BODIES, 0),
                  "fused_step_poly": dict.fromkeys(POLY_BODIES, 0),
-                 "fused_step": dict.fromkeys(STEP_BODIES, 0)}
+                 "fused_step": dict.fromkeys(STEP_BODIES, 0),
+                 "error_norm": dict.fromkeys(ERROR_NORM_BODIES, 0),
+                 "interp_eval": dict.fromkeys(INTERP_BODIES, 0)}
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
@@ -180,8 +203,34 @@ def _tolerance(name, tol, b, f, like):
     return view.data_ptr(), 0.0, view.stride(0), view.stride(1)
 
 
-def error_norm(err, y0, y1, atol, rtol):
-    """CUDA ``error_norm``: per-row WRMS of err / (atol + rtol * max(|y0|, |y1|))."""
+def error_norm_body(f):
+    """The body of ``error_norm`` at width ``f``: ``"row"`` above
+    ``NORM_WARP_MAX_F`` entries a row up to ``NORM_ROW_MAX_F``, else
+    ``"warp"`` (which takes every width)."""
+    return "row" if NORM_WARP_MAX_F < f <= NORM_ROW_MAX_F else "warp"
+
+
+def check_error_norm_body(body, f):
+    """Raise ValueError where the C entry would refuse ``body`` at width
+    ``f``: an unknown body, or the row body above ``NORM_ROW_MAX_F``."""
+    _known("error_norm", body, ERROR_NORM_BODIES, "body")
+    if body == "row" and f > NORM_ROW_MAX_F:
+        raise ValueError(f"error_norm: the row body holds a row of at most {NORM_ROW_MAX_F} "
+                         f"entries in shared memory, not f = {f}")
+
+
+def interp_eval_body(f):
+    """The body of ``interp_eval`` at width ``f``: ``"cell"`` up to
+    ``INTERP_CELL_MAX_F`` entries a row, else ``"row"`` (both bodies take
+    every width)."""
+    return "cell" if f <= INTERP_CELL_MAX_F else "row"
+
+
+def error_norm(err, y0, y1, atol, rtol, body=None):
+    """CUDA ``error_norm``: per-row WRMS of err / (atol + rtol * max(|y0|, |y1|)).
+    ``body`` overrides ``error_norm_body``'s choice (both give the same bits)."""
+    if body is not None:
+        _known("error_norm", body, ERROR_NORM_BODIES, "body")
     code = _dtype_code("error_norm", err)
     _check("error_norm", err.dtype, err, y0, y1)
     _same_device("error_norm", err, y0, y1)
@@ -191,25 +240,31 @@ def error_norm(err, y0, y1, atol, rtol):
     b, f = err.shape
     ap, av, ars, acs = _tolerance("error_norm", atol, b, f, err)
     rp, rv, rrs, rcs = _tolerance("error_norm", rtol, b, f, err)
+    body = error_norm_body(f) if body is None else body
+    check_error_norm_body(body, f)
     out = torch.empty((b,), dtype=err.dtype, device=err.device)
     lib = _build.load()
     with torch.cuda.device(err.device):
-        rc = lib.rt_error_norm(code, err.data_ptr(), y0.data_ptr(), y1.data_ptr(),
-                               ap, av, ars, acs, rp, rv, rrs, rcs, out.data_ptr(), b, f,
-                               _stream(err.device))
+        rc = lib.rt_error_norm(code, ERROR_NORM_BODIES[body], err.data_ptr(), y0.data_ptr(),
+                               y1.data_ptr(), ap, av, ars, acs, rp, rv, rrs, rcs,
+                               out.data_ptr(), b, f, _stream(err.device))
     _raise_on("error_norm", rc)
     launches["error_norm"] += 1
+    body_launches["error_norm"][body] += 1
     return out
 
 
-def interp_eval(coeffs, x, mask, out, cursor=None):
+def interp_eval(coeffs, x, mask, out, cursor=None, body=None):
     """CUDA ``interp_eval``: writes p(x) into the masked cells of ``out`` IN
     PLACE and returns ``out`` (the unmasked cells are neither read nor
     written; the port updates the dense-output buffer in place to save the
     (b, n, f) round trip).  With ``cursor`` (b,) int64, ``x``/``mask`` are a
     (b, W) window addressing ``out[row, cursor[row] + w]``; the cursor lives
     on the device, so it is not checked here, and a window cell that would
-    fall outside ``out`` is left unwritten."""
+    fall outside ``out`` is left unwritten.  ``body`` overrides
+    ``interp_eval_body``'s choice (both give the same bits)."""
+    if body is not None:
+        _known("interp_eval", body, INTERP_BODIES, "body")
     c0, c1, c2, c3 = coeffs
     code = _dtype_code("interp_eval", out)
     _check("interp_eval", out.dtype, c0, c1, c2, c3, x, out)
@@ -231,13 +286,15 @@ def interp_eval(coeffs, x, mask, out, cursor=None):
                             "on the device of out")
         cursor_ptr = cursor.data_ptr()
     _same_device("interp_eval", c0, c1, c2, c3, x, out)
+    body = interp_eval_body(f) if body is None else body
     lib = _build.load()
     with torch.cuda.device(out.device):
-        rc = lib.rt_interp_eval(code, c0.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-                                c3.data_ptr(), x.data_ptr(), mask.data_ptr(), cursor_ptr,
-                                out.data_ptr(), b, nw, n, f, _stream(out.device))
+        rc = lib.rt_interp_eval(code, INTERP_BODIES[body], c0.data_ptr(), c1.data_ptr(),
+                                c2.data_ptr(), c3.data_ptr(), x.data_ptr(), mask.data_ptr(),
+                                cursor_ptr, out.data_ptr(), b, nw, n, f, _stream(out.device))
     _raise_on("interp_eval", rc)
     launches["interp_eval"] += 1
+    body_launches["interp_eval"][body] += 1
     return out
 
 

@@ -1,0 +1,66 @@
+"""Inputs at the boundaries of the layouts of ``error_norm`` and
+``interp_eval`` on the card, made with numpy from a seed so that the JAX
+package's ops, the port's plain ops and the CUDA kernels can all be fed the
+same numbers.  ``chip_smoke.py``, ``tests/test_torch_kernels_card.py`` and
+``tests/test_torch_dense_widths.py`` use them.
+
+- ``ERROR_NORM_WIDTHS``: one entry; two (vdp_table3); 16 and 17 (rows that
+  share a block, in whole 16-byte chunks or not); around a warp (31-33);
+  around full_width's 784 (whole 16-byte chunks in both dtypes, or not).  The fused
+  step tests' widths lack 16, 17, 31, 33 and 783.  ``interp_eval`` is held
+  at the same widths.
+- ``TOL_KINDS``: a scalar, a (b,) and a (b, f) tolerance pair.
+- ``MASK_KINDS``: no masked cell, one point a row, every point, three
+  consecutive points a row (as a step writes the dense output), and the
+  same runs on some rows only, between rows with no masked cell.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+ERROR_NORM_WIDTHS = (1, 2, 16, 17, 31, 32, 33, 783, 784, 785)
+TOL_KINDS = ("scalar", "row", "full")
+MASK_KINDS = ("none", "one", "all", "run3", "some_rows")
+
+
+def norm_inputs(seed, b, f, dtype, tol_kind):
+    """``(err, y0, y1, atol, rtol)``: numpy arrays, and Python floats for a
+    scalar tolerance pair."""
+    rng = np.random.default_rng(seed)
+    err = (1e-4 * rng.standard_normal((b, f))).astype(dtype)
+    y0, y1 = (rng.standard_normal((b, f)).astype(dtype) for _ in range(2))
+    if tol_kind == "scalar":
+        return err, y0, y1, 1e-4, 1e-3
+    shape = (b,) if tol_kind == "row" else (b, f)
+    return (err, y0, y1, rng.uniform(1e-6, 1e-3, shape).astype(dtype),
+            rng.uniform(1e-5, 1e-2, shape).astype(dtype))
+
+
+def interp_mask(seed, b, n, kind):
+    """A (b, n) bool mask of ``MASK_KINDS``' ``kind``."""
+    rng = np.random.default_rng(seed)
+    cols = np.arange(n)[None]
+    if kind == "none":
+        return np.zeros((b, n), bool)
+    if kind == "all":
+        return np.ones((b, n), bool)
+    if kind == "one":
+        return cols == rng.integers(0, n, (b, 1))
+    start = rng.integers(0, max(n - 2, 1), (b, 1))
+    run = (cols >= start) & (cols < start + 3)
+    if kind == "run3":
+        return run
+    if kind == "some_rows":
+        return run & (rng.random((b, 1)) < 0.4)
+    raise ValueError(f"unknown mask kind {kind!r}; one of {MASK_KINDS}")
+
+
+def interp_inputs(seed, b, n, f, dtype, kind):
+    """``(coeffs, x, mask, out)``: four (b, f) coefficient planes, (b, n)
+    positions in [0, 1], a ``kind`` mask and a (b, n, f) buffer."""
+    rng = np.random.default_rng(seed)
+    coeffs = tuple(rng.standard_normal((b, f)).astype(dtype) for _ in range(4))
+    x = rng.uniform(0.0, 1.0, (b, n)).astype(dtype)
+    out = rng.standard_normal((b, n, f)).astype(dtype)
+    return coeffs, x, interp_mask(seed + 1, b, n, kind), out

@@ -40,6 +40,13 @@ sleep, CUDA events):
 - ``stage_accum`` at every stage count j = 1..6 of a dopri5 step, at
   full_width's shape (b = 1024, f = 784) and vdp_table3's (b = 256, f = 2),
   float32 and float64;
+- ``error_norm`` at its three tolerance shapes (scalar, (b,), (b, f)) and
+  ``interp_eval`` as a step writes the dense output (3 consecutive of n
+  points a row) and its window (W = 8, 3 consecutive points of it a row), at
+  full_width's shape (b = 1024, f = 784, n = 64) and vdp_table3's (b = 256,
+  f = 2, n = 200), float32 and float64, and at narrow rows (f = 2 to 128 at
+  b = 1024, float32; ``error_norm`` with scalar tolerances), each body where
+  the tree has two (``ms_by_body``);
 - ``fused_event_detect`` (``tools/event_checks.py``'s inputs) at
   full_width_long_events' shape (b = 1024, E = 2), vdp_marker's (b = 256, E
   = 1) and at E = 64 (b = 1024), float32 and float64;
@@ -185,6 +192,69 @@ def main(argv=None) -> int:
         for j in range(1, 7):
             emit(kernel="stage_accum", shape=f"b={b} f={f} j={j}", dtype=npdt.__name__,
                  ms=median_ms(lambda j=j: cuda_impl.stage_accum(y, dt, K[:j], a[:j])))
+
+    # error_norm at its three tolerance shapes, and interp_eval as a step
+    # writes the dense output (3 consecutive points of n a row) and its
+    # window (W = 8, 3 consecutive points of the window a row), at
+    # full_width's and vdp_table3's shapes in float32 and float64, then at
+    # narrow rows (b = 1024, float32; error_norm with scalar tolerances),
+    # each body where the tree has two.
+    norm_bodies = tuple(getattr(cuda_impl, "ERROR_NORM_BODIES", ()))
+    interp_bodies = tuple(getattr(cuda_impl, "INTERP_BODIES", ()))
+
+    def by_body(run, bodies, **row):
+        row["ms"] = median_ms(run)
+        if bodies:
+            row["ms_by_body"] = {body: median_ms(lambda body=body: run(body=body))
+                                 for body in bodies}
+        emit(**row)
+
+    main_shapes = [(workloads.FULL["b"], workloads.FULL["f"], workloads.FULL["n"]),
+                   (workloads.VDP["b"], workloads.VDP["f"], workloads.VDP["n"])]
+    norm_shapes = [(b, f, n, npdt) for (b, f, n), npdt in itertools.product(
+        main_shapes, (np.float32, np.float64))]
+    norm_shapes += [(workloads.FULL["b"], f, workloads.FULL["n"], np.float32)
+                    for f in (2, 4, 8, 16, 32, 48, 64, 96, 128)]
+    for b, f, n, npdt in norm_shapes if want("error_norm", "interp_eval") else ():
+        dtype = torch.float32 if npdt == np.float32 else torch.float64
+        dt = npdt.__name__
+        gen = torch.Generator(device="cpu").manual_seed(b + f)
+
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, dtype=dtype).to(dev)
+
+        err, y0, y1 = 1e-5 * r(b, f), r(b, f), r(b, f)
+        main = (b, f, n) in main_shapes
+        tols = [("scalar", 1e-5, 1e-5)]
+        if main:
+            tols += [("(b,)", 1e-5 * (1 + r(b).abs()), 1e-5 * (1 + r(b).abs())),
+                     ("(b,f)", 1e-5 * (1 + r(b, f).abs()), 1e-5 * (1 + r(b, f).abs()))]
+        for label, atol, rtol in tols if want("error_norm") else ():
+            by_body(lambda atol=atol, rtol=rtol, **body: cuda_impl.error_norm(
+                        err, y0, y1, atol, rtol, **body), norm_bodies,
+                    kernel="error_norm", shape=f"b={b} f={f} tol={label}", dtype=dt)
+        if not want("interp_eval"):
+            continue
+        coeffs = tuple(r(b, f) for _ in range(4))
+        x = torch.rand(b, n, generator=gen, dtype=dtype).to(dev)
+        out = r(b, n, f)
+
+        def run_of(width):
+            start = torch.randint(0, width - 2, (b,), generator=gen)[:, None]
+            cols = torch.arange(width)[None]
+            return ((cols >= start) & (cols < start + 3)).to(dev)
+
+        mask = run_of(n)
+        by_body(lambda **body: cuda_impl.interp_eval(coeffs, x, mask, out, **body),
+                interp_bodies, kernel="interp_eval", shape=f"b={b} f={f} n={n} mask=3 of n",
+                dtype=dt)
+        if main:
+            W = 8
+            cursor = torch.randint(0, n - W + 1, (b,), generator=gen).to(dev)
+            xw, mw = x[:, :W].contiguous(), run_of(W)
+            by_body(lambda **body: cuda_impl.interp_eval(coeffs, xw, mw, out, cursor, **body),
+                    interp_bodies, kernel="interp_eval",
+                    shape=f"b={b} f={f} n={n} window W={W} mask=3 of W", dtype=dt)
 
     # The fused step kernels: fused_step_poly and fused_step by body where
     # the tree has two (a tree with one times its only body).

@@ -63,7 +63,9 @@ import torch
 make_solver = solve_ivp = ops = workloads = None
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
-           "interp_eval_kernel", "fused_step_kernel", "fused_step_row_kernel",
+           "error_norm_row_kernel", "interp_eval_kernel",
+           "interp_eval_row_kernel", "interp_eval_cell_kernel", "fused_step_kernel",
+           "fused_step_row_kernel",
            "fused_step_poly_row_kernel",
            "masked_bisect_refine_kernel",
            "fused_event_detect_kernel", "fused_event_commit_kernel", "lu_factor_kernel",

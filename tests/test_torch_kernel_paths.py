@@ -4,7 +4,9 @@ the CPU: ``cuda_impl.flash_body`` (the attention's wgmma or FFMA body),
 memory, or column by column over the card), ``cuda_impl.newton_iter_body``
 (``fused_newton_iter``'s panel or column substitution) and
 ``cuda_impl.fused_step_poly_body`` and ``cuda_impl.fused_step_body`` (a
-warp or a block per row), on every
+warp or a block per row), ``cuda_impl.error_norm_body`` (a warp or a block
+per row) and ``cuda_impl.interp_eval_body`` (a thread per cell or a block per
+row), on every
 boundary, and the wrappers' own checks, which raise ``ValueError`` wherever
 the C entries would refuse a body or path -- before any launch, so a refusal
 never reaches the card.  Also ``cuda_impl.direction_masks``, the host's
@@ -422,6 +424,83 @@ class TestFusedStepBody:
             assert pick(Lib) == "row"
         finally:
             del cuda_impl._smem_limits[("rt_fused_step_max_smem", 7)]
+
+
+class TestDenseBodies:
+    """``error_norm``'s body (the row body above ``NORM_WARP_MAX_F`` entries
+    a row up to ``NORM_ROW_MAX_F``, whose row it holds in shared memory, the
+    warp body elsewhere) and ``interp_eval``'s (the cell body up to
+    ``INTERP_CELL_MAX_F``, the row body above; both take every width)."""
+
+    @pytest.mark.parametrize("f", [1, 2, 16, 17, 31, 32, 33, 48, 63, 64, 65, 96, 128, 783,
+                                   784, 785, 4096, 4097, 10**6])
+    def test_boundaries(self, f):
+        row = cuda_impl.NORM_WARP_MAX_F < f <= cuda_impl.NORM_ROW_MAX_F
+        assert cuda_impl.error_norm_body(f) == ("row" if row else "warp")
+        assert cuda_impl.interp_eval_body(f) == ("cell" if f <= cuda_impl.INTERP_CELL_MAX_F
+                                                 else "row")
+
+    @pytest.mark.parametrize("f", [1, 64, 65, 4096, 4097, 10**6])
+    @pytest.mark.parametrize("body", ["warp", "row"])
+    def test_row_body_only_where_its_row_fits(self, f, body):
+        """The warp body takes every width, the row body up to
+        ``NORM_ROW_MAX_F`` entries (32 KB a row in float64, under the 48 KB a
+        block has without opting in); the chosen body always passes."""
+        assert cuda_impl.NORM_ROW_MAX_F * 8 <= 48 * 1024
+        cuda_impl.check_error_norm_body(cuda_impl.error_norm_body(f), f)
+        if body == "row" and f > cuda_impl.NORM_ROW_MAX_F:
+            with pytest.raises(ValueError, match="row body"):
+                cuda_impl.check_error_norm_body(body, f)
+        else:
+            cuda_impl.check_error_norm_body(body, f)
+
+    def test_main_shapes(self):
+        """vdp_table3's two entries a row take the narrow bodies, full_width's
+        784 the row bodies."""
+        assert cuda_impl.error_norm_body(2) == "warp"
+        assert cuda_impl.interp_eval_body(2) == "cell"
+        assert cuda_impl.error_norm_body(784) == "row"
+        assert cuda_impl.interp_eval_body(784) == "row"
+        for limit in (cuda_impl.NORM_WARP_MAX_F, cuda_impl.INTERP_CELL_MAX_F):
+            assert 2 <= limit < 784
+
+    def test_bodies_are_numbered_as_the_entry_takes_them(self):
+        assert cuda_impl.ERROR_NORM_BODIES == {"warp": 0, "row": 1}
+        assert cuda_impl.INTERP_BODIES == {"cell": 0, "row": 1}
+        for name, table in (("error_norm", cuda_impl.ERROR_NORM_BODIES),
+                            ("interp_eval", cuda_impl.INTERP_BODIES)):
+            assert cuda_impl.body_launches[name].keys() == table.keys()
+
+    @staticmethod
+    def _interp_args(b=2, n=4, f=3):
+        coeffs = tuple(torch.ones(b, f) for _ in range(4))
+        return coeffs, torch.ones(b, n), torch.ones(b, n, dtype=torch.bool), torch.ones(b, n, f)
+
+    @pytest.mark.parametrize("body", ["block", "cell", 1])
+    def test_error_norm_refuses_an_unknown_body_before_the_launch(self, body):
+        y = torch.ones(2, 3)
+        before = dict(cuda_impl.launches)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.error_norm(y, y, y, 1e-6, 1e-3, body=body)
+        assert cuda_impl.launches == before
+
+    @pytest.mark.parametrize("body", ["block", "warp", 0])
+    def test_interp_eval_refuses_an_unknown_body_before_the_launch(self, body):
+        before = dict(cuda_impl.launches)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.interp_eval(*self._interp_args(), body=body)
+        assert cuda_impl.launches == before
+
+    @pytest.mark.parametrize("body", ["warp", "row", None])
+    def test_error_norm_takes_a_known_body_to_the_device_check(self, body):
+        y = torch.ones(2, 3)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_impl.error_norm(y, y, y, 1e-6, 1e-3, body=body)
+
+    @pytest.mark.parametrize("body", ["cell", "row", None])
+    def test_interp_eval_takes_a_known_body_to_the_device_check(self, body):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_impl.interp_eval(*self._interp_args(), body=body)
 
 
 SIGNS = (-2.5, -1.0, -0.0, 0.0, 1.0, 3.0, math.nan)

@@ -39,7 +39,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.stepper import _tableau_arrays  # noqa: E402
 from repro_torch.kernels import _build, cuda_impl, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.tools import event_checks  # noqa: E402
+from repro_torch.tools import dense_checks, event_checks  # noqa: E402
 from repro_torch.tools import newton_checks as NC  # noqa: E402
 from repro_torch.tools.step_checks import (  # noqa: E402
     POLY32_STATE,
@@ -501,6 +501,195 @@ class TestStageAccumOnCard:
         for nj in (0, 9):
             assert lib.rt_stage_accum(0, y.data_ptr(), y.data_ptr(), y.data_ptr(), arr, nj,
                                       y.data_ptr(), 2, 4, cuda_impl._stream(cuda_device)) != 0
+
+
+def _dense_tensors(arrays, device):
+    """numpy arrays (and tuples of them) -> tensors on ``device``; numbers
+    pass as they are."""
+    if isinstance(arrays, tuple):
+        return tuple(_dense_tensors(a, device) for a in arrays)
+    return torch.from_numpy(arrays).to(device) if isinstance(arrays, np.ndarray) else arrays
+
+
+class TestErrorNormOnCard:
+    """``error_norm``'s two bodies against the plain version, bitwise to each
+    other, and bitwise to the ratio the fused step computes: at the widths
+    around its layout (``dense_checks.ERROR_NORM_WIDTHS``: rows sharing a
+    block, a warp, whole 16-byte chunks or not), every tolerance shape, and
+    with a plane one entry off a 16-byte boundary (entry by entry)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", dense_checks.ERROR_NORM_WIDTHS)
+    @pytest.mark.parametrize("tol_kind", dense_checks.TOL_KINDS)
+    @pytest.mark.parametrize("layout", ["aligned", "err", "y1", "tol"])
+    def test_widths(self, cuda_device, dtype, f, tol_kind, layout):
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        npdt = np.float32 if dtype == torch.float32 else np.float64
+        err, y0, y1, atol, rtol = _dense_tensors(
+            dense_checks.norm_inputs(f, 37, f, npdt, tol_kind), cuda_device)
+        if layout in ("err", "y1"):
+            err, y1 = (event_checks.unaligned(t) if layout == name else t
+                       for t, name in ((err, "err"), (y1, "y1")))
+        elif layout == "tol" and tol_kind != "scalar":
+            atol = event_checks.unaligned(atol)
+        want = tref.error_norm(err, y0, y1, atol, rtol)
+        got = {}
+        for body in cuda_impl.ERROR_NORM_BODIES:
+            before = cuda_impl.body_launches["error_norm"][body]
+            got[body] = cuda_impl.error_norm(err, y0, y1, atol, rtol, body=body)
+            assert cuda_impl.body_launches["error_norm"][body] == before + 1
+            torch.testing.assert_close(got[body], want, rtol=tol, atol=tol)
+        assert torch.equal(got["row"], got["warp"])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", dense_checks.ERROR_NORM_WIDTHS)
+    @pytest.mark.parametrize("layout", ["aligned", "y"])
+    def test_fused_ratio_bitwise(self, cuda_device, dtype, f, layout):
+        """Each body, patched into the unfused card path, gives bitwise the
+        err_ratio of both of fused_step's bodies on the same step inputs."""
+        b = 37
+        y, K, f1, cols, _, _, kw = _step_case(cuda_device, dtype, b, f, "dopri5", b + f)
+        if layout == "y":
+            y = event_checks.unaligned(y)
+        kw = dict(kw, want_coeffs=False)
+        for atol, rtol in _tol_shapes(b, f, dtype, cuda_device):
+            args = (y, K, f1, *cols, atol, rtol)
+            fused = [cuda_impl.fused_step(*args, body=body, **kw)[1]
+                     for body in cuda_impl.STEP_BODIES]
+            for norm_body in cuda_impl.ERROR_NORM_BODIES:
+                def unfused(norm_body=norm_body):
+                    norm = lambda *a: cuda_impl.error_norm(*a, body=norm_body)  # noqa: E731
+                    with mock.patch.object(tref, "error_norm", norm):
+                        return tref.fused_step(*args, **kw)
+
+                ratio = unfused_card(unfused)[1]
+                for got in fused:
+                    assert torch.equal(got, ratio), norm_body
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("tol_kind", dense_checks.TOL_KINDS)
+    def test_widest_rows(self, cuda_device, dtype, tol_kind):
+        """At ``NORM_ROW_MAX_F`` entries (the widest row the row body holds in
+        shared memory) both bodies give the same bits; one entry wider, and at
+        9001, the warp body runs and the row body is refused, by the wrapper
+        before any launch and by the C entry."""
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        npdt = np.float32 if dtype == torch.float32 else np.float64
+        for f in (cuda_impl.NORM_ROW_MAX_F, cuda_impl.NORM_ROW_MAX_F + 1, 9001):
+            args = _dense_tensors(dense_checks.norm_inputs(f, 3, f, npdt, tol_kind),
+                                  cuda_device)
+            want = tref.error_norm(*args)
+            warp = cuda_impl.error_norm(*args, body="warp")
+            torch.testing.assert_close(warp, want, rtol=tol, atol=tol)
+            if f <= cuda_impl.NORM_ROW_MAX_F:
+                assert torch.equal(cuda_impl.error_norm(*args, body="row"), warp)
+                continue
+            before = dict(cuda_impl.launches)
+            with pytest.raises(ValueError, match="row body"):
+                cuda_impl.error_norm(*args, body="row")
+            assert cuda_impl.launches == before
+            assert torch.equal(cuda_impl.error_norm(*args), warp)
+        y = torch.ones(2, cuda_impl.NORM_ROW_MAX_F + 1, device=cuda_device)
+        assert _build.load().rt_error_norm(
+            0, cuda_impl.ERROR_NORM_BODIES["row"], y.data_ptr(), y.data_ptr(), y.data_ptr(),
+            None, 1e-6, 0, 0, None, 1e-3, 0, 0, y.data_ptr(), 2, y.shape[1],
+            cuda_impl._stream(cuda_device)) != 0
+
+    def test_entry_refuses_an_unknown_body(self, cuda_device):
+        y = torch.ones(2, 4, device=cuda_device)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.error_norm(y, y, y, 1e-6, 1e-3, body="block")
+        lib = _build.load()
+        assert lib.rt_error_norm(0, 2, y.data_ptr(), y.data_ptr(), y.data_ptr(), None, 1e-6,
+                                 0, 0, None, 1e-3, 0, 0, y.data_ptr(), 2, 4,
+                                 cuda_impl._stream(cuda_device)) != 0
+
+
+def _interp_case(device, dtype, b, n, f, kind, seed):
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    coeffs, x, mask, out = dense_checks.interp_inputs(seed, b, n, f, npdt, kind)
+    return (_dense_tensors(coeffs, device), *_dense_tensors((x, mask, out), device))
+
+
+class TestInterpEvalOnCard:
+    """``interp_eval``'s two bodies bitwise against the plain version on a
+    copy of ``out`` (so a write to an unmasked cell shows): at
+    ``dense_checks.ERROR_NORM_WIDTHS``, every mask kind (none, one point, all,
+    3 consecutive, rows with none between rows with some), more points than
+    one ballot round (n = 300), planes off a 16-byte boundary, and the
+    windowed form with cursors at 0, n - W and past either end of the
+    buffer."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", dense_checks.ERROR_NORM_WIDTHS)
+    @pytest.mark.parametrize("kind", dense_checks.MASK_KINDS)
+    @pytest.mark.parametrize("body", list(cuda_impl.INTERP_BODIES))
+    def test_widths(self, cuda_device, dtype, f, kind, body):
+        coeffs, x, mask, out = _interp_case(cuda_device, dtype, 37, 40, f, kind, f)
+        want = tref.interp_eval(coeffs, x, mask, out)
+        before = cuda_impl.body_launches["interp_eval"][body]
+        got = cuda_impl.interp_eval(coeffs, x, mask, out.clone(), body=body)
+        assert cuda_impl.body_launches["interp_eval"][body] == before + 1
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", [2, 33, 784])
+    @pytest.mark.parametrize("kind", ["run3", "all", "some_rows"])
+    def test_more_points_than_a_ballot_round(self, cuda_device, dtype, f, kind):
+        coeffs, x, mask, out = _interp_case(cuda_device, dtype, 5, 300, f, kind, f)
+        want = tref.interp_eval(coeffs, x, mask, out)
+        for body in cuda_impl.INTERP_BODIES:
+            assert torch.equal(cuda_impl.interp_eval(coeffs, x, mask, out.clone(), body=body),
+                               want)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", [4, 783, 784])
+    @pytest.mark.parametrize("plane", ["out", "c0", "c3"])
+    def test_unaligned_planes(self, cuda_device, dtype, f, plane):
+        coeffs, x, mask, out = _interp_case(cuda_device, dtype, 37, 40, f, "run3", f)
+        if plane == "c0":
+            coeffs = (event_checks.unaligned(coeffs[0]),) + coeffs[1:]
+        elif plane == "c3":
+            coeffs = coeffs[:3] + (event_checks.unaligned(coeffs[3]),)
+        want = tref.interp_eval(coeffs, x, mask, out)
+        for body in cuda_impl.INTERP_BODIES:
+            got = event_checks.unaligned(out) if plane == "out" else out.clone()
+            assert torch.equal(cuda_impl.interp_eval(coeffs, x, mask, got, body=body), want)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", dense_checks.ERROR_NORM_WIDTHS)
+    @pytest.mark.parametrize("body", list(cuda_impl.INTERP_BODIES))
+    def test_window(self, cuda_device, dtype, f, body):
+        """Cursors at 0 and n - W against ``ref.interp_eval_window``; cursors
+        past either end write only the cells inside the buffer."""
+        b, n, W = 6, 20, 8
+        coeffs, x, mask, out = _interp_case(cuda_device, dtype, b, W, f, "all", f)
+        mask[::2] = torch.from_numpy(dense_checks.interp_mask(f, 3, W, "run3")).to(cuda_device)
+        out = torch.randn(b, n, f, generator=_gen(f), dtype=dtype).to(cuda_device)
+        inside = torch.tensor([0, n - W, 0, n - W, 5, n - W], device=cuda_device)
+        want = tref.interp_eval_window(coeffs, x, mask, out, inside)
+        got = cuda_impl.interp_eval(coeffs, x, mask, out.clone(), inside, body=body)
+        assert torch.equal(got, want)
+        past = torch.tensor([n - W + 3, n - 1, n, -3, -W, 2 * n], device=cuda_device)
+        values = tref.interp_eval(coeffs, x, torch.ones_like(mask),
+                                  torch.zeros(b, W, f, dtype=dtype, device=cuda_device))
+        want = out.clone()
+        for r in range(b):
+            for w in range(W):
+                col = int(past[r]) + w
+                if 0 <= col < n and bool(mask[r, w]):
+                    want[r, col] = values[r, w]
+        got = cuda_impl.interp_eval(coeffs, x, mask, out.clone(), past, body=body)
+        assert torch.equal(got, want)
+
+    def test_entry_refuses_an_unknown_body(self, cuda_device):
+        coeffs, x, mask, out = _interp_case(cuda_device, torch.float32, 2, 4, 3, "all", 0)
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.interp_eval(coeffs, x, mask, out, body="warp")
+        lib = _build.load()
+        assert lib.rt_interp_eval(0, 2, *(c.data_ptr() for c in coeffs), x.data_ptr(),
+                                  mask.data_ptr(), None, out.data_ptr(), 2, 4, 4, 3,
+                                  cuda_impl._stream(cuda_device)) != 0
 
 
 @pytest.mark.parametrize("method", ["dopri5", "tsit5", "heun"])
