@@ -24,7 +24,13 @@ raises, and the script exits non-zero without printing a result:
                    times beside the chosen one's (``ms_by_body``), and
                    ``fused_step``'s launches by body.  ``stage_accum`` at
                    every stage count j = 1..7, in 16-byte chunks and entry
-                   by entry (odd f, K off a 16-byte boundary).
+                   by entry (odd f, K off a 16-byte boundary);
+                   ``fused_update`` timed at each stage count of the repo's
+                   tableaus (s = 1, 2, 3, 4, 7), each its own bound, and
+                   held at ``dense_checks.UPDATE_SHAPES`` with every
+                   tableau's weights and s = 1..8, chunked and entry by
+                   entry (y or K off a 16-byte boundary), and the empty
+                   batch.
                    The event kernels (``masked_bisect_refine``,
                    ``fused_event_detect``, ``fused_event_commit``) at E = 2
                    over their cases (``repro_torch.tools.event_checks``) are
@@ -134,6 +140,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import pathlib
@@ -184,6 +191,10 @@ REPLACES = {
     "masked_newton_update": "src/repro/kernels/pallas_impl.py:608",
     "flash_attention_fwd": "src/repro/kernels/flash_attn.py:83",
 }
+# fused_update is timed at each stage count of the repo's tableaus (one
+# tableau each); the main path's is dopri5's s = 7.
+UPDATE_TABLEAUS = {1: "euler", 2: "heun", 3: "trbdf2", 4: "bosh3", 7: "dopri5"}
+MAIN_CASE = {"fused_update": "s=7 dopri5"}
 # The stiff path's kernels are timed and counted at allen_cahn_full's shapes.
 MAIN_SHAPE = dict.fromkeys(("batched_linsolve", "batched_lu_factor", "fused_newton_iter",
                             "masked_newton_update"), "allen_cahn_full")
@@ -358,11 +369,15 @@ def main() -> int:
                         lambda: cuda_impl.stage_accum(y, dt, Kj, a[:j]),
                         lambda: ref.stage_accum(y, dt, Kj, a[:j]),
                         e * (b * f * (j + 2) + b), 2 * (j + 1) * b * f)
-            bs, be = coef_rng.standard_normal(7), coef_rng.standard_normal(7)
-            measure("fused_update", shape_name, dtype, "s=7",
-                    lambda: cuda_impl.fused_update(y, K, dt, bs, be),
-                    lambda: ref.fused_update(y, K, dt, bs, be),
-                    e * (b * f * 10 + b), 4 * 8 * b * f)
+            # fused_update at every stage count a tableau of the repo has,
+            # with that tableau's weights; each case its own bound.
+            for s, method in UPDATE_TABLEAUS.items():
+                _, _, bs, be = _tableau_arrays(get_tableau(method), dtype)
+                Ks = K[:s]
+                measure("fused_update", shape_name, dtype, f"s={s} {method}",
+                        lambda: cuda_impl.fused_update(y, Ks, dt, bs, be),
+                        lambda: ref.fused_update(y, Ks, dt, bs, be),
+                        e * (b * f * (s + 3) + b), (4 * s + 3) * b * f)
             err = 1e-5 * r(b, f)
             for label, (atol, rtol), tol_elems in (
                     ("tol=scalar", (1e-5, 1e-5), 0),
@@ -431,6 +446,34 @@ def main() -> int:
     emit("kernels", kernel="stage_accum", check="j = 1..7, chunked and entry by entry",
          cases=accum_cases, tol={"float32": tolerance(torch.float32),
                                  "float64": tolerance(torch.float64)})
+
+    # fused_update at the widths around its layout (dense_checks.UPDATE_SHAPES)
+    # with every tableau's weights and random weights at s = 1..8
+    # (UPDATE_WEIGHTS), on 16-byte chunks and entry by entry (y or K one entry
+    # off a 16-byte boundary), and the empty batch.
+    update_cases = 0
+    for dtype, (b, f), layout, weights in itertools.product(
+            (torch.float32, torch.float64), dense_checks.UPDATE_SHAPES, ("aligned", "y", "K"),
+            dense_checks.UPDATE_WEIGHTS):
+        b_sol, b_err = dense_checks.update_weights(weights)
+        y, K, dt = (torch.from_numpy(a).to(dev) for a in dense_checks.update_inputs(
+            b * f + len(b_sol), b, f, len(b_sol), torch.empty((), dtype=dtype).numpy().dtype))
+        if layout == "y":
+            y = event_checks.unaligned(y)
+        elif layout == "K":
+            K = event_checks.unaligned(K)
+        compare(f"fused_update[b={b} f={f} {layout} {weights}]",
+                cuda_impl.fused_update(y, K, dt, b_sol, b_err),
+                ref.fused_update(y, K, dt, b_sol, b_err), dtype)
+        update_cases += 1
+    empty = torch.empty((7, 0, 784), device=dev)
+    y1, err = cuda_impl.fused_update(empty[0], empty, empty[0, :, 0], [1.0] * 7, [0.0] * 7)
+    torch.cuda.synchronize()
+    check(y1.shape == err.shape == (0, 784), "fused_update: the empty batch")
+    emit("kernels", kernel="fused_update",
+         check="UPDATE_SHAPES x UPDATE_WEIGHTS, chunked and entry by entry; empty batch",
+         cases=update_cases, tol={"float32": tolerance(torch.float32),
+                                  "float64": tolerance(torch.float64)})
 
     # The fused step kernels, against their plain versions (ref.fused_step,
     # ref.fused_step_poly) on the same card tensors, over every option:
@@ -1831,8 +1874,9 @@ def main() -> int:
                      "flash_attention_fwd": "lm/serve"}
     for name in REPLACES:
         mine = [r for r in rows if r["kernel"] == name]
-        main = [r for r in mine if r["shape"] == MAIN_SHAPE.get(name, "full_width")
-                and r["dtype"] == MAIN_DTYPE.get(name, "float32")]
+        at_main = [r for r in mine if r["shape"] == MAIN_SHAPE.get(name, "full_width")
+                   and r["dtype"] == MAIN_DTYPE.get(name, "float32")]
+        main = [r for r in at_main if r["case"] == MAIN_CASE.get(name, r["case"])]
         checked = [a["max_abs_err"] for (k, _, _), a in fused_checks.items() if k == name]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -1845,7 +1889,8 @@ def main() -> int:
             "max_abs_err": max([r["max_abs_err"] for r in mine] + checked),
             # At the full-width float32 shapes; stage_accum and error_norm are
             # the mean over their cases (j = 1..6, the three tolerance shapes),
-            # the fused kernels are their main-path case; the Newton kernels
+            # fused_update and the fused kernels their main-path case (each
+            # stage count of fused_update in by_case); the Newton kernels
             # at allen_cahn_full's shapes (b = 1024, f = 128); the attention
             # at the full-width serve's prefill (b = 4, s = 2048, bf16).
             "ms": statistics.fmean(r["kernel_ms"] for r in main),
@@ -1855,9 +1900,9 @@ def main() -> int:
             "library_ms": (statistics.fmean(r["library_ms"] for r in main)
                            if main[0]["library_ms"] is not None else None),
         })
-        if len(main) > 1:  # each case its own time and bound (error_norm's tolerances)
+        if len(at_main) > 1:  # each case its own time and bound (error_norm's tolerances)
             summary[-1]["by_case"] = {r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-                                                      bound_ms=r["bound_ms"]) for r in main}
+                                                      bound_ms=r["bound_ms"]) for r in at_main}
     check(all(math.isfinite(s["ms"]) for s in summary), "kernel timings are not finite")
     check(all(s["launches"] > 0 for s in summary),
           f"a kernel was not launched on its path: {[s['name'] for s in summary]}")

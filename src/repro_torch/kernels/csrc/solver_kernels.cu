@@ -20,14 +20,6 @@ namespace {
 
 using namespace solver;
 
-constexpr int kThreads = 256;   // threads per block for the elementwise kernels
-
-int blocks_for(int64_t n, int threads) {
-  int64_t blocks = (n + threads - 1) / threads;
-  // Grid-stride loops cover whatever one launch's grid does not.
-  return static_cast<int>(blocks < 65535 * 8 ? (blocks > 0 ? blocks : 1) : 65535 * 8);
-}
-
 // ---------------------------------------------------------------- stage_accum
 // Replaces pallas_impl.stage_accum (:123, body _stage_accum_kernel :115).
 // out = y + dt[row] * sum_j a_j K[j], summed in ref.stage_accum's order
@@ -76,21 +68,48 @@ __global__ void __launch_bounds__(kAccumThreads)
 // --------------------------------------------------------------- fused_update
 // Replaces pallas_impl.fused_update (:78, body _fused_update_kernel :63).
 // y1 = y + dt * (b_sol . K), err = dt * (b_err . K) from ONE read of K.
-// Bound: (s + 3) * b * f elements.  The same walk as stage_accum with two
-// accumulators, so K is streamed once for both outputs.
-template <typename T>
-__global__ void fused_update_kernel(const T* __restrict__ y, const T* __restrict__ K,
-                                    const T* __restrict__ dt, Coeffs<T> bs, Coeffs<T> be,
-                                    int ns, T* __restrict__ y1, T* __restrict__ err,
-                                    int64_t b, int64_t f) {
-  const int64_t n = b * f;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    T acc_sol, acc_err;
-    weighted_sums(bs, be, ns, [&](int j) { return K[j * n + i]; }, acc_sol, acc_err);
-    const T h = dt[i / f];
-    y1[i] = fma_of(h, acc_sol, y[i]);
-    err[i] = h * acc_err;
+// Bound: (s + 3) * b * f elements, and dt's b.
+//
+// Laid out by row as stage_accum is (row_shape; V = 16 / sizeof(T) where f %
+// V == 0 and y, K, y1 and err start 16-byte aligned, else V = 1).  A thread
+// reads dt[row] once, indexes within its row in 32 bits, and issues its NS K
+// chunks and y's chunk before the first fma (NS a template argument,
+// weighted_sums_n; __launch_bounds__'s minimum of one block an SM leaves
+// ptxas the registers for it: without, it holds 32 and spreads the loads
+// among the fmas).  Both sums come
+// from that one read, with weighted_sums' fmas in its order, so the bits are
+// the first design's and the fused step kernels' (fused_step.cu).  The first
+// design (one 4-byte element a thread, a 64-bit division per element for
+// dt's row, the stage count read at run time with each load behind the fma
+// before it) took 0.0201 ms at full_width's shape against a 0.0096 ms bound
+// on an NVIDIA H100 80GB HBM3 (PERF.md).
+template <typename T, int NS, int V>
+__global__ void __launch_bounds__(kAccumThreads, 1)
+    fused_update_kernel(const T* __restrict__ y, const T* __restrict__ K,
+                        const T* __restrict__ dt, Coeffs<T> bs, Coeffs<T> be,
+                        T* __restrict__ y1, T* __restrict__ err, int64_t b, int f) {
+  const int64_t row = blockIdx.x * (int64_t)blockDim.y + threadIdx.y;
+  if (row >= b) return;
+  const int64_t plane = b * f;  // K[j] is plane j
+  const int64_t base = row * f;
+  const int nc = f / V;
+  const T h = dt[row];
+  for (int q = blockIdx.y * blockDim.x + threadIdx.x; q < nc; q += gridDim.y * blockDim.x) {
+    const int c0 = q * V;
+    Vec<T, V> kc[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) kc[j] = load_chunk<T, V>(K + j * plane + base + c0);
+    const Vec<T, V> yc = load_chunk<T, V>(y + base + c0);
+    Vec<T, V> o1, o2;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      T acc_sol, acc_err;
+      weighted_sums_n<NS>(bs, be, [&](int j) { return kc[j].v[e]; }, acc_sol, acc_err);
+      o1.v[e] = fma_of(h, acc_sol, yc.v[e]);
+      o2.v[e] = h * acc_err;
+    }
+    store_chunk<T, V>(y1 + base + c0, o1);
+    store_chunk<T, V>(err + base + c0, o2);
   }
 }
 
@@ -313,7 +332,7 @@ __global__ void __launch_bounds__(kCellThreads)
 }
 
 // The launch shape of the kernels laid out by row (stage_accum,
-// interp_eval's row body) for nc chunks a row: up to a warp, the chunk count
+// fused_update, interp_eval's row body) for nc chunks a row: up to a warp, the chunk count
 // rounded up to a power of two, and the rest of the block takes further rows;
 // above a warp, blocks of at most `threads` a row, the chunks spread evenly
 // over whole warps and over blockIdx.y.
@@ -378,15 +397,51 @@ int launch_stage_accum(const void* y, const void* dt, const void* K, const doubl
              : launch_stage_accum_v<T, 1>(yp, dp, kp, a, nj, op, b, fi, stream);
 }
 
+template <typename T, int NS, int V>
+int launch_fused_update_n(const T* y, const T* K, const T* dt, const Coeffs<T>& bs,
+                          const Coeffs<T>& be, T* y1, T* err, int64_t b, int f,
+                          cudaStream_t stream) {
+  // An empty batch still launches one block (row_shape's grid is at least
+  // 1 x 1), so every counted launch is a launch.
+  const RowShape s = row_shape(f / V, b, kAccumThreads);
+  fused_update_kernel<T, NS, V><<<s.grid, s.block, 0, stream>>>(y, K, dt, bs, be, y1, err, b, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_fused_update_v(const T* y, const T* K, const T* dt, const Coeffs<T>& bs,
+                          const Coeffs<T>& be, int ns, T* y1, T* err, int64_t b, int f,
+                          cudaStream_t stream) {
+  switch (ns) {
+    case 1: return launch_fused_update_n<T, 1, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    case 2: return launch_fused_update_n<T, 2, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    case 3: return launch_fused_update_n<T, 3, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    case 4: return launch_fused_update_n<T, 4, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    case 5: return launch_fused_update_n<T, 5, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    case 6: return launch_fused_update_n<T, 6, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    case 7: return launch_fused_update_n<T, 7, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    case 8: return launch_fused_update_n<T, 8, V>(y, K, dt, bs, be, y1, err, b, f, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int launch_fused_update(const void* y, const void* K, const void* dt, const double* b_sol,
                         const double* b_err, int ns, void* y1, void* err, int64_t b,
                         int64_t f, cudaStream_t stream) {
-  fused_update_kernel<T><<<blocks_for(b * f, kThreads), kThreads, 0, stream>>>(
-      static_cast<const T*>(y), static_cast<const T*>(K), static_cast<const T*>(dt),
-      load_coeffs<T>(b_sol, ns), load_coeffs<T>(b_err, ns), ns, static_cast<T*>(y1),
-      static_cast<T*>(err), b, f);
-  return static_cast<int>(cudaGetLastError());
+  static_assert(kMaxStages == 8, "launch_fused_update_v instantiates counts 1..8");
+  if (ns < 1 || ns > kMaxStages || b > 0x7fffffff || f > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int V = 16 / sizeof(T);
+  const auto yp = static_cast<const T*>(y), kp = static_cast<const T*>(K),
+             dp = static_cast<const T*>(dt);
+  const auto y1p = static_cast<T*>(y1), ep = static_cast<T*>(err);
+  const Coeffs<T> bs = load_coeffs<T>(b_sol, ns), be = load_coeffs<T>(b_err, ns);
+  const int fi = static_cast<int>(f);
+  return f % V == 0 && aligned16(y) && aligned16(K) && aligned16(y1) && aligned16(err)
+             ? launch_fused_update_v<T, V>(yp, kp, dp, bs, be, ns, y1p, ep, b, fi, stream)
+             : launch_fused_update_v<T, 1>(yp, kp, dp, bs, be, ns, y1p, ep, b, fi, stream);
 }
 
 // error_norm's bodies, numbered as cuda_impl.ERROR_NORM_BODIES.

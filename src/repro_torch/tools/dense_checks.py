@@ -1,8 +1,9 @@
-"""Inputs at the boundaries of the layouts of ``error_norm`` and
-``interp_eval`` on the card, made with numpy from a seed so that the JAX
-package's ops, the port's plain ops and the CUDA kernels can all be fed the
-same numbers.  ``chip_smoke.py``, ``tests/test_torch_kernels_card.py`` and
-``tests/test_torch_dense_widths.py`` use them.
+"""Inputs at the boundaries of the layouts of ``error_norm``,
+``interp_eval`` and ``fused_update`` on the card, made with numpy from a seed
+so that the JAX package's ops, the port's plain ops and the CUDA kernels can
+all be fed the same numbers.  ``chip_smoke.py``,
+``tests/test_torch_kernels_card.py``, ``tests/test_torch_dense_widths.py``
+and ``tests/test_torch_update_widths.py`` use them.
 
 - ``ERROR_NORM_WIDTHS``: one entry; two (vdp_table3); 16 and 17 (rows that
   share a block, in whole 16-byte chunks or not); around a warp (31-33);
@@ -13,15 +14,26 @@ same numbers.  ``chip_smoke.py``, ``tests/test_torch_kernels_card.py`` and
 - ``MASK_KINDS``: no masked cell, one point a row, every point, three
   consecutive points a row (as a step writes the dense output), and the
   same runs on some rows only, between rows with no masked cell.
+- ``UPDATE_SHAPES``: ``fused_update``'s (b, f): one entry a row (rows sharing
+  a block), vdp_table3's two, three, a warp's chunks and one more (33),
+  around full_width's 784, and a row wider than a block (5000).
+- ``UPDATE_WEIGHTS``: every tableau's own (b_sol, b_err), zero weights
+  included (a fixed-step tableau's error weights are all zero, as the
+  stepper passes them), and random weights at every stage count 1..8.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.tableau import TABLEAUS
+
 ERROR_NORM_WIDTHS = (1, 2, 16, 17, 31, 32, 33, 783, 784, 785)
 TOL_KINDS = ("scalar", "row", "full")
 MASK_KINDS = ("none", "one", "all", "run3", "some_rows")
+UPDATE_SHAPES = ((5, 1), (300, 2), (37, 3), (37, 33), (37, 783), (37, 784), (37, 785),
+                 (3, 5000))
+UPDATE_WEIGHTS = tuple(TABLEAUS) + tuple(f"s={s}" for s in range(1, 9))
 
 
 def norm_inputs(seed, b, f, dtype, tol_kind):
@@ -64,3 +76,26 @@ def interp_inputs(seed, b, n, f, dtype, kind):
     x = rng.uniform(0.0, 1.0, (b, n)).astype(dtype)
     out = rng.standard_normal((b, n, f)).astype(dtype)
     return coeffs, x, interp_mask(seed + 1, b, n, kind), out
+
+
+def update_weights(kind):
+    """``(b_sol, b_err)``, float64, of ``UPDATE_WEIGHTS``' ``kind``: a
+    tableau's name or ``"s=<count>"``."""
+    if kind in TABLEAUS:
+        tab = TABLEAUS[kind]
+        b_sol = np.asarray(tab.b_sol, dtype=np.float64)
+        b_err = (np.zeros(tab.stages) if tab.b_err is None
+                 else np.asarray(tab.b_err, dtype=np.float64))
+        return b_sol, b_err
+    s = int(kind.removeprefix("s="))
+    rng = np.random.default_rng(s)
+    return rng.standard_normal(s), rng.standard_normal(s)
+
+
+def update_inputs(seed, b, f, s, dtype):
+    """``(y, K, dt)``: a (b, f) state, (s, b, f) stages and (b,) steps of
+    either sign."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, f)).astype(dtype),
+            rng.standard_normal((s, b, f)).astype(dtype),
+            rng.uniform(-0.5, 0.5, b).astype(dtype))

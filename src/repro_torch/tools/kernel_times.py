@@ -40,6 +40,11 @@ sleep, CUDA events):
 - ``stage_accum`` at every stage count j = 1..6 of a dopri5 step, at
   full_width's shape (b = 1024, f = 784) and vdp_table3's (b = 256, f = 2),
   float32 and float64;
+- ``fused_update`` at s = 7 (dopri5's weights) at full_width's shape,
+  vdp_table3's and allen_cahn_full's (b = 1024, f = 128), float32 and
+  float64, at the other stage counts of the repo's tableaus (s = 1, 2, 3, 4)
+  at full_width's shape in float32, and at narrow rows (f = 2 to 128 at b =
+  1024, float32);
 - ``error_norm`` at its three tolerance shapes (scalar, (b,), (b, f)) and
   ``interp_eval`` as a step writes the dense output (3 consecutive of n
   points a row) and its window (W = 8, 3 consecutive points of it a row), at
@@ -192,6 +197,26 @@ def main(argv=None) -> int:
         for j in range(1, 7):
             emit(kernel="stage_accum", shape=f"b={b} f={f} j={j}", dtype=npdt.__name__,
                  ms=median_ms(lambda j=j: cuda_impl.stage_accum(y, dt, K[:j], a[:j])))
+
+    # fused_update: s = 7 at the main shapes in both dtypes, the other stage
+    # counts at full_width's in float32, then narrow rows (b = 1024, float32).
+    dopri5 = get_tableau("dopri5")
+    full = (workloads.FULL["b"], workloads.FULL["f"])
+    update_cases = [(b, f, 7, dtype) for (b, f), dtype in itertools.product(
+        (full, (workloads.VDP["b"], workloads.VDP["f"]),
+         (workloads.STIFF["b"], workloads.ALLEN_CAHN["f"])), (torch.float32, torch.float64))]
+    update_cases += [(*full, s, torch.float32) for s in (1, 2, 3, 4)]
+    update_cases += [(workloads.FULL["b"], f, 7, torch.float32)
+                     for f in (2, 4, 8, 16, 32, 48, 64, 96, 128)]
+    for b, f, s, dtype in update_cases if want("fused_update") else ():
+        gen = torch.Generator(device="cpu").manual_seed(b + f)
+        y = torch.randn(b, f, generator=gen, dtype=dtype).to(dev)
+        dt = 0.1 * torch.rand(b, generator=gen, dtype=dtype).to(dev)
+        K = torch.randn(s, b, f, generator=gen, dtype=dtype).to(dev)
+        _, _, b_sol, b_err = _tableau_arrays(dopri5, dtype)
+        b_sol, b_err = b_sol[:s], b_err[:s]
+        emit(kernel="fused_update", shape=f"b={b} f={f} s={s}", dtype=str(dtype).split(".")[-1],
+             ms=median_ms(lambda: cuda_impl.fused_update(y, K, dt, b_sol, b_err)))
 
     # error_norm at its three tolerance shapes, and interp_eval as a step
     # writes the dense output (3 consecutive points of n a row) and its

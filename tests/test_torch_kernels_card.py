@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card, the fused
 step kernels bitwise against the unfused card path (the row bodies of
 ``fused_step`` and ``fused_step_poly`` bitwise against their warp bodies
-too), ``stage_accum`` at every stage count on both of its layouts, the event
+too), ``stage_accum`` and ``fused_update`` at every stage count on both of
+their layouts (``fused_update`` with every tableau's weights too), the event
 kernels bitwise
 against their plain versions, and the chord-Newton kernels against theirs
 (at a tolerance: LAPACK/cuSOLVER eliminate in another order) with the
@@ -501,6 +502,56 @@ class TestStageAccumOnCard:
         for nj in (0, 9):
             assert lib.rt_stage_accum(0, y.data_ptr(), y.data_ptr(), y.data_ptr(), arr, nj,
                                       y.data_ptr(), 2, 4, cuda_impl._stream(cuda_device)) != 0
+
+
+class TestFusedUpdateOnCard:
+    """``fused_update`` against its plain version at every stage count its
+    entry instantiates (1..8) and with every tableau's weights, zero weights
+    included (``dense_checks.UPDATE_WEIGHTS``), at the widths around its
+    layout (``dense_checks.UPDATE_SHAPES``), on its 16-byte chunks and entry
+    by entry (y or K off a 16-byte boundary)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("b, f", dense_checks.UPDATE_SHAPES)
+    @pytest.mark.parametrize("layout", ["aligned", "y", "K"])
+    def test_against_plain(self, cuda_device, dtype, b, f, layout):
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        npdt = np.float32 if dtype == torch.float32 else np.float64
+        for weights in dense_checks.UPDATE_WEIGHTS:
+            b_sol, b_err = dense_checks.update_weights(weights)
+            y, K, dt = (torch.from_numpy(a).to(cuda_device) for a in dense_checks.update_inputs(
+                b * f + len(b_sol), b, f, len(b_sol), npdt))
+            if layout == "y":
+                y = event_checks.unaligned(y)
+            elif layout == "K":
+                K = event_checks.unaligned(K)
+            got = cuda_impl.fused_update(y, K, dt, b_sol, b_err)
+            for g, w in zip(got, tref.fused_update(y, K, dt, b_sol, b_err)):
+                torch.testing.assert_close(g, w, rtol=tol, atol=tol,
+                                           msg=lambda m, weights=weights: f"{weights}: {m}")
+
+    @pytest.mark.parametrize("b, f", [(0, 784), (0, 2), (5, 0)])
+    def test_empty_is_one_counted_launch(self, cuda_device, b, f):
+        y, K, dt = (torch.ones(s, device=cuda_device) for s in ((b, f), (7, b, f), (b,)))
+        before = ops.launches["fused_update"]
+        y1, err = cuda_impl.fused_update(y, K, dt, [1.0] * 7, [0.5] * 7)
+        torch.cuda.synchronize()
+        assert y1.shape == err.shape == (b, f)
+        assert ops.launches["fused_update"] == before + 1
+
+    def test_entry_refuses_a_stage_count_or_a_size(self, cuda_device):
+        """Before any launch: a stage count outside 1..8, or b or f above
+        2^31 - 1 (the kernel indexes a row in 32 bits)."""
+        y = torch.ones(2, 4, device=cuda_device)
+        lib = _build.load()
+        arr = (cuda_impl.ctypes.c_double * 9)(*([1.0] * 9))
+        p, stream = y.data_ptr(), cuda_impl._stream(cuda_device)
+        for ns, b, f in ((0, 2, 4), (9, 2, 4), (1, 2**31, 4), (1, 2, 2**31)):
+            assert lib.rt_fused_update(0, p, p, p, arr, arr, ns, p, p, b, f, stream) != 0
+        y1, err = torch.empty_like(y), torch.empty_like(y)
+        assert lib.rt_fused_update(0, p, p, p, arr, arr, 1, y1.data_ptr(), err.data_ptr(), 2, 4,
+                                   stream) == 0
+        torch.testing.assert_close(y1, torch.full_like(y, 2.0))
 
 
 def _dense_tensors(arrays, device):
