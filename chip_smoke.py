@@ -96,6 +96,33 @@ raises, and the script exits non-zero without printing a result:
                    prefill(s) + decode_step against prefill(s + 1) and the
                    kernel's prefill against the plain attention's, each
                    within 0.1 of the logits' RMS.
+10. ``grad``       gradients on the card (``kernels/autograd.py``,
+                   ``ScanAdjoint``, ``BacksolveAdjoint``): each of the four
+                   Functions' backwards against ``torch.autograd.grad`` of
+                   the plain op on the card, on the same inputs
+                   (``tools/grad_checks.py``: vdp_table3's and full_width's
+                   shapes, float32 at 1e-5 and float64 at 1e-12, the window
+                   included), with each backward's time at full_width
+                   float32 beside the plain op's; the reduced float64 twin
+                   of ``full_width_train``, card against CPU (ScanAdjoint
+                   with and without checkpointing, BacksolveAdjoint joint
+                   and per_instance: equal step counts, gradients within
+                   1e-9), and once more with the four plain ops made to
+                   raise; ``full_width_train`` in float32 through
+                   ``ScanAdjoint(max_steps=64, checkpoint_every=16)``, three
+                   SGD steps: the loss falls, every loss and gradient is
+                   finite, exactly 2 x 64 launches of each kernel (6 x of
+                   ``stage_accum``) a training step, recompute included
+                   (64 x without checkpointing), ms and peak memory a
+                   training step with and without checkpointing, dL/dy0 of
+                   rows 0-31 against a CPU run of those rows alone within
+                   the float32 gradient's own global error (C-5's rule);
+                   ScanAdjoint's forward loop under
+                   ``torch.cuda.set_sync_debug_mode("error")``, naming any
+                   synchronizing call; BacksolveAdjoint (joint) at
+                   full_width(t_end=1.0), its weight gradients within 1e-3
+                   (relative norm) of ScanAdjoint's, and the kernels' times
+                   on its one augmented row of 3 213 072 entries.
 
 The ``kernels`` phase also holds ``flash_attention_fwd`` to its plain version
 (float32 at 2e-5, bfloat16 at 3e-2) over ragged, ``q_offset``, MQA, hd = 80
@@ -1861,6 +1888,11 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------------------- 10. grad
+    torch.cuda.empty_cache()
+    grad_phase(dev, median_ms, reset_launches)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- kernel summary, then result
     summary = []
     launch_source = {"fused_step": "fused/full_width", "fused_step_poly": "fused/step_bench",
@@ -1911,6 +1943,264 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def grad_phase(dev, median_ms, reset_launches):
+    """Phase 10, ``grad``: the gradient path on the card (see the module
+    docstring).  ``median_ms`` and ``reset_launches`` are main's."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BacksolveAdjoint, ScanAdjoint
+    from repro_torch.core.step import StepFunction
+    from repro_torch.kernels import cuda_impl, ops, ref
+    from repro_torch.tools import grad_checks, workloads
+
+    FOUR = grad_checks.OPS
+
+    # 10a. Each backward on the card against torch.autograd.grad of the plain
+    # op on the card, same inputs: vdp_table3's and full_width's shapes, both
+    # dtypes, every case of grad_checks (its window included); then each
+    # backward's time at full_width float32 beside the plain op's.
+    worst = dict.fromkeys(FOUR, 0.0)
+    timed = {}
+    for shape_name, shp in (("vdp_table3", workloads.VDP), ("full_width", workloads.FULL)):
+        for dtype in (np.float32, np.float64):
+            tdtype = torch.float32 if dtype == np.float32 else torch.float64
+            for case in grad_checks.cases(shp["b"], shp["f"], shp["n"], dtype):
+                op = case["op"]
+                want = grad_checks.case_grads(case, grad_checks.plain(op), dev)
+                got = grad_checks.case_grads(case, grad_checks.function(op), dev)
+                worst[op] = max(worst[op], grad_checks.hold(f"grad/{op}[{case['label']}]",
+                                                            got, want, tdtype))
+                if (shape_name == "full_width" and dtype == np.float32
+                        and case["label"] in ("j=6", "dopri5", "tol=scalar", "mask=run3")):
+                    timed[op] = grad_checks.time_backward(case, dev, median_ms)
+                del want, got
+            torch.cuda.empty_cache()
+    # The backward times are CUDA-event times of torch.autograd.grad; where
+    # its dispatch outlasts the 0.5 ms the device sleeps first, they hold
+    # host time (profile_step.py --grad gives the device time).
+    emit("grad", check="backwards vs plain autograd on the card",
+         tol={"float32": 1e-5, "float64": 1e-12}, max_abs_err=worst,
+         backward_ms_full_width_float32=timed)
+
+    # 10b. Reduced float64 twin of full_width_train, card against CPU: the
+    # ScanAdjoint gradients w.r.t. y0 and every weight (with and without
+    # checkpointing) and BacksolveAdjoint's, joint and per_instance.
+    held = {}
+    for label, kw in (("scan", dict(driver="scan")),
+                      ("scan/checkpoint_every=16", dict(driver="scan", checkpoint_every=16)),
+                      ("backsolve/joint", dict(driver="backsolve", mode="joint")),
+                      ("backsolve/per_instance", dict(driver="backsolve", mode="per_instance"))):
+        reset_launches()
+        card = grad_checks.train_grads(dev, **kw)
+        # The backsolve tracks the final state only: no dense output.
+        used = FOUR if kw["driver"] == "scan" else FOUR[:3]
+        check(all(ops.launches[k] > 0 for k in used),
+              f"grad/{label}: {used} did not all launch: {dict(ops.launches)}")
+        held[label] = grad_checks.hold_card_to_cpu(f"grad/{label}", card,
+                                                   grad_checks.train_grads("cpu", **kw))
+    # No fallback: with the four plain ops made to raise, a card gradient
+    # still succeeds.
+    def plain_ran(*a, **k):
+        raise AssertionError("a plain op ran on the card")
+
+    with mock.patch.multiple(ref, stage_accum=plain_ran, fused_update=plain_ran,
+                             error_norm=plain_ran, interp_eval=plain_ran,
+                             interp_eval_window=plain_ran):
+        _, no_fallback, _ = grad_checks.train_grads(dev, rows=4)
+    check(all(np.isfinite(g).all() for g in no_fallback), "grad: no-fallback gradient")
+    emit("grad", check="reduced float64 twin, card vs CPU", rule=grad_checks.CARD_VS_CPU,
+         max_rel_diff=held, shape=workloads.TRAIN_REDUCED, plain_ops_made_to_raise="passed")
+
+    # 10c. The slice at full width: full_width_train in float32 through
+    # ScanAdjoint(max_steps=64, checkpoint_every=16), three SGD steps.  Per
+    # training step the forward runs every loop iteration (masked no-ops
+    # included) and the backward runs each checkpointed block once more.
+    vf, y0, te, kw, target = workloads.full_width_train(dev)
+    weights = kw["args"]
+    tr = workloads.TRAIN
+    y0t = torch.as_tensor(y0, device=dev).requires_grad_()
+    opt = torch.optim.SGD(list(weights.values()), lr=tr["lr"])
+    tols = dict(rtol=kw["rtol"], atol=kw["atol"])
+
+    def per_iteration(times):
+        return {k: (times * {"stage_accum": 6}.get(k, 1) if k in FOUR else 0)
+                for k in ops.launches}
+
+    def train_step(every, sgd=True):
+        drv = ScanAdjoint(max_steps=tr["max_steps"], checkpoint_every=every, **tols)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # What earlier phases and the weights hold is not the step's.
+        held_before = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        sol = drv.solve(vf, y0t, te, args=weights, device=dev)
+        loss = workloads.mse(sol.ys, target)
+        opt.zero_grad()
+        y0t.grad = None
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        want = per_iteration(tr["max_steps"] * (2 if every else 1))
+        check(launches == want, f"grad/full_width_train: launches {launches} != {want}")
+        grads = [y0t.grad, *(w.grad for w in weights.values())]
+        check(all(bool(torch.isfinite(g).all()) for g in grads),
+              "grad/full_width_train: a gradient is not finite")
+        check(bool(torch.isfinite(loss)), "grad/full_width_train: the loss is not finite")
+        out = dict(loss=float(loss.detach()), ms=ms,
+                   peak_bytes_above_start=torch.cuda.max_memory_allocated() - held_before,
+                   launches=launches, max_loop_steps=int(sol.stats["n_steps"].max()),
+                   rows_not_success=int((sol.status != 0).sum()),
+                   grad_norm=float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads[1:]))),
+                   dL_dy0=y0t.grad.detach().clone())
+        if sgd:
+            opt.step()
+        return out
+
+    train_step(tr["checkpoint_every"], sgd=False)  # warm-up: cuBLAS plans, the allocator
+    steps = [train_step(tr["checkpoint_every"]) for _ in range(tr["steps"])]
+    losses = [st["loss"] for st in steps]
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"grad/full_width_train: the loss did not fall: {losses}")
+    plain = train_step(0, sgd=False)
+    dl_dy0 = steps[0].pop("dL_dy0")
+    for st in (*steps, plain):
+        st.pop("dL_dy0", None)
+
+    # dL/dy0 of rows 0-31 against a CPU run of rows 0-31 alone, at the
+    # first step's weights (before any SGD step): the loss of the whole
+    # batch is a mean, so both are scaled to the sum of squares.  The float32
+    # rule, as C-5 holds ys: within the float32 gradient's own global error
+    # (its distance to a float64 gradient at tol 1e-10, rows 0-31 on the
+    # card), never below 1e-4 of that gradient's size -- a decision near
+    # err_ratio = 1 may flip between two roundings, and moves the gradient
+    # by up to that error.
+    rows = 32
+    b, n, f = target.shape
+    card32 = dl_dy0[:rows].double().cpu().numpy() * (b * n * f)
+    w0 = workloads.full_width_train("cpu")[3]["args"]
+
+    def rows_grad(device, dtype, rtol, max_steps):
+        w = {k: v.detach().to(device=device, dtype=dtype).requires_grad_() for k, v in
+             w0.items()}
+        y = torch.as_tensor(y0[:rows], device=device, dtype=dtype).requires_grad_()
+        sol = ScanAdjoint(max_steps=max_steps, rtol=rtol, atol=rtol).solve(
+            vf, y, te.astype(np.float64) if dtype == torch.float64 else te, args=w,
+            device=device)
+        loss = ((sol.ys - target[:rows].to(device=device, dtype=dtype)) ** 2).sum()
+        return (torch.autograd.grad(loss, [y])[0].double().cpu().numpy(),
+                sol.stats["n_steps"].cpu().numpy())
+
+    cpu32, cpu_steps = rows_grad("cpu", torch.float32, kw["rtol"], tr["max_steps"])
+    truth, _ = rows_grad(dev, torch.float64, 1e-10, 640)
+    d32 = float(np.abs(card32 - cpu32).max())
+    global_err = float(np.abs(card32 - truth).max())
+    bound = max(1e-4 * float(np.abs(truth).max()), global_err)
+    check(d32 <= bound, f"grad/full_width_train: dL/dy0 rows 0-31 card vs CPU {d32} > {bound}")
+    emit("grad", workload="full_width_train", dtype="float32", b=b, f=f, n_eval=n,
+         hidden=workloads.FULL["hidden"], max_steps=tr["max_steps"],
+         checkpoint_every=tr["checkpoint_every"], lr=tr["lr"], losses=losses,
+         ms_per_training_step=[st["ms"] for st in steps], steps=steps,
+         without_checkpoint=plain,
+         dL_dy0_rows_0_31=dict(max_abs_diff_card_vs_cpu=d32, global_err_vs_tol1e10=global_err,
+                               bound=bound, scale=float(np.abs(truth).max()),
+                               cpu_steps=cpu_steps.tolist()))
+
+    # 10d. ScanAdjoint's forward loop with no host read: the loop of a
+    # training forward (grad on, checkpointed) runs under
+    # torch.cuda.set_sync_debug_mode("error") from the end of init to the
+    # start of finish.  A sync raises; then the loop runs once more under
+    # "warn" and every synchronizing call site is named.
+    def guarded(mode):
+        real_init, real_finish = StepFunction.init, StepFunction.finish
+
+        def init(self, *a, **k):
+            out = real_init(self, *a, **k)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode(mode)
+            return out
+
+        def finish(self, *a, **k):
+            torch.cuda.set_sync_debug_mode(0)
+            return real_finish(self, *a, **k)
+
+        drv = ScanAdjoint(max_steps=tr["max_steps"], checkpoint_every=tr["checkpoint_every"],
+                          **tols)
+        with mock.patch.object(StepFunction, "init", init), \
+                mock.patch.object(StepFunction, "finish", finish):
+            try:
+                return drv.solve(vf, y0t, te, args=weights, device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    syncs = []
+    try:
+        guarded("error")
+    except RuntimeError as exc:
+        if "synchroniz" not in str(exc):
+            raise
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            guarded("warn")
+        syncs = sorted({f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+                        if "synchroniz" in str(w.message)})
+    emit("grad", check="ScanAdjoint forward loop under set_sync_debug_mode('error')",
+         syncs=syncs, loop_reads_nothing=not syncs)
+
+    # 10e. BacksolveAdjoint (joint) at full width: full_width(t_end=1.0),
+    # the MSE of y(t_end) against the target's last point.  Its weight
+    # gradients against ScanAdjoint's: two discretizations of the same
+    # gradient, each within the solver's tolerance of it (6.9e-5 apart in
+    # relative norm on the CPU for rows 0-31); held to 1e-3.  The backward is
+    # one augmented instance of 2bf + p entries.
+    vf1, y01, te1, kw1 = workloads.full_width(dev)
+    tgt1 = target[:, -1]
+
+    def weight_grads(driver):
+        w = {k: v.detach().clone().requires_grad_() for k, v in kw1["args"].items()}
+        y = torch.as_tensor(y01, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        if driver == "scan":
+            y1 = ScanAdjoint(max_steps=tr["max_steps"], **tols).solve(
+                vf1, y, te1, args=w, device=dev).ys[:, -1]
+        else:
+            y1 = BacksolveAdjoint(mode="joint", **tols).solve(
+                vf1, y, t_start=0.0, t_end=float(te1[-1]), args=w, device=dev)
+        g = torch.autograd.grad(workloads.mse(y1, tgt1), list(w.values()))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return torch.cat([x.reshape(-1) for x in g]).double(), ms, dict(ops.launches)
+
+    weight_grads("backsolve")  # warm-up
+    g_scan, scan_ms, _ = weight_grads("scan")
+    g_bs, bs_ms, bs_launches = weight_grads("backsolve")
+    check(bool(torch.isfinite(g_bs).all()), "grad/backsolve: gradient not finite")
+    rel = float((g_bs - g_scan).norm() / g_scan.norm())
+    check(rel <= 1e-3, f"grad/backsolve: joint vs ScanAdjoint weight gradients {rel} apart")
+    aug = 2 * y01.shape[0] * y01.shape[1] + sum(v.numel() for v in kw1["args"].values())
+    # The augmented instance's row through the kernels, each timed alone.
+    g = torch.Generator(device="cpu").manual_seed(0)
+    row = torch.randn(1, aug, generator=g).to(dev)
+    K = torch.randn(7, 1, aug, generator=g).to(dev)
+    dt1 = torch.full((1,), 0.1, device=dev)
+    a = np.random.default_rng(0).standard_normal(7)
+    wide = dict(
+        error_norm=median_ms(lambda: cuda_impl.error_norm(1e-5 * row, row, K[0], 1e-5, 1e-5)),
+        error_norm_body=cuda_impl.error_norm_body(aug),
+        stage_accum_j6=median_ms(lambda: cuda_impl.stage_accum(row, dt1, K[:6], a[:6])),
+        fused_update_s7=median_ms(lambda: cuda_impl.fused_update(row, K, dt1, a, a[::-1])))
+    emit("grad", workload="full_width", driver="BacksolveAdjoint(joint)", t_end=float(te1[-1]),
+         augmented_entries=aug, rel_norm_diff_vs_scan=rel, bound=1e-3,
+         backsolve_ms=bs_ms, scan_ms=scan_ms, backsolve_launches=bs_launches,
+         wide_row_kernels_ms=wide)
 
 
 if __name__ == "__main__":

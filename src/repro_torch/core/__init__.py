@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``repro.core``, slice by slice.  Two API levels:
 
-  - one-call wrappers: ``solve_ivp`` / ``make_solver``
+  - one-call wrappers: ``solve_ivp`` / ``solve_ivp_scan`` / ``make_solver``
   - composable components: ``AutoDiffAdjoint(Stepper("tsit5"),
     pid_controller()).solve(f, y0, t_eval)``
 
@@ -20,9 +20,9 @@ from .controller import (
 )
 from .drivers import AutoDiffAdjoint, BacksolveAdjoint, ScanAdjoint
 from .events import Event, EventState
-from .loop import make_solver, solve_ivp
+from .loop import make_solver, solve_ivp, solve_ivp_scan
 from .newton import NewtonConfig, NewtonResult, newton_solve
-from .solution import Solution, Status
+from .solution import Grads, Solution, Status
 from .step import FusedFallbackReason, LoopState, StepContext, StepFunction
 from .stepper import (
     AbstractStepper,
@@ -70,6 +70,8 @@ __all__ = [
     "EventState",
     "make_solver",
     "solve_ivp",
+    "solve_ivp_scan",
+    "Grads",
     "Solution",
     "Status",
     "FusedFallbackReason",

@@ -1,7 +1,7 @@
 """One-call wrappers over the componentized solver core.
 
-``solve_ivp`` and ``make_solver`` keep the JAX package's signatures, plus the
-explicit ``device`` of ``solve_ivp``.  New code may compose the components
+``solve_ivp``, ``solve_ivp_scan`` and ``make_solver`` keep the JAX package's
+signatures, plus the explicit ``device`` of the two solves.  New code may compose the components
 directly::
 
     solver = AutoDiffAdjoint(Stepper("tsit5"), pid_controller())
@@ -13,7 +13,7 @@ from __future__ import annotations
 import warnings
 from typing import Any
 
-from .drivers import AutoDiffAdjoint
+from .drivers import AutoDiffAdjoint, ScanAdjoint
 from .solution import Solution
 from .step import StepFunction
 from .stepper import AbstractStepper
@@ -144,6 +144,56 @@ def solve_ivp(
         dense=dense,
         dense_window=dense_window,
         batched_term=batched_term,
+        events=events,
+        event_bisect_iters=event_bisect_iters,
+        fused=fused,
+    )
+    return driver.solve(f, y0, t_eval, t_start=t_start, t_end=t_end, dt0=dt0, args=args,
+                        device=device)
+
+
+def solve_ivp_scan(
+    f,
+    y0,
+    t_eval=None,
+    *,
+    t_start=None,
+    t_end=None,
+    method: str = "dopri5",
+    rtol=1e-3,
+    atol=1e-6,
+    controller=None,
+    dt0=None,
+    max_steps: int = 256,
+    args: Any = None,
+    batched_term: bool = True,
+    dense: bool = True,
+    dense_window: int = 0,
+    checkpoint_every: int = 0,
+    events=None,
+    event_bisect_iters: int = 30,
+    fused: bool = False,
+    device=None,
+) -> Solution:
+    """Reverse-mode-differentiable variant (``ScanAdjoint``): exactly
+    ``max_steps`` iterations with masked no-op steps after termination
+    (discretize-then-optimize), no host read inside the loop.
+    ``checkpoint_every`` > 0 wraps blocks of steps in ``torch.utils.checkpoint``
+    to trade recompute for memory on long solves.  Differentiate with
+    ``torch.autograd`` (``loss.backward()``); on the card the explicit
+    unfused path differentiates, ``fused``, ``events`` and implicit methods
+    only without grad (ROADMAP A-18).  ``device`` as in ``solve_ivp``.
+    """
+    driver = ScanAdjoint(
+        AbstractStepper.coerce(method),
+        controller,
+        rtol=rtol,
+        atol=atol,
+        max_steps=max_steps,
+        dense=dense,
+        dense_window=dense_window,
+        batched_term=batched_term,
+        checkpoint_every=checkpoint_every,
         events=events,
         event_bisect_iters=event_bisect_iters,
         fused=fused,

@@ -1,12 +1,28 @@
-"""Solution container and per-instance status codes."""
+"""Solution container, per-instance status codes and the gradient record."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
+
+
+class Grads(NamedTuple):
+    """Gradients delivered by a reverse-mode solve program.
+
+    y0:   cotangent of the initial state -- same structure as the ``y0`` that
+          was solved, every leaf with the batch as its leading axis (``(b, f)``
+          for flat states).
+    args: cotangent of the dynamics arguments (same structure as ``args``),
+          or ``None`` when the solve carried no args.  When the term batches
+          its args (``ODETerm.batched_args``), each leaf's leading axis is the
+          batch and row ``i`` is instance ``i``'s own parameter gradient.
+    """
+
+    y0: Any
+    args: Any = None
 
 
 class Status(enum.IntEnum):
@@ -43,8 +59,11 @@ class Solution:
                 states)
     event_mask: (b, E) bool -- which (instance, event) crossings were recorded
 
-    ``grads`` keeps the JAX package's field; it stays None until gradients
-    are ported.
+    grads:      a ``Grads(y0=..., args=...)`` record when the solution came
+                out of a reverse-mode program (the compiled and served grad
+                programs, ROADMAP A-12 and A-13); ``None`` otherwise.
+                Differentiate a solve with ``torch.autograd`` through
+                ``ScanAdjoint``/``solve_ivp_scan`` or ``BacksolveAdjoint``.
     """
 
     ts: torch.Tensor

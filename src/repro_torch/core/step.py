@@ -288,8 +288,11 @@ class StepFunction:
     def _scale(self, y: torch.Tensor) -> torch.Tensor:
         """The (b, f) error scale atol + rtol*|y| of the Newton convergence
         test.  Tolerances may be scalars, per-instance (b,) vectors or full
-        (b, f) tensors."""
-        atol, rtol = ops.broadcast_tolerances(self.atol, self.rtol, y.dtype, y.device)
+        (b, f) tensors.  A scalar tolerance rides into the ops as a number:
+        made a tensor on the card, it would be a host-to-device copy, which
+        waits for the device, on every step."""
+        atol, rtol = (t if isinstance(t, float) else t[:, None] if t.ndim == 1 else t
+                      for t in self._tolerances(y))
         return atol + rtol * torch.abs(y)
 
     def init(self, y0, t_eval=None, t_start=None, t_end=None, dt0=None, args=None):

@@ -442,6 +442,9 @@ class DiagonallyImplicitRK(AbstractStepper):
                 # so the test matches the atol/rtol error scale.
                 stage_scale = scale / torch.clamp(torch.abs(dtg), min=tiny)
                 pred = K[i - 1] if i > 0 else f0  # predictor: the previous stage slope
+                if K.requires_grad:
+                    # Autograd saves the first iterate, and K[i] is written below.
+                    pred = pred.clone()
                 if factor_once:
                     res = newton_solve(eval_fn, pred, scale=stage_scale, operator=operator,
                                        config=self.newton)

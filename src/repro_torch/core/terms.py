@@ -247,17 +247,23 @@ def ravel_term(
         batched_args = f.batched_args
         f = f.f
 
+    def ravel_like(dy, yt):
+        # The derivative's leaves in the state's order: a dict the vector
+        # field builds in another key order ravels by key, as the state did.
+        return _ravel_one(pytree.tree_map(lambda _, d: d, yt, dy))
+
     def flat_f(t, y, args):
         if with_args and batched_args and args is not None:
             def one_with_args(ti, yi, ai):
-                return _ravel_one(f(ti, raveled.unravel_one(yi), ai)).to(yi.dtype)
+                yt = raveled.unravel_one(yi)
+                return ravel_like(f(ti, yt, ai), yt).to(yi.dtype)
 
             return vmap(one_with_args)(t, y, args)
 
         def one(ti, yi):
             yt = raveled.unravel_one(yi)
             dy = f(ti, yt, args) if with_args else f(ti, yt)
-            return _ravel_one(dy).to(yi.dtype)
+            return ravel_like(dy, yt).to(yi.dtype)
 
         return vmap(one)(t, y)
 

@@ -96,6 +96,20 @@ body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
+# Why a wrapper refuses an input that requires grad while grad mode is on.
+# The four explicit-path kernels have their backward in kernels/autograd.py,
+# which ops.py reaches; the others have none on the card yet.
+_WITH_FUNCTION = ("the CUDA kernel has no backward of its own: differentiate through "
+                  "repro_torch.kernels.ops, whose autograd Function holds it")
+_NO_BACKWARD = {
+    None: ("the CUDA kernel has no backward yet (ROADMAP A-18); solve under "
+           "torch.no_grad(), on the CPU, or through BacksolveAdjoint to differentiate"),
+    "flash_attention_fwd": ("the CUDA kernel has no backward yet (ROADMAP A-17); run the "
+                            "attention under torch.no_grad() or on the CPU to differentiate"),
+    **dict.fromkeys(("stage_accum", "fused_update", "error_norm", "interp_eval"),
+                    _WITH_FUNCTION),
+}
+
 
 def _check(name, dtype, *tensors):
     for t in tensors:
@@ -107,10 +121,7 @@ def _check(name, dtype, *tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
         if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(
-                f"{name}: the CUDA kernel has no backward yet (ROADMAP A-11); "
-                "solve under torch.no_grad() or on the CPU to differentiate"
-            )
+            raise RuntimeError(f"{name}: {_NO_BACKWARD.get(name, _NO_BACKWARD[None])}")
 
 
 def _dtype_code(name, t):

@@ -6,6 +6,12 @@ version in ``ref.py``; a CUDA tensor goes to the hand-written CUDA kernel in
 ``cuda_impl.py``, or the call raises.  Nothing gives way to the plain version
 on the card.  ``launches`` counts the CUDA launches of each kernel.
 
+Gradients: on a CUDA tensor, with grad mode on and an input that requires
+grad, ``stage_accum``, ``fused_update``, ``error_norm`` and ``interp_eval`` go
+through their ``torch.autograd.Function`` in ``autograd.py`` (the kernel
+forward, a plain-torch backward); every other kernel refuses such inputs
+(ROADMAP A-18).  CPU tensors take the plain ops and their own autograd.
+
 The solver core (``core/stepper.py`` for the stage math, ``core/newton.py``
 for the chord-Newton linear algebra, ``core/step.py`` for the error norm, the
 fused step and dense-output writes, ``core/events.py`` for event detection,
@@ -15,7 +21,9 @@ attention (``models/attention.py``, ``flash_attention_fwd``).
 
 from __future__ import annotations
 
-from . import cuda_impl, ref
+import torch
+
+from . import autograd, cuda_impl, ref
 
 launches = cuda_impl.launches
 
@@ -29,20 +37,33 @@ def _on_cuda(name, t):
     raise ValueError(f"{name}: no implementation for tensors on {t.device}")
 
 
+def _taped(*tensors):
+    """Whether autograd records this call: grad mode is on and a tensor
+    input requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def stage_accum(y, dt, K, coeffs):
     if _on_cuda("stage_accum", y):
+        if _taped(y, dt, K):
+            return autograd.stage_accum(y, dt, K, coeffs)
         return cuda_impl.stage_accum(y, dt, K, coeffs)
     return ref.stage_accum(y, dt, K, coeffs)
 
 
 def fused_update(y, K, dt, b_sol, b_err):
     if _on_cuda("fused_update", y):
+        if _taped(y, K, dt):
+            return autograd.fused_update(y, K, dt, b_sol, b_err)
         return cuda_impl.fused_update(y, K, dt, b_sol, b_err)
     return ref.fused_update(y, K, dt, b_sol, b_err)
 
 
 def error_norm(err, y0, y1, atol, rtol):
     if _on_cuda("error_norm", err):
+        if _taped(err, y0, y1, atol, rtol):
+            return autograd.error_norm(err, y0, y1, atol, rtol)
         return cuda_impl.error_norm(err, y0, y1, atol, rtol)
     return ref.error_norm(err, y0, y1, atol, rtol)
 
@@ -51,8 +72,11 @@ def interp_eval(coeffs, x, mask, out, cursor=None):
     """Masked dense-output write.  Returns the updated (b, n, f) buffer; on
     the card the kernel updates ``out`` in place and returns it, so callers
     always use the returned buffer.  With ``cursor``, ``x``/``mask`` are a
-    (b, W) window starting at each row's cursor (``ref.interp_eval_window``)."""
+    (b, W) window starting at each row's cursor (``ref.interp_eval_window``).
+    Under autograd the card writes into a copy of ``out`` instead."""
     if _on_cuda("interp_eval", out):
+        if _taped(x, out, *coeffs):
+            return autograd.interp_eval(coeffs, x, mask, out, cursor)
         return cuda_impl.interp_eval(coeffs, x, mask, out, cursor)
     if cursor is None:
         return ref.interp_eval(coeffs, x, mask, out)

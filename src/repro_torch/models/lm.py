@@ -40,7 +40,7 @@ class LM(nn.Module):
     weights are drawn by ``init_params(seed)``; with ``seed=None`` they are
     left uninitialized, for ``load_state_dict``
     (``convert.lm_params_from_numpy``).  The weights never require grad:
-    the CUDA kernels have no backward yet (ROADMAP A-11)."""
+    the attention kernel has no backward yet (ROADMAP A-17)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", seed=None):
         super().__init__()

@@ -5,6 +5,7 @@
         [--workload vdp_table3|full_width|full_width_long|step_bench|
                     ball_terminal|vdp_marker|full_width_long_events|
                     vdp_stiff_mixed|robertson_sweep|allen_cahn_full|all]
+    PYTHONPATH=src python -m repro_torch.tools.profile_step --grad
     python src/repro_torch/tools/profile_step.py --src <another tree>/src [...]
 
 ``--src`` profiles the ``repro_torch`` of another tree (run as a file; it
@@ -45,6 +46,17 @@ per workload (float32):
   time.
   ``null`` when the profiler reports no device activity.
 
+``--grad`` profiles one training step of ``full_width_train`` instead (a
+``ScanAdjoint`` forward of ``TRAIN["max_steps"]`` loop iterations and its
+backward, checkpointed every ``TRAIN["checkpoint_every"]`` steps and not
+checkpointed), one JSON line each: ``ms_per_training_step``, ``forward_ms``
+and ``backward_ms`` (host clock, synchronized), ``peak_bytes``, and from
+``torch.profiler`` over one more step the device operations per training
+step and per loop iteration, the device busy time, the idle share, the port's
+kernels by name, and each backward of ``kernels/autograd.py``
+(``backward_ms``: calls, device time and host time of its autograd node, the
+kernels it launches included).
+
 It needs a CUDA device and exits non-zero without one.
 """
 
@@ -60,7 +72,10 @@ import numpy as np
 import torch
 
 # Bound by _bind (main): the tree's repro_torch, this one's or --src's.
-make_solver = solve_ivp = ops = workloads = None
+make_solver = solve_ivp = ops = workloads = ScanAdjoint = None
+
+BACKWARDS = ("StageAccumBackward", "FusedUpdateBackward", "ErrorNormBackward",
+             "InterpEvalBackward")
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
            "error_norm_row_kernel", "interp_eval_kernel",
@@ -103,11 +118,30 @@ def _steps_without_sync(vf, y0, t_eval, kw, iters, device):
     return run
 
 
-def _profile(run, iters):
+def _profile(run, iters, backwards=False):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms, _ = _sync_ms(run)
+    out = _device_summary(prof, wall_ms, iters)
+    if out is not None and backwards:
+        # Each Function's backward: its autograd node, the kernels it
+        # launched included.
+        bw = {}
+        for a in prof.key_averages():
+            name = a.key.rsplit(" ", 1)[-1]
+            if a.key.startswith("autograd::engine::evaluate_function") and name in BACKWARDS:
+                bw[name] = dict(calls=a.count, device_ms=_device_us(a) / 1e3,
+                                host_ms=a.cpu_time_total / 1e3)
+        out["backward_ms"] = bw
+    return out
+
+
+def _device_us(avg):
+    return getattr(avg, "device_time_total", None) or getattr(avg, "cuda_time_total", 0.0)
+
+
+def _device_summary(prof, wall_ms, iters):
     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -164,6 +198,39 @@ def profile_workload(name, vf, y0, t_eval, kw, device):
     return dict(out, profile=_profile(run, iters))
 
 
+def profile_grad(device, checkpoint_every):
+    """One training step of ``full_width_train`` (see the module docstring)."""
+    vf, y0, te, kw, target = workloads.full_width_train(device)
+    tr = workloads.TRAIN
+    y0t = torch.as_tensor(y0, device=device).requires_grad_()
+    drv = ScanAdjoint(max_steps=tr["max_steps"], checkpoint_every=checkpoint_every,
+                      rtol=kw["rtol"], atol=kw["atol"])
+    times = {}
+
+    def step():
+        t0 = time.perf_counter()
+        sol = drv.solve(vf, y0t, te, args=kw["args"], device=device)
+        loss = workloads.mse(sol.ys, target)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        times.update(forward_ms=(t1 - t0) * 1e3, backward_ms=(time.perf_counter() - t1) * 1e3)
+        return sol
+
+    step()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    wall, sol = _sync_ms(step)
+    out = dict(workload="full_width_train", checkpoint_every=checkpoint_every,
+               max_steps=tr["max_steps"], loop_steps_needed=int(sol.stats["n_steps"].max()),
+               ms_per_training_step=wall, **times,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    prof = _profile(step, 1, backwards=True)
+    if prof is not None:
+        prof["device_ops_per_loop_iteration"] = prof["device_ops_per_step"] / tr["max_steps"]
+    return dict(out, profile=prof)
+
+
 WORKLOADS = {
     "vdp_table3": lambda device: workloads.vdp_table3(np.float32),
     "full_width": lambda device: workloads.full_width(device),
@@ -181,10 +248,10 @@ WORKLOADS = {
 def _bind(src):
     """Import the profiled tree's repro_torch (``src``, else the one on the
     path) into this module's globals."""
-    global make_solver, solve_ivp, ops, workloads
+    global make_solver, solve_ivp, ops, workloads, ScanAdjoint
     if src:
         sys.path.insert(0, str(pathlib.Path(src).resolve()))
-    from repro_torch.core import make_solver, solve_ivp
+    from repro_torch.core import ScanAdjoint, make_solver, solve_ivp
     from repro_torch.kernels import ops
     from repro_torch.tools import workloads
 
@@ -192,6 +259,8 @@ def _bind(src):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fused", action="store_true", help="profile fused=True")
+    parser.add_argument("--grad", action="store_true",
+                        help="profile a training step of full_width_train instead")
     parser.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
     parser.add_argument("--src", default=None,
                         help="the src/ directory whose repro_torch to profile (run as a file)")
@@ -202,6 +271,11 @@ def main(argv=None) -> int:
     _bind(opts.src)
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
+    if opts.grad:
+        for every in (workloads.TRAIN["checkpoint_every"], 0):
+            print(json.dumps({"src": str(pathlib.Path(ops.__file__).parents[2]),
+                              **profile_grad(device, every)}), flush=True)
+        return 0
     names = list(WORKLOADS) if opts.workload == "all" else [opts.workload]
     for name in names:
         vf, y0, te, kw = WORKLOADS[name](device)

@@ -48,6 +48,20 @@ event when the per-row state RMS rises through ``EVENTS_LONG
 The state RMS grows from ~1 to 18-21 over t in [0, 8]; at 19.5, 54.7 % of
 rows 0-63 stop with ``Status.EVENT`` on the CPU and the rest reach t_end.
 
+The gradient workload:
+
+``full_width_train``: ``full_width_long``'s vector field, shapes and tolerance
+(b = 1024, f = 784, hidden 1024, weights 3x, t in [0, 8], dense output at
+its 64 points) trained through ``ScanAdjoint`` (``TRAIN["max_steps"]`` = 64
+steps, the 57 the solve needs and masked no-ops after, checkpointed every
+``TRAIN["checkpoint_every"]`` = 16) with ``torch.optim.SGD`` at
+``TRAIN["lr"]``.  The weights are float32 leaf tensors that require grad;
+the loss is the mean squared error of ``ys`` against a target trajectory
+drawn from numpy seed 1.  ``full_width_train(device, reduced=True)`` is its
+float64 twin at b = 8, f = 6, hidden 16 (the same structure, seeds and
+scales, 1/sqrt(fan_in) at the reduced widths), small enough for the CPU and
+for holding the card's gradients to the CPU's.
+
 The stiff workloads (``DiagonallyImplicitRK`` with kvaerno5 and the default
 PID controller, float32, final state only), after the JAX package's own stiff
 problems:
@@ -106,11 +120,12 @@ def mlp(t, y, p):
     return torch.matmul(torch.tanh(torch.matmul(y, p["w1"]) + p["b1"]), p["w2"]) + p["b2"]
 
 
-def full_width(device, weight_scale=1.0, t_end=1.0):
+def full_width(device, weight_scale=1.0, t_end=1.0, shape=FULL, dtype=torch.float32):
     """``(f, y0, t_eval, kwargs)`` of the full-width neural-ODE solve; the
-    weights are float32 tensors on ``device``, ``weight_scale`` times the
-    1/sqrt(fan_in) draws."""
-    b, f, n, h = FULL["b"], FULL["f"], FULL["n"], FULL["hidden"]
+    weights are tensors on ``device`` in ``dtype``, ``weight_scale`` times
+    the 1/sqrt(fan_in) draws.  ``shape`` gives b, f, n and hidden."""
+    b, f, n, h = shape["b"], shape["f"], shape["n"], shape["hidden"]
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     rng = np.random.default_rng(0)
     weights = convert.from_numpy({
         name: weight_scale * w for name, w in (
@@ -118,15 +133,40 @@ def full_width(device, weight_scale=1.0, t_end=1.0):
             ("b1", rng.standard_normal(h) / np.sqrt(f)),
             ("w2", rng.standard_normal((h, f)) / np.sqrt(h)),
             ("b2", rng.standard_normal(f) / np.sqrt(h)))},
-        device, dtype=torch.float32)
-    y0 = rng.standard_normal((b, f)).astype(np.float32)
-    t_eval = np.linspace(0.0, t_end, n, dtype=np.float32)
+        device, dtype=dtype)
+    y0 = rng.standard_normal((b, f)).astype(np_dtype)
+    t_eval = np.linspace(0.0, t_end, n, dtype=np_dtype)
     return mlp, y0, t_eval, dict(method="dopri5", atol=1e-5, rtol=1e-5, args=weights)
 
 
 def full_width_long(device):
     """``full_width`` with a real step count (see the module docstring)."""
     return full_width(device, **LONG)
+
+
+TRAIN = dict(max_steps=64, checkpoint_every=16, lr=1e-4, steps=3)
+TRAIN_REDUCED = dict(b=8, f=6, n=FULL["n"], hidden=16)
+
+
+def full_width_train(device, reduced=False):
+    """``(f, y0, t_eval, kwargs, target)`` of the training workload (see the
+    module docstring): ``kwargs["args"]`` holds the weights, leaf tensors
+    that require grad; ``target`` is the (b, n, f) trajectory of the loss,
+    a tensor on ``device``.  The solve's own kwargs (tolerances, method) are
+    ``full_width_long``'s; ``TRAIN`` has the driver's and SGD's."""
+    shape, dtype = (TRAIN_REDUCED, torch.float64) if reduced else (FULL, torch.float32)
+    vf, y0, t_eval, kw = full_width(device, shape=shape, dtype=dtype, **LONG)
+    for w in kw["args"].values():
+        w.requires_grad_(True)
+    b, f, n = shape["b"], shape["f"], shape["n"]
+    target = torch.as_tensor(np.random.default_rng(1).standard_normal((b, n, f)),
+                             dtype=dtype, device=device)
+    return vf, y0, t_eval, kw, target
+
+
+def mse(ys, target):
+    """The training loss: the mean squared error of ``ys`` against ``target``."""
+    return torch.mean((ys - target) ** 2)
 
 
 def step_bench(dtype=np.float32):

@@ -1,6 +1,6 @@
 """Serve-step functions (the JAX package's ``train/steps.py``):
 ``make_prefill_step`` and ``make_decode_step``.  The training step comes
-with gradients (ROADMAP A-11, A-17)."""
+with the LM's training path (ROADMAP A-17)."""
 
 from __future__ import annotations
 

@@ -5,7 +5,7 @@
 - ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor ``repro``,
   and the port runs with JAX blocked;
 - no path hides the device: without a card ``solve_ivp`` raises unless the
-  caller passes ``device="cpu"``, and the unported features refuse.
+  caller passes ``device="cpu"``.
 """
 
 import ast
@@ -225,9 +225,22 @@ class TestNoHiddenDevice:
                             device="cpu", events=events)
 
     @pytest.mark.parametrize("cls", ["ScanAdjoint", "BacksolveAdjoint"])
-    def test_gradient_drivers_refuse(self, cls):
-        with pytest.raises(NotImplementedError, match="A-11"):
-            getattr(T, cls)()
+    def test_gradient_drivers_keep_the_reference_defaults(self, cls):
+        """The gradient drivers are ported: they construct with the JAX
+        package's defaults, and their solves raise without a card unless
+        given ``device="cpu"``."""
+        drv, ref_drv = getattr(T, cls)(), getattr(J, cls)()
+        for name in ("max_steps", "rtol", "atol"):
+            assert getattr(drv, name) == getattr(ref_drv, name), name
+        assert drv.stepper.tableau.name == ref_drv.stepper.tableau.name
+        kw = dict(t_start=0.0, t_end=1.0)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: False)
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                drv.solve(lambda t, y, a: -y, np.ones((1, 1)), **kw)
+        out = drv.solve(lambda t, y, a: -y, np.ones((1, 1)), device="cpu", **kw)
+        y1 = out if cls == "BacksolveAdjoint" else out.ys
+        np.testing.assert_allclose(y1.numpy(), np.exp(-1.0) * np.ones((1, 1)), rtol=1e-3)
 
     def test_inputs_follow_the_device(self):
         sol = T.solve_ivp(lambda t, y, a: -a * y, torch.ones(2, 2, dtype=torch.float64),

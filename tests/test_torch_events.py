@@ -9,8 +9,8 @@ package's, on the same numpy inputs.
 - (b) one small case of each against the Pallas kernel in interpret mode, at
   f = 37 and f = 200.
 - (c) whole solves against JAX ``solve_ivp(events=...)`` in float64, every
-  semantic case of ``tests/test_events.py`` (its scan-driver case aside,
-  ROADMAP A-11): equal ``status``, ``n_steps``, ``n_events`` and
+  semantic case of ``tests/test_events.py`` (its scan-driver case is in
+  ``tests/test_torch_grad.py``): equal ``status``, ``n_steps``, ``n_events`` and
   ``event_mask``; ``event_t``, ``event_y``, ``ts`` and ``ys`` within 1e-9.
   Each case runs unfused and fused.
 - (d) fused solves with events bitwise equal to unfused ones on the CPU, for

@@ -40,7 +40,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.stepper import _tableau_arrays  # noqa: E402
 from repro_torch.kernels import _build, cuda_impl, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.tools import dense_checks, event_checks  # noqa: E402
+from repro_torch.tools import dense_checks, event_checks, grad_checks  # noqa: E402
 from repro_torch.tools import newton_checks as NC  # noqa: E402
 from repro_torch.tools.step_checks import (  # noqa: E402
     POLY32_STATE,
@@ -1455,3 +1455,61 @@ def test_lm_prefill_on_card_matches_cpu(cuda_device):
         lg_cpu, cache_cpu = cpu.decode_step(tok[:, i], pos, cache_cpu)
         torch.testing.assert_close(lg.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
     assert ops.launches["flash_attention_fwd"] == before + cfg.n_layers
+
+
+class TestGradientsOnCard:
+    """The four Functions of ``kernels/autograd.py`` on the card against
+    ``torch.autograd.grad`` of the plain ops on the card
+    (``tools/grad_checks.py``'s cases and rule), ``ScanAdjoint`` and
+    ``BacksolveAdjoint`` gradients on the card against the CPU's in float64,
+    the kernels without a backward refusing under autograd (ROADMAP A-18),
+    and no fallback to the plain ops."""
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("b,f,n", [(37, 2, 9), (37, 784, 9), (5, 33, 200)])
+    def test_backwards_against_plain(self, cuda_device, dtype, b, f, n):
+        tdtype = torch.float32 if dtype == np.float32 else torch.float64
+        before = dict(ops.launches)
+        for case in grad_checks.cases(b, f, n, dtype, seed=f):
+            want = grad_checks.case_grads(case, grad_checks.plain(case["op"]), cuda_device)
+            got = grad_checks.case_grads(case, grad_checks.function(case["op"]), cuda_device)
+            grad_checks.hold(f"{case['op']}[{case['label']}]", got, want, tdtype)
+        assert all(ops.launches[k] > before[k] for k in grad_checks.OPS)
+
+    @pytest.mark.parametrize("driver,mode,every", [("scan", None, 0), ("scan", None, 16),
+                                                   ("backsolve", "joint", 0),
+                                                   ("backsolve", "per_instance", 0)])
+    def test_float64_gradients_match_cpu(self, cuda_device, driver, mode, every):
+        kw = dict(driver=driver, mode=mode, checkpoint_every=every)
+        for k in ops.launches:
+            ops.launches[k] = 0
+        card = grad_checks.train_grads(cuda_device, **kw)
+        # The backsolve tracks the final state only: no dense output.
+        used = grad_checks.OPS if driver == "scan" else grad_checks.OPS[:3]
+        assert all(ops.launches[k] > 0 for k in used)
+        grad_checks.hold_card_to_cpu(driver, card, grad_checks.train_grads("cpu", **kw))
+
+    @pytest.mark.parametrize("variant", ["fused", "events", "kvaerno5"])
+    def test_paths_without_a_backward_refuse(self, cuda_device, variant):
+        kw = {"fused": dict(fused=True),
+              "events": dict(events=Event(lambda t, y, args: y[0], terminal=False)),
+              "kvaerno5": dict(method="kvaerno5")}[variant]
+        y0 = torch.ones(2, 2, dtype=torch.float64, device=cuda_device, requires_grad=True)
+        with pytest.raises(RuntimeError, match="ROADMAP A-18"):
+            solve_ivp(lambda t, y, a: -y, y0, np.linspace(0.0, 1.0, 5), device=cuda_device,
+                      **kw)
+        with torch.no_grad():
+            solve_ivp(lambda t, y, a: -y, y0, np.linspace(0.0, 1.0, 5), device=cuda_device,
+                      **kw)
+
+    def test_no_fallback_to_the_plain_ops(self, cuda_device):
+        """With every plain op of the four made to raise, a card gradient
+        still succeeds: the forward is the kernels', the backward the
+        Functions' own."""
+        def boom(*a, **k):
+            raise AssertionError("the plain op ran on the card")
+
+        with mock.patch.multiple(tref, stage_accum=boom, fused_update=boom, error_norm=boom,
+                                 interp_eval=boom, interp_eval_window=boom):
+            _, grads, _ = grad_checks.train_grads(cuda_device, rows=4)
+        assert all(np.isfinite(g).all() for g in grads)
