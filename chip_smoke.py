@@ -65,7 +65,29 @@ raises, and the script exits non-zero without printing a result:
                    ``fused_step_body`` picks), and full_width_long (the
                    same network with a real step count) unfused and fused:
                    ms per step, loop iterations, exact launch counts.
-7. ``events``      the event workloads (``tools/workloads.py``), unfused and
+7. ``compiled``    the compiled front end (``core/compiled.py``,
+                   ``core/graphs.py``): vdp_table3 and full_width_long (the
+                   full_width network and shapes with a real step count),
+                   unfused and fused, each through one ``CompiledSolver``
+                   (k = 16) whose first call captures the loop as CUDA
+                   graphs and whose next two replay them, every one held to
+                   the eager card solve (equal step counts and status, ys
+                   bitwise or within 1e-6 relative with the reason printed);
+                   exact kernel launches during the capture (the warm-up
+                   step and each captured block's steps) and none during a
+                   replay; a second rtol through the same entry (no new
+                   capture, the eager results at that rtol); a solve whose
+                   buffer loads and replays run under
+                   ``torch.cuda.set_sync_debug_mode("error")`` (the flag
+                   reads between blocks excepted; that no step reads the
+                   device is shown by the capture itself, which fails on a
+                   sync); captures, replays and host reads per solve, nodes
+                   per graph, the static buffers' and graph pool's bytes,
+                   and ms per step eager against
+                   captured at k = 1, 16 and 64; then ``sharded_solve`` over
+                   two streams of the card on a ragged batch (b = 1023)
+                   against the unsharded entry.
+8. ``events``      the event workloads (``tools/workloads.py``), unfused and
                    fused: ``ball_terminal`` (every impact within 10 rtol of
                    sqrt(2 h0 / g)), ``vdp_marker`` (zero extra vector-field
                    evaluations; ms per step with and without the marker) and
@@ -73,7 +95,7 @@ raises, and the script exits non-zero without printing a result:
                    RMS threshold); exact launch counts, fused solves bitwise
                    equal to unfused ones, float64 card solves against the
                    CPU's.
-8. ``stiff``       the stiff workloads (``DiagonallyImplicitRK``, kvaerno5):
+9. ``stiff``       the stiff workloads (``DiagonallyImplicitRK``, kvaerno5):
                    ``vdp_stiff_mixed``, ``robertson_sweep`` and
                    ``allen_cahn_full`` (b = 1024), unfused and fused: every
                    row SUCCESS, exact launch counts of the four Newton
@@ -83,7 +105,7 @@ raises, and the script exits non-zero without printing a result:
                    to unfused bitwise, rows 0-31 solved alone equal to the
                    same rows of the batch bitwise (all but ``n_f_evals``),
                    float64 card solves of rows 0-7 against the CPU's.
-9. ``lm``          the LM serving path (``repro_torch.models``,
+10. ``lm``         the LM serving path (``repro_torch.models``,
                    ``launch/serve``): reduced qwen2.5-14b and stablelm-3b in
                    float32 on the card against the CPU (prefill, four decode
                    steps, prefill/decode consistency, within 1e-4); then
@@ -96,7 +118,7 @@ raises, and the script exits non-zero without printing a result:
                    prefill(s) + decode_step against prefill(s + 1) and the
                    kernel's prefill against the plain attention's, each
                    within 0.1 of the logits' RMS.
-10. ``grad``       gradients on the card (``kernels/autograd.py``,
+11. ``grad``       gradients on the card (``kernels/autograd.py``,
                    ``ScanAdjoint``, ``BacksolveAdjoint``): each of the four
                    Functions' backwards against ``torch.autograd.grad`` of
                    the plain op on the card, on the same inputs
@@ -1518,7 +1540,10 @@ def main() -> int:
         "full_width_long fused vs unfused", long_runs["fused"], long_runs["unfused"],
         float(np.abs(long_runs["unfused"].ys[:32] - truth.ys).max())))
 
-    # ------------------------------------------------------------- 7. events
+    # ----------------------------------------------------------- 7. compiled
+    compiled_phase(dev, smi, reset_launches, expected_launches)
+
+    # ------------------------------------------------------------- 8. events
     # Each solve: a warm-up, then a timed run with exact launch counts --
     # detect and commit once per loop iteration, masked_bisect_refine a
     # multiple of event_bisect_iters + 1 (a bisection per event that fired
@@ -1570,7 +1595,7 @@ def main() -> int:
               f"{label}: float64 card vs CPU differ by {diff}")
         return diff
 
-    # 7a. ball_terminal: every instance stops at its own impact time.
+    # 8a. ball_terminal: every instance stops at its own impact time.
     f, y0, te, kw = workloads.ball_terminal(np.float32)
     runs = {}
     for fused in (False, True):
@@ -1592,7 +1617,7 @@ def main() -> int:
     emit("events", workload="ball_terminal", check="fused == unfused bitwise, float32",
          float64_card_vs_cpu_max_abs_diff=card_vs_cpu64("events/ball_terminal", f, y64, te, kw))
 
-    # 7b. vdp_marker: the marker adds zero vector-field evaluations; ms per
+    # 8b. vdp_marker: the marker adds zero vector-field evaluations; ms per
     # step with and without it.
     f, y0, te, kw = workloads.vdp_marker(np.float32)
     plain_kw = {k: v for k, v in kw.items() if k != "events"}
@@ -1620,7 +1645,7 @@ def main() -> int:
     emit("events", workload="vdp_marker", check="fused == unfused bitwise, float32",
          float64_card_vs_cpu_max_abs_diff=card_vs_cpu64("events/vdp_marker", f, y64, te, kw))
 
-    # 7c. full_width_long_events: the RMS stop and the y[:, 0] marker at
+    # 8c. full_width_long_events: the RMS stop and the y[:, 0] marker at
     # b = 1024, f = 784, unfused and fused.
     f, y0, te, kw = workloads.full_width_long_events(dev)
     runs = {}
@@ -1644,7 +1669,7 @@ def main() -> int:
           "events/full_width_long_events: fused and unfused card solves differ")
     emit("events", workload="full_width_long_events", check="fused == unfused bitwise")
 
-    # ------------------------------------------------------------- 8. stiff
+    # ------------------------------------------------------------- 9. stiff
     # The stiff workloads (tools/workloads.py; kvaerno5, the default PID
     # controller, float32, b = 1024), unfused then fused, each timed after a
     # warm-up with exact launch counts: every batched Newton iteration is
@@ -1767,7 +1792,7 @@ def main() -> int:
              mean_steps_over_jax_loop_iterations=float(runs["unfused"].stats["n_steps"].mean())
              / ref_cpu["loop_iterations"])
 
-    # ----------------------------------------------------------------- 9. lm
+    # ---------------------------------------------------------------- 10. lm
     # The LM serving path (repro_torch.models, launch/serve).  (a) Reduced
     # qwen2.5-14b and stablelm-3b in float32, the same weights (drawn on the
     # CPU from seed 0) on the card and on the CPU: prefill logits and four
@@ -1888,7 +1913,7 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    # --------------------------------------------------------------- 10. grad
+    # --------------------------------------------------------------- 11. grad
     torch.cuda.empty_cache()
     grad_phase(dev, median_ms, reset_launches)
     torch.cuda.empty_cache()
@@ -1945,8 +1970,174 @@ def main() -> int:
     return 0
 
 
+def compiled_phase(dev, smi, reset_launches, expected_launches):
+    """Phase 7, ``compiled``: the captured solve loop on the card (see the
+    module docstring).  ``smi`` is the card's name and power limit;
+    ``reset_launches`` and ``expected_launches`` are main's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import AutoDiffAdjoint, CompiledSolver, Stepper, sharded_solve
+    from repro_torch.kernels import ops
+    from repro_torch.tools import workloads
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def held(label, got, want, skip=(),
+             reason="the replayed kernels round otherwise than the eager launches"):
+        """Equal step counts and status; ys bitwise, or within 1e-6 relative
+        with the reason printed."""
+        for k in ("n_steps", "n_accepted", "n_initialized"):
+            if k not in skip:
+                check(torch.equal(got.stats[k], want.stats[k]), f"{label}: {k} differs")
+        check(torch.equal(got.status, want.status), f"{label}: status differs")
+        bitwise = bool(torch.equal(got.ys, want.ys) and all(
+            torch.equal(got.stats[k], want.stats[k]) for k in want.stats if k not in skip))
+        scale = float(want.ys.abs().max())
+        rel = float((got.ys - want.ys).abs().max()) / max(scale, 1e-30)
+        check(bitwise or rel <= 1e-6, f"{label}: ys differ by {rel} relative")
+        out = dict(bitwise=bitwise, ys_max_rel_diff=rel)
+        if not bitwise:
+            out["why_not_bitwise"] = reason
+            print(f"compiled: {label} not bitwise, ys within {rel} relative: {reason}",
+                  flush=True)
+        return out
+
+    vf, y0, te, kw = workloads.vdp_table3(np.float32)
+    wide_vf, wide_y0, wide_te, wide_kw = workloads.full_width_long(dev)
+    cases = [("vdp_table3", vf, y0, te, dict(rtol=kw["rtol"], atol=kw["atol"],
+                                             max_steps=kw["max_steps"]), kw["args"]),
+             ("full_width_long", wide_vf, wide_y0, wide_te,
+              dict(rtol=wide_kw["rtol"], atol=wide_kw["atol"]), wide_kw["args"])]
+    for workload, f, y, t_eval, drv_kw, args in cases:
+        for path in ("unfused", "fused"):
+            label = f"compiled/{workload}/{path}"
+            drv = AutoDiffAdjoint(Stepper("dopri5"), fused=path == "fused", **drv_kw)
+
+            def eager_solve(d=drv):
+                return d.solve(f, y, t_eval, args=args, device=dev)
+
+            eager_solve()  # warm-up
+            eager_runs = [timed(eager_solve) for _ in range(3)]
+            eager = eager_runs[0][0]
+            iters = int(eager.stats["n_steps"].max())
+            eager_ms = statistics.median(ms for _, ms in eager_runs)
+
+            # 7a. One entry: the first call captures, the next two replay.
+            solver = CompiledSolver(drv, donate=False, k=16)
+            reset_launches()
+            first, capture_ms = timed(lambda: solver.solve(f, y, t_eval, args=args,
+                                                           device=dev))
+            launches = dict(ops.launches)
+            runner = solver.compile(f, y, t_eval, args=args, device=dev).runner
+            want = expected_launches(7, 1 + sum(runner.sizes), path)
+            check(launches == want, f"{label}: launches during the capture {launches} != {want}")
+            vs_eager = [held(f"{label} call 1", first, eager)]
+            replay_ms = []
+            for i in (2, 3):
+                sol, ms = timed(lambda: solver.solve(f, y, t_eval, args=args, device=dev))
+                replay_ms.append(ms)
+                vs_eager.append(held(f"{label} call {i}", sol, eager))
+            check(dict(ops.launches) == launches,
+                  f"{label}: a replay launched through a kernel wrapper")
+            info = solver.cache_info()
+            check((info.misses, info.hits) == (1, 3), f"{label}: cache {info}")
+            per_solve = dict(captures=runner.captures, replays=runner.replays / 3,
+                             host_reads=runner.reads / 3, eager_host_reads=iters)
+
+            # 7b. A second rtol through the same entry: no new capture.
+            rtol2 = drv_kw["rtol"] / 10
+            captures = runner.captures
+            second = solver.solve(f, y, t_eval, args=args, rtol=rtol2, device=dev)
+            check(solver.cache_info().misses == 1 and runner.captures == captures,
+                  f"{label}: a second rtol built or captured anew")
+            at_rtol2 = held(f"{label} rtol {rtol2}", second,
+                            eager_solve(dataclasses.replace(drv, rtol=rtol2)))
+
+            # 7c. Between init and finish, the buffer loads and every
+            # replay under set_sync_debug_mode("error"); the flag reads
+            # between blocks may wait on the device.  A graph launch is not
+            # instrumented, so what shows that no step syncs is the capture
+            # itself, which raises on a sync.
+            def guarded(fn):
+                def call(*a, **kw):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                return call
+
+            runner.start, runner.replay = guarded(runner.start), guarded(runner.replay)
+            replays = runner.replays
+            held(f"{label} sync-guarded", solver.solve(f, y, t_eval, args=args, device=dev),
+                 eager)
+            check(runner.replays > replays, f"{label}: no guarded replay ran")
+            del runner.start, runner.replay
+            nodes, pool_bytes = runner.graph_nodes(), runner.pool_bytes()
+            check(all(n > 0 for n in nodes.values()) and pool_bytes > 0,
+                  f"{label}: nodes {nodes}, pool {pool_bytes} bytes")
+
+            # 7d. ms per step, eager against captured at k = 1, 16 and 64
+            # (over the eager loop's iterations; a larger k runs more
+            # masked steps after the last row stops).
+            ms_per_step = {"eager": eager_ms / iters, "k16": statistics.median(replay_ms) / iters}
+            first_call_ms = {"k16": capture_ms}
+            for k in (1, 64):
+                other = CompiledSolver(drv, donate=False, k=k)
+                _, first_call_ms[f"k{k}"] = timed(
+                    lambda s=other: s.solve(f, y, t_eval, args=args, device=dev))
+                runs = [timed(lambda s=other: s.solve(f, y, t_eval, args=args, device=dev))
+                        for _ in range(3)]
+                for sol, _ in runs:
+                    held(f"{label} k={k}", sol, eager)
+                ms_per_step[f"k{k}"] = statistics.median(ms for _, ms in runs) / iters
+                del other, runs
+            emit("compiled", workload=workload, path=path, nvidia_smi=smi, b=int(y.shape[0]),
+                 f=int(y.shape[1]), iterations=iters, k=16, per_solve=per_solve,
+                 nodes_per_graph=nodes, graph_pool_bytes=pool_bytes,
+                 buffer_bytes=runner.buffer_bytes,
+                 first_call_ms=first_call_ms, ms_per_step=ms_per_step,
+                 capture_launches=launches, capture_launches_expected=want,
+                 vs_eager=vs_eager, second_rtol=dict(rtol=rtol2, **at_rtol2),
+                 sync_debug_loads_and_replays="no sync", as_text=solver.compile(
+                     f, y, t_eval, args=args, device=dev).as_text())
+            del solver, runner, first, second, eager, eager_runs
+            torch.cuda.empty_cache()
+
+    # 7e. sharded_solve over two streams of the card on a ragged batch,
+    # against the unsharded entry (all but n_f_evals: a shard stops
+    # evaluating once its own rows are done).
+    rng = np.random.default_rng(5)
+    yb = (np.array([2.0, 0.0]) + 0.1 * rng.standard_normal((1023, 2))).astype(np.float32)
+    drv = AutoDiffAdjoint(Stepper("dopri5"), rtol=kw["rtol"], atol=kw["atol"],
+                          max_steps=kw["max_steps"])
+    whole = CompiledSolver(drv, donate=False)
+    whole.solve(vf, yb, te, args=kw["args"], device=dev)
+    ref, whole_ms = timed(lambda: whole.solve(vf, yb, te, args=kw["args"], device=dev))
+    shard_ms = []
+    for _ in range(3):
+        got, ms = timed(lambda: sharded_solve([dev, dev], vf, yb, te, args=kw["args"],
+                                              solver=drv))
+        check(got.ys.shape == ref.ys.shape, f"compiled/sharded: shape {tuple(got.ys.shape)}")
+        vs = held("compiled/sharded", got, ref, skip=("n_f_evals",),
+                  reason="a shard's batch size differs from the whole batch's")
+        shard_ms.append(ms)
+    emit("compiled", workload="vdp_table3", case="sharded_solve([cuda:0, cuda:0]), b = 1023",
+         nvidia_smi=smi, iterations=int(ref.stats["n_steps"].max()), unsharded_ms=whole_ms,
+         sharded_ms=shard_ms, vs_unsharded=vs)
+    torch.cuda.empty_cache()
+
+
 def grad_phase(dev, median_ms, reset_launches):
-    """Phase 10, ``grad``: the gradient path on the card (see the module
+    """Phase 11, ``grad``: the gradient path on the card (see the module
     docstring).  ``median_ms`` and ``reset_launches`` are main's."""
     import warnings
 
@@ -1960,7 +2151,7 @@ def grad_phase(dev, median_ms, reset_launches):
 
     FOUR = grad_checks.OPS
 
-    # 10a. Each backward on the card against torch.autograd.grad of the plain
+    # 11a. Each backward on the card against torch.autograd.grad of the plain
     # op on the card, same inputs: vdp_table3's and full_width's shapes, both
     # dtypes, every case of grad_checks (its window included); then each
     # backward's time at full_width float32 beside the plain op's.
@@ -1987,7 +2178,7 @@ def grad_phase(dev, median_ms, reset_launches):
          tol={"float32": 1e-5, "float64": 1e-12}, max_abs_err=worst,
          backward_ms_full_width_float32=timed)
 
-    # 10b. Reduced float64 twin of full_width_train, card against CPU: the
+    # 11b. Reduced float64 twin of full_width_train, card against CPU: the
     # ScanAdjoint gradients w.r.t. y0 and every weight (with and without
     # checkpointing) and BacksolveAdjoint's, joint and per_instance.
     held = {}
@@ -2016,7 +2207,7 @@ def grad_phase(dev, median_ms, reset_launches):
     emit("grad", check="reduced float64 twin, card vs CPU", rule=grad_checks.CARD_VS_CPU,
          max_rel_diff=held, shape=workloads.TRAIN_REDUCED, plain_ops_made_to_raise="passed")
 
-    # 10c. The slice at full width: full_width_train in float32 through
+    # 11c. The slice at full width: full_width_train in float32 through
     # ScanAdjoint(max_steps=64, checkpoint_every=16), three SGD steps.  Per
     # training step the forward runs every loop iteration (masked no-ops
     # included) and the backward runs each checkpointed block once more.
@@ -2112,7 +2303,7 @@ def grad_phase(dev, median_ms, reset_launches):
                                bound=bound, scale=float(np.abs(truth).max()),
                                cpu_steps=cpu_steps.tolist()))
 
-    # 10d. ScanAdjoint's forward loop with no host read: the loop of a
+    # 11d. ScanAdjoint's forward loop with no host read: the loop of a
     # training forward (grad on, checkpointed) runs under
     # torch.cuda.set_sync_debug_mode("error") from the end of init to the
     # start of finish.  A sync raises; then the loop runs once more under
@@ -2153,7 +2344,7 @@ def grad_phase(dev, median_ms, reset_launches):
     emit("grad", check="ScanAdjoint forward loop under set_sync_debug_mode('error')",
          syncs=syncs, loop_reads_nothing=not syncs)
 
-    # 10e. BacksolveAdjoint (joint) at full width: full_width(t_end=1.0),
+    # 11e. BacksolveAdjoint (joint) at full width: full_width(t_end=1.0),
     # the MSE of y(t_end) against the target's last point.  Its weight
     # gradients against ScanAdjoint's: two discretizations of the same
     # gradient, each within the solver's tolerance of it (6.9e-5 apart in

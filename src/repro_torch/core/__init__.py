@@ -5,11 +5,14 @@ The port of the JAX package's ``repro.core``, slice by slice.  Two API levels:
   - one-call wrappers: ``solve_ivp`` / ``solve_ivp_scan`` / ``make_solver``
   - composable components: ``AutoDiffAdjoint(Stepper("tsit5"),
     pid_controller()).solve(f, y0, t_eval)``
+  - the compiled front end: ``CompiledSolver(driver).solve(...)``, whose
+    entries capture the solve loop as CUDA graphs, and ``sharded_solve``
 
 Every entry point runs on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 
+from .compiled import CacheInfo, CompiledSolve, CompiledSolver, sharded_solve
 from .controller import (
     ControllerState,
     FixedController,
@@ -46,6 +49,10 @@ from .terms import (
 )
 
 __all__ = [
+    "CacheInfo",
+    "CompiledSolve",
+    "CompiledSolver",
+    "sharded_solve",
     "AbstractStepper",
     "DiagonallyImplicitRK",
     "DIRKCarry",

@@ -8,7 +8,8 @@ Table 5 axis):
     A Python loop while any instance is running and fewer than ``max_steps``
     iterations have run -- the JAX package's ``lax.while_loop``.  Reading
     ``running.any()`` for the loop condition synchronizes host and device once
-    per step (ROADMAP A-16 removes that sync with CUDA graphs).  It is
+    per step; through ``CompiledSolver`` (``core/compiled.py``) the loop runs
+    as CUDA graphs of k steps and reads once per block.  It is
     reverse-differentiable through torch autograd: on the CPU through the
     plain ops, on the card through the autograd Functions of the four
     explicit-path kernels (``kernels/autograd.py``).
@@ -51,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .events import Event, normalize_events
 from .solution import Solution
+from .static import static_items
 from .step import StepFunction, place_tolerance
 from .stepper import AbstractStepper
 from .terms import ODETerm, as_term, ravel_state, ravel_term
@@ -104,6 +106,13 @@ class _Driver:
         object.__setattr__(self, "stepper", AbstractStepper.coerce(self.stepper))
         object.__setattr__(self, "events", normalize_events(self.events))
         object.__setattr__(self, "extra_stats", tuple(self.extra_stats))
+
+    def static_key(self) -> tuple:
+        """The driver's static config by value: its type and every field but
+        ``rtol``/``atol``, which stay dynamic (a new tolerance value runs the
+        same compiled program, ``core/compiled.py``).  Two drivers with equal
+        keys solve alike for equal tolerances."""
+        return (type(self).__name__, static_items(self, ("rtol", "atol")))
 
     def _events_for(self, raveled) -> tuple[Event, ...]:
         """Events see the caller's state: for structured solves each
@@ -313,6 +322,11 @@ class BacksolveAdjoint:
         object.__setattr__(self, "stepper", AbstractStepper.coerce(self.stepper))
         object.__setattr__(self, "events", ())
         object.__setattr__(self, "_solve_memo", {})
+
+    def static_key(self) -> tuple:
+        """As ``_Driver.static_key``: every field but the tolerances and the
+        closure memo, by value."""
+        return (type(self).__name__, static_items(self, ("rtol", "atol", "_solve_memo")))
 
     def _adjoint_solve(self, f, state_key, raveled):
         """The memoized ``make_adjoint_solve`` closure for ``(f, state

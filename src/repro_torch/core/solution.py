@@ -7,6 +7,7 @@ import enum
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 
 class Grads(NamedTuple):
@@ -60,8 +61,9 @@ class Solution:
     event_mask: (b, E) bool -- which (instance, event) crossings were recorded
 
     grads:      a ``Grads(y0=..., args=...)`` record when the solution came
-                out of a reverse-mode program (the compiled and served grad
-                programs, ROADMAP A-12 and A-13); ``None`` otherwise.
+                out of a gradient entry (``CompiledSolver.solve(...,
+                cotangent=...)``; the served grad programs are ROADMAP A-13);
+                ``None`` otherwise.
                 Differentiate a solve with ``torch.autograd`` through
                 ``ScanAdjoint``/``solve_ivp_scan`` or ``BacksolveAdjoint``.
     """
@@ -80,3 +82,27 @@ class Solution:
         """True where integration ended as requested (reached t_end, or was
         stopped by a terminal event)."""
         return (self.status == Status.SUCCESS.value) | (self.status == Status.EVENT.value)
+
+    def slice_batch(self, index) -> "Solution":
+        """A subset of instances: every field taken along the batch axis by
+        ``index`` (a ``slice``, an index tensor or list -- anything that keeps
+        the leading axis).
+
+        Instances never interact (the solver's batch-invariance contract), so
+        a slice is what solving those instances alone gives; ``sharded_solve``
+        cuts its padding off this way.  Works on structured ``ys``/``event_y``
+        (every leaf carries the batch as its leading axis) and slices each
+        stats accumulator and the gradients."""
+        take = lambda x: None if x is None else x[index]
+        maybe = lambda x: pytree.tree_map(take, x)
+        return dataclasses.replace(
+            self,
+            ts=take(self.ts),
+            ys=pytree.tree_map(take, self.ys),
+            status=take(self.status),
+            stats={k: pytree.tree_map(take, v) for k, v in self.stats.items()},
+            event_t=maybe(self.event_t),
+            event_y=maybe(self.event_y),
+            event_mask=maybe(self.event_mask),
+            grads=maybe(self.grads),
+        )

@@ -6,6 +6,7 @@
                     ball_terminal|vdp_marker|full_width_long_events|
                     vdp_stiff_mixed|robertson_sweep|allen_cahn_full|all]
     PYTHONPATH=src python -m repro_torch.tools.profile_step --grad
+    PYTHONPATH=src python -m repro_torch.tools.profile_step --compiled 16 [...]
     python src/repro_torch/tools/profile_step.py --src <another tree>/src [...]
 
 ``--src`` profiles the ``repro_torch`` of another tree (run as a file; it
@@ -46,6 +47,12 @@ per workload (float32):
   time.
   ``null`` when the profiler reports no device activity.
 
+``--compiled K`` adds ``compiled``: the same solve through a
+``CompiledSolver`` with blocks of K steps (``core/compiled.py``: the loop
+captured as CUDA graphs, one flag read a block), its ``ms_per_step`` over the
+eager loop's iterations, whether the entry is captured (and if not, why),
+and the same ``profile`` over one captured solve (init and finish included).
+
 ``--grad`` profiles one training step of ``full_width_train`` instead (a
 ``ScanAdjoint`` forward of ``TRAIN["max_steps"]`` loop iterations and its
 backward, checkpointed every ``TRAIN["checkpoint_every"]`` steps and not
@@ -73,6 +80,7 @@ import torch
 
 # Bound by _bind (main): the tree's repro_torch, this one's or --src's.
 make_solver = solve_ivp = ops = workloads = ScanAdjoint = None
+AutoDiffAdjoint = AbstractStepper = CompiledSolver = None
 
 BACKWARDS = ("StageAccumBackward", "FusedUpdateBackward", "ErrorNormBackward",
              "InterpEvalBackward")
@@ -165,7 +173,24 @@ def _device_summary(prof, wall_ms, iters):
                 top_kernels_ms_per_step={k: v / 1e3 / iters for k, v in top})
 
 
-def profile_workload(name, vf, y0, t_eval, kw, device):
+def _compiled_solve(vf, y0, t_eval, kw, device, k):
+    """The solve ``solve_ivp(vf, y0, t_eval, **kw)`` through a
+    ``CompiledSolver`` with blocks of ``k`` steps: (its handle, a function
+    running one solve)."""
+    kw = dict(kw)
+    call = {n: kw.pop(n) for n in ("t_start", "t_end", "dt0", "args") if n in kw}
+    stepper = AbstractStepper.coerce(kw.pop("method", "dopri5"))
+    solver = CompiledSolver(AutoDiffAdjoint(stepper, kw.pop("controller", None), **kw),
+                            donate=False, k=k)
+    handle = solver.compile(vf, y0, t_eval, device=device, **call)
+
+    def run():
+        return solver.solve(vf, y0, t_eval, device=device, **call)
+
+    return handle, run
+
+
+def profile_workload(name, vf, y0, t_eval, kw, device, k=None):
     solve_ivp(vf, y0, t_eval, device=device, **kw)  # warm-up
     wall, sol = _sync_ms(lambda: solve_ivp(vf, y0, t_eval, device=device, **kw))
     iters = int(sol.stats["n_steps"].max())
@@ -195,6 +220,13 @@ def profile_workload(name, vf, y0, t_eval, kw, device):
         out["newton_read_ms"], _ = _sync_ms(lambda: bool(active.any()), reps=200)
         # kvaerno5: every evaluation after the initial two is a Newton one.
         out["newton_iters_per_step"] = (int(sol.stats["n_f_evals"][0]) - 2) / iters
+    if k:
+        handle, solve = _compiled_solve(vf, y0, t_eval, kw, device, k)
+        solve()
+        cwall, _ = _sync_ms(solve)
+        out["compiled"] = dict(k=k, captured=handle.captured, why=handle.why,
+                               ms_per_step=cwall / iters, wall_ms=cwall,
+                               profile=_profile(solve, iters))
     return dict(out, profile=_profile(run, iters))
 
 
@@ -249,9 +281,13 @@ def _bind(src):
     """Import the profiled tree's repro_torch (``src``, else the one on the
     path) into this module's globals."""
     global make_solver, solve_ivp, ops, workloads, ScanAdjoint
+    global AutoDiffAdjoint, AbstractStepper, CompiledSolver
     if src:
         sys.path.insert(0, str(pathlib.Path(src).resolve()))
-    from repro_torch.core import ScanAdjoint, make_solver, solve_ivp
+    from repro_torch import core
+    from repro_torch.core import (AbstractStepper, AutoDiffAdjoint, ScanAdjoint, make_solver,
+                                  solve_ivp)
+    CompiledSolver = getattr(core, "CompiledSolver", None)  # absent before the front end
     from repro_torch.kernels import ops
     from repro_torch.tools import workloads
 
@@ -262,6 +298,8 @@ def main(argv=None) -> int:
     parser.add_argument("--grad", action="store_true",
                         help="profile a training step of full_width_train instead")
     parser.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
+    parser.add_argument("--compiled", type=int, default=0, metavar="K",
+                        help="also profile the solve through CompiledSolver(k=K)")
     parser.add_argument("--src", default=None,
                         help="the src/ directory whose repro_torch to profile (run as a file)")
     opts = parser.parse_args(argv)
@@ -269,6 +307,9 @@ def main(argv=None) -> int:
         print("profile_step: no CUDA device is available", file=sys.stderr)
         return 1
     _bind(opts.src)
+    if opts.compiled and CompiledSolver is None:
+        print("profile_step: this tree has no CompiledSolver", file=sys.stderr)
+        return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     if opts.grad:
@@ -280,7 +321,7 @@ def main(argv=None) -> int:
     for name in names:
         vf, y0, te, kw = WORKLOADS[name](device)
         kw = {"method": "dopri5", **kw, "fused": opts.fused}
-        out = profile_workload(name, vf, y0, te, kw, device)
+        out = profile_workload(name, vf, y0, te, kw, device, k=opts.compiled)
         if kw.get("events"):
             plain = profile_workload(name, vf, y0, te,
                                      {k: v for k, v in kw.items() if k != "events"}, device)
