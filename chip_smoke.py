@@ -145,6 +145,26 @@ raises, and the script exits non-zero without printing a result:
                    full_width(t_end=1.0), its weight gradients within 1e-3
                    (relative norm) of ScanAdjoint's, and the kernels' times
                    on its one augmented row of 3 213 072 entries.
+12. ``serve_ode``  request serving (``core/serving.py``: ``SolveService``):
+                   ``serve_checks.make_stream`` (decay, features 2/3/5,
+                   every third request dense) in float64 on the card and on
+                   the CPU (equal status and counts, ys within 1e-9); the
+                   full-width stream (4096 requests of full_width_long's
+                   network, half of them dense, coalesced to b = 1024)
+                   served with a window of 4 and blocking, a first pass
+                   each and then six timed passes each in turns: async
+                   bitwise equal to sync and every pass to its first, kernel launches exactly those of the entries
+                   captured (the warm-up step and each captured block's
+                   steps) and none for replays, requests/s end to end,
+                   pad waste, the queue/pack/device split, captures and
+                   host reads per batch, each entry's static buffers and
+                   graph pool, peak memory; 16 requests chosen by seed
+                   solved alone (b = 1) through ``CompiledSolver``, held to
+                   their served rows within the float32 global error (C-5's
+                   rule); the first 2048 requests through a fused bucket
+                   (``fused_step`` at capture only); a 64-request float64
+                   ``GradRequest`` stream (``ScanAdjoint``) on the card
+                   against the CPU within 1e-9.
 
 The ``kernels`` phase also holds ``flash_attention_fwd`` to its plain version
 (float32 at 2e-5, bfloat16 at 3e-2) over ragged, ``q_offset``, MQA, hd = 80
@@ -1918,6 +1938,10 @@ def main() -> int:
     grad_phase(dev, median_ms, reset_launches)
     torch.cuda.empty_cache()
 
+    # ----------------------------------------------------------- 12. serve_ode
+    serve_phase(dev, smi, reset_launches, expected_launches)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- kernel summary, then result
     summary = []
     launch_source = {"fused_step": "fused/full_width", "fused_step_poly": "fused/step_bench",
@@ -2392,6 +2416,262 @@ def grad_phase(dev, median_ms, reset_launches):
          augmented_entries=aug, rel_norm_diff_vs_scan=rel, bound=1e-3,
          backsolve_ms=bs_ms, scan_ms=scan_ms, backsolve_launches=bs_launches,
          wide_row_kernels_ms=wide)
+
+
+
+def serve_phase(dev, smi, reset_launches, expected_launches):
+    """Phase 12, ``serve_ode``: the request service on the card (see the
+    module docstring).  ``smi`` is the card's name and power limit;
+    ``reset_launches`` and ``expected_launches`` are main's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (AutoDiffAdjoint, CompiledSolver, GradRequest, SolveService,
+                                  Stepper)
+    from repro_torch.kernels import ops
+    from repro_torch.tools import serve_checks as sc
+
+    def serve(svc, reqs, split=None):
+        """Every request submitted, then flushed; wall seconds to the last
+        result in hand (on the host).  ``split`` receives the seconds spent
+        submitting, flushing and collecting the results."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [svc.submit(r) for r in reqs]
+        t1 = time.perf_counter()
+        svc.flush()
+        t2 = time.perf_counter()
+        sols = [f.result() for f in futs]
+        t3 = time.perf_counter()
+        if split is not None:
+            split.update(submit_s=t1 - t0, flush_s=t2 - t1, results_s=t3 - t2)
+        return sols, t3 - t0
+
+    def entries(svc):
+        return [(i, e) for slots in svc._solvers.values() for i, s in enumerate(slots)
+                for e in s._cache.data.values()]
+
+    def rel_close(label, got, want, tol=1e-9):
+        d = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        check(d <= tol * scale, f"{label}: differs by {d} (> {tol} x {scale})")
+        return d
+
+    def bitwise(label, got, ref):
+        for i, (g, r) in enumerate(zip(got, ref)):
+            same = (torch.equal(g.ys, r.ys) and torch.equal(g.ts, r.ts)
+                    and torch.equal(g.status, r.status)
+                    and all(torch.equal(g.stats[k], r.stats[k]) for k in r.stats))
+            check(same, f"{label}: request {i} differs")
+
+    # 12a. The reference stream in float64, card against CPU.
+    reqs = sc.to_requests(sc.make_stream(96, seed=0, dense_every=3, dtype=np.float64),
+                          sc.decay)
+    ref_svc = SolveService(max_batch=16, max_delay=None, devices=[dev],
+                           default_method="dopri5")
+    card, _ = serve(ref_svc, reqs)
+    host, _ = serve(SolveService(max_batch=16, max_delay=None, devices=["cpu"],
+                                 default_method="dopri5"), reqs)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(card, host)):
+        check(torch.equal(g.status, w.status), f"serve_ode/reference: status of {i}")
+        for k in ("n_steps", "n_accepted"):
+            check(torch.equal(g.stats[k], w.stats[k]), f"serve_ode/reference: {k} of {i}")
+        worst = max(worst, rel_close(f"serve_ode/reference {i}", g.ys, w.ys))
+    emit("serve_ode", stream="reference (make_stream: decay, features 2/3/5, every third "
+         "dense)", dtype="float64", requests=len(reqs), vs_cpu_max_abs=worst, tol=1e-9,
+         all_success=all(bool(s.success.all()) for s in card),
+         **{k: ref_svc.stats()[k] for k in ("n_buckets", "n_batches", "pad_waste")})
+
+    # 12b/d/f. The full-width stream, with a window of 4 and blocking: four
+    # passes each through one service.  Each pass launches exactly the
+    # kernels of the entries it captures (the warm-up step and each block
+    # of the capture) and nothing for the replays.  Which slot a batch takes
+    # depends on whether the slot's entry is still in flight, so a later
+    # pass may capture an entry in a slot the first pass did not need.
+    S = sc.FULL_STREAM
+    f, dicts = sc.full_width_stream(dev)
+    reqs = sc.to_requests(dicts, f)
+
+    def capture_launches(ents, before, path):
+        want = dict.fromkeys(ops.launches, 0)
+        for _, e in ents:
+            if e.runner is not None and e.runner.captures > before.get(id(e), 0):
+                one = expected_launches(7, 1 + sum(e.runner.sizes), path,
+                                        dense=e.key[3] is not None)
+                for k in want:
+                    want[k] += one[k]
+        return want
+
+    def one_pass(label, svc, stream_reqs, path, ref=None):
+        """One pass of ``stream_reqs`` through ``svc``: exact capture
+        launches and none for replays, the pass's counters, its wall time
+        split, and the peak device memory above its start; held bitwise to
+        ``ref`` when given."""
+        ents = entries(svc)
+        before = {id(e): e.runner.captures for _, e in ents if e.runner is not None}
+        reads = {id(e): e.runner.reads for _, e in ents if e.runner is not None}
+        st0 = svc.stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        split = {}
+        sols, wall = serve(svc, stream_reqs, split)
+        peak = torch.cuda.max_memory_allocated() - start
+        launches = dict(ops.launches)
+        ents = entries(svc)
+        want = capture_launches(ents, before, path)
+        check(launches == want, f"{label}: launches {launches} != {want}")
+        st = svc.stats()
+        batches = st["n_batches"] - st0["n_batches"]
+        captures = sum(e.runner.captures - before.get(id(e), 0) for _, e in ents
+                       if e.runner is not None)
+        host_reads = sum(e.runner.reads - reads.get(id(e), 0) for _, e in ents
+                         if e.runner is not None)
+        check(st["n_failed_batches"] == 0, f"{label}: a batch failed")
+        check(all(bool(torch.isfinite(s.ys).all()) and bool(s.success.all()) for s in sols),
+              f"{label}: output not finite or not SUCCESS")
+        if ref is not None:
+            bitwise(label, sols, ref)
+        d = {k: st[k] - st0[k] for k in ("queue_s", "pack_s", "device_s", "n_rows",
+                                         "n_pad_rows", "n_backpressure_waits")}
+        return sols, dict(
+            wall_s=wall, requests_per_s=len(sols) / wall, **split, batches=batches,
+            launches=launches, captures=captures, captures_per_batch=captures / batches,
+            host_reads_per_batch=host_reads / batches, pad_waste=d["n_pad_rows"] / d["n_rows"],
+            **d, peak_inflight=st["peak_inflight"], peak_bytes_above_start=peak)
+
+    def entry_rows(svc):
+        return [dict(slot=i, dense=e.key[3] is not None, b=int(e.key[2][0][0]),
+                     buffer_bytes=e.runner.buffer_bytes, pool_bytes=e.runner.pool_bytes(),
+                     captures=e.runner.captures, replays=e.runner.replays,
+                     host_reads=e.runner.reads)
+                for i, e in entries(svc)]
+
+    # Both services live side by side: a first pass each (it captures), then
+    # timed passes in turns (async, sync, sync, async, ...), each held
+    # bitwise to its service's first pass.  Only the first pass keeps its
+    # solutions, so a later pass's pinned host copies reuse the memory the
+    # pass before it freed, as a serving loop whose callers drop their
+    # results does.
+    windows = {"async": S["max_inflight"], "sync": 0}
+    services = {mode: SolveService(max_batch=S["max_batch"], max_delay=None,
+                                   max_inflight=window, devices=[dev])
+                for mode, window in windows.items()}
+    full, runs = {}, {mode: [] for mode in windows}
+    for mode, svc in services.items():
+        full[mode], run = one_pass(f"serve_ode/full_width/{mode} pass 1", svc, reqs, "unfused")
+        runs[mode].append(run)
+    bitwise("serve_ode/full_width async vs sync", full["async"], full["sync"])
+    for n, mode in enumerate(["async", "sync", "sync", "async"] * 3):
+        _, run = one_pass(f"serve_ode/full_width/{mode} timed pass {n}", services[mode], reqs,
+                          "unfused", ref=full[mode])
+        runs[mode].append(run)
+    for mode, svc in services.items():
+        timed_rps = [r["requests_per_s"] for r in runs[mode][1:]]
+        emit("serve_ode", stream="full_width", mode=mode, nvidia_smi=smi, requests=len(reqs),
+             max_batch=S["max_batch"], max_inflight=windows[mode],
+             requests_per_s_timed=timed_rps,
+             requests_per_s_median=statistics.median(timed_rps),
+             passes=runs[mode], entries=entry_rows(svc))
+    del services, runs
+    torch.cuda.empty_cache()
+
+    # 12c. 16 requests chosen by seed, solved alone at b = 1 through
+    # CompiledSolver, against their served rows: within the float32 global
+    # error of the served rows against a float64 solve at 1e-9 (C-5's rule).
+    pick = sorted(np.random.default_rng(1).choice(len(reqs), 16, replace=False).tolist())
+    solver = CompiledSolver(AutoDiffAdjoint(Stepper("dopri5")), donate=False)
+    f64, _ = sc.full_width_stream(dev, n=1, dtype=np.float64)
+    truth_drv = AutoDiffAdjoint(Stepper("dopri5"), rtol=1e-9, atol=1e-9)
+    n_class = S["eval_points"][1]
+
+    def truths(idx):
+        """float64 solves of the requests ``idx`` as one batch (the dense
+        ones on their grids padded to the class, as served)."""
+        rows = [reqs[i] for i in idx]
+        y0 = torch.as_tensor(np.stack([r.y0 for r in rows])).double()
+        t1 = torch.tensor([float(np.float32(r.t1)) for r in rows], dtype=torch.float64)
+        te = None
+        if rows[0].t_eval is not None:
+            te = torch.as_tensor(np.stack([np.concatenate(
+                [r.t_eval, np.full(n_class - len(r.t_eval), r.t_eval[-1])]) for r in rows]))
+            te = te.double()
+        sol = truth_drv.solve(f64, y0, te, t_start=torch.zeros(len(rows), dtype=torch.float64),
+                              t_end=t1, device=dev)
+        ys = sol.ys.cpu()
+        return {i: ys[j] if r.t_eval is None else ys[j, :len(r.t_eval)]
+                for j, (i, r) in enumerate(zip(idx, rows))}
+
+    truth = {}
+    for dense in (False, True):
+        idx = [i for i in pick if (reqs[i].t_eval is not None) == dense]
+        if idx:
+            truth.update(truths(idx))
+    diffs, errs, step_diff = [], [], 0
+    for i in pick:
+        r, got = reqs[i], full["sync"][i]
+        y0 = torch.as_tensor(r.y0)[None]
+        te = None if r.t_eval is None else torch.as_tensor(r.t_eval)[None]
+        vec = lambda v: torch.tensor([v], dtype=torch.float32)
+        alone = solver.solve(f, y0, te, t_start=vec(0.0), t_end=vec(r.t1), rtol=vec(r.rtol),
+                             atol=vec(r.atol), device=dev)
+        check(torch.equal(alone.status.cpu(), got.status), f"serve_ode/alone {i}: status")
+        errs.append(float((got.ys[0].double() - truth[i]).abs().max()))
+        diffs.append(float((alone.ys.cpu() - got.ys).abs().max()))
+        want_steps = int(got.stats["n_steps"][0])
+        d = abs(int(alone.stats["n_steps"][0]) - want_steps)
+        check(d <= int(np.ceil(0.1 * want_steps)), f"serve_ode/alone {i}: steps differ by {d}")
+        step_diff = max(step_diff, d)
+    global_err = max(errs)
+    check(max(diffs) <= max(1e-4, global_err),
+          f"serve_ode/alone: {max(diffs)} > {max(1e-4, global_err)}")
+    emit("serve_ode", check="16 requests alone (b = 1) vs their served rows", requests=pick,
+         max_abs_diff=max(diffs), global_err=global_err, max_step_diff=step_diff,
+         rows_bitwise=sum(d == 0.0 for d in diffs))
+    del solver
+    torch.cuda.empty_cache()
+
+    # 12d. A fused bucket: the first 2048 requests through
+    # AutoDiffAdjoint(Stepper("dopri5"), fused=True); fused_step launches
+    # during the capture only.  Its rows within the float32 global error of
+    # the unfused served rows.
+    label = "serve_ode/full_width/fused"
+    fused_drv = AutoDiffAdjoint(Stepper("dopri5"), fused=True)
+    svc = SolveService(max_batch=S["max_batch"], max_delay=None,
+                       max_inflight=S["max_inflight"], devices=[dev],
+                       default_method=fused_drv)
+    fused_sols, first = one_pass(f"{label} pass 1", svc, reqs[:2048], "fused")
+    _, second = one_pass(f"{label} pass 2", svc, reqs[:2048], "fused", ref=fused_sols)
+    check(first["launches"]["fused_step"] > 0, f"{label}: fused_step was not launched")
+    d = max(float((a.ys - b.ys).abs().max()) for a, b in zip(fused_sols, full["sync"]))
+    check(d <= max(1e-4, global_err), f"{label}: fused vs unfused {d}")
+    emit("serve_ode", stream="full_width, first 2048, fused", nvidia_smi=smi,
+         passes=[first, second], entries=entry_rows(svc), vs_unfused_max_abs=d,
+         global_err=global_err)
+    del svc, fused_sols, full
+    torch.cuda.empty_cache()
+
+    # 12e. A float64 GradRequest stream (ScanAdjoint), card against CPU.
+    greqs = sc.to_requests(sc.grad_stream(64, seed=2, feats=(2, 3, 5), dtype=np.float64),
+                           sc.decay, cls=GradRequest)
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        svc = SolveService(max_batch=32, max_delay=None, devices=[device],
+                           default_method="dopri5")
+        out[name], wall = serve(svc, greqs)
+        check(svc.stats()["n_grad_solves"] == len(greqs), f"serve_ode/grad/{name}: count")
+    worst = dict(ys=0.0, y0=0.0, args=0.0)
+    for i, ((gv, gg), (wv, wg)) in enumerate(zip(out["card"], out["cpu"])):
+        check(torch.equal(gv.stats["n_steps"], wv.stats["n_steps"]),
+              f"serve_ode/grad: n_steps of {i}")
+        worst["ys"] = max(worst["ys"], rel_close(f"serve_ode/grad ys {i}", gv.ys, wv.ys))
+        worst["y0"] = max(worst["y0"], rel_close(f"serve_ode/grad y0 {i}", gg.y0, wg.y0))
+        worst["args"] = max(worst["args"], rel_close(f"serve_ode/grad args {i}", gg.args,
+                                                     wg.args))
+    emit("serve_ode", stream="grad (grad_stream, ScanAdjoint, float64)", requests=len(greqs),
+         vs_cpu_max_abs=worst, tol=1e-9)
 
 
 if __name__ == "__main__":

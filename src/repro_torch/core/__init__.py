@@ -7,6 +7,8 @@ The port of the JAX package's ``repro.core``, slice by slice.  Two API levels:
     pid_controller()).solve(f, y0, t_eval)``
   - the compiled front end: ``CompiledSolver(driver).solve(...)``, whose
     entries capture the solve loop as CUDA graphs, and ``sharded_solve``
+  - request serving: ``SolveService().submit(SolveRequest(...))`` coalesces
+    single-instance requests into padded batches of compiled entries
 
 Every entry point runs on the CUDA device unless the caller passes
 ``device="cpu"``.
@@ -25,6 +27,7 @@ from .drivers import AutoDiffAdjoint, BacksolveAdjoint, ScanAdjoint
 from .events import Event, EventState
 from .loop import make_solver, solve_ivp, solve_ivp_scan
 from .newton import NewtonConfig, NewtonResult, newton_solve
+from .serving import GradRequest, SolveFuture, SolveRequest, SolveService
 from .solution import Grads, Solution, Status
 from .step import FusedFallbackReason, LoopState, StepContext, StepFunction
 from .stepper import (
@@ -78,6 +81,10 @@ __all__ = [
     "make_solver",
     "solve_ivp",
     "solve_ivp_scan",
+    "GradRequest",
+    "SolveFuture",
+    "SolveRequest",
+    "SolveService",
     "Grads",
     "Solution",
     "Status",

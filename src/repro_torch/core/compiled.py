@@ -22,6 +22,13 @@ loop replays its graphs and reads one termination flag per block.
     mesh): each shard runs the whole adaptive loop through a cached entry of
     its own, on its own stream; the results are gathered on the first device.
 
+An entry in flight.  A captured entry's buffers hold one solve at a time:
+from ``_CacheEntry.begin`` until its run is closed the entry is ``busy``, a
+second ``begin`` on it raises, and the cache never evicts it (an over-full
+cache drops idle entries only, and shrinks back at a later lookup).  The
+serving layer (``core/serving.py``) keeps several batches in flight this
+way, each on an entry of its own.
+
 What is static (a change builds a new entry) and what is dynamic (free to
 vary per call) is ``core/static.py``'s contract.  Tolerances are dynamic: a
 captured entry reads them from device buffers.
@@ -64,7 +71,7 @@ from .drivers import (
     to_device,
 )
 from .graphs import BlockRun, BlockRunner
-from .solution import Grads, Solution
+from .solution import Grads, Solution, map_tensors
 from .static import Spec, freeze, frozen_setattr, tree_key
 from .stepper import AbstractStepper, DiagonallyImplicitRK
 from .terms import ODETerm, _is_number
@@ -101,15 +108,6 @@ def _final_state_solution(ys, t_end) -> Solution:
     ts = torch.as_tensor(t_end, dtype=like.dtype, device=like.device).expand(b).clone()
     return Solution(ts=ts, ys=ys, status=torch.zeros((b,), dtype=torch.int32,
                                                      device=like.device), stats={})
-
-
-def _map_solution(fn, sol: Solution) -> Solution:
-    """``fn`` applied to every tensor of ``sol``."""
-    def each(x):
-        return fn(x) if isinstance(x, torch.Tensor) else x
-
-    return dataclasses.replace(sol, **{
-        f.name: pytree.tree_map(each, getattr(sol, f.name)) for f in dataclasses.fields(sol)})
 
 
 def _canonical(device) -> torch.device:
@@ -212,7 +210,10 @@ class _Config(NamedTuple):
 
 class _KeyedLRU:
     """The one keyed-LRU implementation behind both front-end caches
-    (``CompiledSolver`` and ``sharded_solve``)."""
+    (``CompiledSolver`` and ``sharded_solve``).  An entry that is ``busy``
+    (a solve in flight on its buffers) is never evicted: past ``maxsize``
+    the least recently used idle entries go, and the cache stays over its
+    size until enough entries are idle again."""
 
     def __init__(self, maxsize: int):
         self.maxsize = maxsize
@@ -227,20 +228,30 @@ class _KeyedLRU:
             self.data.move_to_end(key)
         else:
             self.misses += 1
+        self._trim(key)
         return entry
 
     def put(self, key, entry) -> None:
         self.data[key] = entry
-        while len(self.data) > self.maxsize:
-            self.data.popitem(last=False)[1].release()
+        self._trim(key)
+
+    def _trim(self, keep) -> None:
+        """Release least recently used idle entries (never ``keep``, the one
+        being looked up) until the cache is back to ``maxsize``."""
+        excess = len(self.data) - self.maxsize
+        if excess <= 0:
+            return
+        idle = [k for k, e in self.data.items() if k != keep and not e.busy]
+        for k in idle[:excess]:
+            self.data.pop(k).release()
 
     def __len__(self) -> int:
         return len(self.data)
 
     def clear(self) -> None:
-        for entry in self.data.values():
-            entry.release()
-        self.data.clear()
+        """Release every idle entry; a busy one stays until it is idle."""
+        for k in [k for k, e in self.data.items() if not e.busy]:
+            self.data.pop(k).release()
 
 
 class _CacheEntry:
@@ -262,6 +273,12 @@ class _CacheEntry:
     @property
     def built(self) -> bool:
         return self.why is not None or self.runner is not None
+
+    @property
+    def busy(self) -> bool:
+        """Whether a solve begun on the entry has not been closed: its
+        buffers are in use, so the entry is neither evicted nor begun again."""
+        return self.runner is not None and self.runner.active is not None
 
     def release(self) -> None:
         """Free the runner's graphs and buffers (the cache drops the entry).
@@ -296,13 +313,18 @@ class _CacheEntry:
         if self.built:
             return
         with torch.no_grad():
-            self._start(self.config.driver_for(rtol, atol), y0, t_eval, t_start, t_end,
-                        dt0, args)
+            run, _ = self._start(self.config.driver_for(rtol, atol), y0, t_eval, t_start,
+                                 t_end, dt0, args)
+        run.close()
 
     def begin(self, y0_in, y0, t_eval, t_start, t_end, dt0, args, rtol, atol, cotangent):
         """Start one solve.  Returns ``(run, finish)``: ``run`` is the
-        ``BlockRun`` still to advance (None when the solve already ran) and
-        ``finish()`` returns the ``Solution``."""
+        ``BlockRun`` still to advance (None when the solve already ran:
+        uncaptured and gradient entries run the driver's loop here) and
+        ``finish()`` returns the ``Solution``.  A captured entry stays busy
+        until the caller closes ``run`` -- after ``finish``, once the
+        solve's device work is done or ordered before any later use of the
+        buffers.  Raises while the entry is busy."""
         drv = self.config.driver_for(rtol, atol)
         if self.grad:
             sol = self._grad(drv, y0, t_eval, t_start, t_end, dt0, args, cotangent)
@@ -319,18 +341,15 @@ class _CacheEntry:
             with torch.no_grad():
                 sol = runner.step_fn.finish(runner.state, runner.consts)
                 # The solution must not alias the buffers the next solve loads.
-                sol = _Driver._finalize(_map_solution(torch.clone, sol), raveled)
+                sol = _Driver._finalize(map_tensors(torch.clone, sol), raveled)
                 return self._donated(sol, y0_in, y0)
 
         return run, finish
 
     def call(self, y0_in, y0, t_eval, t_start, t_end, dt0, args, rtol, atol,
              cotangent) -> Solution:
-        run, finish = self.begin(y0_in, y0, t_eval, t_start, t_end, dt0, args, rtol, atol,
-                                 cotangent)
-        if run is not None:
-            run.run()
-        return finish()
+        return _complete(*self.begin(y0_in, y0, t_eval, t_start, t_end, dt0, args, rtol,
+                                     atol, cotangent))
 
     def _donated(self, sol: Solution, y0_in, y0) -> Solution:
         """Write the final state into the caller's ``y0`` tensor(s) and
@@ -375,8 +394,21 @@ class _CacheEntry:
             g_args = pytree.tree_unflatten(
                 [next(it) if isinstance(a, torch.Tensor) and a.requires_grad else None
                  for a in a_req], a_spec)
-        sol = _map_solution(torch.Tensor.detach, sol)
+        sol = map_tensors(torch.Tensor.detach, sol)
         return dataclasses.replace(sol, grads=Grads(y0=g_y0, args=g_args))
+
+
+def _complete(run, finish) -> Solution:
+    """Run a begun solve to its end, waiting on each block's flag, and
+    return its solution; the run is closed at once, as the next solve on
+    its entry is queued after this one's work."""
+    if run is None:
+        return finish()
+    try:
+        run.run()
+        return finish()
+    finally:
+        run.close()
 
 
 class CompiledSolve:
@@ -560,7 +592,15 @@ class CompiledSolver:
         return CacheInfo(c.hits, c.misses, len(c), self.cache_size)
 
     def cache_clear(self) -> None:
+        """Drop every entry and free its device memory; an entry with a
+        solve in flight stays until it is idle."""
         self._cache.clear()
+
+    def _busy(self, key) -> bool:
+        """Whether the entry of ``key`` (``cache_key``) has a solve in
+        flight; False when there is no such entry."""
+        entry = self._cache.data.get(key)
+        return entry is not None and entry.busy
 
     def _validate(self, t_eval, dt0, cotangent) -> None:
         if self._backsolve and (t_eval is not None or dt0 is not None):
@@ -669,11 +709,8 @@ class CompiledSolver:
         ``cotangent`` (shaped like the output ``ys``) runs the gradient entry:
         the returned ``Solution`` also carries ``grads = Grads(y0=dL/dy0,
         args=dL/dargs)``.  It needs ``ScanAdjoint`` or ``BacksolveAdjoint``."""
-        run, finish = self._begin(f, y0, t_eval, t_start, t_end, dt0, args, rtol, atol,
-                                  device, cotangent)
-        if run is not None:
-            run.run()
-        return finish()
+        return _complete(*self._begin(f, y0, t_eval, t_start, t_end, dt0, args, rtol, atol,
+                                      device, cotangent))
 
 
 # --------------------------------------------------------------------------
@@ -684,7 +721,10 @@ _SHARDED_CACHE = _KeyedLRU(64)
 
 class _Shards:
     """The per-shard solvers of one ``sharded_solve`` point, and the stream
-    each card shard runs on."""
+    each card shard runs on.  Never busy: ``sharded_solve`` returns only
+    once every shard's run is closed."""
+
+    busy = False
 
     def __init__(self, driver, devices):
         self.solvers = [CompiledSolver(driver, donate=False) for _ in devices]
@@ -744,8 +784,8 @@ def sharded_solve(
     embarrassingly parallel: each device runs the complete adaptive loop on
     its ``b / len(devices)`` shard through a cached ``CompiledSolver`` entry
     of its own and stops on its own shard's termination flag.  Shards on the
-    card run on streams of their own, their blocks launched one after another
-    with no wait between launches; the results are gathered on the first
+    card run on streams of their own, each advanced without blocking while
+    any of them can move (``BlockRun.advance``); the results are gathered on the first
     device.  ``devices`` may name one device more than once (two shards on
     one card run side by side on two streams).  For explicit steppers
     per-instance results, statuses and stats equal the unsharded solve's,
@@ -824,43 +864,49 @@ def sharded_solve(
 
     main = torch.cuda.current_stream(first) if first.type == "cuda" else None
     started = []
-    for i, (device, shard_solver, stream) in enumerate(
-            zip(devices, shards.solvers, shards.streams)):
-        kw = {name: part(v, i, device, grid=name == "t_eval" and shared_grid)
-              for name, v in inputs.items()}
-        if stream is None:
-            started.append((None, shard_solver._begin(
-                f, kw["y0"], kw["t_eval"], kw["t_start"], kw["t_end"], kw["dt0"], kw["args"],
-                kw["rtol"], kw["atol"], device, None)))
-            continue
-        if main is not None:
-            stream.wait_stream(main)
-            _record(kw, stream)
-        with torch.cuda.stream(stream):
-            started.append((stream, shard_solver._begin(
-                f, kw["y0"], kw["t_eval"], kw["t_start"], kw["t_end"], kw["dt0"], kw["args"],
-                kw["rtol"], kw["atol"], device, None)))
-    # Launch every shard's next block before waiting on any of them.
-    pending = [(stream, run) for stream, (run, _) in started if run is not None]
-    while pending:
-        launched = []
-        for stream, run in pending:
-            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-                if run.launch():
-                    launched.append((stream, run))
-        for _, run in launched:
-            run.wait()
-        pending = launched
-    sols = []
-    for stream, (_, finish) in started:
-        if stream is None:
-            sols.append(finish())
-            continue
-        with torch.cuda.stream(stream):
-            sol = finish()
-        if main is not None:
-            main.wait_stream(stream)
-            _record([getattr(sol, f.name) for f in dataclasses.fields(sol)], main)
-        sols.append(sol)
+    try:
+        for i, (device, shard_solver, stream) in enumerate(
+                zip(devices, shards.solvers, shards.streams)):
+            kw = {name: part(v, i, device, grid=name == "t_eval" and shared_grid)
+                  for name, v in inputs.items()}
+            if stream is None:
+                started.append((None, shard_solver._begin(
+                    f, kw["y0"], kw["t_eval"], kw["t_start"], kw["t_end"], kw["dt0"], kw["args"],
+                    kw["rtol"], kw["atol"], device, None)))
+                continue
+            if main is not None:
+                stream.wait_stream(main)
+                _record(kw, stream)
+            with torch.cuda.stream(stream):
+                started.append((stream, shard_solver._begin(
+                    f, kw["y0"], kw["t_eval"], kw["t_start"], kw["t_end"], kw["dt0"], kw["args"],
+                    kw["rtol"], kw["atol"], device, None)))
+        # Move every shard on as far as it goes, and block on one only when
+        # none can move.
+        pending = [(stream, run) for stream, (run, _) in started if run is not None]
+        while pending:
+            moving = []
+            for stream, run in pending:
+                with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                    if not run.advance():
+                        moving.append((stream, run))
+            pending = moving
+            if pending and not any(run.ready() for _, run in pending):
+                pending[0][1].wait()
+        sols = []
+        for stream, (_, finish) in started:
+            if stream is None:
+                sols.append(finish())
+                continue
+            with torch.cuda.stream(stream):
+                sol = finish()
+            if main is not None:
+                main.wait_stream(stream)
+                _record([getattr(sol, f.name) for f in dataclasses.fields(sol)], main)
+            sols.append(sol)
+    finally:
+        for _, (run, _) in started:
+            if run is not None:
+                run.close()
     sol = _concat(sols, first)
     return sol.slice_batch(slice(0, requested)) if n_pad else sol

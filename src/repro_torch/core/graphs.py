@@ -38,6 +38,13 @@ go on.
   The host never runs more than ``max_steps`` steps in all.
 - **``ScanAdjoint``** runs exactly ``max_steps`` steps: its blocks are
   replayed back to back and nothing is read.
+- **One solve at a time.**  ``start`` loads a solve into the buffers and
+  returns its ``BlockRun``; until that run is closed the runner refuses to
+  start another (a second load would overwrite a solve in flight), and the
+  compiled cache neither evicts nor reloads its entry.  ``BlockRun.advance``
+  moves a run on without blocking: it reads the flag only once the last
+  block's event has completed (``ready``, an ``event.query()``), which is
+  how the serving layer keeps several batches in flight on one host thread.
 - **On the CPU** the same blocks run the step function ``k`` times without a
   graph, and the flag is read from the state.
 
@@ -152,7 +159,8 @@ class BlockRunner:
     (``AutoDiffAdjoint``).
 
     Counters: ``captures`` (graphs captured), ``replays`` (blocks run),
-    ``reads`` (host reads of the termination flag).
+    ``reads`` (host reads of the termination flag).  ``active`` is the run
+    whose solve the buffers hold until it is closed, or None.
     """
 
     def __init__(self, step_fn: StepFunction, state, consts, args, rtol, atol, *, k: int,
@@ -177,6 +185,7 @@ class BlockRunner:
         self.graphs: dict[int, Any] = {}
         self.pool = None
         self.captures = self.replays = self.reads = 0
+        self.active: BlockRun | None = None
         if self.on_card:
             self.flag = torch.zeros((), dtype=torch.bool, pin_memory=True)
             self.event = torch.cuda.Event()
@@ -320,6 +329,11 @@ class BlockRunner:
                 self._block(n)
         self.replays += 1
 
+    def ready(self) -> bool:
+        """Whether the last replayed block has run, without waiting: on the
+        card a query of its event; on the CPU a block runs on the call."""
+        return not self.on_card or self.event.query()
+
     def read(self) -> bool:
         """Whether any instance still runs after the last block: on the card
         the flag its graph wrote, after waiting on the block's event."""
@@ -331,37 +345,82 @@ class BlockRunner:
 
     def start(self, state, consts, args, rtol, atol, vf_name: str) -> "BlockRun":
         """Load one solve's inputs (capturing the graphs on the first) and
-        return its run, not yet advanced."""
+        return its run, not yet advanced.  Raises while another run is
+        active: its solve still owns the buffers."""
+        if self.active is not None:
+            raise RuntimeError(
+                "this compiled entry's buffers hold a solve still in flight; close its run "
+                "before starting another (each batch in flight needs an entry of its own)")
         self.load(state, consts, args, rtol, atol)
         if self.on_card and not self.graphs:
             self.capture(vf_name)
             self.load(state, consts, args, rtol, atol)
-        return BlockRun(self, running=self.bounded or state.running.shape[0] > 0)
+        self.active = BlockRun(self, running=self.bounded or state.running.shape[0] > 0)
+        return self.active
 
 
 class BlockRun:
-    """One solve in flight through a ``BlockRunner``: ``launch`` replays the
-    next block without waiting, ``wait`` reads the flag it wrote.  Several
-    runs on separate streams interleave their launches (``sharded_solve``)."""
+    """One solve in flight through a ``BlockRunner``.  ``advance`` moves it on
+    without ever blocking, so one host thread keeps several runs in flight on
+    streams of their own (``sharded_solve``, ``SolveService``); ``wait``
+    blocks until the block it launched last has run; ``run`` takes it to its
+    end.  ``close`` hands the runner's buffers back once the caller is done
+    with the solve's device work."""
 
     def __init__(self, runner: BlockRunner, running: bool):
         self.runner = runner
         self.running = running
         self.it = 0
+        self.launched = False  # a block replayed whose flag is not read yet
 
-    def launch(self) -> bool:
+    def _launch(self) -> bool:
         r = self.runner
         if not self.running or self.it >= r.max_steps:
             return False
         n = min(r.k, r.max_steps - self.it)
         r.replay(n)
         self.it += n
+        self.launched = True
         return True
 
-    def wait(self) -> None:
+    def _read(self) -> None:
+        self.launched = False
         if not self.runner.bounded:
             self.running = self.runner.read()
 
+    def ready(self) -> bool:
+        """Whether ``advance`` would find the last block run (without
+        waiting): nothing is pending, the run reads no flag, or the block's
+        event has completed."""
+        return not self.launched or self.runner.bounded or self.runner.ready()
+
+    def advance(self) -> bool:
+        """Without blocking: once the last block has run, read its flag and
+        launch the next one (a bounded run launches all its blocks, as it
+        reads nothing).  Returns True when no block is left to launch."""
+        if self.runner.bounded:
+            while self._launch():
+                pass
+            return True
+        if self.launched:
+            if not self.runner.ready():
+                return False
+            self._read()
+        return not self._launch()
+
+    def wait(self) -> None:
+        """Block until the block launched last has run, and read its flag
+        (nothing when no block is pending)."""
+        if self.launched:
+            self._read()
+
     def run(self) -> None:
-        while self.launch():
+        while not self.advance():
             self.wait()
+
+    def close(self) -> None:
+        """End the solve: the runner may load another.  Call it once the
+        solve's device work is done or ordered before any later use of the
+        buffers (on the stream that runs them)."""
+        if self.runner.active is self:
+            self.runner.active = None

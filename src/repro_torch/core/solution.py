@@ -62,8 +62,8 @@ class Solution:
 
     grads:      a ``Grads(y0=..., args=...)`` record when the solution came
                 out of a gradient entry (``CompiledSolver.solve(...,
-                cotangent=...)``; the served grad programs are ROADMAP A-13);
-                ``None`` otherwise.
+                cotangent=...)``, or a served ``GradRequest``); ``None``
+                otherwise.
                 Differentiate a solve with ``torch.autograd`` through
                 ``ScanAdjoint``/``solve_ivp_scan`` or ``BacksolveAdjoint``.
     """
@@ -76,6 +76,11 @@ class Solution:
     event_y: Any = None
     event_mask: torch.Tensor | None = None
     grads: Any = None
+
+    def _tensors(self) -> list[torch.Tensor]:
+        return [x for f in dataclasses.fields(self)
+                for x in pytree.tree_leaves(getattr(self, f.name))
+                if isinstance(x, torch.Tensor)]
 
     @property
     def success(self) -> torch.Tensor:
@@ -106,3 +111,60 @@ class Solution:
             event_mask=maybe(self.event_mask),
             grads=maybe(self.grads),
         )
+
+    def is_ready(self) -> bool:
+        """Whether every tensor can be read without waiting on a device.
+
+        JAX's arrays are futures, each with its own readiness; a CUDA tensor
+        has none.  What the port can probe without blocking is a stream: a
+        CPU tensor is ready, and a CUDA tensor is ready when the current
+        stream of its device has run all the work queued on it
+        (``Stream.query``).  Work queued on another stream is not seen, so
+        a caller that solved on a stream of its own probes an event it
+        recorded there instead -- ``SolveService`` records one per batch in
+        flight and never relies on this.
+        """
+        devices = {x.device for x in self._tensors() if x.is_cuda}
+        return all(torch.cuda.current_stream(d).query() for d in devices)
+
+    def block_until_ready(self) -> "Solution":
+        """Wait until every device holding a tensor of the solution has run
+        all its queued work (``torch.cuda.synchronize``); returns self."""
+        for d in {x.device for x in self._tensors() if x.is_cuda}:
+            torch.cuda.synchronize(d)
+        return self
+
+    def to_host(self) -> "Solution":
+        """Every tensor on the CPU: one device-to-host copy per field leaf
+        (blocking; CPU tensors are returned as they are).  The serving
+        layer copies a harvested batch once, so the per-request
+        ``slice_batch`` views that follow are views of host tensors."""
+        return map_tensors(lambda x: x.cpu(), self)
+
+    def truncate_eval(self, n: int) -> "Solution":
+        """Drop the evaluation points past the first ``n``: ``ts`` becomes
+        ``(b, n)`` and every ``ys`` leaf ``(b, n, ...)``.
+
+        The serving layer pads each request's ``t_eval`` to a power-of-two
+        length class by repeating its last time; the repeated columns --
+        re-evaluations of the interpolant, never solver state -- are cut off
+        here.  ``stats`` are left as they are and so count the padded grid
+        (``n_initialized`` in particular).  A final-state solution raises.
+        """
+        if self.ts.ndim < 2:
+            raise ValueError(
+                "truncate_eval needs a dense-output solution (ts of shape "
+                f"(b, n)); this one tracks only final states (ts {tuple(self.ts.shape)})"
+            )
+        ys = pytree.tree_map(lambda x: x[:, :n], self.ys)
+        return dataclasses.replace(self, ts=self.ts[:, :n], ys=ys)
+
+
+def map_tensors(fn, sol: Solution) -> Solution:
+    """``fn`` applied to every tensor of ``sol`` (stats, events and grads
+    included); other leaves pass through."""
+    def each(x):
+        return fn(x) if isinstance(x, torch.Tensor) else x
+
+    return dataclasses.replace(sol, **{
+        f.name: pytree.tree_map(each, getattr(sol, f.name)) for f in dataclasses.fields(sol)})

@@ -1,1 +1,2 @@
-"""Launchers of the port (``repro.launch``): ``serve`` on one device."""
+"""Launchers of the port (``repro.launch``): ``serve`` (the LM) and ``serve_ode``
+(``SolveService``), each on one device."""
