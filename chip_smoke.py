@@ -22,7 +22,13 @@ raises, and the script exits non-zero without printing a result:
                    card path; each kernel's two bodies (a warp per row, a
                    block per row) bitwise equal to each other, with both
                    times beside the chosen one's (``ms_by_body``), and
-                   ``fused_step``'s launches by body.  ``stage_accum`` at
+                   ``fused_step``'s launches by body; each body also with
+                   the optional outputs the autograd Functions ask for
+                   (``errs=``; ``stages=``, ``stage_args=``): the outputs
+                   bitwise those without them, the error estimate bitwise
+                   ``fused_update``'s, the stages bitwise ``ref.poly_stages``
+                   on the unfused card path, their arguments bitwise
+                   ``stage_accum``'s.  ``stage_accum`` at
                    every stage count j = 1..7, in 16-byte chunks and entry
                    by entry (odd f, K off a 16-byte boundary);
                    ``fused_update`` timed at each stage count of the repo's
@@ -144,7 +150,41 @@ raises, and the script exits non-zero without printing a result:
                    synchronizing call; BacksolveAdjoint (joint) at
                    full_width(t_end=1.0), its weight gradients within 1e-3
                    (relative norm) of ScanAdjoint's, and the kernels' times
-                   on its one augmented row of 3 213 072 entries.
+                   on its one augmented row of 3 213 072 entries.  Then the
+                   paths through the nine other backwards
+                   (``grad_paths``): each of them against
+                   ``torch.autograd.grad`` of the plain op on the card
+                   (``grad_checks.card_plain``: for the fused steps the
+                   plain composition with its inner ops valued as the
+                   kernels, so that the forward has the kernel's bits) at
+                   vdp_table3's shape, full_width's (the fused and event
+                   kernels) and allen_cahn_full's (the Newton kernels), both
+                   dtypes, by ``grad_checks.rule``: the event ops entry by
+                   entry within 1e-5 / 1e-12, the fused steps and Newton
+                   ops each entry within 1e-5 / 1e-12 of (1 + its batch
+                   row's largest), each op's entry-by-entry margin beside
+                   it; the LU cases with the kernel's permutation equal to
+                   LAPACK's, each backward's time at its main shape; the
+                   reduced float64 twins of the three paths
+                   (``full_width_train`` with ``fused=True`` and with its
+                   events, ``allen_cahn_full`` unfused and factor-once) card
+                   against CPU with equal step, event and Newton counts,
+                   gradients within 1e-9; and at full width:
+                   ``full_width_train`` through ``ScanAdjoint(fused=True)``
+                   and with full_width_long_events' two events, three SGD
+                   steps checkpointed, then five steps checkpointed and not
+                   in turns (median, least and most ms), exact launches (the
+                   no-grad forward's, twice with checkpointing), the fused
+                   gradient within 1e-4 of the unfused one's largest entry
+                   with equal step counts; the events gradient, and the
+                   unfused one without events as the control, against the
+                   float64 card solve at the same weights (cosine, relative
+                   difference) and the float64 loss along the SGD step
+                   against its linear prediction; ``allen_cahn_full``'s
+                   final-state gradient in y0 and lam (max_steps the eager
+                   solve's iterations + 4) unfused and factor-once, three
+                   runs each, exact launches, finite, peak memory under
+                   16 GB.
 12. ``serve_ode``  request serving (``core/serving.py``: ``SolveService``):
                    ``serve_checks.make_stream`` (decay, features 2/3/5,
                    every third request dense) in float64 on the card and on
@@ -579,14 +619,20 @@ def main() -> int:
                 + b * (2 if failed else 1) + b)
 
     fused_checks = {}
+    optional_outputs = {"fused_step": {}, "fused_step_poly": {}}
 
     def fused_case(kernel, shape_name, dtype, label, run_kernel, run_plain, floor_of,
-                   nbytes, flops, timed, bodies=None):
+                   nbytes, flops, timed, bodies=None, with_outputs=None):
         """Hold one case bitwise against the unfused card path and by
         step_checks.hold_to_plain against the plain version; time it if
         ``timed``.  ``floor_of(y1)`` gives the ratio's rounding floor.
         ``bodies``: each body's run, held bitwise to the default run (so the
-        bodies to each other) and timed beside it."""
+        bodies to each other) and timed beside it.  ``with_outputs(body)``:
+        the launch with the optional outputs the autograd Function asks for
+        (``errs=``, and ``stages=``/``stage_args=`` for fused_step_poly),
+        returning its outputs and ``{name: (written, expected)}``; its
+        outputs must equal the default run's bitwise and each written
+        tensor its expected one bitwise."""
         dt_name = str(dtype).split(".")[-1]
         name = f"{kernel}[{shape_name} {dt_name} {label}]"
         got = run_kernel()
@@ -595,6 +641,13 @@ def main() -> int:
         for body, run in (bodies or {}).items():
             other = step_checks.bitwise_mismatches(run(), got)
             check(not other, f"{name}: the {body} body differs bitwise from the default: {other}")
+            if with_outputs is not None:
+                out, written = with_outputs(body)
+                other = step_checks.bitwise_mismatches(out, got)
+                check(not other, f"{name}: {body} with the optional outputs differs: {other}")
+                for k, (w, want) in written.items():
+                    check(torch.equal(w, want), f"{name}: {body} wrote {k} apart from {want}")
+                    optional_outputs[kernel][k] = optional_outputs[kernel].get(k, 0) + 1
         floor = floor_of(run_plain()[0])
         state_tol = POLY32_STATE if kernel == "fused_step_poly" and dtype == torch.float32 else None
         held = []
@@ -635,6 +688,7 @@ def main() -> int:
                 ctrl = ctl.filter_params(tab.error_order)
                 y, K, cols, failed_rows = step_checks.step_inputs(b, f, s, dtype, dev, gen)
                 f0_plane = torch.randn(b, f, generator=gen, dtype=dtype).to(dev)
+                err_est = cuda_impl.fused_update(y, K, cols[3], b_sol, b_err)[1]
                 for kind in ("scalar", "(b,)", "(b,f)"):
                     fac = tol_factors(kind, b, f, dtype)
                     probe = ref.fused_step(y, K, K[-1], *cols, 0.05 * fac, 1e-3 * fac,
@@ -651,6 +705,11 @@ def main() -> int:
                                                   b_sol=b_sol, b_err=b_err, ctrl=ctrl,
                                                   want_coeffs=want_coeffs, ctrl_mode=mode,
                                                   failed=failed, f0=f0, **body)
+
+                            def with_errs(body, call=call):
+                                errs = torch.full_like(y, float("nan"))
+                                out = call(cuda_impl.fused_step, body=body, errs=errs)()
+                                return out, {"errs": (errs, err_est)}
                             fused_case(
                                 "fused_step", shape_name, dtype,
                                 f"{cname} tol={kind} coeffs={want_coeffs} "
@@ -668,7 +727,8 @@ def main() -> int:
                                 timed=(cname == "pid/integral" and kind == "scalar"
                                        and want_coeffs and failed is None),
                                 bodies={body: call(cuda_impl.fused_step, body=body)
-                                        for body in cuda_impl.STEP_BODIES})
+                                        for body in cuda_impl.STEP_BODIES},
+                                with_outputs=with_errs)
             # fused_step_poly: FSAL (dopri5), non-FSAL (heun), fixed (rk4);
             # a scalar logistic polynomial and a per-feature one.
             per_feature = tuple(np.linspace(-1.5, -0.5, f).tolist())
@@ -684,6 +744,11 @@ def main() -> int:
                                     ("per-feature", (0.0, per_feature))):
                     f0 = ref.poly_eval(y, poly)
                     K = ref.poly_stages(y, f0, cols[3], a, poly)
+                    # What the backward reads, on the unfused card path.
+                    Kc = step_checks.unfused_card(lambda: ref.poly_stages(y, f0, cols[3], a, poly))
+                    Zc = torch.stack([cuda_impl.stage_accum(y, cols[3], Kc[:i], a[i, :i])
+                                      for i in range(1, s)])
+                    Ec = cuda_impl.fused_update(y, Kc, cols[3], b_sol, b_err)[1]
                     for kind in ("scalar", "(b,)", "(b,f)"):
                         fac = tol_factors(kind, b, f, dtype)
                         kw = dict(a=a, c=c, b_sol=b_sol, b_err=b_err, poly=poly, ctrl=ctrl,
@@ -697,6 +762,14 @@ def main() -> int:
                                      **body):
                                 return lambda: fn(y, f0, *cols, atol, rtol,
                                                   want_coeffs=want_coeffs, **kw, **body)
+
+                            def with_stages(body, call=call, Kc=Kc, Zc=Zc, Ec=Ec):
+                                outs = {k: torch.full_like(v, float("nan"))
+                                        for k, v in (("stages", Kc), ("stage_args", Zc),
+                                                     ("errs", Ec))}
+                                out = call(cuda_impl.fused_step_poly, body=body, **outs)()
+                                return out, {k: (outs[k], want) for k, want in
+                                             (("stages", Kc), ("stage_args", Zc), ("errs", Ec))}
                             deg = len(poly) - 1
                             fused_case(
                                 "fused_step_poly", shape_name, dtype,
@@ -710,7 +783,8 @@ def main() -> int:
                                 timed=(tname == "dopri5" and pname == "logistic"
                                        and kind == "scalar" and not want_coeffs),
                                 bodies={body: call(cuda_impl.fused_step_poly, body=body)
-                                        for body in cuda_impl.POLY_BODIES})
+                                        for body in cuda_impl.POLY_BODIES},
+                                with_outputs=with_stages)
     for (kernel, shape_name, dt), agg in fused_checks.items():
         poly32 = kernel == "fused_step_poly" and dt == "float32"
         emit("kernels", kernel=kernel, shape=shape_name, dtype=dt, check="all options",
@@ -720,6 +794,10 @@ def main() -> int:
                                        else cuda_impl.STEP_BODIES), **agg)
     emit("kernels", kernel="fused_step", check="launches by body over the cases above",
          body_launches=dict(cuda_impl.body_launches["fused_step"]))
+    emit("kernels", check="the optional outputs the autograd Functions ask for, every case and "
+         "body above: the outputs bitwise those of the launch without them; errs bitwise "
+         "fused_update's, stages bitwise ref.poly_stages on the unfused card path, stage_args "
+         "bitwise stage_accum's of them", launches_checked=optional_outputs)
 
     # The event kernels at E = 2 (one terminal, one marker event, as on the
     # main path), over the cases of tools/event_checks.py (active, inactive
@@ -2173,7 +2251,7 @@ def grad_phase(dev, median_ms, reset_launches):
     from repro_torch.kernels import cuda_impl, ops, ref
     from repro_torch.tools import grad_checks, workloads
 
-    FOUR = grad_checks.OPS
+    FOUR = grad_checks.EXPLICIT
 
     # 11a. Each backward on the card against torch.autograd.grad of the plain
     # op on the card, same inputs: vdp_table3's and full_width's shapes, both
@@ -2416,6 +2494,329 @@ def grad_phase(dev, median_ms, reset_launches):
          augmented_entries=aug, rel_norm_diff_vs_scan=rel, bound=1e-3,
          backsolve_ms=bs_ms, scan_ms=scan_ms, backsolve_launches=bs_launches,
          wide_row_kernels_ms=wide)
+
+    grad_paths(dev, median_ms, reset_launches)
+
+
+def grad_paths(dev, median_ms, reset_launches):
+    """Phase 11, ``grad``, the paths that differentiate through the nine
+    backwards of ``fused_step``, ``fused_step_poly``, the event kernels and
+    the Newton kernels (see the module docstring).  ``median_ms`` and
+    ``reset_launches`` are main's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ScanAdjoint, solve_ivp
+    from repro_torch.kernels import cuda_impl, ops, ref
+    from repro_torch.tools import grad_checks, workloads
+
+    NINE = grad_checks.FUSED + grad_checks.EVENTS + grad_checks.STIFF
+
+    # 11f. The nine backwards on the card against torch.autograd.grad of the
+    # plain op on the card (grad_checks.card_plain: the fused steps on the
+    # unfused card path), same inputs, at each kernel's workload shape --
+    # full_width for the fused and event kernels, allen_cahn_full for the
+    # Newton kernels, vdp_table3 for all -- in both dtypes, by
+    # grad_checks.hold_on_card: the event ops entry by entry; the fused steps
+    # and the Newton ops in float64 each entry within tol x (1 + its batch
+    # row's largest), in float32 each row's error against autograd of the
+    # plain op in float64 within 2 x the float32 plain op's + tol x (1 + the
+    # row's largest).  Each op's margin under its rule (the largest ratio to
+    # the bound) and entry by entry (above 1 where that rule would refuse).  The LU cases with the kernel's permutation equal to LAPACK's.
+    # Each backward's time at its main shape in float32 beside the plain
+    # op's (torch.autograd.grad over a kept graph).
+    worst = {op: {} for op in NINE}
+    margin = {op: {} for op in NINE}
+    rules = {op: {} for op in NINE}
+    rule_margin = {op: {} for op in NINE}
+    timed, cases_held = {}, 0
+    shapes = (("vdp_table3", workloads.VDP["b"], workloads.VDP["f"], NINE),
+              ("full_width", workloads.FULL["b"], workloads.FULL["f"],
+               grad_checks.FUSED + grad_checks.EVENTS),
+              ("allen_cahn_full", workloads.STIFF["b"], workloads.ALLEN_CAHN["f"],
+               grad_checks.STIFF))
+    main_label = {"fused_step": "dopri5/pid", "fused_step_poly": "dopri5/logistic",
+                  "masked_bisect_refine": "active=mixed", "fused_event_detect": "E=3",
+                  "fused_event_commit": "terminal=mixed", "batched_lu_factor": "chord",
+                  "batched_linsolve": "chord", "fused_newton_iter": "chord/active=mixed",
+                  "masked_newton_update": "chord/active=mixed"}
+    for shape_name, b, f, ops_here in shapes:
+        for dtype in (np.float32, np.float64):
+            tdtype = torch.float32 if dtype == np.float32 else torch.float64
+            for case in grad_checks.cases(b, f, 9, dtype, ops=ops_here):
+                op = case["op"]
+                if op == "batched_lu_factor":
+                    A = torch.as_tensor(case["args"]["A"], device=dev)
+                    check(torch.equal(cuda_impl.batched_lu_factor(A)[1],
+                                      ref.batched_lu_factor(A)[1]),
+                          f"grad/{op}[{case['label']}]: the kernel pivots apart from LAPACK")
+                want = grad_checks.case_grads(case, grad_checks.card_plain(op), dev)
+                got = grad_checks.case_grads(case, grad_checks.function(op), dev)
+                key = f"{shape_name}/{dtype.__name__}"
+                rules[op][dtype.__name__], err, held = grad_checks.hold_on_card(
+                    f"grad/{op}[{case['label']}]", case, got, want, tdtype, dev)
+                worst[op][key] = max(worst[op].get(key, 0.0), err)
+                rule_margin[op][key] = max(rule_margin[op].get(key, 0.0), held)
+                margin[op][key] = max(margin[op].get(key, 0.0),
+                                      grad_checks.entry_margin(got, want, tdtype))
+                cases_held += 1
+                main = "allen_cahn_full" if op in grad_checks.STIFF else "full_width"
+                if (shape_name == main and dtype == np.float32
+                        and case["label"] == main_label[op]):
+                    timed[op] = grad_checks.time_backward(case, dev, median_ms)
+                del want, got
+            torch.cuda.empty_cache()
+    emit("grad", check="nine backwards vs plain autograd on the card", cases=cases_held,
+         rule=rules,
+         tol={"float32": 1e-5, "float64": 1e-12}, max_abs_err=worst, rule_margin=rule_margin,
+         entry_margin=margin,
+         backward_ms_main=timed)
+
+    # 11g. The reduced float64 twins of the three paths, card against CPU:
+    # equal step, event and Newton counts, gradients within 1e-9.
+    twins = {"fused": lambda d: grad_checks.train_grads(d, fused=True, checkpoint_every=16),
+             "events": lambda d: grad_checks.train_grads(d, events=True),
+             "stiff": lambda d: grad_checks.stiff_grads(d),
+             "stiff/factor_once": lambda d: grad_checks.stiff_grads(d, fused=True)}
+    used = {"fused": ("fused_step", "stage_accum", "interp_eval"),
+            "events": grad_checks.EVENTS, "stiff": ("batched_linsolve", "masked_newton_update"),
+            "stiff/factor_once": ("batched_lu_factor", "fused_newton_iter", "fused_step")}
+    held = {}
+    for label, run in twins.items():
+        reset_launches()
+        card = run(dev)
+        check(all(ops.launches[k] > 0 for k in used[label]),
+              f"grad/{label}: {used[label]} did not all launch: {dict(ops.launches)}")
+        cpu = run("cpu")
+        held[label] = dict(max_rel_diff=grad_checks.hold_card_to_cpu(f"grad/{label}", card, cpu),
+                           counts={k: int(v.sum()) for k, v in cpu[2].items()})
+    emit("grad", check="reduced float64 twins of the three paths, card vs CPU",
+         rule=grad_checks.CARD_VS_CPU, twins=held)
+
+    def in_float64(path, first, data):
+        """11h/11i, float64: a training step's first gradient (at the
+        weights w0) against the same solve in float64 on the card at w0 --
+        the same y0, grid, target and events, cast -- and the float64 loss
+        along the SGD step (fractions 0.01, 0.1 and 1 of lr x the gradient,
+        the float32 gradient's and the float64 one's) against its linear
+        prediction -lr frac g64 . g: a ratio near 1 at a small fraction
+        says the gradient is the loss's slope there.  The unfused path
+        without events is the control."""
+        tols = dict(rtol=data["kw"]["rtol"], atol=data["kw"]["atol"])
+        y0d = torch.as_tensor(data["y0"], device=dev).double()
+        te = np.asarray(data["t_eval"], dtype=np.float64)
+        target = data["target"].double()
+
+        def solve(W):
+            sol = ScanAdjoint(max_steps=tr["max_steps"], checkpoint_every=tr["checkpoint_every"],
+                              events=data["kw"].get("events"), **tols).solve(
+                data["vf"], y0d, te, args=W, device=dev)
+            return workloads.mse(sol.ys, target), sol
+
+        W = {k: v.double().requires_grad_() for k, v in data["w0"].items()}
+        t0 = time.perf_counter()
+        loss, sol = solve(W)
+        g64 = torch.autograd.grad(loss, list(W.values()))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(all(bool(torch.isfinite(g).all()) for g in g64), f"grad/{path}64: not finite")
+        g32 = [g.double() for g in first["grads"][1:]]
+        a, b = torch.cat([g.reshape(-1) for g in g32]), torch.cat([g.reshape(-1) for g in g64])
+        steps64 = sol.stats["n_steps"].cpu().numpy()
+        along = {}
+        with torch.no_grad():
+            base = float(loss)
+            for label, g in (("float32", g32), ("float64", g64)):
+                slope = float(sum((x * y).sum() for x, y in zip(g, g64)))
+                for frac in (0.01, 0.1, 1.0):
+                    step = frac * tr["lr"]
+                    moved = {k: W[k].detach() - step * gk for k, gk in zip(W, g)}
+                    change = float(solve(moved)[0]) - base
+                    along[f"{label}/{frac}"] = dict(loss_change=change, predicted=-step * slope,
+                                                    ratio=change / (-step * slope))
+        stopped = {} if path != "events" else dict(
+            rows_stopped64=int((sol.status == 4).sum()), rows_stopped32=first["rows_stopped"])
+        emit("grad", workload="full_width_train", path=path, check="float32 gradient vs "
+             "the float64 card solve at the same weights; float64 loss along the SGD step",
+             loss64=base, loss32=first["loss"], **stopped,
+             cosine=float(a @ b / (a.norm() * b.norm())),
+             rel_norm_diff=float((a - b).norm() / b.norm()),
+             rows_same_n_steps=float((steps64 == first["n_steps"]).mean()),
+             grad_norm32=float(a.norm()), grad_norm64=float(b.norm()), ms64=ms,
+             along_sgd_step=along, lr=tr["lr"])
+
+    # 11h. fused=True at full width: full_width_train through
+    # ScanAdjoint(fused=True), three SGD steps checkpointed and one step
+    # without; exact launches (per loop iteration one fused_step, six
+    # stage_accum, one interp_eval; twice with checkpointing).  Then the
+    # fused gradient at the first weights against the unfused one.
+    tr = workloads.TRAIN
+
+    def train(events=False, fused=False, steps=tr["steps"]):
+        vfx, y0x, tex, kwx, tgt = workloads.full_width_train(dev, events=events)
+        weights = kwx["args"]
+        y0t = torch.as_tensor(y0x, device=dev).requires_grad_()
+        opt = torch.optim.SGD(list(weights.values()), lr=tr["lr"])
+        tols = dict(rtol=kwx["rtol"], atol=kwx["atol"])
+
+        def drv(every):
+            return ScanAdjoint(max_steps=tr["max_steps"], checkpoint_every=every, fused=fused,
+                               events=kwx.get("events"), **tols)
+
+        def step(every, sgd=True):
+            # The forward's launches at these weights (the bisections follow
+            # the events that fire), for the exact counts.
+            with torch.no_grad():
+                reset_launches()
+                drv(0).solve(vfx, y0t, tex, args=weights, device=dev)
+                forward = dict(ops.launches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held_before = torch.cuda.memory_allocated()
+            reset_launches()
+            t0 = time.perf_counter()
+            sol = drv(every).solve(vfx, y0t, tex, args=weights, device=dev)
+            loss = workloads.mse(sol.ys, tgt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt.zero_grad()
+            y0t.grad = None
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = dict(ops.launches)
+            want = {k: v * (2 if every else 1) for k, v in forward.items()}
+            check(launches == want, f"grad/train: launches {launches} != {want}")
+            grads = [y0t.grad, *(w.grad for w in weights.values())]
+            check(all(bool(torch.isfinite(g).all()) for g in grads),
+                  "grad/train: a gradient is not finite")
+            out = dict(loss=float(loss.detach()), ms=(t2 - t0) * 1e3,
+                       forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                       peak_bytes_above_start=torch.cuda.max_memory_allocated() - held_before,
+                       launches={k: v for k, v in launches.items() if v},
+                       max_loop_steps=int(sol.stats["n_steps"].max()),
+                       n_steps=sol.stats["n_steps"].cpu().numpy(),
+                       grads=[g.detach().clone() for g in grads])
+            if events:
+                out["rows_stopped"] = int((sol.status == 4).sum())
+                out["events_recorded"] = int(sol.stats["n_events"].sum())
+            if sgd:
+                opt.step()
+            return out
+
+        step(tr["checkpoint_every"], sgd=False)  # warm-up
+        w0 = {k: w.detach().clone() for k, w in weights.items()}
+        first = step(tr["checkpoint_every"], sgd=False)
+        runs = [step(tr["checkpoint_every"]) for _ in range(steps)]
+        check(all(bool(np.isfinite(r["loss"])) for r in runs), "grad/train: a loss is not finite")
+        # The time of a training step: TIME_REPS steps at the last weights,
+        # checkpointed and not in turns, no SGD, each on the host's clock.
+        timed = {"checkpointed": [], "without": []}
+        for _ in range(TIME_REPS if steps else 0):
+            timed["checkpointed"].append(step(tr["checkpoint_every"], sgd=False))
+            timed["without"].append(step(0, sgd=False))
+        data = dict(vf=vfx, y0=y0x, t_eval=tex, kw=kwx, target=tgt, w0=w0)
+        return first, runs, timed, data
+
+    def public(run):
+        return {k: v for k, v in run.items() if k not in ("grads", "n_steps")}
+
+    def timing(timed):
+        """Median, least and most of each timed setting, its launches and
+        peak once (every step's launches were checked)."""
+        out = {}
+        for setting, rs in timed.items():
+            ms = [r["ms"] for r in rs]
+            out[setting] = dict(
+                reps=len(rs), ms_median=statistics.median(ms), ms_min=min(ms), ms_max=max(ms),
+                forward_ms_median=statistics.median(r["forward_ms"] for r in rs),
+                backward_ms_median=statistics.median(r["backward_ms"] for r in rs),
+                peak_bytes_above_start=max(r["peak_bytes_above_start"] for r in rs),
+                launches=rs[0]["launches"])
+        return out
+
+    TIME_REPS = 5
+    unfused_first, _, _, unfused_data = train(steps=0)
+    in_float64("unfused", unfused_first, unfused_data)
+    del unfused_data
+    first, runs, timed, _ = train(fused=True)
+    check(np.array_equal(first["n_steps"], unfused_first["n_steps"]),
+          "grad/fused: step counts differ from the unfused training step")
+    # The float32 rule (C-5's floor): each fused gradient within 1e-4 of the
+    # unfused one's largest entry -- the two backwards sum in other orders,
+    # and a decision near err_ratio = 1 may flip between two roundings.
+    fused_vs = []
+    for g, w in zip(first["grads"], unfused_first["grads"]):
+        d = float((g - w).abs().max() / w.abs().max())
+        fused_vs.append(d)
+        check(d <= 1e-4, f"grad/fused: fused vs unfused gradient {d} relative")
+    emit("grad", workload="full_width_train", path="fused", dtype="float32",
+         max_steps=tr["max_steps"], checkpoint_every=tr["checkpoint_every"],
+         losses=[r["loss"] for r in runs], steps=[public(r) for r in runs],
+         timing=timing(timed), fused_vs_unfused_rel=fused_vs, bound=1e-4)
+
+    # 11i. events= at full width: full_width_long_events' RMS stop and marker
+    # on the training solve, the same loss and SGD; exact launches (a no-grad
+    # forward's at the same weights, twice with checkpointing).
+    first, runs, timed, data = train(events=True)
+    check(first["rows_stopped"] > 0 and first["events_recorded"] > 0,
+          "grad/events: no event fired in the training solve")
+    emit("grad", workload="full_width_train", path="events", dtype="float32",
+         events=["rms_stop", "marker"], losses=[r["loss"] for r in runs],
+         steps=[public(r) for r in runs], timing=timing(timed),
+         rows_stopped=first["rows_stopped"], events_recorded=first["events_recorded"])
+    in_float64("events", first, data)
+    del data
+    torch.cuda.empty_cache()
+
+    # 11j. The stiff path at full width: allen_cahn_full (b = 1024, f = 128,
+    # kvaerno5, float32), the mean square of the final state differentiated
+    # in y0 and lam, through ScanAdjoint with max_steps the eager card
+    # solve's iterations + 4; unfused Newton and factor-once; exact launches
+    # (the no-grad forward's), finite gradients, ms and peak memory (under
+    # 16 GB: batched_linsolve saves no factor).
+    STIFF_REPS = 3
+    vfs, y0s, _, kws = workloads.allen_cahn_full(np.float32)
+    with torch.no_grad():
+        eager = solve_ivp(vfs, y0s, None, device=dev, **kws)
+    max_steps = int(eager.stats["n_steps"].max()) + 4
+    stiff = {}
+    for label, fused in (("unfused", False), ("factor_once", True)):
+        with torch.no_grad():
+            reset_launches()
+            lam = torch.tensor(kws["args"], dtype=torch.float32, device=dev)
+            ScanAdjoint(kws["method"], rtol=kws["rtol"], atol=kws["atol"], max_steps=max_steps,
+                        fused=fused).solve(vfs, torch.as_tensor(y0s, device=dev), None,
+                                           t_start=kws["t_start"], t_end=kws["t_end"], args=lam,
+                                           device=dev)
+            forward = dict(ops.launches)
+        grad_checks.stiff_grads(dev, fused=fused, reduced=False, max_steps=max_steps)  # warm-up
+        times = []
+        for _ in range(STIFF_REPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held_before = torch.cuda.memory_allocated()
+            reset_launches()
+            t0 = time.perf_counter()
+            loss, grads, counts = grad_checks.stiff_grads(dev, fused=fused, reduced=False,
+                                                          max_steps=max_steps)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - held_before
+            check(dict(ops.launches) == forward,
+                  f"grad/stiff/{label}: launches {dict(ops.launches)} != {forward}")
+            check(all(np.isfinite(g).all() for g in grads), f"grad/stiff/{label}: not finite")
+            check(peak < 16e9, f"grad/stiff/{label}: peak {peak} bytes")
+        stiff[label] = dict(ms_median=statistics.median(times), ms_min=min(times),
+                            ms_max=max(times), reps=len(times), peak_bytes_above_start=peak,
+                            loss=loss,
+                            dL_dlam=float(grads[1]),
+                            launches={k: v for k, v in forward.items() if v},
+                            n_steps_max=int(counts["n_steps"].max()),
+                            newton_iters=int(counts["n_newton_iters"].sum()))
+    emit("grad", workload="allen_cahn_full", path="stiff", dtype="float32",
+         max_steps=max_steps, max_steps_rule="eager card solve's iterations + 4",
+         eager_iterations=max_steps - 4, runs=stiff)
 
 
 

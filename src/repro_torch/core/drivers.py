@@ -11,8 +11,8 @@ Table 5 axis):
     per step; through ``CompiledSolver`` (``core/compiled.py``) the loop runs
     as CUDA graphs of k steps and reads once per block.  It is
     reverse-differentiable through torch autograd: on the CPU through the
-    plain ops, on the card through the autograd Functions of the four
-    explicit-path kernels (``kernels/autograd.py``).
+    plain ops, on the card through the kernels' autograd Functions
+    (``kernels/autograd.py``).
 ``ScanAdjoint``
     Exactly ``max_steps`` steps, masked no-ops once an instance has stopped
     (the JAX package's bounded ``lax.scan``; discretize-then-optimize).  The
@@ -25,9 +25,10 @@ Table 5 axis):
     ``core/adjoint.py``.  Its forward and its backward are ordinary solves
     under no grad, so every kernel runs on the card in both directions.
 
-On the card only the four explicit-path kernels have a backward: ``fused=True``,
-``events=`` and the implicit steppers raise under autograd there (ROADMAP
-A-18); on the CPU they differentiate through the plain ops.
+On the card every solver kernel has its autograd Function, so the explicit
+path, ``fused=True``, ``events=`` and the implicit steppers differentiate
+there as on the CPU, where the plain ops differentiate themselves (reverse
+mode only: forward mode is ROADMAP A-18's remainder).
 
 All drivers accept structured initial states: ravel/unravel happens at the
 term boundary (``terms.ravel_state`` / ``terms.ravel_term``), and the
@@ -281,7 +282,7 @@ class BacksolveAdjoint:
     Tracks only the final state; its backward solves the augmented adjoint
     ODE backwards in time through ``core/adjoint.py``'s autograd Function.
     Both solves are ordinary solves under no grad, so on the card they run
-    through the kernels with no backward of their own; the vector field is
+    through the kernels themselves (no autograd Function); the vector field is
     differentiated by ``torch.func.vjp``.
 
     **Return contract:** ``solve`` returns the final state ``y(t_end)`` -- a

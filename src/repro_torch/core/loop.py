@@ -180,9 +180,9 @@ def solve_ivp_scan(
     (discretize-then-optimize), no host read inside the loop.
     ``checkpoint_every`` > 0 wraps blocks of steps in ``torch.utils.checkpoint``
     to trade recompute for memory on long solves.  Differentiate with
-    ``torch.autograd`` (``loss.backward()``); on the card the explicit
-    unfused path differentiates, ``fused``, ``events`` and implicit methods
-    only without grad (ROADMAP A-18).  ``device`` as in ``solve_ivp``.
+    ``torch.autograd`` (``loss.backward()``); on the card every path does
+    (unfused, ``fused``, ``events`` and the implicit methods), through the
+    kernels' autograd Functions.  ``device`` as in ``solve_ivp``.
     """
     driver = ScanAdjoint(
         AbstractStepper.coerce(method),

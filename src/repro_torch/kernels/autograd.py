@@ -1,38 +1,65 @@
-"""Reverse-mode rules for the four explicit-path CUDA kernels.
+"""Reverse-mode rules for the solver's thirteen CUDA kernels.
 
-One ``torch.autograd.Function`` each for ``stage_accum``, ``fused_update``,
-``error_norm`` and ``interp_eval``.  The forward launches the CUDA kernel
-through ``cuda_impl`` (grad mode is off inside ``Function.forward``, so the
-wrapper's refusal of inputs that require grad does not fire); the backward
-is plain torch and returns what ``torch.autograd.grad`` of the plain op in
-``ref.py`` returns, term for term in autograd's own order: the same
-formulas, the same ties (``maximum`` splits a tie in halves, ``abs'(0) =
-0``) and the same non-finite values (a row whose error ratio is 0 gets
-``0 * inf``, NaN, as autograd of the plain op gives it).  The backward calls
-no op of ``ref.py``, so it never gives way to the plain forward.
+One ``torch.autograd.Function`` for each: the explicit path's
+``stage_accum``, ``fused_update``, ``error_norm`` and ``interp_eval``; the
+fused step's ``fused_step`` and ``fused_step_poly``; the event layer's
+``masked_bisect_refine``, ``fused_event_detect`` and ``fused_event_commit``;
+the stiff path's ``batched_lu_factor``, ``batched_linsolve``,
+``fused_newton_iter`` and ``masked_newton_update``.  The forward launches
+the CUDA kernel through ``cuda_impl`` (grad mode is off inside
+``Function.forward``, so the wrapper's refusal of inputs that require grad
+does not fire); the backward is plain torch and returns what
+``torch.autograd.grad`` of the plain op in ``ref.py`` returns, term for term
+in autograd's own order: the same formulas, the same ties (``maximum``
+splits a tie in halves, ``abs'(0) = 0``, ``clamp`` passes the gradient at
+its bounds) and the same non-finite values (a row whose error ratio is 0
+gets ``0 * inf``, NaN, as autograd of the plain op gives it; a failed row's
+ratio is set to inf after the norm, and the norm's backward divides by the
+value before).  A cotangent that does not arrive (``None``) adds nothing,
+as autograd runs no backward of an operation no gradient reaches.  The
+backward calls no op of ``ref.py``, so it never gives way to the plain
+forward; what the kernel keeps on chip and the formulas need (the
+controller's factor, Horner's partial sums, the Newton update) is
+recomputed from saved tensors in plain torch.  Bool and int
+outputs are non-differentiable; tableau weights, the polynomial, the
+controller's parameters and the event flags are static.
 
 ``ops`` sends a CUDA call here when grad mode is on and an input requires
 grad; the JAX package has no backward Pallas kernel to port, and its
 ``ScanAdjoint`` differentiates these same plain expressions.
 
-Saved stages: the explicit stepper writes its stages into one (s, b, f)
-buffer and hands ``stage_accum`` the prefix ``K[:i]`` before it writes
-``K[i]``.  The prefix never changes after the call, but it shares the
-buffer's version counter, so the Functions save ``_frozen(K)``: the same
-memory under a counter of its own.  Saved tensors go through
-``save_for_backward``, so ``torch.utils.checkpoint`` drops and recomputes
-them like any other.
+Saved tensors go through ``save_for_backward``, so ``torch.utils.checkpoint``
+drops and recomputes them like any other.  The explicit stepper writes its
+stages into one (s, b, f) buffer and hands ``stage_accum`` the prefix
+``K[:i]`` before it writes ``K[i]``.  The prefix never changes after the
+call, but it shares the buffer's version counter, so the Functions save
+``_frozen(K)``: the same memory under a counter of its own.
 
-``interp_eval`` writes the dense output in place on the card.  Under
-autograd the Function writes into a copy of ``out`` instead, so no tensor
-autograd may have saved, and no input of a checkpointed block that is
-recomputed later, is changed.  Without grad the in-place contract of
-``core/step.py`` stays.
+``interp_eval`` writes the dense output, and ``fused_event_commit`` the
+event states, in place on the card.  Under autograd their Functions write
+into a copy instead, so no tensor autograd may have saved, and no input of a
+checkpointed block that is recomputed later, is changed.  Without grad the
+in-place contracts of ``core/step.py`` and ``core/events.py`` stay.
+
+The fused steps keep their error estimate, and ``fused_step_poly`` its
+stages, on chip; under autograd their launches also write them out
+(``cuda_impl.fused_step(..., errs=)``, ``fused_step_poly(..., stages=,
+stage_args=, errs=)``), and the backwards read those bits: the estimate is
+a difference of two solutions and the polynomial's derivative at a stage
+argument may cancel, so a recomputation that rounds apart moves them, and
+in float32 the gradient, by far more than the backward's own rounding.
+``fused_step_poly``'s backward walks the stage recursion back over the
+stages and their arguments.  ``batched_linsolve``
+saves its matrix by reference (the stepper's chord matrix) and the
+solution, never a factor: the backward solves ``A^T`` once, for
+``g_rhs = A^{-T} g`` and ``g_A = -g_rhs x^T``.  ``batched_lu_factor``'s
+backward is torch's own ``lu_factor_ex`` backward on the kernel's factors.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -62,12 +89,299 @@ def _weights(coeffs, like):
     return _cached_weights(values, like.dtype, like.device)
 
 
+def _poly_coeffs(poly, like):
+    """``poly_eval``'s coefficients as it makes them: a float stays a Python
+    number, a per-feature tuple becomes an (f,) tensor (copied once)."""
+    return [float(c) if np.ndim(c) == 0 else _cached_weights(tuple(map(float, c)), like.dtype,
+                                                              like.device)
+            for c in poly]
+
+
 def _sum_to(grad, tol):
     """The gradient of a broadcast tolerance, summed back to its shape:
     a scalar, (b,) (broadcast as (b, 1)) or (b, f)."""
     if tol.ndim == 1:
         return grad.sum_to_size(tol.shape[0], 1).reshape(tol.shape)
     return grad.sum_to_size(tol.shape)
+
+
+def _add(a, b):
+    """``a + b``, either of which may be a gradient that did not arrive."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a + b
+
+
+def _split(mask, g):
+    """The gradients of ``where(mask, a, b)`` in a and in b (None for None)."""
+    if g is None:
+        return None, None
+    return torch.where(mask, g, 0.0), torch.where(mask, 0.0, g)
+
+
+def _save_tols(ctx, atol, rtol):
+    """The tensor tolerances to save; numbers stay on ``ctx``."""
+    ctx.tols = tuple(None if isinstance(t, torch.Tensor) else t for t in (atol, rtol))
+    return [t for t in (atol, rtol) if isinstance(t, torch.Tensor)]
+
+
+def _load_tols(ctx, saved):
+    saved = iter(saved)
+    return tuple(next(saved) if t is None else t for t in ctx.tols)
+
+
+# ----------------------------------------------------- shared derivatives
+
+
+def _update_grads(g1, ge, dt, K, weights, need_K, need_dt, gdt=None):
+    """The gradients in K and dt of ``fused_update``'s two products ``dt *
+    (b_sol . K)`` (cotangent ``g1``) and ``dt * (b_err . K)`` (``ge``);
+    ``gdt`` is what dt's gradient holds before them."""
+    # Autograd reaches the err product first (it was recorded last).
+    parts = [(gr, _weights(w, K)) for gr, w in ((ge, weights[1]), (g1, weights[0]))
+             if gr is not None]
+    gK = None
+    if need_dt:
+        for gr, w in parts:
+            gdt = _add(gdt, (gr * torch.tensordot(w, K, dims=1)).sum(-1))
+    if need_K:
+        for gr, w in parts:
+            gK = _add(gK, w[:, None, None] * (gr * dt[:, None]))
+    return gK, gdt
+
+
+def _rms_grads(g, num, scale, out, need_scale):
+    """``out = sqrt(mean((num / scale)**2, -1))``: the gradients in num and
+    scale.  sqrt, mean over the features, ratio * ratio (both factors the
+    same tensor: two equal terms), then the quotient."""
+    ratio = num / scale
+    gq = (g / (2 * out))[:, None].expand(num.shape) / num.shape[-1]
+    gratio = gq * ratio + gq * ratio
+    gscale = -gratio * ((num / scale) / scale) if need_scale else None
+    return gratio / scale, gscale
+
+
+def _error_norm_grads(g, out, err, y0, y1, atol, rtol, needs, failed=None):
+    """``error_norm(err, y0, y1, atol, rtol) == out``: the gradients in
+    (err, y0, y1, atol, rtol) for those ``needs`` names.  ``failed`` rows
+    had their ratio set to inf after the norm: their ``out`` is recomputed."""
+    need_y0, need_y1, need_atol, need_rtol = needs
+    # A scalar tolerance stays a number: as a tensor on the card it would
+    # be a copy from host memory, which waits for the device.
+    atol_b, rtol_b = (t[:, None] if isinstance(t, torch.Tensor) and t.ndim == 1 else t
+                      for t in (atol, rtol))
+    a0, a1 = torch.abs(y0), torch.abs(y1)
+    m = torch.maximum(a0, a1)
+    scale = atol_b + rtol_b * m
+    if failed is not None:
+        ratio = err / scale
+        out = torch.where(failed, torch.sqrt(torch.mean(ratio * ratio, dim=-1)), out)
+    gerr, gscale = _rms_grads(g, err, scale, out,
+                              need_y0 or need_y1 or need_atol or need_rtol)
+    gy0 = gy1 = gatol = grtol = None
+    if gscale is not None:
+        if need_atol:
+            gatol = _sum_to(gscale, atol)
+        if need_rtol:
+            grtol = _sum_to(gscale * m, rtol)
+        gm = gscale * rtol_b
+        tie = torch.where(a0 == a1, gm / 2, gm)
+        if need_y0:
+            gy0 = tie.masked_fill(a0 < a1, 0) * torch.sgn(y0)
+        if need_y1:
+            gy1 = tie.masked_fill(a0 > a1, 0) * torch.sgn(y1)
+    return gerr, gy0, gy1, gatol, grtol
+
+
+def _horner_grads(ga, xe, cs, reduce, need_c, need_x):
+    """Horner's ``p = ((c_n x + c_{n-1}) x + ...) x + c_0`` (``cs`` low to
+    high, broadcast against the cotangent ``ga`` of p; ``xe`` broadcast too):
+    (the x gradient summed over the last axis, keepdim; each coefficient's
+    through ``reduce``).  The partial sums acc_k = acc_{k+1} * x + c_k, from
+    the top coefficient down, walked back from acc_0."""
+    partial = [cs[-1]]
+    if need_x:
+        for c in cs[-2:0:-1]:
+            partial.append(partial[-1] * xe + c)
+    gc = [None] * len(cs)
+    gx = None
+    for k in range(len(cs) - 1):
+        if need_c[k]:
+            gc[k] = reduce(ga)
+        if need_x:
+            gx = _add(gx, (ga * partial[-1 - k]).sum(dim=-1, keepdim=True))
+        ga = ga * xe
+    if need_c[-1]:
+        gc[-1] = reduce(ga)
+    return gx, gc
+
+
+def _poly_partials(y, cs):
+    """``poly_eval``'s values before each multiply by y: acc_0 = the top
+    coefficient, acc_{j+1} = acc_j * y + c."""
+    accs = [cs[-1]]
+    for c in cs[-2:0:-1]:
+        accs.append(accs[-1] * y + c)
+    return accs
+
+
+def _poly_grad(g, y, cs, accs=None):
+    """The gradient in y of ``poly_eval(y, poly)`` (``cs`` from
+    ``_poly_coeffs``) for the cotangent g: each multiply ``acc * y`` walked
+    back from the last; None for a constant polynomial."""
+    if len(cs) < 2:
+        return None
+    accs = _poly_partials(y, cs) if accs is None else accs
+    gy = None
+    for j in range(len(accs) - 1, -1, -1):
+        gy = _add(gy, g * accs[j])
+        if j:
+            g = g * y
+    return gy
+
+
+def _pow_grad(g, x, e):
+    """torch's ``pow`` backward for a Python-number exponent."""
+    if e == 0.0:
+        return torch.zeros_like(x)
+    return g * (e * x.pow(e - 1))
+
+
+def _pid_grads(ctrl, ratio, dt, pi1, pi2, g_next, g_inv1, g_inv2):
+    """``ref.pid_update``: the gradients in (err_ratio, dt, prev_inv,
+    prev2_inv) of its outputs dt_next, new_inv, new_inv2 (cotangents
+    ``g_next``, ``g_inv1``, ``g_inv2``).  The factor is recomputed from the
+    saved ratio, op by op as the plain version builds it."""
+    b1, b2, b3, safety, factor_min, factor_max, dt_min, dt_max = ctrl
+    finite = torch.isfinite(ratio)
+    accept = finite & (ratio <= 1.0)
+    g_inv, g_pi1 = _split(accept, g_inv1)
+    a, g_pi2 = _split(accept, g_inv2)
+    g_pi1 = _add(g_pi1, a)
+    g_dt = None
+    positive = finite & (ratio > 0.0)
+    recip = torch.reciprocal(torch.where(positive, ratio, 1.0))
+    if g_next is not None:
+        inv = recip * 1.0
+        p1, p2, p3 = inv**b1, pi1**b2, pi2**b3
+        s1 = safety * p1
+        s2 = s1 * p2
+        f_b = s2 * p3
+        f_a = torch.where(ratio == 0.0, factor_max, f_b)
+        f_0 = torch.where(finite, f_a, 0.5)
+        f_1 = torch.clamp(f_0, factor_min, factor_max)
+        f_2 = torch.where(accept, f_1, torch.clamp(f_1, max=1.0)).to(dt.dtype)
+        abs_dt = torch.abs(dt)
+        prod = abs_dt * f_2
+        # dt_next = sign(dt) * clamp(|dt| * factor, dt_min, dt_max); sign' = 0.
+        g_prod = torch.where((prod >= dt_min) & (prod <= dt_max), g_next * torch.sign(dt), 0.0)
+        g_dt = (g_prod * f_2) * torch.sgn(dt)
+        ga, gb = _split(accept, g_prod * abs_dt)
+        g_f1 = ga + torch.where(f_1 <= 1.0, gb, 0.0)
+        g_f0 = torch.where((f_0 >= factor_min) & (f_0 <= factor_max), g_f1, 0.0)
+        g_fb = torch.where(ratio == 0.0, 0.0, torch.where(finite, g_f0, 0.0))
+        g_s2, g_p3 = g_fb * p3, g_fb * s2
+        g_s1, g_p2 = g_s2 * p2, g_s2 * s1
+        g_inv = _add(g_inv, _pow_grad(g_s1 * safety, inv, b1))
+        g_pi1 = _add(g_pi1, _pow_grad(g_p2, pi1, b2))
+        g_pi2 = _add(g_pi2, _pow_grad(g_p3, pi2, b3))
+    g_ratio = None
+    if g_inv is not None:  # inv = reciprocal(safe) * 1.0
+        g_ratio = torch.where(positive, -(g_inv * 1.0) * (recip * recip), 0.0)
+    return g_ratio, g_dt, g_pi1, g_pi2
+
+
+class _StepConfig(NamedTuple):
+    """The static half of a fused step call (``ref.fused_step``'s keywords;
+    ``a``, ``poly`` and ``fsal`` for ``fused_step_poly``)."""
+
+    b_sol: tuple
+    b_err: tuple
+    ctrl: tuple
+    want_coeffs: bool
+    ctrl_mode: str
+    a: object = None
+    poly: tuple = ()
+    fsal: bool = True
+
+
+def _step_grads(cfg, y, K, f1, f0, safe_dt, dt_cur, pi1, pi2, running, failed, atol, rtol,
+                y1, err, ratio, accept, grads, need):
+    """The backward of ``ref.fused_step`` from its saved inputs and the
+    kernel's y1, error estimate, ratio and accept, for the cotangents ``grads`` of (y1,
+    err_ratio, y_out, f_out, t_out, dt_out, new_inv, new_inv2, c0, c1, c2,
+    c3).  ``need``: the names of the inputs whose gradients are wanted.
+    Returns a dict name -> gradient (K's an (s, b, f) tensor or None).
+
+    Where several terms meet in one input, they are summed in the order
+    autograd of the plain op sums them (the output's own cotangent, then the
+    operations from the last recorded back), so that float32 sums with
+    cancellation round alike."""
+    (g_y1, g_ratio, g_yout, g_fout, g_tout, g_dtout, g_inv1, g_inv2,
+     g_c0, g_c1, g_c2, g_c3) = grads
+    acc_f = accept[:, None]
+    k0 = K[0] if f0 is None else f0
+    out = {}
+    gy, gy1, gf1, gk0, gdt = g_c0, g_y1, None, None, None
+    # ref.hermite_coeffs: c0 = y, c1 = h f0, c2 = 3 (y1 - y) - h (2 f0 + f1),
+    # c3 = 2 (y - y1) + h (f0 + f1); h = dt[:, None], summed per product.
+    hdt = safe_dt[:, None]
+    if g_c3 is not None:
+        gdt = _add(gdt, (g_c3 * (k0 + f1)).sum(-1))
+        ge = g_c3 * hdt
+        gk0, gf1 = _add(gk0, ge), _add(gf1, ge)
+        gd = g_c3 * 2.0
+        gy, gy1 = _add(gy, gd), _add(gy1, -gd)
+    if g_c2 is not None:
+        gb = -g_c2
+        gdt = _add(gdt, (gb * (2.0 * k0 + f1)).sum(-1))
+        ge = gb * hdt
+        gk0, gf1 = _add(gk0, ge * 2.0), _add(gf1, ge)
+        gd = g_c2 * 3.0
+        gy1, gy = _add(gy1, gd), _add(gy, -gd)
+    if g_c1 is not None:
+        gdt = _add(gdt, (g_c1 * k0).sum(-1))
+        gk0 = _add(gk0, g_c1 * hdt)
+    a, b = _split(running, g_dtout)
+    g_next, out["dt_cur"] = a, b
+    out["t_new"], out["t"] = _split(accept, g_tout)
+    a, b = _split(acc_f, g_fout)
+    gf1, gk0 = _add(gf1, a), _add(gk0, b)
+    a, b = _split(acc_f, g_yout)
+    gy1, gy = _add(gy1, a), _add(gy, b)
+    if cfg.ctrl_mode == "fixed":  # dt_next = dt_cur, the history passes through
+        g_r = g_ratio
+        out["dt_cur"] = _add(out["dt_cur"], g_next)
+        out["prev_inv"], out["prev2_inv"] = g_inv1, g_inv2
+    else:
+        g_pid, g_dtc, out["prev_inv"], out["prev2_inv"] = _pid_grads(
+            cfg.ctrl, ratio, dt_cur, pi1, pi2, g_next, g_inv1, g_inv2)
+        out["dt_cur"] = _add(out["dt_cur"], g_dtc)
+        g_r = _add(g_ratio, g_pid)
+    gerr = None
+    if g_r is not None:
+        if failed is not None:  # where(failed, inf, ratio)
+            g_r = torch.where(failed, 0.0, g_r)
+        gerr, gy0, gy1n, out["atol"], out["rtol"] = _error_norm_grads(
+            g_r, ratio, err, y, y1, atol, rtol,
+            (True, True, "atol" in need, "rtol" in need), failed=failed)
+        gy, gy1 = _add(gy, gy0), _add(gy1, gy1n)
+    gK, out["safe_dt"] = _update_grads(gy1, gerr, safe_dt, K, (cfg.b_sol, cfg.b_err), True,
+                                       True, gdt=gdt)
+    out["y"] = _add(gy, gy1)
+    out["f1"] = gf1
+    if gk0 is not None and f0 is not None:
+        out["f0"] = gk0
+    elif gk0 is not None:
+        gK = torch.zeros_like(K) if gK is None else gK
+        gK[0] += gk0
+    out["K"] = gK
+    return out
+
+
+# -------------------------------------------------------- the explicit path
 
 
 class StageAccum(torch.autograd.Function):
@@ -109,18 +423,7 @@ class FusedUpdate(torch.autograd.Function):
     def backward(ctx, g1, ge):
         dt, K = ctx.saved_tensors
         need_y, need_K, need_dt, _, _ = ctx.needs_input_grad
-        # Autograd reaches the err product first (it was recorded last).
-        parts = [(gr, _weights(w, K)) for gr, w in ((ge, ctx.weights[1]), (g1, ctx.weights[0]))
-                 if gr is not None]
-        gdt = gK = None
-        if need_dt:
-            for gr, w in parts:
-                term = (gr * torch.tensordot(w, K, dims=1)).sum(-1)
-                gdt = term if gdt is None else gdt + term
-        if need_K:
-            for gr, w in parts:
-                term = w[:, None, None] * (gr * dt[:, None])
-                gK = term if gK is None else gK + term
+        gK, gdt = _update_grads(g1, ge, dt, K, ctx.weights, need_K, need_dt)
         return (g1 if need_y else None), gK, gdt, None, None
 
 
@@ -130,44 +433,18 @@ class ErrorNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, err, y0, y1, atol, rtol):
         out = cuda_impl.error_norm(err, y0, y1, atol, rtol)
-        tols = [t for t in (atol, rtol) if isinstance(t, torch.Tensor)]
-        ctx.tols = tuple(None if isinstance(t, torch.Tensor) else t for t in (atol, rtol))
+        tols = _save_tols(ctx, atol, rtol)
         ctx.save_for_backward(err, y0, y1, out, *tols)
         return out
 
     @staticmethod
     def backward(ctx, g):
         err, y0, y1, out, *tols = ctx.saved_tensors
-        tols = iter(tols)
-        atol, rtol = (next(tols) if t is None else t for t in ctx.tols)
+        atol, rtol = _load_tols(ctx, tols)
         need_err, need_y0, need_y1, need_atol, need_rtol = ctx.needs_input_grad
-        # A scalar tolerance stays a number: as a tensor on the card it would
-        # be a copy from host memory, which waits for the device.
-        atol_b, rtol_b = (t[:, None] if isinstance(t, torch.Tensor) and t.ndim == 1 else t
-                          for t in (atol, rtol))
-        a0, a1 = torch.abs(y0), torch.abs(y1)
-        m = torch.maximum(a0, a1)
-        scale = atol_b + rtol_b * m
-        ratio = err / scale
-        # sqrt, mean over the features, ratio * ratio (both factors the same
-        # tensor: two equal terms), then the quotient.
-        gq = (g / (2 * out))[:, None].expand(err.shape) / err.shape[-1]
-        gratio = gq * ratio + gq * ratio
-        gerr = gratio / scale if need_err else None
-        gy0 = gy1 = gatol = grtol = None
-        if need_y0 or need_y1 or need_atol or need_rtol:
-            gscale = -gratio * ((err / scale) / scale)
-            if need_atol:
-                gatol = _sum_to(gscale, atol)
-            if need_rtol:
-                grtol = _sum_to(gscale * m, rtol)
-            gm = gscale * rtol_b
-            tie = torch.where(a0 == a1, gm / 2, gm)
-            if need_y0:
-                gy0 = tie.masked_fill(a0 < a1, 0) * torch.sgn(y0)
-            if need_y1:
-                gy1 = tie.masked_fill(a0 > a1, 0) * torch.sgn(y1)
-        return gerr, gy0, gy1, gatol, grtol
+        gerr, gy0, gy1, gatol, grtol = _error_norm_grads(
+            g, out, err, y0, y1, atol, rtol, (need_y0, need_y1, need_atol, need_rtol))
+        return (gerr if need_err else None), gy0, gy1, gatol, grtol
 
 
 class InterpEval(torch.autograd.Function):
@@ -200,27 +477,371 @@ class InterpEval(torch.autograd.Function):
                 gout = torch.where(m3, 0.0, g)
             else:
                 gout = g.scatter(1, idx, torch.where(m3, 0.0, gw))
-        # Horner's partial sums acc_k = acc_{k+1} * x + c_k, from the top
-        # coefficient down; walked back from acc_0, whose gradient is the
-        # masked one.
-        xe = x[:, :, None]
-        top = coeffs[-1][:, None, :].expand(gw.shape)
-        partial = [top]
-        for c in coeffs[-2:0:-1]:
-            partial.append(partial[-1] * xe + c[:, None, :])
-        ga = torch.where(m3, gw, 0.0)
-        gc = [None] * len(coeffs)
-        gx = None
-        for k in range(len(coeffs) - 1):
-            if need_c[k]:
-                gc[k] = ga.sum(dim=1)
-            if need_x:
-                term = (ga * partial[-1 - k]).sum(dim=-1, keepdim=True)
-                gx = term if gx is None else gx + term
-            ga = ga * xe
-        if need_c[-1]:
-            gc[-1] = ga.sum(dim=1)
+        cs = [c[:, None, :] for c in coeffs]
+        cs[-1] = cs[-1].expand(gw.shape)
+        gx, gc = _horner_grads(torch.where(m3, gw, 0.0), x[:, :, None], cs,
+                               lambda t: t.sum(dim=1), need_c, need_x)
         return (gx[:, :, 0] if gx is not None else None), None, gout, None, *gc
+
+
+# ---------------------------------------------------------- the fused step
+
+
+class FusedStep(torch.autograd.Function):
+    """``ref.fused_step``: the combine, the WRMS ratio, the PID (or fixed)
+    decision, the masked commit and the Hermite coefficients c1..c3 (c0 is
+    the input y).  ``accept`` is non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+                atol, rtol, failed, f0, cfg):
+        err = torch.empty_like(y)
+        out = cuda_impl.fused_step(
+            y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
+            b_sol=cfg.b_sol, b_err=cfg.b_err, ctrl=cfg.ctrl, want_coeffs=cfg.want_coeffs,
+            ctrl_mode=cfg.ctrl_mode, failed=failed, f0=f0, errs=err)
+        y1, ratio, accept = out[:3]
+        coeffs = out[9] if out[9] is not None else (None,) * 4
+        ctx.mark_non_differentiable(accept)
+        ctx.set_materialize_grads(False)
+        ctx.cfg = cfg
+        ctx.optional = (failed is not None, f0 is not None)
+        tols = _save_tols(ctx, atol, rtol)
+        ctx.save_for_backward(y, _frozen(K), _frozen(f1), safe_dt, dt_cur, prev_inv,
+                              prev2_inv, running, y1, err, ratio, accept,
+                              *(x for x in (failed, f0) if x is not None), *tols)
+        return (*out[:9], *coeffs)
+
+    @staticmethod
+    def backward(ctx, g_y1, g_ratio, _g_accept, *grads):
+        (y, K, f1, safe_dt, dt_cur, pi1, pi2, running, y1, err, ratio, accept,
+         *rest) = ctx.saved_tensors
+        failed = rest.pop(0) if ctx.optional[0] else None
+        f0 = rest.pop(0) if ctx.optional[1] else None
+        atol, rtol = _load_tols(ctx, rest)
+        names = ("y", "K", "f1", "t", "t_new", "dt_cur", "safe_dt", "running", "prev_inv",
+                 "prev2_inv", "atol", "rtol", "failed", "f0")
+        need = {n for n, w in zip(names, ctx.needs_input_grad) if w}
+        out = _step_grads(ctx.cfg, y, K, f1, f0, safe_dt, dt_cur, pi1, pi2, running, failed,
+                          atol, rtol, y1, err, ratio, accept, (g_y1, g_ratio, *grads), need)
+        return (*(out.get(n) if n in need else None for n in names), None)
+
+
+class FusedStepPoly(torch.autograd.Function):
+    """``ref.fused_step_poly``: ``FusedStep`` with the stage recursion of the
+    polynomial vector field (and the non-FSAL trailing evaluation) inside.
+    The launch writes out its stages, their arguments and the error
+    estimate; the backward walks the recursion back over them:
+    ``poly_eval``'s Horner derivative and ``stage_accum``'s."""
+
+    @staticmethod
+    def forward(ctx, y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol,
+                rtol, cfg):
+        K = torch.empty((len(cfg.b_sol),) + tuple(y.shape), dtype=y.dtype, device=y.device)
+        err = torch.empty_like(y)
+        Z = torch.empty((K.shape[0] - 1,) + tuple(y.shape), dtype=y.dtype, device=y.device)
+        out = cuda_impl.fused_step_poly(
+            y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
+            a=cfg.a, c=None, b_sol=cfg.b_sol, b_err=cfg.b_err, poly=cfg.poly, ctrl=cfg.ctrl,
+            want_coeffs=cfg.want_coeffs, fsal=cfg.fsal, ctrl_mode=cfg.ctrl_mode, stages=K,
+            errs=err, stage_args=Z)
+        y1, ratio, accept = out[:3]
+        coeffs = out[9] if out[9] is not None else (None,) * 4
+        ctx.mark_non_differentiable(accept)
+        ctx.set_materialize_grads(False)
+        ctx.cfg = cfg
+        tols = _save_tols(ctx, atol, rtol)
+        ctx.save_for_backward(y, K, Z, safe_dt, dt_cur, prev_inv, prev2_inv, running, y1, err,
+                              ratio, accept, *tols)
+        return (*out[:9], *coeffs)
+
+    @staticmethod
+    def backward(ctx, g_y1, g_ratio, _g_accept, *grads):
+        (y, K, Z, safe_dt, dt_cur, pi1, pi2, running, y1, err, ratio, accept,
+         *tols) = ctx.saved_tensors
+        atol, rtol = _load_tols(ctx, tols)
+        cfg = ctx.cfg
+        names = ("y", "f0", "t", "t_new", "dt_cur", "safe_dt", "running", "prev_inv",
+                 "prev2_inv", "atol", "rtol")
+        need = {n for n, w in zip(names, ctx.needs_input_grad) if w}
+        cs = _poly_coeffs(cfg.poly, y)
+        if cfg.fsal:
+            f1, y1_accs = K[-1], None
+        else:  # the trailing evaluation f1 = poly(y1)
+            y1_accs = _poly_partials(y1, cs)
+            f1 = (y1_accs[-1] * y1 + cs[0] if len(cs) > 1
+                  else torch.as_tensor(cs[0], dtype=y1.dtype, device=y1.device).expand(y1.shape))
+        out = _step_grads(cfg, y, K, f1, None, safe_dt, dt_cur, pi1, pi2, running, None, atol,
+                          rtol, y1, err, ratio, accept, (g_y1, g_ratio, *grads), need)
+        gK, gy, gdt, gf1 = out["K"], out["y"], out["safe_dt"], out["f1"]
+        if gf1 is not None:
+            if cfg.fsal:
+                gK = torch.zeros_like(K) if gK is None else gK
+                gK[-1] += gf1
+            else:
+                gz = _poly_grad(gf1, y1, cs, y1_accs)
+                if gz is not None:
+                    gK_u, gdt_u = _update_grads(gz, None, safe_dt, K, (cfg.b_sol, cfg.b_err),
+                                                True, True)
+                    gK = gK_u if gK is None else gK + gK_u
+                    gy, gdt = _add(gy, gz), _add(gdt, gdt_u)
+        # The stage recursion K[i] = poly(Z[i - 1]), Z[i - 1] = y + dt * (a[i, :i]
+        # . K[:i]), walked back from the last stage: Horner's derivative at the
+        # kernel's arguments, then stage_accum's.
+        a = np.asarray(cfg.a, dtype=np.float64)
+        if gK is not None:
+            for i in range(len(a) - 1, 0, -1):
+                w = _weights(a[i, :i], K)
+                acc = torch.tensordot(w, K[:i], dims=1)
+                gz = _poly_grad(gK[i], Z[i - 1], cs)
+                if gz is None:
+                    continue
+                gy = _add(gy, gz)
+                gdt = _add(gdt, (gz * acc).sum(-1))
+                gK[:i] += w[:, None, None] * (gz * safe_dt[:, None])
+        out.update(y=gy, safe_dt=gdt, f0=None if gK is None else gK[0])
+        return (*(out.get(n) if n in need else None for n in names), None)
+
+
+# ------------------------------------------------------------- the events
+
+
+class MaskedBisectRefine(torch.autograd.Function):
+    """``ref.masked_bisect_refine``: the gradient flows through the ``where``
+    selects of the bracket and the Horner sum at the new midpoint; the sign
+    choice carries none.  The coefficients come last, as varargs."""
+
+    @staticmethod
+    def forward(ctx, lo, hi, v_lo, v_mid, active, *coeffs):
+        outs = cuda_impl.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(v_lo, v_mid, active, outs[3], *coeffs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_lo, g_hi, g_vlo, g_mid, g_y):
+        v_lo, v_mid, active, mid_new, *coeffs = ctx.saved_tensors
+        need_c = ctx.needs_input_grad[5:]
+        left = (torch.sign(v_lo) != torch.sign(v_mid)) | torch.isnan(v_lo) | torch.isnan(v_mid)
+        m_hi, m_lo = active & left, active & ~left
+        gc = [None] * len(coeffs)
+        if g_y is not None:
+            gx, gc = _horner_grads(g_y, mid_new[:, None], coeffs, lambda t: t, need_c, True)
+            g_mid = _add(g_mid, gx[:, 0])
+        if g_mid is not None:  # mid' = 0.5 * (lo' + hi')
+            half = g_mid * 0.5
+            g_lo, g_hi = _add(g_lo, half), _add(g_hi, half)
+        g_m_hi, g_hi = _split(m_hi, g_hi)
+        g_m_lo, g_lo = _split(m_lo, g_lo)
+        g_vmid, g_vlo = _split(m_lo, g_vlo)
+        g_m = _add(g_m_hi, g_m_lo)
+        if g_m is not None:  # mid = 0.5 * (lo + hi)
+            half = g_m * 0.5
+            g_lo, g_hi = _add(g_lo, half), _add(g_hi, half)
+        return g_lo, g_hi, g_vlo, g_vmid, None, *gc
+
+
+class FusedEventDetect(torch.autograd.Function):
+    """``ref.fused_event_detect``: ``newly`` is non-differentiable, the
+    carried values a ``where`` on ``accept``."""
+
+    @staticmethod
+    def forward(ctx, v_prev, v_new, fired, accept, directions):
+        newly, v_keep = cuda_impl.fused_event_detect(v_prev, v_new, fired, accept,
+                                                     directions=directions)
+        ctx.mark_non_differentiable(newly)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(accept)
+        return newly, v_keep
+
+    @staticmethod
+    def backward(ctx, _g_newly, g_keep):
+        (accept,) = ctx.saved_tensors
+        g_new, g_prev = _split(accept[:, None], g_keep)
+        return g_prev, g_new, None, None, None
+
+
+class FusedEventCommit(torch.autograd.Function):
+    """``ref.fused_event_commit``, writing into a copy of ``ev_y``.  The
+    gradient flows to x, y_ev, y_new, t0, dt, ev_t and ev_y; ``fired'``,
+    ``stop`` and ``n_new`` are non-differentiable.  The terminal resolution
+    (which crossing each row stops at) is recomputed from x and newly."""
+
+    @staticmethod
+    def forward(ctx, x, y_ev, y_new, t0, dt, ev_t, ev_y, newly, fired, terminal):
+        out = cuda_impl.fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t,
+                                           ev_y.clone(), terminal=terminal)
+        fired_out, _, _, stop, _, _, n_new = out
+        ctx.mark_non_differentiable(fired_out, stop, n_new)
+        ctx.set_materialize_grads(False)
+        ctx.terminal = terminal
+        ctx.save_for_backward(x, newly, dt, stop)
+        return out
+
+    @staticmethod
+    def backward(ctx, _g_fired, g_evt, g_evy, _g_stop, g_tstop, g_ystop, _g_n):
+        x, newly, dt, stop = ctx.saved_tensors
+        b, E = x.shape
+        x_stop = torch.full((b,), torch.inf, dtype=x.dtype, device=x.device)
+        winner = torch.full((b,), -1, dtype=torch.int64, device=x.device)
+        for i, term in enumerate(ctx.terminal):
+            if term:
+                earlier = newly[:, i] & (x[:, i] < x_stop)
+                x_stop = torch.where(earlier, x[:, i], x_stop)
+                winner = torch.where(earlier, i, winner)
+        rec = newly & (x <= x_stop[:, None])
+        gx = gyev = gynew = gt0 = gdt = None
+        g_tev, g_evt = _split(rec, g_evt)
+        if g_tev is not None:  # t_ev = t0[:, None] + x * dt[:, None]
+            gt0 = g_tev.sum(1)
+            gx = g_tev * dt[:, None]
+            gdt = (g_tev * x).sum(1)
+        gyev, g_evy = _split(rec[:, :, None], g_evy)
+        won = winner[:, None] == torch.arange(E, device=x.device)
+        if g_tstop is not None:  # t_stop = t0 + where(stop, x_stop, 0) * dt
+            gt0 = _add(gt0, g_tstop)
+            gdt = _add(gdt, g_tstop * torch.where(stop, x_stop, 0.0))
+            g_xstop = torch.where(stop, g_tstop * dt, 0.0)
+            gx = _add(gx, torch.where(won, g_xstop[:, None], 0.0))
+        if g_ystop is not None:
+            gyev = _add(gyev, torch.where(won[:, :, None], g_ystop[:, None, :], 0.0))
+            gynew = torch.where((winner >= 0)[:, None], 0.0, g_ystop)
+        return gx, gyev, gynew, gt0, gdt, g_evt, g_evy, None, None, None
+
+
+# --------------------------------------------------------- the stiff path
+
+
+def _lu_grad(g, lu, perm):
+    """torch's ``lu_factor_ex`` backward (``linalg_lu_backward``, square
+    case) on the factors ``A[perm] = L U``: ``P L^{-H} (L^H g o 1_L + g U^H
+    o 1_U) U^{-H}``, P the permutation matrix of ``perm``."""
+    f = lu.shape[-1]
+    L = torch.tril(lu, -1) + torch.eye(f, dtype=lu.dtype, device=lu.device)
+    U = torch.triu(lu)
+    X = L.mT.matmul(g).tril(-1) + g.matmul(U.mT).triu()
+    X = torch.linalg.solve_triangular(U.mT, X, upper=False, left=False)
+    X = torch.linalg.solve_triangular(L.mT, X, upper=True, left=True, unitriangular=True)
+    # P[perm[i], i] = 1; as a product, so that a NaN spreads as it does there.
+    P = torch.zeros_like(lu).scatter_(1, perm.long()[:, None, :], 1.0)
+    return P.matmul(X)
+
+
+class BatchedLUFactor(torch.autograd.Function):
+    """``ref.batched_lu_factor``: the packed LU's gradient to A; ``perm`` is
+    non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, A):
+        lu, perm = cuda_impl.batched_lu_factor(A)
+        ctx.mark_non_differentiable(perm)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(lu, perm)
+        return lu, perm
+
+    @staticmethod
+    def backward(ctx, g, _g_perm):
+        if g is None:
+            return None
+        lu, perm = ctx.saved_tensors
+        return _lu_grad(g, lu, perm)
+
+
+class BatchedLinsolve(torch.autograd.Function):
+    """``ref.batched_linsolve``: x with A x = rhs.  Saves A by reference and
+    x, no factor; the backward solves with A^T once."""
+
+    @staticmethod
+    def forward(ctx, A, rhs):
+        x = cuda_impl.batched_linsolve(A, rhs)
+        ctx.save_for_backward(A, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        A, x = ctx.saved_tensors
+        need_A, need_rhs = ctx.needs_input_grad
+        g_rhs = torch.linalg.solve(A.mT, g)
+        g_A = -(g_rhs[:, :, None] * x[:, None, :]) if need_A else None
+        return g_A, (g_rhs if need_rhs else None)
+
+
+def _commit_grads(g_k, g_res, delta, scale, active, out, need_scale):
+    """``ref._masked_commit``: ``where(active, k - delta, k)`` and the RMS of
+    ``delta / scale``.  Returns the gradients in (k, delta, scale)."""
+    gk = gdelta = gscale = None
+    if g_k is not None:
+        g_sub, gk = _split(active[:, None], g_k)
+        gk, gdelta = gk + g_sub, -g_sub
+    if g_res is not None:
+        gnum, gsc = _rms_grads(g_res, delta, scale, out, need_scale)
+        gdelta = _add(gdelta, gnum)
+        if gsc is not None:
+            gscale = gsc.sum_to_size(scale.shape)
+    return gk, gdelta, gscale
+
+
+class MaskedNewtonUpdate(torch.autograd.Function):
+    """``ref.masked_newton_update``: the gradient flows into k, delta and
+    scale; ``active`` is a mask."""
+
+    @staticmethod
+    def forward(ctx, k, delta, scale, active):
+        k_new, res = cuda_impl.masked_newton_update(k, delta, active, scale)
+        ctx.set_materialize_grads(False)
+        ctx.scale_number = None if isinstance(scale, torch.Tensor) else scale
+        ctx.save_for_backward(delta, active, res,
+                              *((scale,) if ctx.scale_number is None else ()))
+        return k_new, res
+
+    @staticmethod
+    def backward(ctx, g_k, g_res):
+        delta, active, res, *scale = ctx.saved_tensors
+        scale = scale[0] if scale else ctx.scale_number
+        need_k, need_delta, need_scale, _ = ctx.needs_input_grad
+        gk, gdelta, gscale = _commit_grads(g_k, g_res, delta, scale, active, res, need_scale)
+        return (gk if need_k else None), (gdelta if need_delta else None), gscale, None
+
+
+class FusedNewtonIter(torch.autograd.Function):
+    """``ref.fused_newton_iter``: ``delta = U^{-1} L^{-1} (k - fk)[perm]``,
+    then the masked commit.  The gradient flows into lu (through both
+    substitutions), k, fk and scale; ``perm`` and ``active`` are not
+    differentiated.  delta is recomputed from the saved factors."""
+
+    @staticmethod
+    def forward(ctx, lu, k, fk, scale, perm, active):
+        k_new, res = cuda_impl.fused_newton_iter(lu, perm, k, fk, active, scale)
+        ctx.set_materialize_grads(False)
+        ctx.scale_number = None if isinstance(scale, torch.Tensor) else scale
+        ctx.save_for_backward(lu, k, fk, perm, active, res,
+                              *((scale,) if ctx.scale_number is None else ()))
+        return k_new, res
+
+    @staticmethod
+    def backward(ctx, g_k, g_res):
+        lu, k, fk, perm, active, res, *scale = ctx.saved_tensors
+        scale = scale[0] if scale else ctx.scale_number
+        need_lu, need_k, need_fk, need_scale, _, _ = ctx.needs_input_grad
+        idx = perm.long()
+        x1 = torch.gather(k - fk, 1, idx)[..., None]
+        x2 = torch.linalg.solve_triangular(lu, x1, upper=False, unitriangular=True)
+        delta = torch.linalg.solve_triangular(lu, x2, upper=True)
+        gk, gdelta, gscale = _commit_grads(g_k, g_res, delta[..., 0], scale, active, res,
+                                           need_scale)
+        glu = gfk = None
+        if gdelta is not None:
+            # solve_triangular's backward: g_B = A^{-H} g, g_A = -g_B X^H on A's triangle.
+            gb_u = torch.linalg.solve_triangular(lu.mT, gdelta[..., None], upper=False)
+            gb_l = torch.linalg.solve_triangular(lu.mT, gb_u, upper=True, unitriangular=True)
+            if need_lu:
+                glu = (-gb_l.matmul(x2.mT)).tril(-1) + (-gb_u.matmul(delta.mT)).triu()
+            g_r = torch.zeros_like(k).scatter_add_(1, idx, gb_l[..., 0])
+            gk, gfk = _add(gk, g_r), -g_r
+        return (glu, (gk if need_k else None), (gfk if need_fk else None), gscale, None, None)
+
+
+# ------------------------------------------------------------ entry points
 
 
 def stage_accum(y, dt, K, coeffs):
@@ -237,3 +858,61 @@ def error_norm(err, y0, y1, atol, rtol):
 
 def interp_eval(coeffs, x, mask, out, cursor=None):
     return InterpEval.apply(x, mask, out, cursor, *coeffs)
+
+
+def _step_out(res, want_coeffs):
+    """A Function's thirteen outputs as ``ref.fused_step`` returns them: c0
+    is the input y, returned by the Function so that its cotangent meets
+    the others in the backward's order."""
+    return (*res[:9], tuple(res[9:]) if want_coeffs else None)
+
+
+def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
+               *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid", failed=None, f0=None):
+    cfg = _StepConfig(tuple(np.asarray(b_sol, np.float64).tolist()),
+                      tuple(np.asarray(b_err, np.float64).tolist()), tuple(ctrl),
+                      bool(want_coeffs), ctrl_mode)
+    res = FusedStep.apply(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+                          atol, rtol, failed, f0, cfg)
+    return _step_out(res, want_coeffs)
+
+
+def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
+                    *, a, c, b_sol, b_err, poly, ctrl, want_coeffs, fsal=True, ctrl_mode="pid"):
+    del c  # autonomous polynomial dynamics
+    cfg = _StepConfig(tuple(np.asarray(b_sol, np.float64).tolist()),
+                      tuple(np.asarray(b_err, np.float64).tolist()), tuple(ctrl),
+                      bool(want_coeffs), ctrl_mode, np.asarray(a, np.float64), tuple(poly),
+                      bool(fsal))
+    res = FusedStepPoly.apply(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
+                              atol, rtol, cfg)
+    return _step_out(res, want_coeffs)
+
+
+def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
+    return MaskedBisectRefine.apply(lo, hi, v_lo, v_mid, active, *coeffs)
+
+
+def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
+    return FusedEventDetect.apply(v_prev, v_new, fired, accept, tuple(directions))
+
+
+def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, terminal):
+    return FusedEventCommit.apply(x, y_ev, y_new, t0, dt, ev_t, ev_y, newly, fired,
+                                  tuple(terminal))
+
+
+def batched_lu_factor(A):
+    return BatchedLUFactor.apply(A)
+
+
+def batched_linsolve(A, rhs):
+    return BatchedLinsolve.apply(A, rhs)
+
+
+def fused_newton_iter(lu, perm, k, fk, active, scale):
+    return FusedNewtonIter.apply(lu, k, fk, scale, perm, active)
+
+
+def masked_newton_update(k, delta, active, scale):
+    return MaskedNewtonUpdate.apply(k, delta, scale, active)

@@ -21,6 +21,19 @@
 // y_out, f_out and c1..c3: (s + 2 + 6) * b * f elements, a few dozen flops
 // each.  fused_step_poly reads y and f0 and writes the same six planes.
 //
+// Under autograd both kernels also write the embedded error estimate err =
+// dt * (b_err . K) (`err`, (b, f)), and fused_step_poly the s stages it used
+// (`stages`, the (s, b, f) buffer rk_step would hold; K[0] = f0) and their
+// arguments z_i = y + dt * (a_i . K) (`zs`, (s - 1, b, f)): the backwards
+// read these bits rather than a recomputation that rounds apart (err is a
+// difference of two solutions, and poly'(z) may cancel, so in float32 a few
+// ulps move them by much more).  In the warp body and fused_step_poly's row
+// body the stores sit behind a template flag (kSave) set only when one of
+// the pointers is: without grad the launch runs the variant compiled
+// without them, the same code and the same bits (tested at run time they
+// cost the poly row body a quarter of its time).  fused_step's row body
+// tests its one pointer, err, at run time, at no measured cost.
+//
 // Schedule.  The TPU holds a whole row in VMEM (one pass), or for f > 128
 // runs a two-phase feature-tiled grid.  Here two bodies:
 //
@@ -69,6 +82,9 @@ struct FusedStepArgs {
   const void *running, *failed, *f0, *atol, *rtol;
   void *y1, *ratio, *accept, *y_out, *f_out, *t_out, *dt_out, *new_inv, *new_inv2;
   void *c1, *c2, *c3;
+  void* stages;  // fused_step_poly: the (s, b, f) stages, or null
+  void* err;     // the (b, f) error estimate, or null
+  void* zs;      // fused_step_poly: the (s - 1, b, f) stage arguments, or null
   double atol_val, rtol_val;
   int64_t atol_rs, atol_cs, rtol_rs, rtol_cs, b, f;
   int32_t s, npoly, fsal, ctrl_mode;  // ctrl_mode: 0 = pid, 1 = fixed
@@ -88,6 +104,7 @@ struct Params {
   const uint8_t *running, *failed;
   Tol<T> atol, rtol;
   T *y1, *ratio, *y_out, *f_out, *t_out, *dt_out, *new_inv, *new_inv2, *c1, *c2, *c3;
+  T *stages, *err, *zs;
   uint8_t* accept;
   int64_t b, f;
   int s, npoly, fsal, ctrl_mode;
@@ -201,10 +218,12 @@ struct Element {
 // (stage_accum's sum, then poly_eval), the b_sol/b_err combine and (with_f1)
 // the derivative at y1: the last stage, or pf(y1) for a non-FSAL tableau.
 // Both bodies of fused_step_poly call it, with the coefficients read from
-// device memory (PolyAt) or held in registers (PolyRegs).
-template <typename T, typename Poly>
+// device memory (PolyAt) or held in registers (PolyRegs).  With kSave,
+// where p.stages (p.zs) is set and i >= 0, the stages (the stage
+// arguments) of element i (row * f + c) are stored there.
+template <typename T, bool kSave, typename Poly>
 __device__ __forceinline__ Element<T> poly_element(const Params<T>& p, T y, T f0, T h,
-                                                   bool with_f1, Poly pf) {
+                                                   bool with_f1, Poly pf, int64_t i) {
   Element<T> e;
   e.y = y;
   T ks[kMaxStages];
@@ -214,7 +233,11 @@ __device__ __forceinline__ Element<T> poly_element(const Params<T>& p, T y, T f0
   for (int st = 1; st < kMaxStages; ++st) {
     if (st < p.s) {
       const T acc = weighted_sum(p.a[st], st, [&](int j) { return ks[j]; });
-      ks[st] = pf(fma_of(h, acc, y));
+      const T z = fma_of(h, acc, y);
+      if constexpr (kSave) {
+        if (p.zs && i >= 0) p.zs[(st - 1) * p.b * p.f + i] = z;
+      }
+      ks[st] = pf(z);
       last = ks[st];
     }
   }
@@ -224,16 +247,27 @@ __device__ __forceinline__ Element<T> poly_element(const Params<T>& p, T y, T f0
   e.y1 = fma_of(h, acc_sol, y);
   if (with_f1) e.f1 = p.fsal ? last : pf(e.y1);
   e.err = h * acc_err;
+  if constexpr (kSave) {
+    if (p.stages && i >= 0) {
+      const int64_t n = p.b * p.f;
+#pragma unroll
+      for (int st = 0; st < kMaxStages; ++st) {
+        if (st < p.s) p.stages[st * n + i] = ks[st];
+      }
+    }
+  }
   return e;
 }
 
 // y1, err, the derivative cache k0 (f0 where given, else K[0]) and
 // (with_f1) f1 of element (row, c); i = row * f + c.
-template <typename T, bool kPoly>
+template <typename T, bool kPoly, bool kSave>
 __device__ __forceinline__ Element<T> element(const Params<T>& p, int64_t i, int64_t c, T h,
                                               bool with_f1) {
   if constexpr (kPoly) {
-    return poly_element(p, p.y[i], p.K[i], h, with_f1, PolyAt<T>{p, c});
+    // The stages go out once, in sweep 2 (with_f1).
+    return poly_element<T, kSave>(p, p.y[i], p.K[i], h, with_f1, PolyAt<T>{p, c},
+                                  with_f1 ? i : -1);
   } else {
     Element<T> e;
     e.y = p.y[i];
@@ -263,7 +297,7 @@ __device__ __forceinline__ T hermite_c3(T y, T y1, T k0, T f1, T h) {
 
 // __grid_constant__: the helpers take p by reference straight from the
 // parameter space, with no per-thread copy of the ~1 KB struct.
-template <typename T, bool kPoly>
+template <typename T, bool kPoly, bool kSave>
 __global__ void fused_step_kernel(const __grid_constant__ Params<T> p) {
   const int lane = threadIdx.x & 31;
   const int64_t row = blockIdx.x * (int64_t)kWarpsPerBlock + (threadIdx.x >> 5);
@@ -274,7 +308,7 @@ __global__ void fused_step_kernel(const __grid_constant__ Params<T> p) {
   // Sweep 1: error_norm's sum of squares over the row.
   T sum = T(0);
   for (int64_t c = lane; c < p.f; c += 32) {
-    const Element<T> e = element<T, kPoly>(p, base + c, c, h, false);
+    const Element<T> e = element<T, kPoly, kSave>(p, base + c, c, h, false);
     sum = wrms_add(sum, e.err, e.y, e.y1, p.atol.at(row, c), p.rtol.at(row, c));
   }
   T ratio = wrms_finish(warp_sum(sum), p.f);
@@ -299,8 +333,11 @@ __global__ void fused_step_kernel(const __grid_constant__ Params<T> p) {
   // Sweep 2: the planes, under the decided mask.
   for (int64_t c = lane; c < p.f; c += 32) {
     const int64_t i = base + c;
-    const Element<T> e = element<T, kPoly>(p, i, c, h, true);
+    const Element<T> e = element<T, kPoly, kSave>(p, i, c, h, true);
     p.y1[i] = e.y1;
+    if constexpr (kSave) {
+      if (p.err) p.err[i] = e.err;
+    }
     p.y_out[i] = accept ? e.y1 : e.y;
     p.f_out[i] = accept ? e.f1 : e.k0;
     if (p.c1) {  // ref.hermite_coeffs, one rounding per op
@@ -425,7 +462,7 @@ __device__ __forceinline__ void row_finish(const Params<T>& p, int64_t row, T co
   }
 }
 
-template <typename T, int V, int NP>
+template <typename T, int V, int NP, bool kSave>
 __global__ void __launch_bounds__(kRowThreads, row_min_blocks<T>())
     fused_step_poly_row_kernel(const __grid_constant__ Params<T> p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -463,7 +500,7 @@ __global__ void __launch_bounds__(kRowThreads, row_min_blocks<T>())
         cf[d] = load_chunk<T, V>(p.poly + static_cast<int64_t>(d) * f + c0);
       }
     }
-    Vec<T, V> r, y1, f1;
+    Vec<T, V> r, y1, f1, err;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const int c = c0 + j;
@@ -472,13 +509,17 @@ __global__ void __launch_bounds__(kRowThreads, row_min_blocks<T>())
         PolyRegs<T, NP> pr;
 #pragma unroll
         for (int d = 0; d < NP; ++d) pr.c[d] = cf[d].v[j];
-        e = poly_element(p, y.v[j], f0.v[j], h, true, pr);
+        e = poly_element<T, kSave>(p, y.v[j], f0.v[j], h, true, pr, base + c);
       } else {
-        e = poly_element(p, y.v[j], f0.v[j], h, true, PolyAt<T>{p, c});
+        e = poly_element<T, kSave>(p, y.v[j], f0.v[j], h, true, PolyAt<T>{p, c}, base + c);
       }
       r.v[j] = wrms_scaled(e.err, e.y, e.y1, p.atol.at(row, c), p.rtol.at(row, c));
       y1.v[j] = e.y1;
       f1.v[j] = e.f1;
+      err.v[j] = e.err;
+    }
+    if constexpr (kSave) {
+      if (p.err) store_chunk<T, V>(p.err + base + c0, err);
     }
     // The planes as if the row were accepted; a rejected row rewrites y_out
     // and f_out in phase 3 (the first writes are still in L2 then).
@@ -562,7 +603,7 @@ __global__ void __launch_bounds__(step_row_threads<T>(), step_row_min_blocks<T>(
     const Vec<T, V> y = load_chunk<T, V>(p.y + base + c0);
     const Vec<T, V> f1 = f1_is_last ? ks[S - 1] : load_chunk<T, V>(p.f1 + base + c0);
     const Vec<T, V> k0 = p.f0 ? load_chunk<T, V>(p.f0 + base + c0) : ks[0];
-    Vec<T, V> r, y1;
+    Vec<T, V> r, y1, errs;
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       T acc_sol, acc_err;
@@ -570,9 +611,11 @@ __global__ void __launch_bounds__(step_row_threads<T>(), step_row_min_blocks<T>(
                          acc_err);
       y1.v[e] = fma_of(h, acc_sol, y.v[e]);
       const T err = h * acc_err;
+      errs.v[e] = err;
       r.v[e] = wrms_scaled(err, y.v[e], y1.v[e], p.atol.at(row, c0 + e),
                            p.rtol.at(row, c0 + e));
     }
+    if (p.err) store_chunk<T, V>(p.err + base + c0, errs);
     // The planes as if the row were accepted; phase 3 rewrites a rejected
     // row's y_out and f_out.
     store_chunk<T, V>(p.y1 + base + c0, y1);
@@ -626,6 +669,9 @@ Params<T> params_of(const FusedStepArgs& a) {
   p.c1 = static_cast<T*>(a.c1);
   p.c2 = static_cast<T*>(a.c2);
   p.c3 = static_cast<T*>(a.c3);
+  p.stages = static_cast<T*>(a.stages);
+  p.err = static_cast<T*>(a.err);
+  p.zs = static_cast<T*>(a.zs);
   p.accept = static_cast<uint8_t*>(a.accept);
   p.b = a.b;
   p.f = a.f;
@@ -640,14 +686,21 @@ Params<T> params_of(const FusedStepArgs& a) {
   return p;
 }
 
+// Whether the launch writes one of the outputs the backwards read.
+inline bool saves(const FusedStepArgs& a) { return a.stages || a.err || a.zs; }
+
 template <typename T, bool kPoly>
 int launch_fused_step(const FusedStepArgs& a, cudaStream_t stream) {
   if (a.s < 1 || a.s > kMaxStages || (kPoly && a.npoly < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t blocks = (a.b + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  fused_step_kernel<T, kPoly><<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
-                                32 * kWarpsPerBlock, 0, stream>>>(params_of<T>(a));
+  const unsigned grid = static_cast<unsigned>(blocks > 0 ? blocks : 1);
+  if (saves(a)) {
+    fused_step_kernel<T, kPoly, true><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(params_of<T>(a));
+  } else {
+    fused_step_kernel<T, kPoly, false><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(params_of<T>(a));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,16 +723,26 @@ int launch_row_kernel(Kernel kernel, const FusedStepArgs& a, size_t smem,
 }
 
 // The coefficient count in registers up to kPolyRegs, else from device memory.
+template <typename T, int V, bool kSave>
+int launch_row_coeffs(const FusedStepArgs& a, size_t smem, cudaStream_t stream) {
+  switch (a.npoly) {
+    case 1:
+      return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 1, kSave>, a, smem, stream);
+    case 2:
+      return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 2, kSave>, a, smem, stream);
+    case 3:
+      return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 3, kSave>, a, smem, stream);
+    case 4:
+      return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 4, kSave>, a, smem, stream);
+    default:
+      return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 0, kSave>, a, smem, stream);
+  }
+}
+
 template <typename T, int V>
 int launch_row_np(const FusedStepArgs& a, size_t smem, cudaStream_t stream) {
-  switch (a.npoly) {
-    case 1: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 1>, a, smem, stream);
-    case 2: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 2>, a, smem, stream);
-    case 3: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 3>, a, smem, stream);
-    case 4: return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 4>, a, smem, stream);
-    default:
-      return launch_row_kernel<T, V>(fused_step_poly_row_kernel<T, V, 0>, a, smem, stream);
-  }
+  return saves(a) ? launch_row_coeffs<T, V, true>(a, smem, stream)
+                  : launch_row_coeffs<T, V, false>(a, smem, stream);
 }
 
 template <typename T, int V, typename Kernel>
@@ -715,7 +778,7 @@ int launch_step_row(const FusedStepArgs& a, cudaStream_t stream) {
   const bool vec = a.f % V == 0 && aligned16(a.y) && aligned16(a.K) && aligned16(a.f1) &&
                    aligned16(a.f0) && aligned16(a.y1) && aligned16(a.y_out) &&
                    aligned16(a.f_out) && aligned16(a.c1) && aligned16(a.c2) &&
-                   aligned16(a.c3);
+                   aligned16(a.c3) && aligned16(a.err);
   const size_t smem = row_smem_bytes(a.f, sizeof(T));
   return vec ? launch_step_row_s<T, V>(a, smem, stream)
              : launch_step_row_s<T, 1>(a, smem, stream);
@@ -730,7 +793,7 @@ int launch_row(const FusedStepArgs& a, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = a.f % V == 0 && aligned16(a.y) && aligned16(a.K) && aligned16(a.poly) &&
                    aligned16(a.y1) && aligned16(a.y_out) && aligned16(a.f_out) &&
-                   aligned16(a.c1) && aligned16(a.c2) && aligned16(a.c3);
+                   aligned16(a.c1) && aligned16(a.c2) && aligned16(a.c3) && aligned16(a.err);
   const size_t smem = row_smem_bytes(a.f, sizeof(T));
   return vec ? launch_row_np<T, V>(a, smem, stream) : launch_row_np<T, 1>(a, smem, stream);
 }
@@ -753,7 +816,7 @@ int rt_fused_step_args_size() { return static_cast<int>(sizeof(FusedStepArgs)); 
 // shared memory, so one stands for all.
 int rt_fused_step_max_smem() {
   size_t limit = 0;
-  return dynamic_smem_limit(fused_step_poly_row_kernel<float, 4, 3>, &limit) == cudaSuccess
+  return dynamic_smem_limit(fused_step_poly_row_kernel<float, 4, 3, false>, &limit) == cudaSuccess
              ? static_cast<int>(limit)
              : -1;
 }

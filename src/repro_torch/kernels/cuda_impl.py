@@ -97,17 +97,14 @@ body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
 # Why a wrapper refuses an input that requires grad while grad mode is on.
-# The four explicit-path kernels have their backward in kernels/autograd.py,
-# which ops.py reaches; the others have none on the card yet.
+# Every solver kernel has its backward in kernels/autograd.py, which ops.py
+# reaches; the attention has none on the card yet.
 _WITH_FUNCTION = ("the CUDA kernel has no backward of its own: differentiate through "
                   "repro_torch.kernels.ops, whose autograd Function holds it")
 _NO_BACKWARD = {
-    None: ("the CUDA kernel has no backward yet (ROADMAP A-18); solve under "
-           "torch.no_grad(), on the CPU, or through BacksolveAdjoint to differentiate"),
     "flash_attention_fwd": ("the CUDA kernel has no backward yet (ROADMAP A-17); run the "
                             "attention under torch.no_grad() or on the CPU to differentiate"),
-    **dict.fromkeys(("stage_accum", "fused_update", "error_norm", "interp_eval"),
-                    _WITH_FUNCTION),
+    **{name: _WITH_FUNCTION for name in launches if name != "flash_attention_fwd"},
 }
 
 
@@ -121,7 +118,7 @@ def _check(name, dtype, *tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
         if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{name}: {_NO_BACKWARD.get(name, _NO_BACKWARD[None])}")
+            raise RuntimeError(f"{name}: {_NO_BACKWARD[name]}")
 
 
 def _dtype_code(name, t):
@@ -317,7 +314,7 @@ class _FusedStepArgs(ctypes.Structure):
             "y", "K", "f1", "poly", "t", "t_new", "dt_cur", "safe_dt", "prev_inv",
             "prev2_inv", "running", "failed", "f0", "atol", "rtol",
             "y1", "ratio", "accept", "y_out", "f_out", "t_out", "dt_out", "new_inv",
-            "new_inv2", "c1", "c2", "c3")]
+            "new_inv2", "c1", "c2", "c3", "stages", "err", "zs")]
         + [("atol_val", ctypes.c_double), ("rtol_val", ctypes.c_double)]
         + [(name, ctypes.c_int64) for name in (
             "atol_rs", "atol_cs", "rtol_rs", "rtol_cs", "b", "f")]
@@ -332,11 +329,15 @@ _CTRL_MODES = {"pid": 0, "fixed": 1}
 
 def _launch_fused(name, launch, y, K, f1, poly, t, t_new, dt_cur, safe_dt, running,
                   prev_inv, prev2_inv, atol, rtol, *, b_sol, b_err, ctrl, want_coeffs,
-                  ctrl_mode, failed, f0=None, a=None, fsal=True, pick_body=None):
+                  ctrl_mode, failed, f0=None, a=None, fsal=True, pick_body=None,
+                  stages=None, errs=None, stage_args=None):
     """Check the inputs of ``fused_step``/``fused_step_poly``, allocate the
     twelve outputs, launch, and return them as ``ref.fused_step`` does.
     ``launch(lib, code, args, stream, body)`` calls the C entry;
-    ``pick_body(lib)`` (None: one body) chooses and checks the body."""
+    ``pick_body(lib)`` (None: one body) chooses and checks the body;
+    ``stages`` (``fused_step_poly`` only) an (s, b, f) output for the
+    stages and ``stage_args`` an (s - 1, b, f) one for their arguments,
+    ``errs`` a (b, f) output for the error estimate."""
     code = _dtype_code(name, y)
     b, f = y.shape
     s = len(b_sol)
@@ -358,6 +359,13 @@ def _launch_fused(name, launch, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runni
                          f"{[tuple(x.shape) for x in (*cols, *masks)]} do not agree")
     if ctrl_mode not in _CTRL_MODES:
         raise ValueError(f"{name}: unknown ctrl_mode {ctrl_mode!r}")
+    for out, shape in ((stages, (s, b, f)), (errs, (b, f)), (stage_args, (s - 1, b, f))):
+        if out is not None:
+            _check(name, y.dtype, out)
+            _same_device(name, y, out)
+            if out.shape != shape:
+                raise ValueError(f"{name}: an output of shape {tuple(out.shape)}, want "
+                                 f"{shape}")
     ap, av, ars, acs = _tolerance(name, atol, b, f, y)
     rp, rv, rrs, rcs = _tolerance(name, rtol, b, f, y)
 
@@ -379,7 +387,7 @@ def _launch_fused(name, launch, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runni
         *(ptr(x) for x in (y, K, f1, poly, t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv,
                            running, failed, f0)),
         ap, rp, *(ptr(x) for x in (y1, ratio, accept, y_out, f_out, t_out, dt_out, new_inv,
-                                   new_inv2, c1, c2, c3)),
+                                   new_inv2, c1, c2, c3, stages, errs, stage_args)),
         av, rv, ars, acs, rrs, rcs, b, f, s,
         0 if poly is None else poly.shape[0], int(bool(fsal)), _CTRL_MODES[ctrl_mode])
     args.ctrl[:len(ctrl)] = [float(x) for x in ctrl]
@@ -407,20 +415,21 @@ def _launch_fused(name, launch, y, K, f1, poly, t, t_new, dt_cur, safe_dt, runni
 
 def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
                atol, rtol, *, b_sol, b_err, ctrl, want_coeffs, ctrl_mode="pid",
-               failed=None, f0=None, body=None):
+               failed=None, f0=None, body=None, errs=None):
     """CUDA ``fused_step``: one launch for the combine, the WRMS ratio, the
     controller, the masked commit and the Hermite coefficients (see
     ``ref.fused_step``).  ``failed`` and ``f0`` may be None (null pointers;
     without ``f0`` the kernel reads K[0]).  ``body`` overrides
-    ``fused_step_body``'s choice (both give the same bits)."""
+    ``fused_step_body``'s choice (both give the same bits).  ``errs``, a
+    (b, f) tensor, receives the error estimate dt * (b_err . K) (the
+    backward reads it); None stores nothing."""
     name = "fused_step"
     return _launch_fused(
         name, lambda lib, code, args, stream, chosen: lib.rt_fused_step(
             code, STEP_BODIES[chosen], args, stream),
         y, K, f1, None, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
         b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode,
-        failed=failed, f0=f0,
-        pick_body=_row_body_picker(name, body, y))
+        failed=failed, f0=f0, pick_body=_row_body_picker(name, body, y), errs=errs)
 
 
 @functools.lru_cache(maxsize=32)
@@ -483,11 +492,16 @@ def _row_body_picker(name, body, y):
 
 def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv,
                     atol, rtol, *, a, c, b_sol, b_err, poly, ctrl, want_coeffs,
-                    fsal=True, ctrl_mode="pid", body=None):
+                    fsal=True, ctrl_mode="pid", body=None, stages=None, errs=None,
+                    stage_args=None):
     """CUDA ``fused_step_poly``: ``fused_step`` with the stage recursion of
     the polynomial vector field ``poly`` (and the non-FSAL trailing
     evaluation) in the same launch (see ``ref.fused_step_poly``).  ``body``
-    overrides ``fused_step_poly_body``'s choice (both give the same bits)."""
+    overrides ``fused_step_poly_body``'s choice (both give the same bits).
+    ``stages``, an (s, b, f) tensor, receives the stages the launch used
+    (``ref.poly_stages``), ``stage_args`` (s - 1, b, f) their arguments y +
+    dt * (a_i . K), ``errs`` as in ``fused_step``: the backward reads them;
+    None stores nothing."""
     del c  # autonomous polynomial dynamics
     name = "fused_step_poly"
     pick_body = _row_body_picker(name, body, y)
@@ -497,7 +511,8 @@ def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_i
             code, POLY_BODIES[chosen], args, stream),
         y, f0, None, rows, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv, atol, rtol,
         b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs, ctrl_mode=ctrl_mode,
-        failed=None, a=a, fsal=fsal, pick_body=pick_body)
+        failed=None, a=a, fsal=fsal, pick_body=pick_body, stages=stages, errs=errs,
+        stage_args=stage_args)
 
 
 MAX_EVENTS = 64  # kMaxEvents of csrc/events.cu

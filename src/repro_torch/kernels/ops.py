@@ -7,10 +7,10 @@ version in ``ref.py``; a CUDA tensor goes to the hand-written CUDA kernel in
 on the card.  ``launches`` counts the CUDA launches of each kernel.
 
 Gradients: on a CUDA tensor, with grad mode on and an input that requires
-grad, ``stage_accum``, ``fused_update``, ``error_norm`` and ``interp_eval`` go
-through their ``torch.autograd.Function`` in ``autograd.py`` (the kernel
-forward, a plain-torch backward); every other kernel refuses such inputs
-(ROADMAP A-18).  CPU tensors take the plain ops and their own autograd.
+grad, every solver op goes through its ``torch.autograd.Function`` in
+``autograd.py`` (the kernel forward, a plain-torch backward); the attention
+refuses such inputs (ROADMAP A-17).  CPU tensors take the plain ops and
+their own autograd.
 
 The solver core (``core/stepper.py`` for the stage math, ``core/newton.py``
 for the chord-Newton linear algebra, ``core/step.py`` for the error norm, the
@@ -90,6 +90,8 @@ def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv
     kw = dict(b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs,
               ctrl_mode=ctrl_mode, failed=failed, f0=f0)
     if _on_cuda("fused_step", y):
+        if _taped(y, K, f1, t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv, atol, rtol, f0):
+            return autograd.fused_step(*args, **kw)
         return cuda_impl.fused_step(*args, **kw)
     return ref.fused_step(*args, **kw)
 
@@ -101,42 +103,56 @@ def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_i
     kw = dict(a=a, c=c, b_sol=b_sol, b_err=b_err, poly=poly, ctrl=ctrl,
               want_coeffs=want_coeffs, fsal=fsal, ctrl_mode=ctrl_mode)
     if _on_cuda("fused_step_poly", y):
+        if _taped(y, f0, t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv, atol, rtol):
+            return autograd.fused_step_poly(*args, **kw)
         return cuda_impl.fused_step_poly(*args, **kw)
     return ref.fused_step_poly(*args, **kw)
 
 
 def batched_linsolve(A, rhs):
     if _on_cuda("batched_linsolve", A):
+        if _taped(A, rhs):
+            return autograd.batched_linsolve(A, rhs)
         return cuda_impl.batched_linsolve(A, rhs)
     return ref.batched_linsolve(A, rhs)
 
 
 def batched_lu_factor(A):
     if _on_cuda("batched_lu_factor", A):
+        if _taped(A):
+            return autograd.batched_lu_factor(A)
         return cuda_impl.batched_lu_factor(A)
     return ref.batched_lu_factor(A)
 
 
 def fused_newton_iter(lu, perm, k, fk, active, scale):
     if _on_cuda("fused_newton_iter", k):
+        if _taped(lu, k, fk, scale):
+            return autograd.fused_newton_iter(lu, perm, k, fk, active, scale)
         return cuda_impl.fused_newton_iter(lu, perm, k, fk, active, scale)
     return ref.fused_newton_iter(lu, perm, k, fk, active, scale)
 
 
 def masked_newton_update(k, delta, active, scale):
     if _on_cuda("masked_newton_update", k):
+        if _taped(k, delta, scale):
+            return autograd.masked_newton_update(k, delta, active, scale)
         return cuda_impl.masked_newton_update(k, delta, active, scale)
     return ref.masked_newton_update(k, delta, active, scale)
 
 
 def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
     if _on_cuda("masked_bisect_refine", lo):
+        if _taped(lo, hi, v_lo, v_mid, *coeffs):
+            return autograd.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
         return cuda_impl.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
     return ref.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
 
 
 def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
     if _on_cuda("fused_event_detect", v_prev):
+        if _taped(v_prev, v_new):
+            return autograd.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
         return cuda_impl.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
     return ref.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
 
@@ -144,9 +160,12 @@ def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
 def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, terminal):
     """Event-record commit (see ``ref.fused_event_commit``).  On the card the
     kernel updates ``ev_y`` in place and returns it as ``ev_y'``, so callers
-    always use the returned buffer."""
+    always use the returned buffer.  Under autograd the card writes into a
+    copy of ``ev_y`` instead."""
     args = (x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y)
     if _on_cuda("fused_event_commit", y_new):
+        if _taped(x, y_ev, y_new, t0, dt, ev_t, ev_y):
+            return autograd.fused_event_commit(*args, terminal=terminal)
         return cuda_impl.fused_event_commit(*args, terminal=terminal)
     return ref.fused_event_commit(*args, terminal=terminal)
 

@@ -5,7 +5,7 @@
         [--workload vdp_table3|full_width|full_width_long|step_bench|
                     ball_terminal|vdp_marker|full_width_long_events|
                     vdp_stiff_mixed|robertson_sweep|allen_cahn_full|all]
-    PYTHONPATH=src python -m repro_torch.tools.profile_step --grad
+    PYTHONPATH=src python -m repro_torch.tools.profile_step --grad [explicit|fused|events|stiff]
     PYTHONPATH=src python -m repro_torch.tools.profile_step --compiled 16 [...]
     python src/repro_torch/tools/profile_step.py --src <another tree>/src [...]
 
@@ -53,16 +53,20 @@ captured as CUDA graphs, one flag read a block), its ``ms_per_step`` over the
 eager loop's iterations, whether the entry is captured (and if not, why),
 and the same ``profile`` over one captured solve (init and finish included).
 
-``--grad`` profiles one training step of ``full_width_train`` instead (a
+``--grad PATH`` profiles one training step instead: for ``explicit`` (the
+default), ``fused`` and ``events``, one of ``full_width_train`` (a
 ``ScanAdjoint`` forward of ``TRAIN["max_steps"]`` loop iterations and its
 backward, checkpointed every ``TRAIN["checkpoint_every"]`` steps and not
-checkpointed), one JSON line each: ``ms_per_training_step``, ``forward_ms``
-and ``backward_ms`` (host clock, synchronized), ``peak_bytes``, and from
-``torch.profiler`` over one more step the device operations per training
-step and per loop iteration, the device busy time, the idle share, the port's
-kernels by name, and each backward of ``kernels/autograd.py``
-(``backward_ms``: calls, device time and host time of its autograd node, the
-kernels it launches included).
+checkpointed; ``fused=True``, or full_width_long_events' two events on the
+solve); for ``stiff``, the gradient of ``allen_cahn_full``'s final state in
+y0 and lam through ``ScanAdjoint`` (max_steps the eager solve's iterations
++ 4), unfused Newton and factor-once.  One JSON line each:
+``ms_per_training_step``, ``forward_ms`` and ``backward_ms`` (host clock,
+synchronized), ``peak_bytes``, and from ``torch.profiler`` over one more
+step the device operations per training step and per loop iteration, the
+device busy time, the idle share, the port's kernels by name, and each
+backward of ``kernels/autograd.py`` (``backward_ms``: calls, device time and
+host time of its autograd node, the kernels it launches included).
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -83,7 +87,10 @@ make_solver = solve_ivp = ops = workloads = ScanAdjoint = None
 AutoDiffAdjoint = AbstractStepper = CompiledSolver = None
 
 BACKWARDS = ("StageAccumBackward", "FusedUpdateBackward", "ErrorNormBackward",
-             "InterpEvalBackward")
+             "InterpEvalBackward", "FusedStepBackward", "FusedStepPolyBackward",
+             "MaskedBisectRefineBackward", "FusedEventDetectBackward",
+             "FusedEventCommitBackward", "BatchedLUFactorBackward", "BatchedLinsolveBackward",
+             "FusedNewtonIterBackward", "MaskedNewtonUpdateBackward")
 
 KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
            "error_norm_row_kernel", "interp_eval_kernel",
@@ -230,22 +237,40 @@ def profile_workload(name, vf, y0, t_eval, kw, device, k=None):
     return dict(out, profile=_profile(run, iters))
 
 
-def profile_grad(device, checkpoint_every):
-    """One training step of ``full_width_train`` (see the module docstring)."""
-    vf, y0, te, kw, target = workloads.full_width_train(device)
-    tr = workloads.TRAIN
+def profile_grad(device, checkpoint_every, path="explicit", fused=False):
+    """One training step of ``path`` (see the module docstring): for the
+    stiff path ``fused`` picks the factor-once Newton and there is no
+    checkpointing."""
+    if path == "stiff":
+        vf, y0, _, kw = workloads.allen_cahn_full(np.float32)
+        with torch.no_grad():
+            iters = int(solve_ivp(vf, y0, None, device=device, **kw).stats["n_steps"].max())
+        max_steps, te, target = iters + 4, None, None
+        lam = torch.tensor(kw["args"], device=device, requires_grad=True)
+        args, wrt = lam, [lam]
+        span = dict(t_start=kw["t_start"], t_end=kw["t_end"])
+        drv = ScanAdjoint(kw["method"], rtol=kw["rtol"], atol=kw["atol"], max_steps=max_steps,
+                          fused=fused)
+        name = "allen_cahn_full"
+    else:
+        vf, y0, te, kw, target = workloads.full_width_train(device, events=path == "events")
+        max_steps, args, span = workloads.TRAIN["max_steps"], kw["args"], {}
+        wrt = list(args.values())
+        fused = path == "fused"
+        drv = ScanAdjoint(max_steps=max_steps, checkpoint_every=checkpoint_every, fused=fused,
+                          events=kw.get("events"), rtol=kw["rtol"], atol=kw["atol"])
+        name = "full_width_train"
     y0t = torch.as_tensor(y0, device=device).requires_grad_()
-    drv = ScanAdjoint(max_steps=tr["max_steps"], checkpoint_every=checkpoint_every,
-                      rtol=kw["rtol"], atol=kw["atol"])
     times = {}
 
     def step():
         t0 = time.perf_counter()
-        sol = drv.solve(vf, y0t, te, args=kw["args"], device=device)
-        loss = workloads.mse(sol.ys, target)
+        sol = drv.solve(vf, y0t, te, args=args, device=device, **span)
+        loss = (torch.mean(sol.ys * sol.ys) if target is None
+                else workloads.mse(sol.ys, target))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        loss.backward()
+        torch.autograd.grad(loss, [y0t, *wrt])
         torch.cuda.synchronize()
         times.update(forward_ms=(t1 - t0) * 1e3, backward_ms=(time.perf_counter() - t1) * 1e3)
         return sol
@@ -253,13 +278,13 @@ def profile_grad(device, checkpoint_every):
     step()  # warm-up
     torch.cuda.reset_peak_memory_stats()
     wall, sol = _sync_ms(step)
-    out = dict(workload="full_width_train", checkpoint_every=checkpoint_every,
-               max_steps=tr["max_steps"], loop_steps_needed=int(sol.stats["n_steps"].max()),
+    out = dict(workload=name, path=path, fused=fused, checkpoint_every=checkpoint_every,
+               max_steps=max_steps, loop_steps_needed=int(sol.stats["n_steps"].max()),
                ms_per_training_step=wall, **times,
                peak_bytes=torch.cuda.max_memory_allocated())
     prof = _profile(step, 1, backwards=True)
     if prof is not None:
-        prof["device_ops_per_loop_iteration"] = prof["device_ops_per_step"] / tr["max_steps"]
+        prof["device_ops_per_loop_iteration"] = prof["device_ops_per_step"] / max_steps
     return dict(out, profile=prof)
 
 
@@ -295,8 +320,9 @@ def _bind(src):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fused", action="store_true", help="profile fused=True")
-    parser.add_argument("--grad", action="store_true",
-                        help="profile a training step of full_width_train instead")
+    parser.add_argument("--grad", nargs="?", const="explicit", default=None,
+                        choices=["explicit", "fused", "events", "stiff"],
+                        help="profile a training step through this path instead")
     parser.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
     parser.add_argument("--compiled", type=int, default=0, metavar="K",
                         help="also profile the solve through CompiledSolver(k=K)")
@@ -313,9 +339,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     if opts.grad:
-        for every in (workloads.TRAIN["checkpoint_every"], 0):
+        runs = ([(0, False), (0, True)] if opts.grad == "stiff"
+                else [(workloads.TRAIN["checkpoint_every"], False), (0, False)])
+        for every, fused in runs:
             print(json.dumps({"src": str(pathlib.Path(ops.__file__).parents[2]),
-                              **profile_grad(device, every)}), flush=True)
+                              **profile_grad(device, every, opts.grad, fused)}), flush=True)
         return 0
     names = list(WORKLOADS) if opts.workload == "all" else [opts.workload]
     for name in names:

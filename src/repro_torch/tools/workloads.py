@@ -62,6 +62,15 @@ float64 twin at b = 8, f = 6, hidden 16 (the same structure, seeds and
 scales, 1/sqrt(fan_in) at the reduced widths), small enough for the CPU and
 for holding the card's gradients to the CPU's.
 
+The same training through the other paths: ``fused=True`` (one
+``fused_step`` a step), ``full_width_train(device, events=True)`` --
+``full_width_long_events``' two events, the RMS stop and the marker, on the
+training solve (the reduced twin stops at ``EVENTS_REDUCED["rms_threshold"]``
+= 12, which six of its eight rows reach, as 19.5 is out of its range) --
+and the stiff path: the gradient of the mean square of ``allen_cahn_full``'s
+final state in y0 and in lam, a 0-d tensor (``STIFF_REDUCED``: its float64
+twin at b = 8, f = 8, 20 steps, through ``ScanAdjoint(max_steps=24)``).
+
 The stiff workloads (``DiagonallyImplicitRK`` with kvaerno5 and the default
 PID controller, float32, final state only), after the JAX package's own stiff
 problems:
@@ -99,6 +108,7 @@ BALL = dict(b=256, g=9.81, t_end=10.0)
 MARKER = dict(b=256, mu=10.0, t_end=5.0)
 EVENT_TOLS = dict(rtol=1e-6, atol=1e-9)
 EVENTS_LONG = dict(rms_threshold=19.5)
+EVENTS_REDUCED = dict(rms_threshold=12.0)
 
 
 def vdp(t, y, mu):
@@ -148,14 +158,18 @@ TRAIN = dict(max_steps=64, checkpoint_every=16, lr=1e-4, steps=3)
 TRAIN_REDUCED = dict(b=8, f=6, n=FULL["n"], hidden=16)
 
 
-def full_width_train(device, reduced=False):
+def full_width_train(device, reduced=False, events=False):
     """``(f, y0, t_eval, kwargs, target)`` of the training workload (see the
     module docstring): ``kwargs["args"]`` holds the weights, leaf tensors
     that require grad; ``target`` is the (b, n, f) trajectory of the loss,
     a tensor on ``device``.  The solve's own kwargs (tolerances, method) are
-    ``full_width_long``'s; ``TRAIN`` has the driver's and SGD's."""
+    ``full_width_long``'s; ``TRAIN`` has the driver's and SGD's.  With
+    ``events``, ``kwargs["events"]`` holds the RMS stop and the marker."""
     shape, dtype = (TRAIN_REDUCED, torch.float64) if reduced else (FULL, torch.float32)
     vf, y0, t_eval, kw = full_width(device, shape=shape, dtype=dtype, **LONG)
+    if events:
+        limit = (EVENTS_REDUCED if reduced else EVENTS_LONG)["rms_threshold"]
+        kw["events"] = (rms_event(limit), FIRST_FEATURE)
     for w in kw["args"].values():
         w.requires_grad_(True)
     b, f, n = shape["b"], shape["f"], shape["n"]
@@ -206,11 +220,14 @@ def vdp_marker(dtype=np.float32):
                                events=MARKER_EVENT, **EVENT_TOLS)
 
 
-def _rms_above(t, y):
-    return torch.sqrt(torch.mean(y * y, dim=-1)) - EVENTS_LONG["rms_threshold"]
+def rms_event(threshold):
+    """The terminal event of the state's per-row RMS rising through
+    ``threshold``."""
+    return Event(lambda t, y: torch.sqrt(torch.mean(y * y, dim=-1)) - threshold, terminal=True,
+                 direction=1.0, batched=True, with_args=False)
 
 
-RMS_EVENT = Event(_rms_above, terminal=True, direction=1.0, batched=True, with_args=False)
+RMS_EVENT = rms_event(EVENTS_LONG["rms_threshold"])
 FIRST_FEATURE = Event(lambda t, y: y[:, 0], terminal=False, batched=True, with_args=False)
 
 
@@ -223,6 +240,7 @@ def full_width_long_events(device):
 
 STIFF = dict(b=1024, method="kvaerno5")
 ALLEN_CAHN = dict(f=128, t_end=5.0)
+STIFF_REDUCED = dict(b=8, f=8, max_steps=24)
 
 
 def robertson(t, y, args):

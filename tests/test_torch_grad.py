@@ -24,7 +24,8 @@ on the CPU.
   CPU solve within 1e-12, with exact kernel launch counts, checkpoint
   recompute included; ``AutoDiffAdjoint`` too, and the windowed dense output.
 - (d) ``fused=True``, ``events=`` and an implicit method differentiate on the
-  CPU; the scan-driver case of ``tests/test_events.py``.
+  CPU through the plain ops (their Functions: ``test_torch_grad_paths.py``);
+  the scan-driver case of ``tests/test_events.py``.
 
 All marked ``reverse_diff``, as their JAX counterparts are.
 """
@@ -63,24 +64,13 @@ def _two_threads():
 
 @pytest.fixture
 def card(monkeypatch):
-    """The four explicit-path ops take their CUDA route on CPU tensors, each
-    kernel stood in by its plain op under no grad (``interp_eval`` writing
-    into the buffer it is given, as the kernel does) and counted in
-    ``launches`` as the wrappers count."""
-    def stand_in(name):
-        def launch(*a, **kw):
-            with torch.no_grad():
-                if name == "interp_eval":
-                    coeffs, x, mask, out, cursor = a[:5]
-                    res = out.copy_(grad_checks.plain(name)(coeffs, x, mask, out, cursor))
-                else:
-                    res = getattr(ref, name)(*a, **kw)
-            cuda_impl.launches[name] += 1
-            return res
-        return launch
-
+    """The thirteen solver ops take their CUDA route on CPU tensors, each
+    kernel stood in by its plain op under no grad (``interp_eval`` and
+    ``fused_event_commit`` writing into the buffer they are given, as the
+    kernels do; ``grad_checks.stand_in``) and counted in ``launches`` as the
+    wrappers count."""
     for name in grad_checks.OPS:
-        monkeypatch.setattr(cuda_impl, name, stand_in(name))
+        monkeypatch.setattr(cuda_impl, name, grad_checks.stand_in(name))
     monkeypatch.setattr(ops, "_on_cuda", lambda name, t: name in grad_checks.OPS)
     saved = dict(cuda_impl.launches)
     cuda_impl.launches.update(dict.fromkeys(cuda_impl.launches, 0))
@@ -91,7 +81,7 @@ def card(monkeypatch):
 # ------------------------------------------------------------ (a) backwards
 
 
-@pytest.mark.parametrize("op", grad_checks.OPS)
+@pytest.mark.parametrize("op", grad_checks.EXPLICIT)
 @pytest.mark.parametrize("f", dense_checks.ERROR_NORM_WIDTHS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_backward_matches_plain(card, dtype, f, op):
@@ -130,7 +120,7 @@ def _gradcheck_inputs(op, seed=0):
     return (lambda x, out, *cs: AG.interp_eval(cs, x[:, :3], mask[:, :3], out, cursor)), inputs
 
 
-@pytest.mark.parametrize("op", [*grad_checks.OPS, "interp_eval_window"])
+@pytest.mark.parametrize("op", [*grad_checks.EXPLICIT, "interp_eval_window"])
 def test_gradcheck(card, op):
     fn, inputs = _gradcheck_inputs(op)
     assert torch.autograd.gradcheck(fn, inputs)
@@ -383,9 +373,10 @@ def test_other_paths_through_functions(card, driver):
 
 @pytest.mark.parametrize("variant", ["fused", "events", "kvaerno5"])
 def test_cpu_paths_differentiate(variant):
-    """On the CPU the plain ops' autograd differentiates the paths whose
-    kernels have no backward on the card (ROADMAP A-18): fused equals
-    unfused; the events and the implicit solve match JAX's gradients."""
+    """On the CPU the plain ops' autograd differentiates ``fused=True``,
+    events and an implicit method (``tests/test_torch_grad_paths.py`` holds
+    the card's Functions on these paths): fused equals unfused; the events
+    and the implicit solve match JAX's gradients."""
     if variant == "fused":
         grads = [_scan_run(T.ScanAdjoint(rtol=1e-8, atol=1e-8, max_steps=50, fused=fused))[1]
                  for fused in (False, True)]

@@ -204,6 +204,14 @@ class TestFusedStepOnCard:
                 got = cuda_impl.fused_step(*args, **kw)
                 assert bitwise_mismatches(
                     got, unfused_card(lambda: tref.fused_step(*args, **kw))) == {}
+                # Under autograd the launch also writes the error estimate:
+                # the same outputs, the estimate fused_update's bits.
+                for body in cuda_impl.STEP_BODIES:
+                    errs = torch.full_like(y, float("nan"))
+                    again = cuda_impl.fused_step(*args, errs=errs, body=body, **kw)
+                    assert bitwise_mismatches(again, got) == {}
+                    assert torch.equal(errs, cuda_impl.fused_update(y, K, cols[3], b_sol,
+                                                                    b_err)[1]), body
                 want = tref.fused_step(*args, **kw)
                 hold_to_plain("fused_step", got, want, ratio_floor(
                     y, want[0], K, cols[3], b_err, 0.01 * fac, 1e-3 * fac))
@@ -239,6 +247,26 @@ class TestFusedStepOnCard:
             hold_to_plain("fused_step_poly", got, want,
                           ratio_floor(y, want[0], K, cols[3], b_err, 1e-4, 1e-3),
                           POLY32_STATE if dtype == torch.float32 else None)
+            # Under autograd the launch also writes its stages, their
+            # arguments and the error estimate: the same outputs bitwise, and
+            # those bitwise the unfused card path's.
+            s = tab.stages
+            stages = torch.empty((s, b, f), dtype=dtype, device=cuda_device)
+            zs = torch.empty((s - 1, b, f), dtype=dtype, device=cuda_device)
+            errs = torch.empty((b, f), dtype=dtype, device=cuda_device)
+            K = unfused_card(lambda: tref.poly_stages(y, f0, cols[3], a, coeffs))
+            Z = [cuda_impl.stage_accum(y, cols[3], K[:i].contiguous(), a[i, :i])
+                 for i in range(1, s)]
+            err = cuda_impl.fused_update(y, K, cols[3], b_sol, b_err)[1]
+            for body in cuda_impl.POLY_BODIES:
+                for out in (stages, zs, errs):
+                    out.fill_(float("nan"))
+                again = cuda_impl.fused_step_poly(*args, stages=stages, stage_args=zs,
+                                                  errs=errs, body=body, **kw)
+                assert bitwise_mismatches(again, cuda_impl.fused_step_poly(
+                    *args, body=body, **kw)) == {}
+                assert torch.equal(stages, K) and torch.equal(errs, err), body
+                assert all(torch.equal(zs[i], z) for i, z in enumerate(Z)), body
 
 
 # fused_step_poly's widths: the narrow vdp-like rows, around a warp (31, 33)
@@ -1458,12 +1486,12 @@ def test_lm_prefill_on_card_matches_cpu(cuda_device):
 
 
 class TestGradientsOnCard:
-    """The four Functions of ``kernels/autograd.py`` on the card against
+    """The thirteen Functions of ``kernels/autograd.py`` on the card against
     ``torch.autograd.grad`` of the plain ops on the card
     (``tools/grad_checks.py``'s cases and rule), ``ScanAdjoint`` and
-    ``BacksolveAdjoint`` gradients on the card against the CPU's in float64,
-    the kernels without a backward refusing under autograd (ROADMAP A-18),
-    and no fallback to the plain ops."""
+    ``BacksolveAdjoint`` gradients on the card against the CPU's in float64
+    (the explicit path, ``fused=True``, ``events=`` and the stiff path), and
+    no fallback to the plain ops."""
 
     @pytest.mark.parametrize("dtype", [np.float32, np.float64])
     @pytest.mark.parametrize("b,f,n", [(37, 2, 9), (37, 784, 9), (5, 33, 200)])
@@ -1474,7 +1502,30 @@ class TestGradientsOnCard:
             want = grad_checks.case_grads(case, grad_checks.plain(case["op"]), cuda_device)
             got = grad_checks.case_grads(case, grad_checks.function(case["op"]), cuda_device)
             grad_checks.hold(f"{case['op']}[{case['label']}]", got, want, tdtype)
-        assert all(ops.launches[k] > before[k] for k in grad_checks.OPS)
+        assert all(ops.launches[k] > before[k] for k in grad_checks.EXPLICIT)
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("f", [1, 2, 3, 5, 33])
+    def test_path_backwards_against_plain(self, cuda_device, dtype, f):
+        """The nine backwards of ``fused=True``, ``events=`` and the stiff
+        path against ``grad_checks.card_plain`` by ``grad_checks.hold_on_card``
+        (the event ops entry by entry; the others row by row in float64 and
+        against the float64 plain op in float32); the LU cases pivot as LAPACK does (the gradients would part at
+        another permutation)."""
+        tdtype = torch.float32 if dtype == np.float32 else torch.float64
+        nine = grad_checks.FUSED + grad_checks.EVENTS + grad_checks.STIFF
+        before = dict(ops.launches)
+        for case in grad_checks.cases(13, f, 9, dtype, seed=f, ops=nine):
+            op = case["op"]
+            if op == "batched_lu_factor":
+                A = torch.as_tensor(case["args"]["A"], device=cuda_device)
+                assert torch.equal(cuda_impl.batched_lu_factor(A)[1],
+                                   tref.batched_lu_factor(A)[1]), case["label"]
+            want = grad_checks.case_grads(case, grad_checks.card_plain(op), cuda_device)
+            got = grad_checks.case_grads(case, grad_checks.function(op), cuda_device)
+            grad_checks.hold_on_card(f"{op}[{case['label']}]", case, got, want, tdtype,
+                                     cuda_device)
+        assert all(ops.launches[k] > before[k] for k in nine)
 
     @pytest.mark.parametrize("driver,mode,every", [("scan", None, 0), ("scan", None, 16),
                                                    ("backsolve", "joint", 0),
@@ -1485,22 +1536,40 @@ class TestGradientsOnCard:
             ops.launches[k] = 0
         card = grad_checks.train_grads(cuda_device, **kw)
         # The backsolve tracks the final state only: no dense output.
-        used = grad_checks.OPS if driver == "scan" else grad_checks.OPS[:3]
+        used = grad_checks.EXPLICIT if driver == "scan" else grad_checks.EXPLICIT[:3]
         assert all(ops.launches[k] > 0 for k in used)
         grad_checks.hold_card_to_cpu(driver, card, grad_checks.train_grads("cpu", **kw))
 
-    @pytest.mark.parametrize("variant", ["fused", "events", "kvaerno5"])
+    @pytest.mark.parametrize("variant", ["fused", "events", "kvaerno5", "kvaerno5_factor_once"])
     def test_paths_without_a_backward_refuse(self, cuda_device, variant):
-        kw = {"fused": dict(fused=True),
-              "events": dict(events=Event(lambda t, y, args: y[0], terminal=False)),
-              "kvaerno5": dict(method="kvaerno5")}[variant]
-        y0 = torch.ones(2, 2, dtype=torch.float64, device=cuda_device, requires_grad=True)
-        with pytest.raises(RuntimeError, match="ROADMAP A-18"):
-            solve_ivp(lambda t, y, a: -y, y0, np.linspace(0.0, 1.0, 5), device=cuda_device,
-                      **kw)
-        with torch.no_grad():
-            solve_ivp(lambda t, y, a: -y, y0, np.linspace(0.0, 1.0, 5), device=cuda_device,
-                      **kw)
+        """The paths that had no backward on the card now differentiate
+        there: the reduced float64 twins (``full_width_train`` with
+        ``fused=True`` or its events, ``allen_cahn_full`` unfused and
+        factor-once) on the card against the CPU -- equal step, event and
+        Newton counts, gradients within 1e-9 -- every kernel of the path
+        launched through its Function (a raw wrapper refuses grad)."""
+        kernels = {"fused": ("fused_step",),
+                   "events": ("masked_bisect_refine", "fused_event_detect",
+                              "fused_event_commit"),
+                   "kvaerno5": ("batched_linsolve", "masked_newton_update"),
+                   "kvaerno5_factor_once": ("batched_lu_factor", "fused_newton_iter",
+                                            "fused_step")}[variant]
+        if variant in ("fused", "events"):
+            run = lambda device: grad_checks.train_grads(device, fused=variant == "fused",
+                                                         events=variant == "events")
+        else:
+            run = lambda device: grad_checks.stiff_grads(
+                device, fused=variant == "kvaerno5_factor_once")
+        for k in ops.launches:
+            ops.launches[k] = 0
+        card = run(cuda_device)
+        assert all(ops.launches[k] > 0 for k in kernels), dict(ops.launches)
+        grad_checks.hold_card_to_cpu(variant, card, run("cpu"))
+        v = torch.ones(2, 2, device=cuda_device, requires_grad=True)
+        fired = torch.zeros(2, 2, dtype=torch.bool, device=cuda_device)
+        with pytest.raises(RuntimeError, match="no backward"):
+            cuda_impl.fused_event_detect(v, v.detach(), fired, fired[:, 0].contiguous(),
+                                         directions=(0.0, 1.0))
 
     def test_no_fallback_to_the_plain_ops(self, cuda_device):
         """With every plain op of the four made to raise, a card gradient
