@@ -124,7 +124,38 @@ raises, and the script exits non-zero without printing a result:
                    prefill(s) + decode_step against prefill(s + 1) and the
                    kernel's prefill against the plain attention's, each
                    within 0.1 of the logits' RMS.
-11. ``grad``       gradients on the card (``kernels/autograd.py``,
+11. ``train_lm``   the LM training path (``launch/train``, ``train/steps``,
+                   ``optim``, ``checkpoint``, ``models/node.py``), after the
+                   lm phase's model is freed: the CUDA attention backward
+                   (``flash_attention_bwd``) against its plain version by
+                   ``tools/attn_checks.hold`` over its cases and at the two
+                   training layers (stablelm-3b's b = 2, s = 2048, 32 heads
+                   of 80; and 40 / 8 heads of 128), float32 within 1e-4 of
+                   the largest entry, bf16 within 2x the plain bf16
+                   version's error against a float64 oracle, the forward's
+                   ``lse`` within 1e-5 of the plain forward's and its output
+                   bitwise the same with ``lse``; timed with its two kernels
+                   apart (torch.profiler), the bound and SDPA's backward.
+                   Path (a):
+                   full-width stablelm-3b (bf16, 2.67e9 parameters, weights
+                   drawn on the card) through ``train.run``, three AdamW
+                   steps at batch 2 x seq 2048 without remat, with remat
+                   and with 8-bit moments: losses (the first within 0.5 of
+                   ln 50304 + 1/2, the cross entropy of the untrained
+                   model's unit-variance logits), the first step's batch
+                   again after the third (its loss must have fallen), ms
+                   per step by
+                   phase, peak memory, exactly one backward launch per
+                   layer per step.  Path (b): ``--ode-depth`` on the same
+                   config (one block; two ODE instances of 5 242 880
+                   float32 entries, bosh3, 8 steps): ode_steps, losses
+                   (the first batch's fallen likewise), ms per step, peak
+                   memory, the solver kernels' launches,
+                   ``error_norm``'s by body and each body's ms at that
+                   width.  Then a checkpoint after step 2 restored into a
+                   fresh state: steps 3-4 bitwise the uninterrupted run's
+                   (reduced stablelm-3b on the card).
+12. ``grad``       gradients on the card (``kernels/autograd.py``,
                    ``ScanAdjoint``, ``BacksolveAdjoint``): each of the four
                    Functions' backwards against ``torch.autograd.grad`` of
                    the plain op on the card, on the same inputs
@@ -172,7 +203,7 @@ raises, and the script exits non-zero without printing a result:
                    gradients within 1e-9; and at full width:
                    ``full_width_train`` through ``ScanAdjoint(fused=True)``
                    and with full_width_long_events' two events, three SGD
-                   steps checkpointed, then five steps checkpointed and not
+                   steps checkpointed, then two steps checkpointed and not
                    in turns (median, least and most ms), exact launches (the
                    no-grad forward's, twice with checkpointing), the fused
                    gradient within 1e-4 of the unfused one's largest entry
@@ -182,17 +213,17 @@ raises, and the script exits non-zero without printing a result:
                    difference) and the float64 loss along the SGD step
                    against its linear prediction; ``allen_cahn_full``'s
                    final-state gradient in y0 and lam (max_steps the eager
-                   solve's iterations + 4) unfused and factor-once, three
+                   solve's iterations + 4) unfused and factor-once, two
                    runs each, exact launches, finite, peak memory under
                    16 GB.
-12. ``serve_ode``  request serving (``core/serving.py``: ``SolveService``):
+13. ``serve_ode``  request serving (``core/serving.py``: ``SolveService``):
                    ``serve_checks.make_stream`` (decay, features 2/3/5,
                    every third request dense) in float64 on the card and on
                    the CPU (equal status and counts, ys within 1e-9); the
                    full-width stream (4096 requests of full_width_long's
                    network, half of them dense, coalesced to b = 1024)
                    served with a window of 4 and blocking, a first pass
-                   each and then six timed passes each in turns: async
+                   each and then four timed passes each in turns: async
                    bitwise equal to sync and every pass to its first, kernel launches exactly those of the entries
                    captured (the warm-up step and each captured block's
                    steps) and none for replays, requests/s end to end,
@@ -241,7 +272,10 @@ took the staged elimination, the Newton body ``newton_iter_body`` picks
 ``interp_eval`` launch took the body ``error_norm_body`` and
 ``interp_eval_body`` pick (warp and cell at f = 2, row at f = 784).
 
-Then the kernel summary line and, last, ``{"ok": true, "device": {...}}``.
+Each phase's wall seconds (``{"phase": "timing", "ended": ...}``, the
+``grad`` and ``serve_ode`` phases also by part) print as it ends, and all
+of them together before the kernel summary line; last,
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -283,6 +317,7 @@ SOURCES = {
     "fused_newton_iter": "src/repro_torch/kernels/csrc/linalg.cu",
     "masked_newton_update": "src/repro_torch/kernels/csrc/linalg.cu",
     "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attn.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
 }
 REPLACES = {
     "stage_accum": "src/repro/kernels/pallas_impl.py:123",
@@ -299,6 +334,8 @@ REPLACES = {
     "fused_newton_iter": "src/repro/kernels/pallas_impl.py:540",
     "masked_newton_update": "src/repro/kernels/pallas_impl.py:608",
     "flash_attention_fwd": "src/repro/kernels/flash_attn.py:83",
+    # No Pallas kernel: the reference differentiates its jnp attention here.
+    "flash_attention_bwd": "src/repro/models/attention.py:39",
 }
 # fused_update is timed at each stage count of the repo's tableaus (one
 # tableau each); the main path's is dopri5's s = 7.
@@ -309,7 +346,10 @@ MAIN_SHAPE = dict.fromkeys(("batched_linsolve", "batched_lu_factor", "fused_newt
                             "masked_newton_update"), "allen_cahn_full")
 # The attention kernel at the shape the lm phase's full-width serve gives it.
 MAIN_SHAPE["flash_attention_fwd"] = "qwen2.5-14b_prefill"
-MAIN_DTYPE = {"flash_attention_fwd": "bfloat16"}
+# The attention backward at the layer the train_lm phase's full-width
+# stablelm-3b gives it (b = 2, s = 2048, 32 heads of 80, bf16).
+MAIN_SHAPE["flash_attention_bwd"] = "stablelm-3b_train"
+MAIN_DTYPE = {"flash_attention_fwd": "bfloat16", "flash_attention_bwd": "bfloat16"}
 # The flash kernel against its plain version (b, sq, sk, H, KV, hd, causal,
 # q_offset): tests/test_flash_kernel.py's CASES, ragged lengths,
 # chunked-prefill continuations, hd = 80 (stablelm-3b), bidirectional.
@@ -326,6 +366,17 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference's own tolerance
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+_SPLIT = [time.perf_counter()]
+
+
+def split(part):
+    """Emit the wall seconds since the last split or phase end: where a long
+    phase's time goes."""
+    now = time.perf_counter()
+    emit("timing", part=part, seconds=now - _SPLIT[0])
+    _SPLIT[0] = now
 
 
 def check(cond, msg):
@@ -360,6 +411,16 @@ def main() -> int:
     from repro_torch.models import LM, param_count
     from repro_torch.models import attention as model_attention
 
+    # Wall seconds of each phase, printed as it ends and all together before
+    # the kernel summary: the script has a fixed time limit, and these say
+    # where it goes.
+    phase_seconds, since = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_seconds[name], since[0], _SPLIT[0] = now - since[0], now, now
+        emit("timing", ended=name, seconds=phase_seconds[name])
+
     dev = torch.device("cuda")
     # Full float32 products everywhere: the CPU/card comparisons below are
     # about the solver, not about TF32.
@@ -376,6 +437,7 @@ def main() -> int:
     emit("device", nvidia_smi=smi, torch=torch.__version__, torch_cuda=torch.version.cuda,
          nvcc=nvcc, name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
+    lap("device")
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     fresh = not _build.library_path().exists()
@@ -384,6 +446,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, built=fresh,
          library=str(lib_path.relative_to(ROOT)), flags=" ".join(_build.NVCC_FLAGS))
 
+    lap("build")
     # ----------------------------------------------------------- 3. kernels
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > 50 MB L2
 
@@ -1314,6 +1377,7 @@ def main() -> int:
     flash_timed("qwen2.5-14b_long", 1, 4096, torch.bfloat16)
     flash_timed("qwen2.5-14b_long", 1, 4096, torch.float32)
 
+    lap("kernels")
     # --------------------------------------------------------- 4. vdp_table3
     def reset_launches():
         for k in ops.launches:
@@ -1407,6 +1471,7 @@ def main() -> int:
              instances_equal_steps=int(same.sum()), max_abs_diff_equal_steps=d32_same,
              max_step_count_diff=int(dsteps.max()), float64_cpu_max_abs_diff=d64)
 
+    lap("vdp_table3")
     # --------------------------------------------------------- 5. full_width
     vf, y0, te, kw = workloads.full_width(dev)
     b, n, f = len(y0), len(te), y0.shape[1]
@@ -1442,6 +1507,7 @@ def main() -> int:
          max_memory_allocated=peak,
          ys_bytes=b * n * f * 4, independence=indep)
 
+    lap("full_width")
     # -------------------------------------------------------------- 6. fused
     # Float32 solves that are compared: equal status, per-instance step
     # counts within 10 %, ys within max(1e-4, the solve's own global error);
@@ -1638,9 +1704,11 @@ def main() -> int:
         "full_width_long fused vs unfused", long_runs["fused"], long_runs["unfused"],
         float(np.abs(long_runs["unfused"].ys[:32] - truth.ys).max())))
 
+    lap("fused")
     # ----------------------------------------------------------- 7. compiled
     compiled_phase(dev, smi, reset_launches, expected_launches)
 
+    lap("compiled")
     # ------------------------------------------------------------- 8. events
     # Each solve: a warm-up, then a timed run with exact launch counts --
     # detect and commit once per loop iteration, masked_bisect_refine a
@@ -1767,6 +1835,7 @@ def main() -> int:
           "events/full_width_long_events: fused and unfused card solves differ")
     emit("events", workload="full_width_long_events", check="fused == unfused bitwise")
 
+    lap("events")
     # ------------------------------------------------------------- 9. stiff
     # The stiff workloads (tools/workloads.py; kvaerno5, the default PID
     # controller, float32, b = 1024), unfused then fused, each timed after a
@@ -1890,6 +1959,7 @@ def main() -> int:
              mean_steps_over_jax_loop_iterations=float(runs["unfused"].stats["n_steps"].mean())
              / ref_cpu["loop_iterations"])
 
+    lap("stiff")
     # ---------------------------------------------------------------- 10. lm
     # The LM serving path (repro_torch.models, launch/serve).  (a) Reduced
     # qwen2.5-14b and stablelm-3b in float32, the same weights (drawn on the
@@ -2011,15 +2081,23 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    # --------------------------------------------------------------- 11. grad
+    lap("lm")
+    # ----------------------------------------------------------- 11. train_lm
+    train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches)
     torch.cuda.empty_cache()
+
+    lap("train_lm")
+    # --------------------------------------------------------------- 12. grad
     grad_phase(dev, median_ms, reset_launches)
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 12. serve_ode
+    lap("grad")
+    # ----------------------------------------------------------- 13. serve_ode
     serve_phase(dev, smi, reset_launches, expected_launches)
     torch.cuda.empty_cache()
 
+    lap("serve_ode")
+    emit("timing", seconds_by_phase=phase_seconds, seconds=sum(phase_seconds.values()))
     # ------------------------------------------- kernel summary, then result
     summary = []
     launch_source = {"fused_step": "fused/full_width", "fused_step_poly": "fused/step_bench",
@@ -2030,7 +2108,8 @@ def main() -> int:
                      "masked_newton_update": "stiff/allen_cahn_full/unfused",
                      "batched_lu_factor": "stiff/allen_cahn_full/fused",
                      "fused_newton_iter": "stiff/allen_cahn_full/fused",
-                     "flash_attention_fwd": "lm/serve"}
+                     "flash_attention_fwd": "lm/serve",
+                     "flash_attention_bwd": "train_lm/a"}
     for name in REPLACES:
         mine = [r for r in rows if r["kernel"] == name]
         at_main = [r for r in mine if r["shape"] == MAIN_SHAPE.get(name, "full_width")
@@ -2043,7 +2122,8 @@ def main() -> int:
             # ones the fused full_width run and the step_bench dopri5 run;
             # the event kernels the unfused full_width_long_events run; the
             # Newton kernels allen_cahn_full's unfused or fused run; the
-            # attention the full-width serve (one prefill, 31 decode steps).
+            # attention the full-width serve (one prefill, 31 decode steps),
+            # its backward the full-width stablelm-3b training run (3 steps).
             "launches": main_path_launches[launch_source.get(name, "full_width")][name],
             "max_abs_err": max([r["max_abs_err"] for r in mine] + checked),
             # At the full-width float32 shapes; stage_accum and error_norm are
@@ -2051,7 +2131,8 @@ def main() -> int:
             # fused_update and the fused kernels their main-path case (each
             # stage count of fused_update in by_case); the Newton kernels
             # at allen_cahn_full's shapes (b = 1024, f = 128); the attention
-            # at the full-width serve's prefill (b = 4, s = 2048, bf16).
+            # at the full-width serve's prefill (b = 4, s = 2048, bf16), its
+            # backward at stablelm-3b's training layer (b = 2, s = 2048, bf16).
             "ms": statistics.fmean(r["kernel_ms"] for r in main),
             "plain_ms": statistics.fmean(r["plain_ms"] for r in main),
             "bound_ms": statistics.fmean(r["bound_ms"] for r in main),
@@ -2070,6 +2151,270 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches):
+    """Phase 11, ``train_lm``: the LM training path on the card (see the
+    module docstring).  ``median_ms``, ``bound_ms``, ``measure`` and
+    ``reset_launches`` are main's; the full-width run's launches go into
+    ``main_path_launches["train_lm/a"]``."""
+    import argparse
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, latest_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import cuda_impl, ops, ref
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tools import attn_checks
+    from repro_torch.train import cross_entropy_loss, init_train_state, make_train_step
+
+    # The lm phase's qwen2.5-14b (28 GB of weights) is gone before this
+    # phase: what stays allocated is the earlier phases' tensors in main's
+    # scope (8.6 GB on an H100 after the lm phase).  Peaks are reported
+    # above what each run starts with.
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 16 * 2**30, f"train_lm: {held} bytes still allocated before the phase")
+    emit("train_lm", check="memory held before the phase", bytes=held)
+
+    # 11a. The attention backward against its plain version
+    # (tools/attn_checks.hold: float32 within 1e-4 of the largest entry,
+    # bf16 within 2x the plain bf16 version's error against a float64
+    # oracle), the forward's lse within 1e-5 of the plain forward's and its
+    # output bitwise the same with lse; then at the two training layers,
+    # both dtypes, timed: the kernel (and its two launches apart, from the
+    # profiler), the plain version, the bound and SDPA's backward.
+    # bound: the backward's five products, 10 b H hd per visible query-key
+    # pair, over the dtype's peak, or q, k, v, o, do and lse read and dq,
+    # dk, dv written over HBM, the larger.
+    def visible(sq, sk, causal, q_offset):
+        return sum(min(sk, q_offset + i + 1) for i in range(sq)) if causal else sq * sk
+
+    def kernel_ms(fn, names):
+        """Median device ms of each kernel whose name holds one of
+        ``names``, over REPS calls of ``fn`` (L2 flushed before each), from
+        torch.profiler's kernel events: the backward's two launches apart,
+        as one call makes them."""
+        from torch.profiler import ProfilerActivity, profile
+
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+        fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = {n: [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and n in e.name]
+                 for n in names}
+        # CUPTI may drop a record now and then (49 of 50 seen once).
+        check(all(len(t) >= REPS // 2 for t in times.values()),
+              f"train_lm: the profiler saw {[len(t) for t in times.values()]} launches of "
+              f"{names}, want about {REPS} each")
+        return {n: statistics.median(t) for n, t in times.items()}
+
+    untimed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = {}
+        for case in attn_checks.CASES:
+            q, k, v, do = attn_checks.inputs(sum(case[:6]), case, dtype, dev)
+            res = attn_checks.hold(f"flash_attention_bwd[{case}]", case, dtype, q, k, v, do)
+            for key in ("rel_err", "plain_rel_err", "lse_rel_err"):
+                if key in res:
+                    errs = res[key] if isinstance(res[key], list) else [res[key]]
+                    worst[key] = max(worst.get(key, 0.0), *errs)
+        untimed[str(dtype).split(".")[-1]] = dict(cases=len(attn_checks.CASES), **worst)
+    emit("train_lm", check="flash_attention_bwd, untimed cases", f32_tol=attn_checks.F32_TOL,
+         lse_tol=attn_checks.LSE_TOL, bf16_factor=attn_checks.BF16_FACTOR, worst=untimed)
+
+    for shape_name, case in attn_checks.LAYERS.items():
+        b, sq, sk, H, KV, hd, causal, q_offset = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = attn_checks.inputs(sq + H, case, dtype, dev)
+            res = attn_checks.hold(f"flash_attention_bwd[{shape_name}]", case, dtype, q, k, v,
+                                   do)
+            o, lse = cuda_impl.flash_attention_fwd(q, k, v, lse=True)
+            e = q.element_size()
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            out_t = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+            do_t = do.transpose(1, 2).contiguous()
+            errs = res["rel_err"]
+            measure("flash_attention_bwd", shape_name, dtype, f"b={b} s={sq} H={H} KV={KV} "
+                    f"hd={hd} causal",
+                    lambda: cuda_impl.flash_attention_bwd(q, k, v, o, lse, do),
+                    lambda: ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **attn_checks.plain_chunks(case)),
+                    e * (3 * q.numel() + do.numel() + 2 * (k.numel() + v.numel()))
+                    + 4 * lse.numel(),
+                    10 * b * H * hd * visible(sq, sk, causal, q_offset),
+                    compare_fn=lambda *_: (res["max_abs_err"], max(errs)),
+                    run_library=lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                                            retain_graph=True),
+                    tol=attn_checks.F32_TOL if dtype == torch.float32
+                    else f"{attn_checks.BF16_FACTOR} x plain",
+                    rel_err_by_grad=dict(zip(attn_checks.NAMES, errs)),
+                    plain_rel_err_by_grad=dict(zip(attn_checks.NAMES,
+                                                   res.get("plain_rel_err", []))) or None,
+                    ms_by_body=kernel_ms(lambda: cuda_impl.flash_attention_bwd(
+                        q, k, v, o, lse, do), ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
+                    lse_rel_err=res["lse_rel_err"],
+                    forward_with_lse_bitwise=res["out_bitwise_without_lse"])
+            del q, k, v, do, o, lse, qt, kt, vt, out_t, do_t
+    torch.cuda.empty_cache()
+
+    # 11b. Path (a): full-width stablelm-3b (bf16, 32 layers, d = 2560, 32
+    # heads of 80, vocab 50304) through the launcher, three AdamW steps at
+    # batch 2 x seq 2048: without remat, with remat, and with 8-bit moments.
+    # Each: the loss at each step, the first step's batch after the third
+    # (below its loss at the first), ms per step by phase, peak memory, and
+    # exactly one attention backward per layer per step (one forward, two
+    # with remat).  The first loss is held within 0.5
+    # of what an untrained model of the reference's initialisation gives:
+    # the tied embedding (std 1/sqrt(d)) against the final norm's output
+    # (unit RMS) makes logits of unit variance, and the cross entropy of
+    # such logits is ln V + 1/2 in expectation (11.33, not ln V = 10.83).
+    def args(**kw):
+        base = dict(arch="stablelm-3b", reduced=False, steps=3, batch=2, seq=2048, lr=1e-3,
+                    seed=0, model_parallel=1, fsdp=False, remat=False, ode_depth=False,
+                    optimizer="adamw", ckpt_dir=None, ckpt_every=10, step_timeout=600.0,
+                    log_every=1, max_restarts=0, device="cuda")
+        return argparse.Namespace(**{**base, **kw})
+
+    def run(label, **kw):
+        """train.run, then the trained model's loss on the first step's
+        batch: it must be below that step's loss (the same tokens; the
+        steps' own losses are on three different batches, whose means
+        differ by ~0.016 at 4096 tokens, as much as three warm-up steps
+        move them)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset_launches()
+        a = args(**kw)
+        out = train.run(a)
+        launches = dict(ops.launches)
+        bodies = {k: dict(cuda_impl.body_launches[k]) for k in ("flash_attention_fwd",
+                                                               "error_norm")}
+        peak = torch.cuda.max_memory_allocated() - start
+        model = out.pop("state")["params"]
+        params = sum(p.numel() for p in model.parameters())
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTokens(
+            vocab=model.cfg.vocab, seq_len=a.seq, global_batch=a.batch).batch(0).items()}
+        with torch.no_grad():
+            logits, _ = model.forward(batch)
+            out["batch0_loss_after"] = float(cross_entropy_loss(logits, batch["labels"]))
+        del model, logits
+        torch.cuda.empty_cache()
+        losses = out["losses"]
+        check(all(math.isfinite(x) for x in losses + out["grad_norms"]),
+              f"train_lm/{label}: a loss or grad norm is not finite: {out['metrics']}")
+        check(out["batch0_loss_after"] < losses[0],
+              f"train_lm/{label}: the loss did not fall: step 1's batch {losses[0]} before, "
+              f"{out['batch0_loss_after']} after {len(losses)} steps")
+        return out, launches, bodies, peak, params
+
+    cfg = get_config("stablelm-3b")
+    ln_vocab = math.log(cfg.vocab)
+    untrained = ln_vocab + 0.5
+    for label, kw in (("a/adamw", {}), ("a/adamw_remat", {"remat": True}),
+                      ("a/adamw8bit", {"optimizer": "adamw8bit"})):
+        out, launches, bodies, peak, params = run(label, **kw)
+        losses = out["losses"]
+        check(abs(losses[0] - untrained) <= 0.5,
+              f"train_lm/{label}: first loss {losses[0]} not within 0.5 of ln V + 1/2 = "
+              f"{untrained}")
+        n = cfg.n_layers * len(losses)
+        fwd = n * (2 if kw.get("remat") else 1)
+        check(launches["flash_attention_bwd"] == n and launches["flash_attention_fwd"] == fwd,
+              f"train_lm/{label}: attention launches {launches['flash_attention_fwd']} / "
+              f"{launches['flash_attention_bwd']}, want {fwd} / {n}")
+        check(bodies["flash_attention_fwd"] == {"wgmma": fwd, "ffma": 0},
+              f"train_lm/{label}: flash bodies {bodies['flash_attention_fwd']}")
+        if label == "a/adamw":
+            main_path_launches["train_lm/a"] = launches
+        emit("train_lm", path=label, arch=cfg.name, dtype=cfg.dtype, params=params, b=2,
+             seq=2048, steps=len(losses), losses=losses,
+             batch0_loss_after=out["batch0_loss_after"], grad_norms=out["grad_norms"],
+             lr=[m["lr"] for m in out["metrics"]], ms_per_step=out["step_ms"],
+             peak_memory_above_start=peak, launches={k: v for k, v in launches.items() if v},
+             flash_bodies=bodies["flash_attention_fwd"], ln_vocab=ln_vocab,
+             first_loss_minus_ln_vocab=losses[0] - ln_vocab, nvidia_smi=smi)
+
+    # 11c. Path (b): --ode-depth on the same config (n_layers = 1): each of
+    # the 2 sequences one ODE instance of 2048 x 2560 = 5 242 880 float32
+    # entries, bosh3 through solve_ivp_scan with max_steps = ode_steps = 8.
+    # Three steps: ode_steps, loss, ms per step, peak memory, the solver
+    # kernels' launches, error_norm's by body and each body's device ms at
+    # this row width (the row body takes rows up to NORM_ROW_MAX_F only).
+    out, launches, bodies, peak, params = run("b/ode_depth", ode_depth=True)
+    check(launches["flash_attention_bwd"] > 0 and launches["error_norm"] > 0
+          and launches["stage_accum"] > 0 and launches["fused_update"] > 0,
+          f"train_lm/b: solver or attention kernels not launched: {launches}")
+    f = 2048 * cfg.d_model
+    err, y0, y1 = (torch.randn(2, f, device=dev, generator=torch.Generator(device=dev)
+                               .manual_seed(i)) for i in range(3))
+    ms_by_body = {}
+    for body in cuda_impl.ERROR_NORM_BODIES:
+        try:
+            cuda_impl.check_error_norm_body(body, f)
+        except ValueError as exc:
+            ms_by_body[body] = f"refused: {exc}"
+            continue
+        ms_by_body[body] = median_ms(lambda body=body: cuda_impl.error_norm(
+            err, y0, y1, 1e-3, 1e-2, body=body))
+    del err, y0, y1
+    emit("train_lm", path="b/ode_depth", arch=cfg.name, dtype=cfg.dtype, params=params, b=2,
+         seq=2048, ode_instance_entries=f, steps=len(out["losses"]), losses=out["losses"],
+         batch0_loss_after=out["batch0_loss_after"],
+         ode_steps=[m["ode_steps"] for m in out["metrics"]], grad_norms=out["grad_norms"],
+         ms_per_step=out["step_ms"], peak_memory_above_start=peak,
+         launches={k: v for k, v in launches.items() if v},
+         error_norm_bodies=bodies["error_norm"], error_norm_body=cuda_impl.error_norm_body(f),
+         error_norm_ms_by_body=ms_by_body, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+
+    # 11d. A checkpoint, then a resume (reduced stablelm-3b, float32, on the
+    # card): four steps straight, or two, an async checkpoint, a fresh state
+    # (other weights) restored from it and two more -- bitwise equal
+    # parameters, moments and losses.
+    rcfg = get_config("stablelm-3b", reduced=True)
+    ds = SyntheticTokens(vocab=rcfg.vocab, seq_len=64, global_batch=4)
+    step = make_train_step(rcfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in ds.batch(i).items()}
+               for i in range(4)]
+
+    def steps(state, lo, hi):
+        losses = []
+        for batch in batches[lo:hi]:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    straight, losses = steps(init_train_state(rcfg, 0, device=dev), 0, 4)
+    half, first = steps(init_train_state(rcfg, 0, device=dev), 0, 2)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        mgr.save_async(1, train.state_tree(half))
+        mgr.close()
+        fresh = init_train_state(rcfg, 1, device=dev)
+        train.load_state(fresh, restore(tmp, latest_step(tmp), train.state_tree(fresh)))
+    resumed, second = steps(fresh, 2, 4)
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    same = all(torch.equal(a, c) for a, c in zip(leaves(train.state_tree(resumed)),
+                                                 leaves(train.state_tree(straight))))
+    check(same and first + second == losses,
+          f"train_lm/resume: not bitwise ({first + second} vs {losses})")
+    emit("train_lm", check="checkpoint after step 2, restore into a fresh state, steps 3-4 "
+         "bitwise equal to the uninterrupted run", arch=rcfg.name, dtype=rcfg.dtype,
+         losses=losses, bitwise=True)
 
 
 def compiled_phase(dev, smi, reset_launches, expected_launches):
@@ -2239,7 +2584,7 @@ def compiled_phase(dev, smi, reset_launches, expected_launches):
 
 
 def grad_phase(dev, median_ms, reset_launches):
-    """Phase 11, ``grad``: the gradient path on the card (see the module
+    """Phase 12, ``grad``: the gradient path on the card (see the module
     docstring).  ``median_ms`` and ``reset_launches`` are main's."""
     import warnings
 
@@ -2253,7 +2598,7 @@ def grad_phase(dev, median_ms, reset_launches):
 
     FOUR = grad_checks.EXPLICIT
 
-    # 11a. Each backward on the card against torch.autograd.grad of the plain
+    # 12a. Each backward on the card against torch.autograd.grad of the plain
     # op on the card, same inputs: vdp_table3's and full_width's shapes, both
     # dtypes, every case of grad_checks (its window included); then each
     # backward's time at full_width float32 beside the plain op's.
@@ -2280,7 +2625,8 @@ def grad_phase(dev, median_ms, reset_launches):
          tol={"float32": 1e-5, "float64": 1e-12}, max_abs_err=worst,
          backward_ms_full_width_float32=timed)
 
-    # 11b. Reduced float64 twin of full_width_train, card against CPU: the
+    split("grad/12a")
+    # 12b. Reduced float64 twin of full_width_train, card against CPU: the
     # ScanAdjoint gradients w.r.t. y0 and every weight (with and without
     # checkpointing) and BacksolveAdjoint's, joint and per_instance.
     held = {}
@@ -2309,7 +2655,8 @@ def grad_phase(dev, median_ms, reset_launches):
     emit("grad", check="reduced float64 twin, card vs CPU", rule=grad_checks.CARD_VS_CPU,
          max_rel_diff=held, shape=workloads.TRAIN_REDUCED, plain_ops_made_to_raise="passed")
 
-    # 11c. The slice at full width: full_width_train in float32 through
+    split("grad/12b")
+    # 12c. The slice at full width: full_width_train in float32 through
     # ScanAdjoint(max_steps=64, checkpoint_every=16), three SGD steps.  Per
     # training step the forward runs every loop iteration (masked no-ops
     # included) and the backward runs each checkpointed block once more.
@@ -2405,7 +2752,8 @@ def grad_phase(dev, median_ms, reset_launches):
                                bound=bound, scale=float(np.abs(truth).max()),
                                cpu_steps=cpu_steps.tolist()))
 
-    # 11d. ScanAdjoint's forward loop with no host read: the loop of a
+    split("grad/12c")
+    # 12d. ScanAdjoint's forward loop with no host read: the loop of a
     # training forward (grad on, checkpointed) runs under
     # torch.cuda.set_sync_debug_mode("error") from the end of init to the
     # start of finish.  A sync raises; then the loop runs once more under
@@ -2446,7 +2794,8 @@ def grad_phase(dev, median_ms, reset_launches):
     emit("grad", check="ScanAdjoint forward loop under set_sync_debug_mode('error')",
          syncs=syncs, loop_reads_nothing=not syncs)
 
-    # 11e. BacksolveAdjoint (joint) at full width: full_width(t_end=1.0),
+    split("grad/12d")
+    # 12e. BacksolveAdjoint (joint) at full width: full_width(t_end=1.0),
     # the MSE of y(t_end) against the target's last point.  Its weight
     # gradients against ScanAdjoint's: two discretizations of the same
     # gradient, each within the solver's tolerance of it (6.9e-5 apart in
@@ -2499,7 +2848,7 @@ def grad_phase(dev, median_ms, reset_launches):
 
 
 def grad_paths(dev, median_ms, reset_launches):
-    """Phase 11, ``grad``, the paths that differentiate through the nine
+    """Phase 12, ``grad``, the paths that differentiate through the nine
     backwards of ``fused_step``, ``fused_step_poly``, the event kernels and
     the Newton kernels (see the module docstring).  ``median_ms`` and
     ``reset_launches`` are main's."""
@@ -2512,7 +2861,8 @@ def grad_paths(dev, median_ms, reset_launches):
 
     NINE = grad_checks.FUSED + grad_checks.EVENTS + grad_checks.STIFF
 
-    # 11f. The nine backwards on the card against torch.autograd.grad of the
+    split("grad/12e")
+    # 12f. The nine backwards on the card against torch.autograd.grad of the
     # plain op on the card (grad_checks.card_plain: the fused steps on the
     # unfused card path), same inputs, at each kernel's workload shape --
     # full_width for the fused and event kernels, allen_cahn_full for the
@@ -2572,7 +2922,8 @@ def grad_paths(dev, median_ms, reset_launches):
          entry_margin=margin,
          backward_ms_main=timed)
 
-    # 11g. The reduced float64 twins of the three paths, card against CPU:
+    split("grad/12f")
+    # 12g. The reduced float64 twins of the three paths, card against CPU:
     # equal step, event and Newton counts, gradients within 1e-9.
     twins = {"fused": lambda d: grad_checks.train_grads(d, fused=True, checkpoint_every=16),
              "events": lambda d: grad_checks.train_grads(d, events=True),
@@ -2594,7 +2945,7 @@ def grad_paths(dev, median_ms, reset_launches):
          rule=grad_checks.CARD_VS_CPU, twins=held)
 
     def in_float64(path, first, data):
-        """11h/11i, float64: a training step's first gradient (at the
+        """12h/12i, float64: a training step's first gradient (at the
         weights w0) against the same solve in float64 on the card at w0 --
         the same y0, grid, target and events, cast -- and the float64 loss
         along the SGD step (fractions 0.01, 0.1 and 1 of lr x the gradient,
@@ -2645,7 +2996,8 @@ def grad_paths(dev, median_ms, reset_launches):
              grad_norm32=float(a.norm()), grad_norm64=float(b.norm()), ms64=ms,
              along_sgd_step=along, lr=tr["lr"])
 
-    # 11h. fused=True at full width: full_width_train through
+    split("grad/12g")
+    # 12h. fused=True at full width: full_width_train through
     # ScanAdjoint(fused=True), three SGD steps checkpointed and one step
     # without; exact launches (per loop iteration one fused_step, six
     # stage_accum, one interp_eval; twice with checkpointing).  Then the
@@ -2735,7 +3087,7 @@ def grad_paths(dev, median_ms, reset_launches):
                 launches=rs[0]["launches"])
         return out
 
-    TIME_REPS = 5
+    TIME_REPS = 2  # 2 keeps the whole script within its time (433 s)
     unfused_first, _, _, unfused_data = train(steps=0)
     in_float64("unfused", unfused_first, unfused_data)
     del unfused_data
@@ -2755,7 +3107,8 @@ def grad_paths(dev, median_ms, reset_launches):
          losses=[r["loss"] for r in runs], steps=[public(r) for r in runs],
          timing=timing(timed), fused_vs_unfused_rel=fused_vs, bound=1e-4)
 
-    # 11i. events= at full width: full_width_long_events' RMS stop and marker
+    split("grad/12h")
+    # 12i. events= at full width: full_width_long_events' RMS stop and marker
     # on the training solve, the same loss and SGD; exact launches (a no-grad
     # forward's at the same weights, twice with checkpointing).
     first, runs, timed, data = train(events=True)
@@ -2769,13 +3122,14 @@ def grad_paths(dev, median_ms, reset_launches):
     del data
     torch.cuda.empty_cache()
 
-    # 11j. The stiff path at full width: allen_cahn_full (b = 1024, f = 128,
+    split("grad/12i")
+    # 12j. The stiff path at full width: allen_cahn_full (b = 1024, f = 128,
     # kvaerno5, float32), the mean square of the final state differentiated
     # in y0 and lam, through ScanAdjoint with max_steps the eager card
     # solve's iterations + 4; unfused Newton and factor-once; exact launches
     # (the no-grad forward's), finite gradients, ms and peak memory (under
     # 16 GB: batched_linsolve saves no factor).
-    STIFF_REPS = 3
+    STIFF_REPS = 2  # likewise
     vfs, y0s, _, kws = workloads.allen_cahn_full(np.float32)
     with torch.no_grad():
         eager = solve_ivp(vfs, y0s, None, device=dev, **kws)
@@ -2821,7 +3175,7 @@ def grad_paths(dev, median_ms, reset_launches):
 
 
 def serve_phase(dev, smi, reset_launches, expected_launches):
-    """Phase 12, ``serve_ode``: the request service on the card (see the
+    """Phase 13, ``serve_ode``: the request service on the card (see the
     module docstring).  ``smi`` is the card's name and power limit;
     ``reset_launches`` and ``expected_launches`` are main's."""
     import numpy as np
@@ -2865,7 +3219,7 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
                     and all(torch.equal(g.stats[k], r.stats[k]) for k in r.stats))
             check(same, f"{label}: request {i} differs")
 
-    # 12a. The reference stream in float64, card against CPU.
+    # 13a. The reference stream in float64, card against CPU.
     reqs = sc.to_requests(sc.make_stream(96, seed=0, dense_every=3, dtype=np.float64),
                           sc.decay)
     ref_svc = SolveService(max_batch=16, max_delay=None, devices=[dev],
@@ -2884,7 +3238,8 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
          all_success=all(bool(s.success.all()) for s in card),
          **{k: ref_svc.stats()[k] for k in ("n_buckets", "n_batches", "pad_waste")})
 
-    # 12b/d/f. The full-width stream, with a window of 4 and blocking: four
+    split("serve_ode/13a")
+    # 13b/d/f. The full-width stream, with a window of 4 and blocking: four
     # passes each through one service.  Each pass launches exactly the
     # kernels of the entries it captures (the warm-up step and each block
     # of the capture) and nothing for the replays.  Which slot a batch takes
@@ -2965,7 +3320,7 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
         full[mode], run = one_pass(f"serve_ode/full_width/{mode} pass 1", svc, reqs, "unfused")
         runs[mode].append(run)
     bitwise("serve_ode/full_width async vs sync", full["async"], full["sync"])
-    for n, mode in enumerate(["async", "sync", "sync", "async"] * 3):
+    for n, mode in enumerate(["async", "sync", "sync", "async"] * 2):
         _, run = one_pass(f"serve_ode/full_width/{mode} timed pass {n}", services[mode], reqs,
                           "unfused", ref=full[mode])
         runs[mode].append(run)
@@ -2979,7 +3334,8 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
     del services, runs
     torch.cuda.empty_cache()
 
-    # 12c. 16 requests chosen by seed, solved alone at b = 1 through
+    split("serve_ode/13b")
+    # 13c. 16 requests chosen by seed, solved alone at b = 1 through
     # CompiledSolver, against their served rows: within the float32 global
     # error of the served rows against a float64 solve at 1e-9 (C-5's rule).
     pick = sorted(np.random.default_rng(1).choice(len(reqs), 16, replace=False).tolist())
@@ -3034,7 +3390,8 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
     del solver
     torch.cuda.empty_cache()
 
-    # 12d. A fused bucket: the first 2048 requests through
+    split("serve_ode/13c")
+    # 13d. A fused bucket: the first 2048 requests through
     # AutoDiffAdjoint(Stepper("dopri5"), fused=True); fused_step launches
     # during the capture only.  Its rows within the float32 global error of
     # the unfused served rows.
@@ -3054,7 +3411,8 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
     del svc, fused_sols, full
     torch.cuda.empty_cache()
 
-    # 12e. A float64 GradRequest stream (ScanAdjoint), card against CPU.
+    split("serve_ode/13d")
+    # 13e. A float64 GradRequest stream (ScanAdjoint), card against CPU.
     greqs = sc.to_requests(sc.grad_stream(64, seed=2, feats=(2, 3, 5), dtype=np.float64),
                            sc.decay, cls=GradRequest)
     out = {}

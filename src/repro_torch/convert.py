@@ -4,7 +4,8 @@
 tensors on a device, so one numpy seed can feed both the JAX package and the
 port; ``to_numpy`` brings a ``Solution`` back to the host;
 ``lm_params_from_numpy`` turns the JAX package's LM parameter pytree into the
-state of the port's ``models.LM``.
+state of the port's ``models.LM``, and ``train_state_from_numpy`` its train
+state (parameters and AdamW moments) into the port's.
 """
 
 from __future__ import annotations
@@ -75,3 +76,43 @@ def lm_params_from_numpy(cfg, params_np, device, dtype=None):
                     state[f"blocks.{period * n + i}.{sub}.{name}"] = conv(
                         x[period], sub.startswith("ln"))
     return state
+
+
+def _is_quantized(x):
+    return isinstance(x, dict) and set(x) == {"q", "s"}
+
+
+def _pick(tree, part):
+    """``tree`` with every 8-bit moment ``{"q", "s"}`` replaced by its
+    ``part``."""
+    if _is_quantized(tree):
+        return tree[part]
+    if isinstance(tree, dict):
+        return {k: _pick(v, part) for k, v in tree.items()}
+    return tree
+
+
+def train_state_from_numpy(cfg, state_np, device, dtype=None):
+    """The port's train state ``{"params": LM, "opt": {"m", "v", "step"}}``
+    of the reference's numpy tree ``{"params", "opt": {"m", "v", "step"}}``
+    (``train.steps.init_train_state``'s, e.g. as saved by its
+    ``checkpoint.save``), on ``device``.  The parameters go through
+    ``lm_params_from_numpy`` (``dtype`` as there); the moments take the same
+    mapping, float32, or for 8-bit moments (``{"q", "s"}`` per parameter)
+    int8 blocks and float32 scales."""
+    from .models import LM
+
+    model = LM(cfg, device=device)
+    model.load_state_dict(lm_params_from_numpy(cfg, state_np["params"], device, dtype))
+    opt = state_np["opt"]
+
+    def moments(tree):
+        if not _is_quantized(tree["embed"]):
+            return lm_params_from_numpy(cfg, tree, device, torch.float32)
+        q = lm_params_from_numpy(cfg, _pick(tree, "q"), device, torch.int8)
+        s = lm_params_from_numpy(cfg, _pick(tree, "s"), device, torch.float32)
+        return {name: {"q": q[name], "s": s[name]} for name in q}
+
+    step = torch.as_tensor(np.array(opt["step"]), device=device).to(torch.int32)
+    return {"params": model,
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]), "step": step}}

@@ -1,4 +1,5 @@
-"""Reverse-mode rules for the solver's thirteen CUDA kernels.
+"""Reverse-mode rules for the solver's thirteen CUDA kernels, and the
+attention's (``FlashAttention``: the CUDA forward and the CUDA backward).
 
 One ``torch.autograd.Function`` for each: the explicit path's
 ``stage_accum``, ``fused_update``, ``error_norm`` and ``interp_eval``; the
@@ -16,8 +17,8 @@ its bounds) and the same non-finite values (a row whose error ratio is 0
 gets ``0 * inf``, NaN, as autograd of the plain op gives it; a failed row's
 ratio is set to inf after the norm, and the norm's backward divides by the
 value before).  A cotangent that does not arrive (``None``) adds nothing,
-as autograd runs no backward of an operation no gradient reaches.  The
-backward calls no op of ``ref.py``, so it never gives way to the plain
+as autograd runs no backward of an operation no gradient reaches.  On the
+card no backward calls an op of ``ref.py``, so none gives way to the plain
 forward; what the kernel keeps on chip and the formulas need (the
 controller's factor, Horner's partial sums, the Newton update) is
 recomputed from saved tensors in plain torch.  Bool and int
@@ -64,7 +65,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cuda_impl
+from . import cuda_impl, ref
 
 
 def _frozen(t):
@@ -841,6 +842,36 @@ class FusedNewtonIter(torch.autograd.Function):
         return (glu, (gk if need_k else None), (gfk if need_fk else None), gscale, None, None)
 
 
+# ------------------------------------------------------------ the attention
+
+
+class FlashAttention(torch.autograd.Function):
+    """GQA flash attention with its backward.  On the card the forward is
+    ``cuda_impl.flash_attention_fwd(..., lse=True)`` and the backward the
+    CUDA ``flash_attention_bwd``; on the CPU the plain pair
+    (``ref.flash_attention_fwd`` / ``ref.flash_attention_bwd``, at the
+    caller's chunks).  Saves q, k, v, the output and its row log-sum-exp:
+    the scores are recomputed in the backward, never stored."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, q_chunk, kv_chunk):
+        ctx.kw = dict(causal=causal, q_offset=q_offset)
+        if q.device.type == "cuda":
+            o, lse = cuda_impl.flash_attention_fwd(q, k, v, lse=True, **ctx.kw)
+        else:
+            ctx.kw.update(q_chunk=q_chunk, kv_chunk=kv_chunk)
+            o, lse = ref.flash_attention_fwd(q, k, v, lse=True, **ctx.kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = cuda_impl.flash_attention_bwd if q.device.type == "cuda" else ref.flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 # ------------------------------------------------------------ entry points
 
 
@@ -916,3 +947,7 @@ def fused_newton_iter(lu, perm, k, fk, active, scale):
 
 def masked_newton_update(k, delta, active, scale):
     return MaskedNewtonUpdate.apply(k, delta, scale, active)
+
+
+def flash_attention(q, k, v, *, causal=True, q_offset=0, q_chunk=256, kv_chunk=128):
+    return FlashAttention.apply(q, k, v, causal, q_offset, q_chunk, kv_chunk)

@@ -1,6 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the attention forward of the LM
-// serving path (models/attention.flash_attention, one launch per layer per
-// prefill).
+// (models/attention.flash_attention): one launch per layer per prefill when
+// serving, per layer per training forward (again per layer when remat
+// recomputes a period).  Training asks for each row's log-sum-exp as well
+// (`lse`), which the backward (flash_attn_bwd.cu) reads.
 //
 // Replaces the Pallas TPU kernel flash_attention_fwd of the JAX package
 // (src/repro/kernels/flash_attn.py:83, pallas_call :132, body _kernel :39)
@@ -72,88 +74,19 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attn_common.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile (kBQ == kBK: one padding loop)
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
-constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void load8(const float* __restrict__ p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// Rows [row0, row0 + 64) of one head of a (.., n, heads, hd) tensor (`base`
-// points at row 0 of the head, rows `stride` elements apart), times `scale`,
-// into the float32 tile s[64][ld]; rows at or past n are zeros.  Threads
-// take consecutive 8-element chunks of a row: coalesced 16- or 32-byte loads.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ base, int64_t stride,
-                                          int64_t row0, int64_t n, int hd, float scale,
-                                          float* s, int ld) {
-  const int chunks = hd >> 3;
-  for (int c = threadIdx.x; c < kBQ * chunks; c += kThreads) {
-    const int r = c / chunks, col = (c - r * chunks) << 3;
-    float v[8];
-    if (row0 + r < n) {
-      load8(base + (row0 + r) * stride + col, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] *= scale;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;
-    }
-    float* dst = s + r * ld + col;
-    store4(dst, make_float4(v[0], v[1], v[2], v[3]));
-    store4(dst + 4, make_float4(v[4], v[5], v[6], v[7]));
-  }
-}
-
-// Component i of v (i a compile-time constant after unrolling).
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Reductions over the 16 lanes that share a row group (xor butterflies:
-// every lane ends with the same bits).
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+using attn::comp;
+using attn::kNegInf;
+using attn::max16;
+using attn::store4;
+using attn::sum16;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -161,12 +94,14 @@ constexpr size_t smem_bytes() {
 }
 
 // The FFMA body.  One block per (64-query tile, head, batch row); D is hd
-// padded to a multiple of 64.
-template <typename T, int D>
+// padded to a multiple of 64.  With kLse it also stores each row's
+// log-sum-exp m + log l (float32, (b, H, sq)) for the backward; the serving
+// variant is compiled without that store.
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int64_t sq, int64_t sk, int H, int KV, int hd, int causal,
-                 int64_t q_offset, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int64_t sq, int64_t sk, int H,
+                 int KV, int hd, int causal, int64_t q_offset, float scale) {
   constexpr int LD = D + 4;      // float row stride of the Q, K, V tiles
   constexpr int LDP = kBK + 4;   // of the probability tile
   constexpr int NC = D / 64;     // float4 accumulator columns per thread and row
@@ -193,7 +128,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     sK[r * LD + c] = 0.f;
     sV[r * LD + c] = 0.f;
   }
-  load_tile(qb, (int64_t)H * hd, q0, sq, hd, scale, sQ, LD);
+  attn::load_tile<kBQ, kThreads>(qb, (int64_t)H * hd, q0, sq, hd, scale, sQ, LD);
 
   // Keys this tile can see: all of them, or (causal) up to its last row's
   // position; tiles past that are skipped.
@@ -213,8 +148,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int64_t k0 = 0; k0 < n_keys; k0 += kBK) {
     __syncthreads();  // the previous tile's products are done with sK, sV, sP
-    load_tile(kb, (int64_t)KV * hd, k0, sk, hd, 1.f, sK, LD);
-    load_tile(vb, (int64_t)KV * hd, k0, sk, hd, 1.f, sV, LD);
+    attn::load_tile<kBQ, kThreads>(kb, (int64_t)KV * hd, k0, sk, hd, 1.f, sK, LD);
+    attn::load_tile<kBQ, kThreads>(vb, (int64_t)KV * hd, k0, sk, hd, 1.f, sV, LD);
     __syncthreads();
 
     // S = (scale Q) K^T on this thread's 4 x 4 block.
@@ -305,6 +240,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + rg + 16 * i;
     if (row >= sq) continue;
+    if constexpr (kLse) {
+      if (cg == 0) lse[(bi * H + h) * sq + row] = m[i] + logf(l[i]);
+    }
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -535,13 +473,15 @@ __device__ __forceinline__ float ex2(float x) {
 // pinned in registers at once; ptxas then spilled and serialized the
 // products at 168 and at 224 registers a thread, and that schedule ran
 // slower (PERF.md).  K and V slots are released separately, K after its S
-// product and V after its P V product.
-template <int D>
+// product and V after its P V product.  With kLse the epilogue also stores
+// each row's natural log-sum-exp, (m + log2 l) ln 2 (m is in base 2), as the
+// FFMA body does; the serving variant is compiled without it.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                       int64_t b, int64_t sq, int64_t sk, int H, int KV, int hd, int causal,
+                       float* __restrict__ lse, int64_t b, int64_t sq, int64_t sk, int H, int KV, int hd, int causal,
                        int64_t q_offset, float scale_log2, int64_t n_work) {
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -777,6 +717,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float den = fmaxf(x, 1e-30f);
         const int64_t row = row_lo + 8 * half;
         if (row >= sq) continue;
+        if constexpr (kLse) {
+          if (t4 == 0) {
+            lse[(wk.bi * H + wk.h) * sq + row] = (m[half] + log2f(x)) * 0.69314718055994531f;
+          }
+        }
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
           const int col = 8 * n + 2 * t4;
@@ -829,16 +774,16 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t b, int64_t rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
-                 int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
+template <int D, bool kLse>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int64_t b,
+                 int64_t sq, int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
                  cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t e = make_map(&tm_q, q, b, sq, H, hd);
   if (e == cudaSuccess) e = make_map(&tm_k, k, b, sk, KV, hd);
   if (e == cudaSuccess) e = make_map(&tm_v, v, b, sk, KV, hd);
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+    e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, kLse>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Layout<D>::kBytes));
   }
@@ -851,42 +796,64 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int64_t b
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t n_work = (sq + kBM - 1) / kBM * H * b;
   const int64_t blocks = n_work < sms ? n_work : sms;
-  flash_fwd_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, Layout<D>::kBytes,
-                              stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), b, sq,
-                                        sk, H, KV, hd, causal, q_offset, scale_log2, n_work);
+  flash_fwd_wgmma_kernel<D, kLse><<<static_cast<unsigned>(blocks), kThreads, Layout<D>::kBytes,
+                                    stream>>>(tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o),
+                                              lse, b, sq, sk, H, KV, hd, causal, q_offset,
+                                              scale_log2, n_work);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
-           int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
+template <typename T, int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int64_t b,
+           int64_t sq, int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, kLse>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ), static_cast<unsigned>(H),
                   static_cast<unsigned>(b));
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, H, KV, hd, causal, q_offset, scale);
+      static_cast<T*>(o), lse, sq, sk, H, KV, hd, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_ffma(const void* q, const void* k, const void* v, void* o, int64_t b, int64_t sq,
-                int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
+template <typename T, bool kLse>
+int launch_ffma(const void* q, const void* k, const void* v, void* o, float* lse, int64_t b,
+                int64_t sq, int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
                 cudaStream_t stream) {
   switch ((hd + 63) / 64) {
-    case 1: return launch<T, 64>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
-    case 2: return launch<T, 128>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
-    case 3: return launch<T, 192>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
-    default: return launch<T, 256>(q, k, v, o, b, sq, sk, H, KV, hd, causal, q_offset, stream);
+    case 1:
+      return launch<T, 64, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal, q_offset, stream);
+    case 2:
+      return launch<T, 128, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal, q_offset, stream);
+    case 3:
+      return launch<T, 192, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal, q_offset, stream);
+    default:
+      return launch<T, 256, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal, q_offset, stream);
   }
+}
+
+// The four variants of a body: with and without the log-sum-exp store.
+template <bool kLse>
+int launch_body(int dtype, int body, const void* q, const void* k, const void* v, void* o,
+                float* lse, int64_t b, int64_t sq, int64_t sk, int H, int KV, int hd, int causal,
+                int64_t q_offset, cudaStream_t s) {
+  if (body == 0) {
+    return hd <= 64 ? wg::launch_wgmma<64, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal,
+                                                 q_offset, s)
+                    : wg::launch_wgmma<128, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal,
+                                                  q_offset, s);
+  }
+  return dtype ? launch_ffma<__nv_bfloat16, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal,
+                                                  q_offset, s)
+               : launch_ffma<float, kLse>(q, k, v, o, lse, b, sq, sk, H, KV, hd, causal,
+                                          q_offset, s);
 }
 
 }  // namespace
@@ -895,7 +862,8 @@ int launch_ffma(const void* q, const void* k, const void* v, void* o, int64_t b,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  body: 0 = wgmma
 // (bfloat16 with hd <= 128 only), 1 = FFMA (either dtype, any hd).  q, o:
 // (b, sq, H, hd); k, v: (b, sk, KV, hd); all contiguous and 16-byte
-// aligned.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape
+// aligned.  lse: null, or a float32 (b, H, sq) buffer for each row's
+// log-sum-exp (the backward's input); o is the same with or without it.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape
 // the kernels do not take (an empty dimension, H % KV != 0, hd not a
 // multiple of 8 in [8, 256], q_offset < 0, a grid dimension out of range)
 // or a body that does not take it.
@@ -903,7 +871,7 @@ int launch_ffma(const void* q, const void* k, const void* v, void* o, int64_t b,
 extern "C" {
 
 int rt_flash_attention_fwd(int dtype, int body, const void* q, const void* k, const void* v,
-                           void* o, int64_t b, int64_t sq, int64_t sk, int64_t H, int64_t KV,
+                           void* o, float* lse, int64_t b, int64_t sq, int64_t sk, int64_t H, int64_t KV,
                            int64_t hd, int causal, int64_t q_offset, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KV < 1 || H % KV != 0 || hd < 8 || hd > 256 ||
       hd % 8 != 0 || q_offset < 0 || H > 65535 || b > 65535 || (dtype != 0 && dtype != 1) ||
@@ -917,13 +885,13 @@ int rt_flash_attention_fwd(int dtype, int body, const void* q, const void* k, co
         (sq + wg::kBM - 1) / wg::kBM * H * b > 0x7fffffff) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return hd <= 64
-               ? wg::launch_wgmma<64>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s)
-               : wg::launch_wgmma<128>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s);
+  } else if ((sq + kBQ - 1) / kBQ > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((sq + kBQ - 1) / kBQ > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  return dtype ? launch_ffma<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s)
-               : launch_ffma<float>(q, k, v, o, b, sq, sk, h, kv, d, causal, q_offset, s);
+  return lse ? launch_body<true>(dtype, body, q, k, v, o, lse, b, sq, sk, h, kv, d, causal,
+                                 q_offset, s)
+             : launch_body<false>(dtype, body, q, k, v, o, lse, b, sq, sk, h, kv, d, causal,
+                                  q_offset, s);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """Wrappers around the CUDA kernels in ``csrc/`` (``solver_kernels.cu``,
-``fused_step.cu``, ``events.cu``, ``linalg.cu``, ``flash_attn.cu``).
+``fused_step.cu``, ``events.cu``, ``linalg.cu``, ``flash_attn.cu``,
+``flash_attn_bwd.cu``).
 
 Each wrapper checks device, dtype (float32 or float64; float32 or bfloat16
 for the attention), shape and
@@ -45,7 +46,7 @@ launches = {"stage_accum": 0, "fused_update": 0, "error_norm": 0, "interp_eval":
             "fused_step": 0, "fused_step_poly": 0, "masked_bisect_refine": 0,
             "fused_event_detect": 0, "fused_event_commit": 0, "batched_linsolve": 0,
             "batched_lu_factor": 0, "fused_newton_iter": 0, "masked_newton_update": 0,
-            "flash_attention_fwd": 0}
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 # The elimination paths of csrc/linalg.cu and the attention bodies of
 # csrc/flash_attn.cu, numbered as their C entries take them.
@@ -96,16 +97,12 @@ body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 
-# Why a wrapper refuses an input that requires grad while grad mode is on.
-# Every solver kernel has its backward in kernels/autograd.py, which ops.py
-# reaches; the attention has none on the card yet.
+# Why a wrapper refuses an input that requires grad while grad mode is on:
+# every kernel's backward is in kernels/autograd.py (the attention's is the
+# CUDA flash_attention_bwd), which ops.py reaches.
 _WITH_FUNCTION = ("the CUDA kernel has no backward of its own: differentiate through "
                   "repro_torch.kernels.ops, whose autograd Function holds it")
-_NO_BACKWARD = {
-    "flash_attention_fwd": ("the CUDA kernel has no backward yet (ROADMAP A-17); run the "
-                            "attention under torch.no_grad() or on the CPU to differentiate"),
-    **{name: _WITH_FUNCTION for name in launches if name != "flash_attention_fwd"},
-}
+_NO_BACKWARD = dict.fromkeys(launches, _WITH_FUNCTION)
 
 
 def _check(name, dtype, *tensors):
@@ -933,14 +930,9 @@ def check_flash_body(body, hd, dtype):
                          f"with hd = {hd}")
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, body=None):
-    """CUDA ``flash_attention_fwd``: GQA attention of q (b, sq, H, hd) over
-    k, v (b, sk, KV, hd), query head h on KV head h // (H // KV), ``q_offset``
-    the position of q[:, 0] against k[:, 0] (see ``ref.flash_attention_fwd``).
-    Ragged lengths need no padding: the kernel masks rows and keys past the
-    ends.  ``body`` overrides ``flash_body``'s choice.  Returns a new (b, sq,
-    H, hd) tensor in q's dtype."""
-    name = "flash_attention_fwd"
+def _check_attention(name, q, k, v, max_hd):
+    """The attention wrappers' common checks of q (b, sq, H, hd) and k, v
+    (b, sk, KV, hd); returns (b, sq, sk, H, KV, hd)."""
     if not isinstance(q, torch.Tensor) or q.dtype not in _ATTN_DTYPES:
         raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, got "
                         f"{getattr(q, 'dtype', type(q).__name__)}")
@@ -949,28 +941,85 @@ def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, body=None):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} are not (b, sq, H, hd), (b, sk, KV, hd) twice")
     b, sq, H, hd = q.shape
-    body = flash_body(hd, q.dtype) if body is None else body
-    check_flash_body(body, hd, q.dtype)
-    _check(name, q.dtype, q, k, v)
-    _same_device(name, q, k, v)
     sk, KV = k.shape[1], k.shape[2]
     if min(b, sq, sk, H, KV) < 1 or H % KV:
         raise ValueError(f"{name}: {H} query heads over {KV} KV heads, b = {b}, sq = {sq}, "
                          f"sk = {sk}: want non-empty shapes and H % KV == 0")
-    if hd % 8 or not 8 <= hd <= 256:
-        raise ValueError(f"{name}: head dim {hd} is not a multiple of 8 in [8, 256]")
+    if hd % 8 or not 8 <= hd <= max_hd:
+        raise ValueError(f"{name}: head dim {hd} is not a multiple of 8 in [8, {max_hd}]")
+    return b, sq, sk, H, KV, hd
+
+
+def _check_offset(name, q_offset):
     q_offset = int(q_offset)
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset {q_offset} < 0")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    return q_offset
+
+
+def _check_aligned(name, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes 16-byte aligned tensors")
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, body=None, lse=False):
+    """CUDA ``flash_attention_fwd``: GQA attention of q (b, sq, H, hd) over
+    k, v (b, sk, KV, hd), query head h on KV head h // (H // KV), ``q_offset``
+    the position of q[:, 0] against k[:, 0] (see ``ref.flash_attention_fwd``).
+    Ragged lengths need no padding: the kernel masks rows and keys past the
+    ends.  ``body`` overrides ``flash_body``'s choice.  Returns a new (b, sq,
+    H, hd) tensor in q's dtype; with ``lse`` also each row's float32
+    log-sum-exp (b, H, sq), for ``flash_attention_bwd`` (the output is the
+    same bits with or without it)."""
+    name = "flash_attention_fwd"
+    b, sq, sk, H, KV, hd = _check_attention(name, q, k, v, 256)
+    body = flash_body(hd, q.dtype) if body is None else body
+    check_flash_body(body, hd, q.dtype)
+    _check(name, q.dtype, q, k, v)
+    _same_device(name, q, k, v)
+    q_offset = _check_offset(name, q_offset)
+    _check_aligned(name, q, k, v)
     out = torch.empty_like(q)
+    row_lse = torch.empty((b, H, sq), dtype=torch.float32, device=q.device) if lse else None
     lib = _build.load()
     with torch.cuda.device(q.device):
         rc = lib.rt_flash_attention_fwd(_ATTN_DTYPES[q.dtype], FLASH_BODIES[body], q.data_ptr(),
-                                        k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, H,
+                                        k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        row_lse.data_ptr() if lse else None, b, sq, sk, H,
                                         KV, hd, int(bool(causal)), q_offset, _stream(q.device))
     _raise_on(name, rc)
     launches[name] += 1
     body_launches[name][body] += 1
-    return out
+    return (out, row_lse) if lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, q_offset=0):
+    """CUDA ``flash_attention_bwd``: the gradients (dq, dk, dv) of
+    ``flash_attention_fwd``'s output ``o`` under the cotangent ``do``, from
+    the forward's inputs, ``o`` and its log-sum-exp ``lse`` (b, H, sq)
+    (see ``ref.flash_attention_bwd``); dk and dv summed over each KV head's
+    query heads.  float32 or bfloat16, hd a multiple of 8 up to 128.  D =
+    rowsum(do * o) is one plain reduction here; the C entry launches the
+    dK/dV kernel and then the dQ kernel, one count in ``launches``."""
+    name = "flash_attention_bwd"
+    b, sq, sk, H, KV, hd = _check_attention(name, q, k, v, 128)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, H, sq):
+        raise ValueError(f"{name}: shapes o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} are not q's {tuple(q.shape)} and (b, H, sq)")
+    _check(name, q.dtype, q, k, v, o, do)
+    _check(name, torch.float32, lse)
+    _same_device(name, q, k, v, o, lse, do)
+    q_offset = _check_offset(name, q_offset)
+    _check_aligned(name, q, k, v, do)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (b, H, sq)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.rt_flash_attention_bwd(_ATTN_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                        dv.data_ptr(), b, sq, sk, H, KV, hd, int(bool(causal)),
+                                        q_offset, _stream(q.device))
+    _raise_on(name, rc)
+    launches[name] += 1
+    return dq, dk, dv

@@ -8,9 +8,10 @@ on the card.  ``launches`` counts the CUDA launches of each kernel.
 
 Gradients: on a CUDA tensor, with grad mode on and an input that requires
 grad, every solver op goes through its ``torch.autograd.Function`` in
-``autograd.py`` (the kernel forward, a plain-torch backward); the attention
-refuses such inputs (ROADMAP A-17).  CPU tensors take the plain ops and
-their own autograd.
+``autograd.py`` (the kernel forward, a plain-torch backward), and the
+attention through ``FlashAttention`` (the CUDA forward and backward).  CPU
+tensors take the plain ops and their own autograd; the attention there
+takes ``FlashAttention`` too, with the plain forward and backward.
 
 The solver core (``core/stepper.py`` for the stage math, ``core/newton.py``
 for the chord-Newton linear algebra, ``core/step.py`` for the error norm, the
@@ -174,8 +175,13 @@ def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, q_chunk=256, kv_chu
     """GQA flash attention, forward (see ``ref.flash_attention_fwd``).  On
     the card every shape goes to the kernel, ragged lengths and
     ``q_offset`` included; ``q_chunk``/``kv_chunk`` set only the plain
-    version's blocks (the kernel has its own tiles)."""
-    if _on_cuda("flash_attention_fwd", q):
+    version's blocks (the kernel has its own tiles).  Under autograd, on
+    either device, through ``autograd.FlashAttention``."""
+    on_cuda = _on_cuda("flash_attention_fwd", q)
+    if _taped(q, k, v):
+        return autograd.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                        q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if on_cuda:
         return cuda_impl.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
     return ref.flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset, q_chunk=q_chunk,
                                    kv_chunk=kv_chunk)

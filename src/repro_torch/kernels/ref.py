@@ -529,20 +529,18 @@ def flash_pairs(nq, nk, qc, kc, sk0, causal, q_offset):
     return pairs
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, q_chunk=256, kv_chunk=128):
-    """GQA flash attention, forward: q (b, sq, H, hd); k, v (b, sk, KV, hd)
-    with H % KV == 0.  Query head h reads KV head h // (H // KV); ``q_offset``
-    is the absolute position of q[:, 0] against k[:, 0].
+def _attn_dtype(dtype):
+    """The attention's working dtype: float32, as the reference computes for
+    every input; float64 inputs compute in float64 (the oracle of the card's
+    checks; the kernels take float32 and bfloat16 only)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
-    Ragged lengths are padded up to chunk multiples and the padded keys
-    masked; each q-block runs the online softmax over its pairs with float32
-    (m, l) and accumulator, masked scores at -1e30, and is normalized by
-    max(l, 1e-30).  Returns (b, sq, H, hd) in q's dtype."""
-    b, sq0, H, hd = q.shape
-    sk0, KV = k.shape[1], k.shape[2]
-    if H % KV:
-        raise ValueError(f"flash_attention_fwd: {H} query heads over {KV} KV heads")
-    G = H // KV
+
+def _attn_blocks(q, k, v, q_chunk, kv_chunk):
+    """Shared set-up of the blocked forward and backward: the chunks (qc,
+    kc), the padded lengths' block counts (nq, nk) and q, k, v padded up to
+    chunk multiples along their sequence axis."""
+    sq0, sk0 = q.shape[1], k.shape[1]
     qc, kc = min(q_chunk, sq0), min(kv_chunk, sk0)
     pq, pk = (-sq0) % qc, (-sk0) % kc
     if pq:
@@ -550,39 +548,121 @@ def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, q_chunk=256, kv_chu
     if pk:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
-    sq, sk = sq0 + pq, sk0 + pk
-    nq, nk = sq // qc, sk // kc
-    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    return qc, kc, (sq0 + pq) // qc, (sk0 + pk) // kc, q, k, v
+
+
+def _block_mask(qi, ki, qc, kc, sk0, causal, q_offset, device):
+    """The (qc, kc) mask of one block pair: padded keys, and with
+    ``causal`` the keys after each query's position."""
+    q_pos = q_offset + qi * qc + torch.arange(qc, device=device)
+    k_pos = ki * kc + torch.arange(kc, device=device)
+    mask = (k_pos >= sk0)[None, :]
+    if causal:
+        mask = mask | (k_pos[None, :] > q_pos[:, None])
+    return mask
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, q_chunk=256, kv_chunk=128,
+                        lse=False):
+    """GQA flash attention, forward: q (b, sq, H, hd); k, v (b, sk, KV, hd)
+    with H % KV == 0.  Query head h reads KV head h // (H // KV); ``q_offset``
+    is the absolute position of q[:, 0] against k[:, 0].
+
+    Ragged lengths are padded up to chunk multiples and the padded keys
+    masked; each q-block runs the online softmax over its pairs with float32
+    (m, l) and accumulator, masked scores at -1e30, and is normalized by
+    max(l, 1e-30).  Returns (b, sq, H, hd) in q's dtype; with ``lse`` also
+    each row's log-sum-exp m + log l, (b, H, sq) in the working dtype, for
+    ``flash_attention_bwd``.  float64 inputs compute in float64."""
+    b, sq0, H, hd = q.shape
+    sk0, KV = k.shape[1], k.shape[2]
+    if H % KV:
+        raise ValueError(f"flash_attention_fwd: {H} query heads over {KV} KV heads")
+    G = H // KV
+    cdt = _attn_dtype(q.dtype)
+    qc, kc, nq, nk, q, k, v = _attn_blocks(q, k, v, q_chunk, kv_chunk)
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=cdt, device=q.device)
     qr = q.reshape(b, nq, qc, KV, G, hd)
     kr = k.reshape(b, nk, kc, KV, hd)
     vr = v.reshape(b, nk, kc, KV, hd)
-    pos = torch.arange(max(qc, kc), device=q.device)
     # zeros, as the reference's scan starts: a q-block with no pair stays 0
-    out = torch.zeros((b, sq, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.zeros((b, nq * qc, H, hd), dtype=q.dtype, device=q.device)
+    row_lse = torch.zeros((b, KV, G, nq * qc), dtype=cdt, device=q.device)
     pairs = flash_pairs(nq, nk, qc, kc, sk0, causal, q_offset)
     for qi in sorted({p[0] for p in pairs}):
-        m = torch.full((b, KV, G, qc), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros((b, KV, G, qc), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, KV, G, qc, hd), dtype=torch.float32, device=q.device)
-        qb = qr[:, qi].float() * scale.to(q.device)
-        q_pos = q_offset + qi * qc + pos[:qc]
+        m = torch.full((b, KV, G, qc), NEG_INF, dtype=cdt, device=q.device)
+        l = torch.zeros((b, KV, G, qc), dtype=cdt, device=q.device)
+        acc = torch.zeros((b, KV, G, qc, hd), dtype=cdt, device=q.device)
+        qb = qr[:, qi].to(cdt) * scale
         for _, ki in (p for p in pairs if p[0] == qi):
-            s = torch.einsum("bqKGh,bkKh->bKGqk", qb, kr[:, ki].float())
-            k_pos = ki * kc + pos[:kc]
-            mask = (k_pos >= sk0)[None, :]
-            if causal:
-                mask = mask | (k_pos[None, :] > q_pos[:, None])
-            s = torch.where(mask, NEG_INF, s)
+            s = torch.einsum("bqKGh,bkKh->bKGqk", qb, kr[:, ki].to(cdt))
+            s = torch.where(_block_mask(qi, ki, qc, kc, sk0, causal, q_offset, q.device),
+                            NEG_INF, s)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum("bKGqk,bkKh->bKGqh", p,
-                                                       vr[:, ki].float())
+                                                       vr[:, ki].to(cdt))
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
         out[:, qi * qc:(qi + 1) * qc] = o.permute(0, 3, 1, 2, 4).reshape(b, qc, H, hd)
+        row_lse[..., qi * qc:(qi + 1) * qc] = m + torch.log(l)
+    if lse:
+        return out[:, :sq0], row_lse.reshape(b, H, -1)[..., :sq0]
     return out[:, :sq0]
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, q_offset=0, q_chunk=256,
+                        kv_chunk=128):
+    """The gradients (dq, dk, dv) of ``flash_attention_fwd``'s output ``o``
+    under the cotangent ``do``, from the forward's inputs, ``o`` and its
+    log-sum-exp ``lse`` (b, H, sq).  Block by block over the same pairs as
+    the forward (``flash_pairs``), never an (sq, sk) matrix: with s the
+    scaled, masked scores of a pair, p = exp(s - lse), dp = do v^T and ds =
+    p (dp - D), D = rowsum(do * o),
+
+        dv += p^T do,  dk += ds^T (scale q),  dq += scale ds k,
+
+    dk and dv summed over each KV head's H // KV query heads.  float32
+    arithmetic (float64 for float64 inputs), each gradient in its input's
+    dtype: what autograd of ``flash_attention_fwd`` gives, to rounding."""
+    b, sq0, H, hd = q.shape
+    sk0, KV = k.shape[1], k.shape[2]
+    if H % KV:
+        raise ValueError(f"flash_attention_bwd: {H} query heads over {KV} KV heads")
+    G = H // KV
+    cdt = _attn_dtype(q.dtype)
+    qc, kc, nq, nk, q_p, k_p, v_p = _attn_blocks(q, k, v, q_chunk, kv_chunk)
+    pad = nq * qc - sq0
+    # padded rows: zero cotangent, so they add nothing to dk and dv
+    do_p = torch.nn.functional.pad(do.to(cdt), (0, 0, 0, 0, 0, pad))
+    delta = (do.to(cdt) * o.to(cdt)).sum(-1)  # (b, sq, H)
+    delta = torch.nn.functional.pad(delta, (0, 0, 0, pad)).reshape(b, nq, qc, KV, G)
+    lse_p = torch.nn.functional.pad(lse.to(cdt), (0, pad)).reshape(b, KV, G, nq, qc)
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=cdt, device=q.device)
+    qr = q_p.reshape(b, nq, qc, KV, G, hd)
+    kr = k_p.reshape(b, nk, kc, KV, hd)
+    vr = v_p.reshape(b, nk, kc, KV, hd)
+    dor = do_p.reshape(b, nq, qc, KV, G, hd)
+    dq = torch.zeros((b, nq, qc, KV, G, hd), dtype=cdt, device=q.device)
+    dk = torch.zeros((b, nk, kc, KV, hd), dtype=cdt, device=q.device)
+    dv = torch.zeros((b, nk, kc, KV, hd), dtype=cdt, device=q.device)
+    for qi, ki in flash_pairs(nq, nk, qc, kc, sk0, causal, q_offset):
+        qb = qr[:, qi].to(cdt) * scale
+        kb, vb, dob = kr[:, ki].to(cdt), vr[:, ki].to(cdt), dor[:, qi]
+        s = torch.einsum("bqKGh,bkKh->bKGqk", qb, kb)
+        s = torch.where(_block_mask(qi, ki, qc, kc, sk0, causal, q_offset, q.device), NEG_INF, s)
+        p = torch.exp(s - lse_p[:, :, :, qi, :, None])
+        dp = torch.einsum("bqKGh,bkKh->bKGqk", dob, vb)
+        ds = p * (dp - delta[:, qi].permute(0, 2, 3, 1)[..., None])
+        dv[:, ki] += torch.einsum("bKGqk,bqKGh->bkKh", p, dob)
+        dk[:, ki] += torch.einsum("bKGqk,bqKGh->bkKh", ds, qb)
+        dq[:, qi] += torch.einsum("bKGqk,bkKh->bqKGh", ds, kb) * scale
+    dq = dq.reshape(b, nq * qc, H, hd)[:, :sq0]
+    dk = dk.reshape(b, nk * kc, KV, hd)[:, :sk0]
+    dv = dv.reshape(b, nk * kc, KV, hd)[:, :sk0]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal=True):

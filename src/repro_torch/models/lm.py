@@ -5,7 +5,7 @@ Entry points, as the reference's (which are pure functions of (cfg,
 params, ...)); here ``params`` is an ``LM`` module:
 
   init_params(cfg, seed, device)        -> LM, weights drawn from the seed
-  forward(cfg, params, batch)           -> (logits, aux)      [train]
+  forward(cfg, params, batch, *, remat) -> (logits, aux)      [train]
   prefill(cfg, params, batch)           -> (last_logits, cache)
   init_cache / pad_cache                -> caches
   decode_step(cfg, params, token, pos, cache) -> (logits, cache)
@@ -15,16 +15,21 @@ for a config with image tokens.  The caches keep the reference's layout: per
 position ``i`` of the block pattern, ``cache[f"b{i}"] = {"k", "v"}`` of shape
 (n_periods, b, S, KV * hd).  ``decode_step`` writes the new row of each
 cache in place and returns the same cache.  Everything runs on the LM's
-device (``cuda`` unless the caller asks for ``cpu``).
+device (``cuda`` unless the caller asks for ``cpu``).  ``forward`` is the
+training forward and differentiates (the attention through its CUDA
+backward on the card); ``prefill`` and ``decode_step`` run without grad.
+With ``cfg.ode_depth`` the forward is ``node.forward_ode``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .common import apply_norm, dense_fill_, norm_params
 from .config import ArchConfig
+from .node import forward_ode
 from .transformer import Block, _params, check_kind
 
 
@@ -39,22 +44,22 @@ class LM(nn.Module):
     """The language model of ``cfg`` on ``device``.  With ``seed`` the
     weights are drawn by ``init_params(seed)``; with ``seed=None`` they are
     left uninitialized, for ``load_state_dict``
-    (``convert.lm_params_from_numpy``).  The weights never require grad:
-    the attention kernel has no backward yet (ROADMAP A-17)."""
+    (``convert.lm_params_from_numpy``).  Every weight is a parameter that
+    requires grad: ``forward`` trains (``train.steps.make_train_step``),
+    ``prefill`` and ``decode_step`` serve."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", seed=None):
         super().__init__()
-        if cfg.enc_dec or cfg.ode_depth:
+        if cfg.enc_dec:
             raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder and continuous-depth models are not ported "
-                "yet (ROADMAP A-17)")
+                f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP A-17)")
         for kind in cfg.pattern:
             check_kind(kind)
         device = _device(device)
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
         self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model), dtype=dtype,
-                                              device=device), requires_grad=False)
+                                              device=device))
         self.final_norm = _params(norm_params(cfg, cfg.d_model, device))
         self.blocks = nn.ModuleList(
             Block(cfg, cfg.pattern[i % len(cfg.pattern)], device=device, dtype=dtype)
@@ -62,13 +67,14 @@ class LM(nn.Module):
         if seed is not None:
             self.init_params(seed)
 
+    @torch.no_grad()
     def init_params(self, seed=0):
         """Draw every weight on the LM's device from
         ``torch.Generator(device).manual_seed(seed)`` at the reference's
         ``dense_init`` scale (1/sqrt(fan_in); the embedding's fan-in is
         d_model): the embedding, then each layer in order.  Returns the LM."""
         g = torch.Generator(device=self.device).manual_seed(int(seed))
-        dense_fill_(self.embed.data, g, in_axis=-1)
+        dense_fill_(self.embed, g, in_axis=-1)
         for blk in self.blocks:
             blk.init_params(g)
         return self
@@ -91,12 +97,13 @@ class LM(nn.Module):
             x = torch.cat([img, x[:, n:, :]], dim=1)
         return x
 
-    def _run_stack(self, x, *, mode):
+    def _prefill_stack(self, x):
+        """The layers in prefill mode: (x, the caches stacked by period)."""
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         caches = {}
         for period, i, blk in self._layers():
-            x, cache, _ = blk.apply_seq(x, positions, mode=mode)
+            x, cache, _ = blk.apply_seq(x, positions, mode="prefill")
             if cache is not None:
                 c = caches.setdefault(f"b{i}", {
                     name: torch.empty((self.cfg.n_periods, *t.shape), dtype=t.dtype,
@@ -105,17 +112,39 @@ class LM(nn.Module):
                     c[name][period] = t
         return x, caches
 
-    @torch.no_grad()
-    def forward(self, batch):
-        """Training forward: (logits (b, s, vocab), aux losses dict)."""
-        x, _ = self._run_stack(self._embed_tokens(batch), mode="train")
-        x = apply_norm(self.cfg, x, self.final_norm, "")
+    def forward(self, batch, *, remat=False):
+        """Training forward: (logits (b, s, vocab), aux losses dict), under
+        the caller's grad mode.  ``remat`` checkpoints each period
+        (``torch.utils.checkpoint``, non-reentrant): only the period inputs
+        are kept and the period is recomputed in the backward, as the
+        reference wraps each period in ``jax.checkpoint``.  With
+        ``cfg.ode_depth`` the stack is one weight-tied block integrated in
+        depth (``node.forward_ode``)."""
+        cfg = self.cfg
+        if cfg.ode_depth:
+            return forward_ode(cfg, self, batch)
+        x = self._embed_tokens(batch)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        n = len(cfg.pattern)
+
+        def period(x, p):
+            for blk in self.blocks[p * n:(p + 1) * n]:
+                x, _, _ = blk.apply_seq(x, positions, mode="train")
+            return x
+
+        for p in range(cfg.n_periods):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(period, x, p, use_reentrant=False)
+            else:
+                x = period(x, p)
+        x = apply_norm(cfg, x, self.final_norm, "")
         return x @ self.embed.T, {}
 
     @torch.no_grad()
     def prefill(self, batch):
         """Full-sequence forward that materializes caches: (last_logits, cache)."""
-        x, caches = self._run_stack(self._embed_tokens(batch), mode="prefill")
+        x, caches = self._prefill_stack(self._embed_tokens(batch))
         x = apply_norm(self.cfg, x[:, -1:, :], self.final_norm, "")[:, 0]
         return x @ self.embed.T, caches
 
@@ -154,8 +183,9 @@ def param_count(params) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
-def forward(cfg: ArchConfig, params, batch):
-    return _model(cfg, params).forward(batch)
+def forward(cfg: ArchConfig, params, batch, *, remat: bool = False):
+    """Training forward: returns (logits (b, s, vocab), aux losses dict)."""
+    return _model(cfg, params).forward(batch, remat=remat)
 
 
 def prefill(cfg: ArchConfig, params, batch):

@@ -1,6 +1,7 @@
 """Transformer blocks (the JAX package's ``models/transformer.py``), for the
 kinds the port builds: ``attn_mlp`` (causal attention + MLP) and
-``attn_bidir_mlp`` (bidirectional attention + MLP, full-sequence only).
+``attn_bidir_mlp`` (bidirectional attention + MLP, full-sequence only),
+for training, prefill and decode.
 
 Weights keep the reference's (d_in, d_out) layout (``x @ wq``) and names, in
 one ``nn.ParameterDict`` per sub-layer (``attn``, ``ln1``, ``mlp``,
@@ -57,14 +58,16 @@ def _channel_mix(cfg, kind, p, x):
 
 
 def _params(tensors):
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False) for k, v in tensors.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
 
 
 class Block(nn.Module):
     """One layer of kind ``attn_mlp`` or ``attn_bidir_mlp``, its weights
     allocated uninitialized (biases zero, norms ones/zeros): ``init_params``
     draws them, ``load_state_dict`` loads them
-    (``convert.lm_params_from_numpy``)."""
+    (``convert.lm_params_from_numpy``).  Every weight is a parameter that
+    requires grad; ``apply_seq`` differentiates (the attention through
+    ``autograd.FlashAttention``)."""
 
     def __init__(self, cfg, kind, *, device=None, dtype=None):
         super().__init__()
@@ -88,6 +91,7 @@ class Block(nn.Module):
         self.mlp = _params(mlp)
         self.ln2 = _params(norm_params(cfg, d, device))
 
+    @torch.no_grad()
     def init_params(self, generator):
         """Draw the weights from ``generator`` at the reference's
         ``dense_init`` scale, in the reference's order (wq, wk, wv, wo,

@@ -261,12 +261,11 @@ def test_ops_take_the_functions_only_under_autograd(card):
 
 def test_raw_wrappers_still_refuse_grad():
     """A raw wrapper called with grad still refuses (the card test runs the
-    call), naming the route through ``ops`` for every solver kernel; the
-    attention keeps its A-17 refusal."""
+    call), naming the route through ``ops`` for every kernel: the solver's
+    and the attention's (``autograd.FlashAttention``)."""
     assert set(cuda_impl._NO_BACKWARD) == set(cuda_impl.launches)
-    for name in grad_checks.OPS:
+    for name in (*grad_checks.OPS, "flash_attention_fwd", "flash_attention_bwd"):
         assert "autograd Function" in cuda_impl._NO_BACKWARD[name]
-    assert "A-17" in cuda_impl._NO_BACKWARD["flash_attention_fwd"]
 
 
 # The card's rules.  Two rows 1e6 apart: a wrong entry in the small row is

@@ -148,7 +148,7 @@ def test_solve_on_card_matches_cpu_and_counts_launches(cuda_device):
                             "fused_event_detect": 0, "fused_event_commit": 0,
                             "batched_linsolve": 0, "batched_lu_factor": 0,
                             "fused_newton_iter": 0, "masked_newton_update": 0,
-                            "flash_attention_fwd": 0}
+                            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
     cpu = solve_ivp(vdp, y0, te, args=2.0, atol=1e-6, rtol=1e-6, device="cpu")
     assert torch.equal(card.stats["n_steps"].cpu(), cpu.stats["n_steps"])
     torch.testing.assert_close(card.ys.cpu(), cpu.ys, rtol=1e-9, atol=1e-9)
@@ -794,7 +794,8 @@ def test_fused_solve_counts_launches_and_matches_unfused(cuda_device, method):
                             "masked_bisect_refine": 0, "fused_event_detect": 0,
                             "fused_event_commit": 0, "batched_linsolve": 0,
                             "batched_lu_factor": 0, "fused_newton_iter": 0,
-                            "masked_newton_update": 0, "flash_attention_fwd": 0}
+                            "masked_newton_update": 0, "flash_attention_fwd": 0,
+                            "flash_attention_bwd": 0}
     assert torch.equal(fused.stats["n_fused_steps"], fused.stats["n_steps"])
     unfused = solve_ivp(vdp, y0, te, **kw)
     assert torch.equal(fused.stats["n_steps"], unfused.stats["n_steps"])
@@ -1418,8 +1419,8 @@ class TestFlashKernelOnCard:
             out = torch.empty_like(q)
             code = 0 if dtype == torch.float32 else 1
             assert lib.rt_flash_attention_fwd(code, cuda_impl.FLASH_BODIES["wgmma"], q.data_ptr(),
-                                              q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 8, 8,
-                                              2, 2, hd, 1, 0, stream) == 1
+                                              q.data_ptr(), q.data_ptr(), out.data_ptr(), None, 1,
+                                              8, 8, 2, 2, hd, 1, 0, stream) == 1
             with pytest.raises(ValueError, match="wgmma body"):
                 cuda_impl.flash_attention_fwd(q, q, q, body="wgmma")
 

@@ -199,7 +199,7 @@ def test_init_params_is_seeded_and_scaled():
     wq = a.blocks[0].attn["wq"]
     assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
     assert abs(float(a.embed.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
-    assert not any(p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())  # trainable (train.steps)
     c = T.LM(cfg, device="cpu").init_params(3)  # the method draws the same weights
     for (name, x), (_, y) in zip(a.state_dict().items(), c.state_dict().items()):
         assert torch.equal(x, y), name
