@@ -134,27 +134,29 @@ raises, and the script exits non-zero without printing a result:
                    the largest entry, bf16 within 2x the plain bf16
                    version's error against a float64 oracle, the forward's
                    ``lse`` within 1e-5 of the plain forward's and its output
-                   bitwise the same with ``lse``; timed with its two kernels
-                   apart (torch.profiler), the bound and SDPA's backward.
-                   Path (a):
-                   full-width stablelm-3b (bf16, 2.67e9 parameters, weights
-                   drawn on the card) through ``train.run``, three AdamW
-                   steps at batch 2 x seq 2048 without remat, with remat
-                   and with 8-bit moments: losses (the first within 0.5 of
-                   ln 50304 + 1/2, the cross entropy of the untrained
-                   model's unit-variance logits), the first step's batch
-                   again after the third (its loss must have fallen), ms
-                   per step by
-                   phase, peak memory, exactly one backward launch per
-                   layer per step.  Path (b): ``--ode-depth`` on the same
-                   config (one block; two ODE instances of 5 242 880
-                   float32 entries, bosh3, 8 steps): ode_steps, losses
-                   (the first batch's fallen likewise), ms per step, peak
-                   memory, the solver kernels' launches,
-                   ``error_norm``'s by body and each body's ms at that
-                   width.  Then a checkpoint after step 2 restored into a
-                   fresh state: steps 3-4 bitwise the uninterrupted run's
-                   (reduced stablelm-3b on the card).
+                   bitwise the same with ``lse``; at the two layers two
+                   bf16 calls bitwise equal (no atomics), each body it
+                   takes (bf16: wgmma and FFMA) timed, with its three
+                   kernels apart (torch.profiler), the bound and SDPA's
+                   backward.
+                   Path (a): full-width stablelm-3b (bf16, 2.67e9
+                   parameters, weights drawn on the card) through
+                   ``train.run``, three AdamW steps at batch 2 x seq 2048
+                   without remat, with remat and with 8-bit moments: losses
+                   (the first within 0.5 of ln 50304 + 1/2, the cross
+                   entropy of the untrained model's unit-variance logits),
+                   the first step's batch again after the third (its loss
+                   must have fallen), ms per step by phase, peak memory,
+                   exactly one backward launch per layer per step, every
+                   one on the wgmma body.  Path (b): ``--ode-depth`` on the
+                   same config (one block; two ODE instances of 5 242 880
+                   float32 entries, bosh3, 8 steps): ode_steps, losses (the
+                   first batch's fallen likewise), ms per step, peak
+                   memory, the solver kernels' launches, ``error_norm``'s
+                   by body (every one on the wide body) and each body's ms
+                   at that width.  Then a checkpoint after step 2 restored
+                   into a fresh state: steps 3-4 bitwise the uninterrupted
+                   run's (reduced stablelm-3b on the card).
 12. ``grad``       gradients on the card (``kernels/autograd.py``,
                    ``ScanAdjoint``, ``BacksolveAdjoint``): each of the four
                    Functions' backwards against ``torch.autograd.grad`` of
@@ -255,9 +257,14 @@ segment class (f = 1-5, 783-785; aligned and unaligned coefficients),
 E = 1, 3, 64; rows with no crossing, one, all tied; planes aligned, or y_new
 or ev_y one entry off), ``error_norm`` at the widths around its layout
 (``dense_checks.ERROR_NORM_WIDTHS``, every tolerance shape, err aligned or
-one entry off; both bodies to the plain version and bitwise to each other,
-and each, patched into the unfused card path, bitwise to both of
-``fused_step``'s bodies' ratio) and ``interp_eval`` at the same widths (every
+one entry off; every body to the plain version and bitwise to each other,
+and the warp and row bodies, patched into the unfused card path, bitwise to
+both of ``fused_step``'s bodies' ratio), ``error_norm``'s wide body on its
+own rows
+(``dense_checks.NORM_WIDE_WIDTHS`` x ``NORM_WIDE_ROWS``, every tolerance
+shape, bitwise the warp body's; patched into the unfused card path at f =
+4097 and 9001, bitwise ``fused_step``'s ratio) and timed at the ODE-depth
+LM's and the joint backsolve's rows, and ``interp_eval`` at the same widths (every
 mask kind, out aligned or one entry off, the window with cursors inside and
 past either end; both bodies bitwise), holds ``masked_newton_update`` to its plain version
 and the unfused Newton iteration bitwise to the fused one at the update's
@@ -450,8 +457,8 @@ def main() -> int:
     # ----------------------------------------------------------- 3. kernels
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > 50 MB L2
 
-    def median_ms(fn):
-        """Median of REPS launches after warmup, each timed alone with CUDA
+    def median_ms(fn, reps=REPS):
+        """Median of ``reps`` launches after warmup, each timed alone with CUDA
         events after the L2 cache is flushed (the main path's callers find
         large operands cold).  The device sleeps before each timed launch,
         so the host has queued the start event, the launch and the end event
@@ -460,7 +467,7 @@ def main() -> int:
         for _ in range(3):
             fn()
         pairs = []
-        for _ in range(REPS):
+        for _ in range(reps):
             flush.zero_()
             torch.cuda._sleep(SLEEP_CYCLES)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -596,6 +603,27 @@ def main() -> int:
             hold_bitwise("interp_eval[window]",
                          cuda_impl.interp_eval(coeffs, xw, mw, out.clone(), cursor),
                          ref.interp_eval_window(coeffs, xw, mw, out, cursor), dtype)
+
+    # error_norm's wide body at the rows it takes on the training paths: the
+    # ODE-depth LM's two of s d = 5 242 880 (train_lm path (b)) and
+    # full_width's joint backsolve, one row of 2 b f + p = 3 213 072 (phase
+    # grad), float32, scalar tolerances; the warp body beside it (5 launches:
+    # it takes 41-75 ms).  Besides the bytes, the fold's lane chains bound
+    # it: f / 32 dependent fmas a lane, ~4 cycles each (chain_floor_ms at a
+    # 1.98 GHz clock).
+    for shape_name, (b, f) in (("ode_depth_lm", (2, 2048 * 2560)),
+                               ("joint_backsolve", (1, 3213072))):
+        w_gen = torch.Generator(device=dev).manual_seed(f)
+        w_err, w_y0, w_y1 = (torch.randn(b, f, generator=w_gen, device=dev) for _ in range(3))
+        w_err *= 1e-5
+        measure("error_norm", shape_name, torch.float32, f"b={b} f={f} tol=scalar",
+                lambda: cuda_impl.error_norm(w_err, w_y0, w_y1, 1e-5, 1e-5),
+                lambda: ref.error_norm(w_err, w_y0, w_y1, 1e-5, 1e-5),
+                4 * (3 * b * f + b), 7 * b * f, body=cuda_impl.error_norm_body(f),
+                chain_floor_ms=f / 32 * 4 / 1.98e9 * 1e3,
+                ms_by_body={"warp": median_ms(lambda: cuda_impl.error_norm(
+                    w_err, w_y0, w_y1, 1e-5, 1e-5, body="warp"), reps=5)})
+        del w_err, w_y0, w_y1
 
     # stage_accum at every stage count of a tableau of up to kMaxStages = 8
     # stages (j = 1..7) on both of its paths: 16-byte chunks (f % V == 0 and
@@ -967,10 +995,10 @@ def main() -> int:
     # error_norm and interp_eval at the widths around their layouts
     # (dense_checks.ERROR_NORM_WIDTHS: rows sharing a block, a warp, whole
     # 16-byte chunks or not), b = 37 rows.  error_norm: every tolerance shape,
-    # err aligned or one entry off, both bodies held to the plain version and
-    # bitwise to each other; each body patched into the unfused card path
-    # gives bitwise the err_ratio of both of fused_step's bodies (dopri5, the
-    # same step inputs; the fold order the fused kernels share).  interp_eval:
+    # err aligned or one entry off, every body held to the plain version and
+    # bitwise to each other; the warp and row bodies patched into the unfused
+    # card path give bitwise the err_ratio of both of fused_step's bodies
+    # (dopri5, the same step inputs; the fold order the fused kernels share).  interp_eval:
     # every mask kind, both bodies bitwise to the plain version on a copy of
     # out; the window (W = 8 of n = 20) with cursors at 0 and n - W against
     # ref.interp_eval_window, and past either end of the buffer, where only
@@ -993,7 +1021,7 @@ def main() -> int:
                            for body in cuda_impl.ERROR_NORM_BODIES}
                     for body, g in got.items():
                         compare(f"error_norm[f={f} tol={kind} body={body}]", g, want, dtype)
-                    check(torch.equal(got["row"], got["warp"]),
+                    check(all(torch.equal(g, got["warp"]) for g in got.values()),
                           f"error_norm[f={f} tol={kind}]: the bodies differ bitwise")
                     norm_cases += 1
             y, K, cols, _ = step_checks.step_inputs(37, f, dopri5.stages, dtype, dev, gen)
@@ -1002,7 +1030,9 @@ def main() -> int:
                 args = (y, K, K[-1], *cols, 1e-4 * fac, 1e-3 * fac)
                 fused = [cuda_impl.fused_step(*args, body=body, **step_kw)[1]
                          for body in cuda_impl.STEP_BODIES]
-                for norm_body in cuda_impl.ERROR_NORM_BODIES:
+                # the wide body's ratio at its own widths below (bitwise the
+                # warp body's output here, above)
+                for norm_body in ("warp", "row"):
                     def unfused(norm_body=norm_body, args=args):
                         def norm(*a):
                             return cuda_impl.error_norm(*a, body=norm_body)
@@ -1053,6 +1083,62 @@ def main() -> int:
          masks=dense_checks.MASK_KINDS, error_norm_cases=norm_cases,
          fused_ratio_bitwise_cases=ratio_cases, interp_eval_bitwise_cases=interp_cases,
          tol={"float32": tolerance(torch.float32), "float64": tolerance(torch.float64)})
+    # error_norm's wide body on its own rows (dense_checks.NORM_WIDE_WIDTHS x
+    # NORM_WIDE_ROWS, every tolerance shape, both dtypes; inputs drawn on the
+    # card): chosen by error_norm_body and bitwise the warp body's; patched
+    # into the unfused card path at f = 4097 and 9001, bitwise the err_ratio
+    # of both of fused_step's bodies.  Held to the plain version where it is
+    # timed (the ode_depth_lm and joint_backsolve rows below).
+    wide_gen = torch.Generator(device=dev).manual_seed(29)
+    wide_cases = wide_ratio_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for f in dense_checks.NORM_WIDE_WIDTHS:
+            check(cuda_impl.error_norm_body(f) == "wide",
+                  f"error_norm: f = {f} takes {cuda_impl.error_norm_body(f)}, not the wide body")
+            for b in dense_checks.NORM_WIDE_ROWS:
+                w_err, w_y0, w_y1 = (
+                    torch.randn(b, f, generator=wide_gen, device=dev, dtype=dtype)
+                    for _ in range(3))
+                w_err *= 1e-4
+                for kind in dense_checks.TOL_KINDS:
+                    shape = {"scalar": (), "row": (b,), "full": (b, f)}[kind]
+                    atol, rtol = ((1e-4, 1e-3) if not shape else
+                                  (s_ * (1 + torch.rand(shape, generator=wide_gen, device=dev,
+                                                        dtype=dtype)) for s_ in (1e-4, 1e-3)))
+                    before = cuda_impl.body_launches["error_norm"]["wide"]
+                    wide = cuda_impl.error_norm(w_err, w_y0, w_y1, atol, rtol)
+                    check(cuda_impl.body_launches["error_norm"]["wide"] == before + 1
+                          and torch.equal(wide, cuda_impl.error_norm(
+                              w_err, w_y0, w_y1, atol, rtol, body="warp")),
+                          f"error_norm[wide f={f} b={b} tol={kind} {dtype}]: not the warp "
+                          f"body's bits")
+                    wide_cases += 1
+        _, _, b_sol, b_err = _tableau_arrays(dopri5, dtype)
+        step_kw = dict(b_sol=b_sol, b_err=b_err, want_coeffs=False,
+                       ctrl=pid_controller().filter_params(dopri5.error_order))
+        for f in (4097, 9001):
+            y, K, cols, _ = step_checks.step_inputs(37, f, dopri5.stages, dtype, dev, gen)
+            for kind in dense_checks.TOL_KINDS:
+                fac = tol_factors({"row": "(b,)", "full": "(b,f)"}.get(kind, kind), 37, f, dtype)
+                args = (y, K, K[-1], *cols, 1e-4 * fac, 1e-3 * fac)
+                fused = [cuda_impl.fused_step(*args, body=body, **step_kw)[1]
+                         for body in cuda_impl.STEP_BODIES]
+
+                def unfused(args=args, step_kw=step_kw):
+                    def norm(*a):
+                        return cuda_impl.error_norm(*a, body="wide")
+                    with mock.patch.object(ref, "error_norm", norm):
+                        return ref.fused_step(*args, **step_kw)
+
+                ratio = step_checks.unfused_card(unfused)[1]
+                check(all(torch.equal(r, ratio) for r in fused),
+                      f"error_norm[wide f={f} tol={kind}]: the unfused card path's err_ratio "
+                      f"differs bitwise from fused_step's")
+                wide_ratio_cases += 1
+    del w_err, w_y0, w_y1, wide
+    emit("kernels", check="error_norm wide body", widths=dense_checks.NORM_WIDE_WIDTHS,
+         rows=dense_checks.NORM_WIDE_ROWS, tolerances=dense_checks.TOL_KINDS,
+         bitwise_to_warp_cases=wide_cases, fused_ratio_bitwise_cases=wide_ratio_cases)
     # fused_event_commit at every row class of its layout (a thread per
     # 16-byte chunk where the planes start 16-byte aligned and a row is whole
     # 16-byte words, entry by entry otherwise): event_checks.COMMIT_WIDTHS x
@@ -2143,6 +2229,15 @@ def main() -> int:
         if len(at_main) > 1:  # each case its own time and bound (error_norm's tolerances)
             summary[-1]["by_case"] = {r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                                                       bound_ms=r["bound_ms"]) for r in at_main}
+        if name == "error_norm":  # the wide body on the training paths' rows
+            summary[-1]["wide_rows"] = {
+                r["shape"]: dict(case=r["case"], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                                 chain_floor_ms=r["chain_floor_ms"], library_ms=None,
+                                 warp_ms=r["ms_by_body"]["warp"])
+                for r in mine if r["shape"] in ("ode_depth_lm", "joint_backsolve")}
+            summary[-1]["wide_rows"]["ode_depth_lm"]["launches"] = (
+                main_path_launches["train_lm/b"]["error_norm"])
     check(all(math.isfinite(s["ms"]) for s in summary), "kernel timings are not finite")
     check(all(s["launches"] > 0 for s in summary),
           f"a kernel was not launched on its path: {[s['name'] for s in summary]}")
@@ -2186,8 +2281,9 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
     # bf16 within 2x the plain bf16 version's error against a float64
     # oracle), the forward's lse within 1e-5 of the plain forward's and its
     # output bitwise the same with lse; then at the two training layers,
-    # both dtypes, timed: the kernel (and its two launches apart, from the
-    # profiler), the plain version, the bound and SDPA's backward.
+    # both dtypes, timed: the kernel on each body it takes (and its three
+    # launches apart, from the profiler), two bf16 calls bitwise equal, the
+    # plain version, the bound and SDPA's backward.
     # bound: the backward's five products, 10 b H hd per visible query-key
     # pair, over the dtype's peak, or q, k, v, o, do and lse read and dq,
     # dk, dv written over HBM, the larger.
@@ -2197,8 +2293,8 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
     def kernel_ms(fn, names):
         """Median device ms of each kernel whose name holds one of
         ``names``, over REPS calls of ``fn`` (L2 flushed before each), from
-        torch.profiler's kernel events: the backward's two launches apart,
-        as one call makes them."""
+        torch.profiler's kernel events: the backward's launches apart, as
+        one call makes them."""
         from torch.profiler import ProfilerActivity, profile
 
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
@@ -2231,6 +2327,13 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
     emit("train_lm", check="flash_attention_bwd, untimed cases", f32_tol=attn_checks.F32_TOL,
          lse_tol=attn_checks.LSE_TOL, bf16_factor=attn_checks.BF16_FACTOR, worst=untimed)
 
+    # The launches of each body, by the profiler: D's flash_bwd_delta_kernel,
+    # then FFMA's flash_bwd_{dkdv,dq}_kernel or wgmma's
+    # flash_bwd_{dkdv,dq}_wgmma_kernel.
+    launch_names = {"ffma": ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                             "flash_bwd_dq_kernel"),
+                    "wgmma": ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                              "flash_bwd_dq_wgmma_kernel")}
     for shape_name, case in attn_checks.LAYERS.items():
         b, sq, sk, H, KV, hd, causal, q_offset = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -2238,6 +2341,16 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
             res = attn_checks.hold(f"flash_attention_bwd[{shape_name}]", case, dtype, q, k, v,
                                    do)
             o, lse = cuda_impl.flash_attention_fwd(q, k, v, lse=True)
+            bodies = [body for body in cuda_impl.FLASH_BWD_BODIES
+                      if body == "ffma" or dtype == torch.bfloat16]
+            repeat = None
+            if dtype == torch.bfloat16:
+                # no atomics: two calls of the body the path takes, the same bits
+                first = cuda_impl.flash_attention_bwd(q, k, v, o, lse, do)
+                second = cuda_impl.flash_attention_bwd(q, k, v, o, lse, do)
+                repeat = all(torch.equal(x, y) for x, y in zip(first, second))
+                check(repeat, f"flash_attention_bwd[{shape_name}]: two calls differ bitwise")
+                del first, second
             e = q.element_size()
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
             out_t = torch.nn.functional.scaled_dot_product_attention(
@@ -2260,8 +2373,16 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
                     rel_err_by_grad=dict(zip(attn_checks.NAMES, errs)),
                     plain_rel_err_by_grad=dict(zip(attn_checks.NAMES,
                                                    res.get("plain_rel_err", []))) or None,
-                    ms_by_body=kernel_ms(lambda: cuda_impl.flash_attention_bwd(
-                        q, k, v, o, lse, do), ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
+                    body=cuda_impl.flash_bwd_body(hd, dtype),
+                    ms_by_body={body: median_ms(
+                        lambda body=body: cuda_impl.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                        body=body))
+                        for body in bodies},
+                    launch_ms_by_body={body: kernel_ms(
+                        lambda body=body: cuda_impl.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                        body=body),
+                        launch_names[body]) for body in bodies},
+                    bitwise_repeat=repeat,
                     lse_rel_err=res["lse_rel_err"],
                     forward_with_lse_bitwise=res["out_bitwise_without_lse"])
             del q, k, v, do, o, lse, qt, kt, vt, out_t, do_t
@@ -2298,8 +2419,8 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
         a = args(**kw)
         out = train.run(a)
         launches = dict(ops.launches)
-        bodies = {k: dict(cuda_impl.body_launches[k]) for k in ("flash_attention_fwd",
-                                                               "error_norm")}
+        bodies = {k: dict(cuda_impl.body_launches[k])
+                  for k in ("flash_attention_fwd", "flash_attention_bwd", "error_norm")}
         peak = torch.cuda.max_memory_allocated() - start
         model = out.pop("state")["params"]
         params = sum(p.numel() for p in model.parameters())
@@ -2333,8 +2454,10 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
         check(launches["flash_attention_bwd"] == n and launches["flash_attention_fwd"] == fwd,
               f"train_lm/{label}: attention launches {launches['flash_attention_fwd']} / "
               f"{launches['flash_attention_bwd']}, want {fwd} / {n}")
-        check(bodies["flash_attention_fwd"] == {"wgmma": fwd, "ffma": 0},
-              f"train_lm/{label}: flash bodies {bodies['flash_attention_fwd']}")
+        check(bodies["flash_attention_fwd"] == {"wgmma": fwd, "ffma": 0}
+              and bodies["flash_attention_bwd"] == {"wgmma": n, "ffma": 0},
+              f"train_lm/{label}: flash bodies {bodies['flash_attention_fwd']}, backward "
+              f"{bodies['flash_attention_bwd']}")
         if label == "a/adamw":
             main_path_launches["train_lm/a"] = launches
         emit("train_lm", path=label, arch=cfg.name, dtype=cfg.dtype, params=params, b=2,
@@ -2342,7 +2465,8 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
              batch0_loss_after=out["batch0_loss_after"], grad_norms=out["grad_norms"],
              lr=[m["lr"] for m in out["metrics"]], ms_per_step=out["step_ms"],
              peak_memory_above_start=peak, launches={k: v for k, v in launches.items() if v},
-             flash_bodies=bodies["flash_attention_fwd"], ln_vocab=ln_vocab,
+             flash_bodies=bodies["flash_attention_fwd"],
+             flash_bwd_bodies=bodies["flash_attention_bwd"], ln_vocab=ln_vocab,
              first_loss_minus_ln_vocab=losses[0] - ln_vocab, nvidia_smi=smi)
 
     # 11c. Path (b): --ode-depth on the same config (n_layers = 1): each of
@@ -2356,6 +2480,10 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
           and launches["stage_accum"] > 0 and launches["fused_update"] > 0,
           f"train_lm/b: solver or attention kernels not launched: {launches}")
     f = 2048 * cfg.d_model
+    check(bodies["error_norm"][cuda_impl.error_norm_body(f)] == launches["error_norm"]
+          and bodies["flash_attention_bwd"]["wgmma"] == launches["flash_attention_bwd"],
+          f"train_lm/b: error_norm bodies {bodies['error_norm']} (want every launch on "
+          f"{cuda_impl.error_norm_body(f)}), backward {bodies['flash_attention_bwd']}")
     err, y0, y1 = (torch.randn(2, f, device=dev, generator=torch.Generator(device=dev)
                                .manual_seed(i)) for i in range(3))
     ms_by_body = {}
@@ -2366,8 +2494,9 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
             ms_by_body[body] = f"refused: {exc}"
             continue
         ms_by_body[body] = median_ms(lambda body=body: cuda_impl.error_norm(
-            err, y0, y1, 1e-3, 1e-2, body=body))
+            err, y0, y1, 1e-3, 1e-2, body=body), reps=5 if body == "warp" else REPS)
     del err, y0, y1
+    main_path_launches["train_lm/b"] = launches
     emit("train_lm", path="b/ode_depth", arch=cfg.name, dtype=cfg.dtype, params=params, b=2,
          seq=2048, ode_instance_entries=f, steps=len(out["losses"]), losses=out["losses"],
          batch0_loss_after=out["batch0_loss_after"],
@@ -2375,6 +2504,7 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
          ms_per_step=out["step_ms"], peak_memory_above_start=peak,
          launches={k: v for k, v in launches.items() if v},
          error_norm_bodies=bodies["error_norm"], error_norm_body=cuda_impl.error_norm_body(f),
+         flash_bwd_bodies=bodies["flash_attention_bwd"],
          error_norm_ms_by_body=ms_by_body, nvidia_smi=smi)
     torch.cuda.empty_cache()
 

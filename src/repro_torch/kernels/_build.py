@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
         lib.rt_error_string.restype = ctypes.c_char_p
         lib.rt_stage_accum.argtypes = [i, p, p, p, dp, i, p, i64, i64, p]
         lib.rt_fused_update.argtypes = [i, p, p, p, dp, dp, i, p, p, i64, i64, p]
-        lib.rt_error_norm.argtypes = [i, i, p, p, p, p, d, i64, i64, p, d, i64, i64, p,
+        lib.rt_error_norm.argtypes = [i, i, p, p, p, p, d, i64, i64, p, d, i64, i64, p, p,
                                       i64, i64, p]
         lib.rt_interp_eval.argtypes = [i, i, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
         lib.rt_fused_step_args_size.argtypes = []
@@ -134,7 +134,7 @@ def load() -> ctypes.CDLL:
         lib.rt_fused_newton_iter.argtypes = [i, i] + [p] * 8 + [i64, i64, p]
         lib.rt_masked_newton_update.argtypes = [i] + [p] * 6 + [i64, i64, p]
         lib.rt_flash_attention_fwd.argtypes = [i, i, p, p, p, p, p] + [i64] * 6 + [i, i64, p]
-        lib.rt_flash_attention_bwd.argtypes = [i] + [p] * 9 + [i64] * 6 + [i, i64, p]
+        lib.rt_flash_attention_bwd.argtypes = [i, i] + [p] * 10 + [i64] * 6 + [i, i64, p]
         for name in ("rt_stage_accum", "rt_fused_update", "rt_error_norm", "rt_interp_eval",
                      "rt_fused_step", "rt_fused_step_poly", "rt_masked_bisect_refine",
                      "rt_fused_event_detect", "rt_fused_event_commit", "rt_batched_lu_factor",

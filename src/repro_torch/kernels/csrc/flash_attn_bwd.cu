@@ -9,39 +9,71 @@
 // one on the card.  It computes the plain PyTorch version of the same name
 // in ../ref.py to rounding: with S = scale Q K^T masked at -1e30 as the
 // forward masks it, P = exp(S - lse) (lse the forward's log-sum-exp of
-// each row), dP = dO V^T and dS = P (dP - D), D = rowsum(dO o O) given by
-// the wrapper,
+// each row), dP = dO V^T and dS = P (dP - D), D = rowsum(dO o O),
 //
 //   dV = P^T dO,  dK = scale dS^T Q,  dQ = scale dS K,
 //
 // dK and dV summed over the H / KV query heads of each KV head (GQA), in
-// float32, stored in q's dtype (float32 or bfloat16).
+// float32, stored in q's dtype (float32 or bfloat16).  D is computed here
+// too (flash_bwd_delta_kernel).
 //
-// Two launches, no atomics:
+// Three launches, no atomics, so every call gives the same bits (training
+// is reproducible and a resumed run equals a straight one):
 //
-// - dK, dV: one block per (64-key tile, KV head, batch row).  K and V stay
-//   in shared memory; the block walks the G query heads of its KV head and,
+// - D: rowsum(dO o O) of each query row and head, a thread a row.
+// - dK, dV: one block per (key tile, KV head, batch row).  K and V stay in
+//   shared memory; the block walks the G query heads of its KV head and,
 //   for each, the query tiles that see its keys (causal: from the first row
-//   whose position reaches the tile), recomputing S^T = K (scale Q)^T and
-//   dP^T = V dO^T on the tile, then P^T and dS^T into shared memory, and
-//   accumulates dV += P^T dO and dK += dS^T (scale Q) in registers.
-// - dQ: one block per (64-query tile, head, batch row), over the key tiles
+//   whose position reaches the tile), recomputing S^T and dP^T on the tile,
+//   and accumulates dV += P^T dO and dK += dS^T (scale Q), the G heads
+//   summed in the accumulators.
+// - dQ: one block per (query tile, head, batch row), over the key tiles
 //   its rows see, recomputing S and dP and accumulating dQ += dS K.
 //
-// Every product is float32 FFMA, as the forward's FFMA body: 256 threads, a
-// 4 x 4 block of each 64 x 64 tile a thread (rows rg + 16 i, columns
-// cg + 16 j), tiles staged in shared memory as float32 with the head dim
-// padded to D = 64 or 128 (hd a multiple of 8 up to 128).
+// Two bodies; cuda_impl.flash_bwd_body picks one and the C entry refuses a
+// body that does not take the shape:
+//
+// - wgmma (bfloat16, hd <= 128; the training path): 384 threads, two
+//   consumer warpgroups of 64 rows (keys for dK/dV, queries for dQ) and a
+//   producer warpgroup.  The producer loads the block's own tile pair once
+//   and keeps the other pair (Q and dO, or K and V) in flight by TMA in a
+//   three-stage ring with full/empty mbarriers; for dK/dV its second warp
+//   puts each query tile's lse (times log2 e) and D beside it.  The
+//   products are wgmma m64nNk16 in bf16 with float32 sums: S^T = K Q^T and
+//   dP^T = V dO^T (both operands in shared memory, issued together), then
+//   P^T = exp2(S^T scale log2 e - lse log2 e) on the SFU, masked, and dS^T =
+//   P^T (dP^T - D) in float32; P^T rounded to bf16 in registers, where the
+//   accumulator's fragment is the A operand's layout (as the forward's P),
+//   dS^T as a hi and a lo bf16 part (a row of dS sums to zero, and one bf16
+//   part doubled dQ's error); dV += P^T dO (issued while dP^T runs) and dK
+//   += dS^T Q take A from registers and read dO and Q MN-major through the
+//   descriptor's transpose bit.  dQ likewise with K read MN-major.  Tiles are 32-column blocks of 64 bytes a row (64-byte
+//   swizzle), so hd 80 pads to 96 columns, not 128; TMA zero-fills columns
+//   past hd and rows past sq or sk.
+// - FFMA (float32, the first design): every product float32 FFMA, 256
+//   threads, a 4 x 4 block of each 64 x 64 tile a thread (rows rg + 16 i,
+//   columns cg + 16 j), tiles loaded synchronously and staged in shared
+//   memory as float32 with the head dim padded to D = 64 or 128.  TF32
+//   tensor cores would miss the float32 tolerance (tools/attn_checks.py).
 //
 // Bound, at stablelm-3b's layer (b = 2, sq = sk = 2048, H = KV = 32, hd =
 // 80, bf16, causal): the five products of the backward, 10 b H hd (sq (sq
-// + 1) / 2) = 1.07e11 flops, or 0.11 ms on the bf16 tensor cores; these
-// kernels recompute S and dP in both launches (seven products) on the FFMA
-// pipes (67 TFLOP/s) at the padded D = 128: 2.5e11 flops, 3.7 ms at best.
-// What a faster design would do (ROADMAP B): wgmma on bf16 tiles with P and
-// dS in registers, TMA-fed K/V rings, dQ by atomics or a second pass
-// without the recomputed S.
+// + 1) / 2) = 1.07e11 flops, 0.109 ms on the bf16 tensor cores (989
+// TFLOP/s); 0.012 ms of bytes.  Both bodies recompute S and dP in the dQ
+// launch: seven products, 0.152 ms; the wgmma body's dS in two parts makes
+// nine, 0.196 ms (0.235 at the padded 96 columns).  What the wgmma body does
+// about the first design's four limits: the products run on the tensor
+// cores in bf16 (the FFMA body's floor is 3.7 ms at D = 128 on the 67
+// TFLOP/s pipes); the recomputed products stay (a one-pass dQ without
+// atomics needs a dQ scratch per key tile, ~1.3 GB at this layer);
+// hd 80 pads to 96, not 128; tiles arrive by TMA while the previous tile's
+// products run.  What it leaves: inside a warpgroup the exponentials wait
+// for the S product and the next products for the exponentials (only the
+// two warpgroups overlap), the 64 x 64 score tiles read both operands from
+// shared memory, diagonal tiles are computed whole, and the causal blocks'
+// work differs by tile (they are launched longest first).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -49,6 +81,7 @@
 #include <cstdint>
 
 #include "attn_common.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -365,6 +398,44 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// D = rowsum(dO o O) of every (batch row, query row, head), float32 sums,
+// into delta (b, H, sq): a thread a row of hd entries, read in 8-entry
+// chunks of 16 or 32 bytes, threads of one warp on neighbouring rows.
+constexpr int kDeltaThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int64_t n_rows, int64_t sq, int H, int hd) {
+  const int64_t r = blockIdx.x * static_cast<int64_t>(kDeltaThreads) + threadIdx.x;
+  if (r >= n_rows) return;  // r = (bi sq + row) H + h
+  const int64_t bs = r / H;
+  const int h = static_cast<int>(r - bs * H);
+  const int64_t bi = bs / sq, row = bs - bi * sq;
+  const T* op = o + r * hd;
+  const T* dp = dout + r * hd;
+  float acc = 0.f;
+  for (int c = 0; c < hd; c += 8) {
+    float a[8], d[8];
+    attn::load8(op + c, a);
+    attn::load8(dp + c, d);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fmaf(a[e], d[e], acc);
+  }
+  delta[(bi * H + h) * sq + row] = acc;
+}
+
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, int64_t b, int64_t sq, int H,
+                 int hd, cudaStream_t stream) {
+  const int64_t n_rows = b * sq * H;
+  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((n_rows + kDeltaThreads - 1) / kDeltaThreads),
+                              kDeltaThreads, 0, stream>>>(static_cast<const T*>(o),
+                                                          static_cast<const T*>(dout), delta,
+                                                          n_rows, sq, H, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_dtype(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, void* dq, void* dk, void* dv, int64_t b,
@@ -376,31 +447,558 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* dout,
                                    causal, q_offset, stream);
 }
 
+
+// ------------------------------------------------ the bf16 wgmma body
+namespace wgb {
+
+using namespace attn_wg;
+
+constexpr int kConsumers = 256;             // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kStages = 3;                  // tiles in flight in each ring
+constexpr int kRow = 64;                    // bytes of a row of a 32-column block
+constexpr int kWide = 128;                  // the rows a block owns: two warpgroups' 64
+constexpr int kStep = 64;                   // the rows of a ring tile
+constexpr float kLog2e = 1.4426950408889634f;
+// 128 x 40 + 256 x 232 = 384 x 168, the block's registers at launch (see
+// flash_attn.cu's kProducerRegs): the producer's second warp computes
+// addresses of lse and D rows, so it keeps 40.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// A tile is D / 32 column blocks of its rows x 32 columns (64 bytes a row,
+// 64-byte swizzle), so hd = 80 pads to 96 columns, not 128.  Shared memory,
+// in bytes from a 1024-byte aligned base: the block's own tile pair (K and
+// V for dK/dV, Q and dO for dQ; kWide rows each), then kStages stages of
+// the ring's pair (kStep rows each), then, for dK/dV, kStages stages of the
+// ring's 64 lse (times log2 e) and 64 D values, then the mbarriers (own,
+// full[kStages], empty[kStages]).
+template <int D, bool kRowVectors>
+struct Layout {
+  static constexpr int kCols = D / 32;
+  static constexpr int kWideBlk = kWide * kRow;  // one column block of an own tile
+  static constexpr int kStepBlk = kStep * kRow;  // of a ring tile
+  static constexpr int kOwnTile = kCols * kWideBlk;
+  static constexpr int kStepTile = kCols * kStepBlk;
+  static constexpr int kOwnA = 0;
+  static constexpr int kOwnB = kOwnA + kOwnTile;
+  static constexpr int kRingA = kOwnB + kOwnTile;
+  static constexpr int kRingB = kRingA + kStages * kStepTile;
+  static constexpr int kVecs = kRingB + kStages * kStepTile;
+  static constexpr int kBar = kVecs + (kRowVectors ? kStages * 2 * kStep * 4 : 0);
+  static constexpr size_t kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+};
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, db, 1);
+  } else if constexpr (D == 96) {
+    wgmma_rs_n96(d, a, db, 1);
+  } else {
+    wgmma_rs_n64(d, a, db, 1);
+  }
+}
+
+// The D / 16 k16 steps of a 64 x 64 product over the head dim, both
+// operands K-major in 64-byte-swizzled column blocks (a_blk and b_blk bytes
+// apart): step kk reads column block kk / 2 at byte 32 (kk % 2) of a row.
+template <int D>
+__device__ __forceinline__ void head_dim_product(float (&d)[32], uint32_t a, int a_blk,
+                                                 uint32_t b, int b_blk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss_n64(d, sw64_desc(a + (kk >> 1) * a_blk + (kk & 1) * 32, 16),
+                 sw64_desc(b + (kk >> 1) * b_blk + (kk & 1) * 32, 16), kk > 0);
+  }
+}
+
+// The 64 x 64 accumulator (rows of this warp's 16, lane = 4 g + t: rows g
+// and g + 8, per 8-column block n columns 8 n + 2 t and 8 n + 2 t + 1) in
+// bf16 as wgmma's A for the 4 k16 steps over its columns: step j is the
+// column blocks 2 j and 2 j + 1 (the forward's P at flash_attn.cu).
+__device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[j][r] = pack_bf16(x[8 * j + 2 * r], x[8 * j + 2 * r + 1]);
+}
+
+// to_a's layout for the hi and lo bf16 parts of x (x = hi + lo to ~2^-17
+// of x).  dS goes into its products so: its rows sum to zero, and a bf16 dS
+// alone doubled dQ's error against the plain version's (PERF.md).
+__device__ __forceinline__ void to_a_split(const float (&x)[32], uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * j + 2 * r], b = x[8 * j + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[j][r] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[j][r] = pack_bf16(a - hf.x, b - hf.y);
+    }
+}
+
+// Rows `row_lo` and row_lo + 8 of a (.., rows, heads, hd) bf16 tensor from
+// the D / 2 accumulator registers times `scale`: rows below n and columns
+// below hd only.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ base, int64_t stride,
+                                           int64_t row_lo, int64_t n, int hd, int t4,
+                                           float scale, const float (&acc)[D / 2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int64_t row = row_lo + 8 * half;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * t4;
+      if (col >= hd) continue;
+      *reinterpret_cast<uint32_t*>(base + row * stride + col) =
+          pack_bf16(acc[4 * c + 2 * half] * scale, acc[4 * c + 2 * half + 1] * scale);
+    }
+  }
+}
+
+// dK and dV of one (128-key tile, KV head, batch row), blocks in the order
+// key tile, batch row, KV head (causal: the keys that most queries see
+// first).  Warpgroup wg owns keys k0 + 64 wg ..; the producer loads K and V
+// once, then walks the G query heads of the KV head and, for each, the
+// 64-query tiles that see the block's keys, keeping Q and dO in flight by
+// TMA (thread 0) and the tile's lse (times log2 e) and D in shared memory
+// (warp 1) in a kStages ring.  A step: S^T = K Q^T and dP^T = V dO^T
+// (issued together), P^T = exp2(scale_log2 S^T - lse log2 e) masked and
+// rounded to bf16 in registers as A, dV += P^T dO (issued while dP^T runs),
+// dS^T = P^T (dP^T - D) as hi and lo bf16 parts, dK += dS^T Q (two
+// products), dO and Q read MN-major.  dK is scaled at the store.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                            int64_t b, int64_t sq, int64_t sk, int H, int KV, int hd,
+                            int causal, int64_t q_offset, float scale, float scale_log2) {
+  using L = Layout<D, true>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* vecs = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kVecs);
+  const uint32_t sK = base + L::kOwnA, sV = base + L::kOwnB;
+  const uint32_t sQ = base + L::kRingA, sdO = base + L::kRingB;
+  const uint32_t kv_full = base + L::kBar;
+  auto full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (1 + kStages + s); };
+
+  int64_t w = blockIdx.x;
+  const int kvh = static_cast<int>(w % KV);
+  w /= KV;
+  const int64_t bi = w % b;
+  const int64_t k0 = (w / b) * kWide;
+  const int G = H / KV;
+  // The query tiles that see key k0: causal, row i sees keys up to q_offset + i.
+  const int64_t first = causal ? (k0 - q_offset > 0 ? k0 - q_offset : 0) : 0;
+  const int64_t n_qt = (sq + kStep - 1) / kStep;
+  const int64_t qt0 = first / kStep;
+  const int nq = static_cast<int>(n_qt > qt0 ? n_qt - qt0 : 0);
+  const int n_steps = G * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA thread's expect_tx and warp 1's 32 lanes
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = threadIdx.x - kConsumers;
+    if (pt == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kOwnTile);
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) {
+        tma_load_4d(sK + c * L::kWideBlk, &tm_k, kv_full, 32 * c, kvh, static_cast<int>(k0),
+                    static_cast<int>(bi));
+        tma_load_4d(sV + c * L::kWideBlk, &tm_v, kv_full, 32 * c, kvh, static_cast<int>(k0),
+                    static_cast<int>(bi));
+      }
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % kStages;
+        const int h = kvh * G + it / nq;
+        const int q0 = static_cast<int>((qt0 + it % nq) * kStep);
+        if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::kStepTile);
+#pragma unroll
+        for (int c = 0; c < L::kCols; ++c) {
+          tma_load_4d(sQ + (s * L::kCols + c) * L::kStepBlk, &tm_q, full(s), 32 * c, h, q0,
+                      static_cast<int>(bi));
+          tma_load_4d(sdO + (s * L::kCols + c) * L::kStepBlk, &tm_do, full(s), 32 * c, h, q0,
+                      static_cast<int>(bi));
+        }
+      }
+    } else if (pt >= 32 && pt < 64) {
+      const int lane = pt - 32;
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % kStages;
+        const int64_t h = kvh * G + it / nq;
+        const int64_t q0 = (qt0 + it % nq) * kStep;
+        if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
+        const float* lb = lse + (bi * H + h) * sq;
+        const float* db = delta + (bi * H + h) * sq;
+#pragma unroll
+        for (int i = lane; i < kStep; i += 32) {
+          const int64_t r = q0 + i;
+          vecs[s * 2 * kStep + i] = r < sq ? lb[r] * kLog2e : 0.f;
+          vecs[s * 2 * kStep + kStep + i] = r < sq ? db[r] : 0.f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g4 = lane >> 2, t4 = lane & 3;
+    const int64_t key_wg = k0 + 64 * wg;                // this warpgroup's first key
+    const int64_t key_lo = key_wg + 16 * warp + g4;     // this thread's rows: key_lo, + 8
+    const uint32_t k_wg = sK + 64 * wg * kRow, v_wg = sV + 64 * wg * kRow;
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    float sc[32], dp[32];
+    uint32_t pa[4][4], dh[4][4], dl[4][4];
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % kStages;
+      const int64_t q0 = (qt0 + it % nq) * kStep;
+      mbar_wait(full(s), (it / kStages) & 1);
+      if (causal && q_offset + q0 + kStep - 1 < key_wg) {  // no row sees these keys
+        mbar_arrive(empty(s));
+        continue;
+      }
+      const uint32_t q_s = sQ + s * L::kStepTile, do_s = sdO + s * L::kStepTile;
+      wgmma_fence();
+      head_dim_product<D>(sc, k_wg, L::kWideBlk, q_s, L::kStepBlk);  // S^T = K Q^T
+      wgmma_commit();
+      head_dim_product<D>(dp, v_wg, L::kWideBlk, do_s, L::kStepBlk);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // P^T: key row key_lo + 8 half, query column q0 + 8 n + 2 t + (e & 1);
+      // masked past sk, past sq and (causal) above the diagonal.
+      const float* lrow = vecs + s * 2 * kStep;
+      const float* drow = lrow + kStep;
+      const bool edge = key_wg + 64 > sk || q0 + kStep > sq ||
+                        (causal && key_wg + 63 > q_offset + q0);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t key = key_lo + 8 * (e >> 1);
+          const int64_t query = q0 + 8 * n + 2 * t4 + (e & 1);
+          const bool masked =
+              edge && (key >= sk || query >= sq || (causal && key > q_offset + query));
+          sc[4 * n + e] =
+              masked ? 0.f : ex2(fmaf(sc[4 * n + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+        }
+      }
+      to_a(sc, pa);
+
+      // dV += P^T dO, k16 steps of 16 queries (1024 bytes), issued while
+      // dP^T may still run.
+      fence_regs(acc_v);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wgmma_rs<D>(acc_v, pa[j], sw64_desc(do_s + j * 1024, L::kStepBlk));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is done (groups complete in order)
+      fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 d2 = *reinterpret_cast<const float2*>(drow + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * n + e] = sc[4 * n + e] * (dp[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+      to_a_split(dp, dh, dl);
+
+      // dK += dS^T Q as its hi and lo parts.
+      fence_regs(acc_k);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wgmma_rs<D>(acc_k, dh[j], sw64_desc(q_s + j * 1024, L::kStepBlk));
+        wgmma_rs<D>(acc_k, dl[j], sw64_desc(q_s + j * 1024, L::kStepBlk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      mbar_arrive(empty(s));
+    }
+    const int64_t stride = static_cast<int64_t>(KV) * hd;
+    store_rows<D>(dk + (bi * sk * KV + kvh) * hd, stride, key_lo, sk, hd, t4, scale, acc_k);
+    store_rows<D>(dv + (bi * sk * KV + kvh) * hd, stride, key_lo, sk, hd, t4, 1.f, acc_v);
+  }
+}
+
+// dQ of one (128-query tile, head, batch row), blocks in the order query
+// tile (causal: the last, longest, first), batch row, head.  Warpgroup wg
+// owns rows q0 + 64 wg ..; the producer loads Q and dO once, then keeps the
+// 64-key tiles of K and V that the rows see in flight by TMA.  A step: S =
+// Q K^T and dP = dO V^T (issued together), P = exp2(scale_log2 S - lse log2
+// e) masked, dS = P (dP - D) as hi and lo bf16 parts in registers as A, dQ
+// += dS K (two products) with K read MN-major.  dQ is scaled at the store.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int64_t b, int64_t sq, int64_t sk,
+                          int H, int KV, int hd, int causal, int64_t q_offset, float scale,
+                          float scale_log2) {
+  using L = Layout<D, false>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kOwnA, sdO = base + L::kOwnB;
+  const uint32_t sK = base + L::kRingA, sV = base + L::kRingB;
+  const uint32_t q_full = base + L::kBar;
+  auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + kStages + s); };
+
+  int64_t w = blockIdx.x;
+  const int h = static_cast<int>(w % H);
+  w /= H;
+  const int64_t bi = w % b;
+  const int64_t n_qt = (sq + kWide - 1) / kWide;
+  const int64_t q0 = (n_qt - 1 - w / b) * kWide;
+  const int kvh = h / (H / KV);
+  // Keys the tile sees: all, or (causal) up to its last row's position.
+  const int64_t q_last = (q0 + kWide < sq ? q0 + kWide : sq) - 1;
+  const int64_t n_keys = causal ? (q_offset + q_last + 1 < sk ? q_offset + q_last + 1 : sk) : sk;
+  const int n_steps = static_cast<int>((n_keys + kStep - 1) / kStep);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_full, 2 * L::kOwnTile);
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) {
+        tma_load_4d(sQ + c * L::kWideBlk, &tm_q, q_full, 32 * c, h, static_cast<int>(q0),
+                    static_cast<int>(bi));
+        tma_load_4d(sdO + c * L::kWideBlk, &tm_do, q_full, 32 * c, h, static_cast<int>(q0),
+                    static_cast<int>(bi));
+      }
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::kStepTile);
+#pragma unroll
+        for (int c = 0; c < L::kCols; ++c) {
+          tma_load_4d(sK + (s * L::kCols + c) * L::kStepBlk, &tm_k, full(s), 32 * c, kvh,
+                      it * kStep, static_cast<int>(bi));
+          tma_load_4d(sV + (s * L::kCols + c) * L::kStepBlk, &tm_v, full(s), 32 * c, kvh,
+                      it * kStep, static_cast<int>(bi));
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g4 = lane >> 2, t4 = lane & 3;
+    const int64_t row_wg = q0 + 64 * wg;              // this warpgroup's first row
+    const int64_t row_lo = row_wg + 16 * warp + g4;   // this thread's rows: row_lo, + 8
+    const uint32_t q_wg = sQ + 64 * wg * kRow, do_wg = sdO + 64 * wg * kRow;
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = row_lo + 8 * half;
+      lse2[half] = row < sq ? lse[(bi * H + h) * sq + row] * kLog2e : 0.f;
+      dd[half] = row < sq ? delta[(bi * H + h) * sq + row] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[32], dp[32];
+    uint32_t dh[4][4], dl[4][4];
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_steps; ++it) {
+      const int s = it % kStages;
+      const int64_t k0 = static_cast<int64_t>(it) * kStep;
+      mbar_wait(full(s), (it / kStages) & 1);
+      if (causal && k0 > q_offset + row_wg + 63) {  // no row of this warpgroup sees them
+        mbar_arrive(empty(s));
+        continue;
+      }
+      const uint32_t k_s = sK + s * L::kStepTile, v_s = sV + s * L::kStepTile;
+      wgmma_fence();
+      head_dim_product<D>(sc, q_wg, L::kWideBlk, k_s, L::kStepBlk);   // S = Q K^T
+      wgmma_commit();
+      head_dim_product<D>(dp, do_wg, L::kWideBlk, v_s, L::kStepBlk);  // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // P: query row row_lo + 8 half, key column k0 + 8 n + 2 t + (e & 1).
+      const bool edge = k0 + kStep > sk || row_wg + 64 > sq ||
+                        (causal && k0 + kStep - 1 > q_offset + row_wg);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1;
+          const int64_t row = row_lo + 8 * half;
+          const int64_t key = k0 + 8 * n + 2 * t4 + (e & 1);
+          const bool masked =
+              edge && (key >= sk || row >= sq || (causal && key > q_offset + row));
+          sc[4 * n + e] = masked ? 0.f : ex2(fmaf(sc[4 * n + e], scale_log2, -lse2[half]));
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dd[(i >> 1) & 1]);
+      to_a_split(dp, dh, dl);
+
+      // dQ += dS K as its hi and lo parts: k16 steps of 16 keys (1024 bytes).
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wgmma_rs<D>(acc, dh[j], sw64_desc(k_s + j * 1024, L::kStepBlk));
+        wgmma_rs<D>(acc, dl[j], sw64_desc(k_s + j * 1024, L::kStepBlk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty(s));
+    }
+    store_rows<D>(dq + (bi * sq * H + h) * hd, static_cast<int64_t>(H) * hd, row_lo, sq, hd, t4,
+                  scale, acc);
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dq, void* dk, void* dv, int64_t b,
+                 int64_t sq, int64_t sk, int H, int KV, int hd, int causal, int64_t q_offset,
+                 cudaStream_t stream) {
+  constexpr auto kSw = CU_TENSOR_MAP_SWIZZLE_64B;
+  // dK/dV: K and V by the block's 128 keys, Q and dO by 64-query ring
+  // tiles; dQ: Q and dO by the block's 128 rows, K and V by 64-key tiles.
+  CUtensorMap q_step, do_step, k_wide, v_wide, q_wide, do_wide, k_step, v_step;
+  cudaError_t e = make_map(&q_step, q, b, sq, H, hd, 32, kStep, kSw);
+  if (e == cudaSuccess) e = make_map(&do_step, dout, b, sq, H, hd, 32, kStep, kSw);
+  if (e == cudaSuccess) e = make_map(&k_wide, k, b, sk, KV, hd, 32, kWide, kSw);
+  if (e == cudaSuccess) e = make_map(&v_wide, v, b, sk, KV, hd, 32, kWide, kSw);
+  if (e == cudaSuccess) e = make_map(&q_wide, q, b, sq, H, hd, 32, kWide, kSw);
+  if (e == cudaSuccess) e = make_map(&do_wide, dout, b, sq, H, hd, 32, kWide, kSw);
+  if (e == cudaSuccess) e = make_map(&k_step, k, b, sk, KV, hd, 32, kStep, kSw);
+  if (e == cudaSuccess) e = make_map(&v_step, v, b, sk, KV, hd, 32, kStep, kSw);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Layout<D, true>::kBytes));
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Layout<D, false>::kBytes));
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const double inv = 1.0 / std::sqrt(static_cast<double>(hd));
+  const float scale = static_cast<float>(inv);
+  const float scale_log2 = static_cast<float>(1.4426950408889634 * inv);
+  const int64_t kv_blocks = (sk + kWide - 1) / kWide * KV * b;
+  flash_bwd_dkdv_wgmma_kernel<D><<<static_cast<unsigned>(kv_blocks), kThreads,
+                                   Layout<D, true>::kBytes, stream>>>(
+      q_step, do_step, k_wide, v_wide, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), b, sq, sk, H, KV, hd, causal, q_offset, scale, scale_log2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t q_blocks = (sq + kWide - 1) / kWide * H * b;
+  flash_bwd_dq_wgmma_kernel<D><<<static_cast<unsigned>(q_blocks), kThreads,
+                                 Layout<D, false>::kBytes, stream>>>(
+      q_wide, do_wide, k_step, v_step, lse, delta, static_cast<__nv_bfloat16*>(dq), b, sq, sk,
+      H, KV, hd, causal, q_offset, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgb
+
 }  // namespace
 
 // ------------------------------------------------------------- C entry point
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dq, dk and dv alike).
-// q, dout, dq: (b, sq, H, hd); k, v, dk, dv: (b, sk, KV, hd); lse and delta
-// (rowsum(dout o o)): float32 (b, H, sq); all contiguous, the tensors of
-// (b, ., ., hd) 16-byte aligned.  Launches the dK/dV kernel, then the dQ
-// kernel, on `stream`.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a shape the kernels do not take (an empty dimension, H % KV != 0, hd
-// not a multiple of 8 in [8, 128], q_offset < 0, a grid dimension out of
-// range).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk and dv alike).
+// body: 0 = wgmma (bfloat16 only), 1 = FFMA (either dtype).  q, o, dout, dq:
+// (b, sq, H, hd); k, v, dk, dv: (b, sk, KV, hd); lse: float32 (b, H, sq);
+// delta: a float32 (b, H, sq) buffer that receives rowsum(dout o o); all
+// contiguous, the tensors of (b, ., ., hd) 16-byte aligned.  Launches the D
+// kernel, the dK/dV kernel, then the dQ kernel, on `stream`.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernels do
+// not take (an empty dimension, H % KV != 0, hd not a multiple of 8 in [8,
+// 128], q_offset < 0, a grid dimension out of range) or a body that does not
+// take it.
 
 extern "C" {
 
-int rt_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
-                           const void* dout, const float* lse, const float* delta, void* dq,
-                           void* dk, void* dv, int64_t b, int64_t sq, int64_t sk, int64_t H,
-                           int64_t KV, int64_t hd, int causal, int64_t q_offset, void* stream) {
+int rt_flash_attention_bwd(int dtype, int body, const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const float* lse, float* delta,
+                           void* dq, void* dk, void* dv, int64_t b, int64_t sq, int64_t sk,
+                           int64_t H, int64_t KV, int64_t hd, int causal, int64_t q_offset,
+                           void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KV < 1 || H % KV != 0 || hd < 8 || hd > 128 ||
       hd % 8 != 0 || q_offset < 0 || H > 65535 || b > 65535 || (dtype != 0 && dtype != 1) ||
-      (sq + kB - 1) / kB > 0x7fffffff || (sk + kB - 1) / kB > 0x7fffffff) {
+      (body != 0 && body != 1) || (sq + kB - 1) / kB > 0x7fffffff ||
+      (sk + kB - 1) / kB > 0x7fffffff || (b * sq * H + kDeltaThreads - 1) / kDeltaThreads >
+      0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(H), kv = static_cast<int>(KV), d = static_cast<int>(hd);
+  if (body == 0 && (dtype != 1 || sq > 0x7fffffff || sk > 0x7fffffff ||
+                    (sq + wgb::kWide - 1) / wgb::kWide * H * b > 0x7fffffff ||
+                    (sk + wgb::kWide - 1) / wgb::kWide * KV * b > 0x7fffffff)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int e = dtype ? launch_delta<__nv_bfloat16>(o, dout, delta, b, sq, h, d, s)
+                      : launch_delta<float>(o, dout, delta, b, sq, h, d, s);
+  if (e != 0) return e;
+  if (body == 0) {
+    return d <= 64   ? wgb::launch_wgmma<64>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk,
+                                             h, kv, d, causal, q_offset, s)
+           : d <= 96 ? wgb::launch_wgmma<96>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk,
+                                             h, kv, d, causal, q_offset, s)
+                     : wgb::launch_wgmma<128>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk,
+                                              h, kv, d, causal, q_offset, s);
+  }
   return dtype ? launch_dtype<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, h,
                                              kv, d, causal, q_offset, s)
                : launch_dtype<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kv, d,

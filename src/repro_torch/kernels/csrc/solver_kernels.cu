@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(kAccumThreads, 1)
 // Per-row WRMS of err / (atol + rtol * max(|y0|, |y1|)).  Bound: 3 * b * f
 // elements (5 with (b, f) tolerances).  The TPU walks the feature tiles as a
 // sequential grid axis with _init/_finalize on an output block; here a row is
-// reduced inside one block, with no cross-block state.  Both bodies fold the
+// reduced inside one block, with no cross-block state.  Every body folds the
 // sum of squares in the one order of solver_common.cuh (lane l takes c = l,
 // l + 32, ...; warp_sum; wrms_finish), the fused step kernels' order, so the
 // card's fused step computes bitwise its unfused step's ratio: the loads may
@@ -129,8 +129,8 @@ __global__ void __launch_bounds__(kAccumThreads, 1)
 // itself (coalesced, lane-strided), then a shuffle reduction and sqrt(sum /
 // f).  8 rows to a block.  Tolerances come in through (row, column) strides,
 // 0 for a broadcast axis; a null pointer means the scalar passed by value.
-// It takes the narrow rows, where it was as fast as the row body or faster,
-// and the rows too wide for the row body's shared memory.
+// It takes the narrow rows, where it was as fast as the row body or faster;
+// the rows too wide for the row body's shared memory take the wide body.
 template <typename T>
 __global__ void error_norm_kernel(const T* __restrict__ err, const T* __restrict__ y0,
                                   const T* __restrict__ y1, Tol<T> atol, Tol<T> rtol,
@@ -157,7 +157,7 @@ __global__ void error_norm_kernel(const T* __restrict__ err, const T* __restrict
 // Phase 2: one warp a row folds r^2 in error_norm's order, as row_finish
 // does in fused_step.cu.  The whole row sits in shared memory, so the body
 // takes f <= kNormRowMaxF (cuda_impl.NORM_ROW_MAX_F; 32 KB a row in
-// float64); wider rows take the warp body.  kEntries false (both tolerances
+// float64); wider rows take the wide body below.  kEntries false (both tolerances
 // values a row, as the solver passes them) keeps no tolerance pointer in
 // registers: 31 registers against 48 in float32 at V = 4.  Measured on an
 // NVIDIA H100 80GB HBM3 (PERF.md): the warp body read 9.6 MB in 0.0205 ms at
@@ -205,6 +205,133 @@ __global__ void __launch_bounds__(kNormThreads)
     s = warp_sum(s);
     if (lane == 0) out[row0 + rl] = wrms_finish(s, f);
   }
+}
+
+// The wide body, for rows wider than the row body holds (f > kNormRowMaxF):
+// the same fold, its loads no longer one latency an entry.  The warp body
+// walks such a row with one warp, each step a load of err, y0 and y1 and
+// then the fold: ~456 ns a step, one memory latency, 74.7 ms at (b, f) =
+// (2, 5 242 880) float32 on an NVIDIA H100 80GB HBM3 (PERF.md).  Two
+// launches:
+//
+// - pass 1 (error_norm_scaled_kernel): the whole grid computes r =
+//   wrms_scaled(...) in V-entry chunks (16 bytes where f % V == 0 and the
+//   inputs are aligned) into a (b, ld) scratch that the wrapper allocates,
+//   ld = f rounded up to 16 bytes, so every scratch row starts 16-byte
+//   aligned;
+// - pass 2 (error_norm_fold_kernel): a block a row, one warp folds r^2 in
+//   error_norm's order (lane l: c = l, l + 32, ..., then warp_sum and
+//   wrms_finish) from shared memory, while a producer warp keeps the next
+//   pieces of the row in flight by bulk copies of the TMA unit into a ring
+//   of kFoldStages slots of kFoldStageBytes.
+//
+// r is stored and read back exactly, so each lane's chain of fmas is the
+// warp body's: the same bits.  Bounds, at (2, 5 242 880) float32: the bytes,
+// 3 b f 4 B over 3.35 TB/s = 0.038 ms (pass 1 also writes r and pass 2
+// reads it back: 5 b f 4 B, 0.063 ms); the chain, f / 32 = 163 840
+// dependent fmas a lane at ~4 cycles of a ~1.98 GHz clock, ~0.33 ms (about
+// twice in float64).  The fold order is the contract (solver_common.cuh),
+// so the chain is the floor at small b.
+constexpr int kWideThreads = 256;
+constexpr int kFoldStageBytes = 32 * 1024;
+constexpr int kFoldStages = 6;
+constexpr int kFoldSmem = kFoldStages * kFoldStageBytes + 16 * kFoldStages;
+constexpr int kFoldBatch = 16;  // entries a lane loads ahead of its chain
+
+template <typename T, int V, bool kEntries>
+__global__ void __launch_bounds__(kWideThreads)
+    error_norm_scaled_kernel(const T* __restrict__ err, const T* __restrict__ y0,
+                             const T* __restrict__ y1, Tol<T> atol, Tol<T> rtol,
+                             T* __restrict__ r, int64_t b, int f, int64_t ld) {
+  const int nc = f / V;
+  for (int64_t row = blockIdx.y; row < b; row += gridDim.y) {
+    const int64_t base = row * f;
+    const Tol<T> at = atol.row_of(row), rt = rtol.row_of(row);
+    for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < nc; q += gridDim.x * blockDim.x) {
+      const int c = q * V;
+      const Vec<T, V> e = load_chunk<T, V>(err + base + c), a = load_chunk<T, V>(y0 + base + c),
+                      y = load_chunk<T, V>(y1 + base + c),
+                      ta = at.template chunk<V, kEntries>(c),
+                      tr = rt.template chunk<V, kEntries>(c);
+      Vec<T, V> o;
+#pragma unroll
+      for (int j = 0; j < V; ++j) o.v[j] = wrms_scaled(e.v[j], a.v[j], y.v[j], ta.v[j], tr.v[j]);
+      store_chunk<T, V>(r + row * ld + c, o);
+    }
+  }
+}
+
+// A block of two warps a row: warp 0 folds, lane 0 of warp 1 copies.
+template <typename T>
+__global__ void __launch_bounds__(64)
+    error_norm_fold_kernel(const T* __restrict__ r, T* __restrict__ out, int64_t b, int f,
+                           int64_t ld) {
+  extern __shared__ __align__(128) unsigned char fold_smem[];
+  constexpr int kEnt = kFoldStageBytes / static_cast<int>(sizeof(T));  // a multiple of 32
+  const T* ring = reinterpret_cast<const T*>(fold_smem);
+  const uint32_t ring_s = smem_u32(fold_smem);
+  const uint32_t bars = ring_s + kFoldStages * kFoldStageBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kFoldStages + s); };
+  const int64_t row = blockIdx.x;
+  if (row >= b) return;  // the empty batch launches one block
+  const T* src = r + row * ld;
+  const int n_chunks = (f + kEnt - 1) / kEnt;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFoldStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) {
+    if (lane == 0) {
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % kFoldStages;
+        if (i >= kFoldStages) mbar_wait(empty(s), ((i / kFoldStages) - 1) & 1);
+        const int c0 = i * kEnt;
+        const int n = f - c0 < kEnt ? f - c0 : kEnt;
+        // Rounded up to 16 bytes: the scratch row is ld >= f entries long.
+        const uint32_t bytes = (static_cast<uint32_t>(n) * sizeof(T) + 15u) & ~15u;
+        mbar_expect_tx(full(s), bytes);
+        bulk_copy(ring_s + s * kFoldStageBytes, src + c0, bytes, full(s));
+      }
+    }
+    return;
+  }
+  T sum = T(0);
+  for (int i = 0; i < n_chunks; ++i) {
+    const int s = i % kFoldStages;
+    mbar_wait(full(s), (i / kFoldStages) & 1);
+    const T* st = ring + s * kEnt;
+    const int n = f - i * kEnt < kEnt ? f - i * kEnt : kEnt;
+    if (n == kEnt) {
+      // kFoldBatch entries a lane in registers ahead of the chain: the next
+      // batch's loads issue before this batch's fmas.  The plain loop,
+      // unrolled 16, ran 0.748 ms at (2, 5 242 880) float32, this 0.623
+      // (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+      T cur[kFoldBatch], nxt[kFoldBatch];
+#pragma unroll
+      for (int e = 0; e < kFoldBatch; ++e) cur[e] = st[lane + 32 * e];
+      for (int k0 = 0; k0 < kEnt; k0 += 32 * kFoldBatch) {
+        const int next = k0 + 32 * kFoldBatch < kEnt ? k0 + 32 * kFoldBatch : k0;
+#pragma unroll
+        for (int e = 0; e < kFoldBatch; ++e) nxt[e] = st[next + lane + 32 * e];
+#pragma unroll
+        for (int e = 0; e < kFoldBatch; ++e) sum = fma_of(cur[e], cur[e], sum);
+#pragma unroll
+        for (int e = 0; e < kFoldBatch; ++e) cur[e] = nxt[e];
+      }
+    } else {
+      for (int k = lane; k < n; k += 32) sum = fma_of(st[k], st[k], sum);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) out[row] = wrms_finish(sum, f);
 }
 
 // ---------------------------------------------------------------- interp_eval
@@ -445,7 +572,7 @@ int launch_fused_update(const void* y, const void* K, const void* dt, const doub
 }
 
 // error_norm's bodies, numbered as cuda_impl.ERROR_NORM_BODIES.
-constexpr int kNormWarpBody = 0, kNormRowBody = 1;
+constexpr int kNormWarpBody = 0, kNormRowBody = 1, kNormWideBody = 2;
 
 template <typename T, int V, bool kEntries>
 int launch_error_norm_row(const T* err, const T* y0, const T* y1, const Tol<T>& atol,
@@ -483,11 +610,47 @@ int launch_error_norm_rows(const void* err, const void* y0, const void* y1, cons
              : launch_error_norm_row<T, V, true>(ep, ap, bp, at, rt, op, b, f, stream);
 }
 
+// The wide body's two launches; `r` is the (b, ld) scratch.
+template <typename T, int V, bool kEntries>
+int launch_error_norm_wide_v(const T* err, const T* y0, const T* y1, const Tol<T>& atol,
+                             const Tol<T>& rtol, T* r, int64_t ld, T* out, int64_t b, int f,
+                             cudaStream_t stream) {
+  const int64_t nc = f / V;
+  const int64_t gx = (nc + kWideThreads - 1) / kWideThreads;
+  const dim3 grid(static_cast<unsigned>(gx < 1 ? 1 : gx < 65535 ? gx : 65535),
+                  static_cast<unsigned>(b < 1 ? 1 : b < 65535 ? b : 65535));
+  error_norm_scaled_kernel<T, V, kEntries><<<grid, kWideThreads, 0, stream>>>(
+      err, y0, y1, atol, rtol, r, b, f, ld);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = reserve_smem(error_norm_fold_kernel<T>, kFoldSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  error_norm_fold_kernel<T><<<static_cast<unsigned>(b > 0 ? b : 1), 64, kFoldSmem, stream>>>(
+      r, out, b, f, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_error_norm_wide(const void* err, const void* y0, const void* y1, const void* atol,
+                           double atol_val, int64_t atol_rs, int64_t atol_cs, const void* rtol,
+                           double rtol_val, int64_t rtol_rs, int64_t rtol_cs, void* scratch,
+                           void* out, int64_t b, int f, cudaStream_t stream) {
+  const auto ep = static_cast<const T*>(err), ap = static_cast<const T*>(y0),
+             bp = static_cast<const T*>(y1);
+  const auto op = static_cast<T*>(out), rp = static_cast<T*>(scratch);
+  constexpr int kV = 16 / sizeof(T);
+  const int64_t ld = (static_cast<int64_t>(f) + kV - 1) / kV * kV;
+  const Tol<T> at = make_tol<T>(atol, atol_val, atol_rs, atol_cs, V),
+               rt = make_tol<T>(rtol, rtol_val, rtol_rs, rtol_cs, V);
+  return at.mode == kTolRow && rt.mode == kTolRow
+             ? launch_error_norm_wide_v<T, V, false>(ep, ap, bp, at, rt, rp, ld, op, b, f, stream)
+             : launch_error_norm_wide_v<T, V, true>(ep, ap, bp, at, rt, rp, ld, op, b, f, stream);
+}
+
 template <typename T>
 int launch_error_norm(int body, const void* err, const void* y0, const void* y1,
                       const void* atol, double atol_val, int64_t atol_rs, int64_t atol_cs,
                       const void* rtol, double rtol_val, int64_t rtol_rs, int64_t rtol_cs,
-                      void* out, int64_t b, int64_t f, cudaStream_t stream) {
+                      void* scratch, void* out, int64_t b, int64_t f, cudaStream_t stream) {
   if (body == kNormWarpBody) {
     const int blocks = static_cast<int>((b + kWarpsPerBlock - 1) / kWarpsPerBlock);
     error_norm_kernel<T><<<blocks > 0 ? blocks : 1, 32 * kWarpsPerBlock, 0, stream>>>(
@@ -496,10 +659,24 @@ int launch_error_norm(int body, const void* err, const void* y0, const void* y1,
         make_tol<T>(rtol, rtol_val, rtol_rs, rtol_cs), static_cast<T*>(out), b, f);
     return static_cast<int>(cudaGetLastError());
   }
+  constexpr int V = 16 / sizeof(T);
+  if (body == kNormWideBody) {
+    if (b > 0x7fffffff || f > 0x7fffffff || (scratch == nullptr && b > 0) ||
+        !aligned16(scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int fi = static_cast<int>(f);
+    return f % V == 0 && aligned16(err) && aligned16(y0) && aligned16(y1)
+               ? launch_error_norm_wide<T, V>(err, y0, y1, atol, atol_val, atol_rs, atol_cs, rtol,
+                                             rtol_val, rtol_rs, rtol_cs, scratch, out, b, fi,
+                                             stream)
+               : launch_error_norm_wide<T, 1>(err, y0, y1, atol, atol_val, atol_rs, atol_cs, rtol,
+                                             rtol_val, rtol_rs, rtol_cs, scratch, out, b, fi,
+                                             stream);
+  }
   if (body != kNormRowBody || b > 0x7fffffff || f > kNormRowMaxF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int V = 16 / sizeof(T);
   const int fi = static_cast<int>(f);
   return f % V == 0 && aligned16(err) && aligned16(y0) && aligned16(y1)
              ? launch_error_norm_rows<T, V>(err, y0, y1, atol, atol_val, atol_rs, atol_cs, rtol,
@@ -585,12 +762,14 @@ int rt_fused_update(int dtype, const void* y, const void* K, const void* dt,
 int rt_error_norm(int dtype, int body, const void* err, const void* y0, const void* y1,
                   const void* atol, double atol_val, int64_t atol_rs, int64_t atol_cs,
                   const void* rtol, double rtol_val, int64_t rtol_rs, int64_t rtol_cs,
-                  void* out, int64_t b, int64_t f, void* stream) {
+                  void* scratch, void* out, int64_t b, int64_t f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dtype ? launch_error_norm<double>(body, err, y0, y1, atol, atol_val, atol_rs, atol_cs,
-                                           rtol, rtol_val, rtol_rs, rtol_cs, out, b, f, s)
+                                           rtol, rtol_val, rtol_rs, rtol_cs, scratch, out, b, f,
+                                           s)
                : launch_error_norm<float>(body, err, y0, y1, atol, atol_val, atol_rs, atol_cs,
-                                          rtol, rtol_val, rtol_rs, rtol_cs, out, b, f, s);
+                                          rtol, rtol_val, rtol_rs, rtol_cs, scratch, out, b, f,
+                                          s);
 }
 
 int rt_interp_eval(int dtype, int body, const void* c0, const void* c1, const void* c2,

@@ -11,10 +11,11 @@ is an error.  ``launches[name]`` counts the launches of each kernel, and
 nothing else adds to it; ``body_launches`` splits the count of the kernels
 with more than one body or path by the one that ran.
 
-Seven kernels have more than one body, each chosen by one function here and
+Eight kernels have more than one body, each chosen by one function here and
 passed to the C entry, which refuses a body that does not take the shape:
 ``flash_attention_fwd`` (``flash_body``: the wgmma body for bfloat16 with
-hd <= 128, FFMA otherwise), the elimination of ``batched_lu_factor`` and
+hd <= 128, FFMA otherwise), ``flash_attention_bwd`` (``flash_bwd_body``:
+the same rule; every shape it takes has hd <= 128), the elimination of ``batched_lu_factor`` and
 ``batched_linsolve`` (``lu_path``: staged in shared memory where the matrix
 fits, in device memory above that, column by column over the card from
 ``LU_WIDE_F`` columns), ``fused_newton_iter`` (``newton_iter_body``: a warp
@@ -25,7 +26,8 @@ block per row wherever three of the row's planes fit in shared memory, a
 warp per row otherwise), ``fused_step`` (``fused_step_body``: the same
 rule), ``error_norm`` (``error_norm_body``: a block per row above
 ``NORM_WARP_MAX_F`` entries up to ``NORM_ROW_MAX_F``, whose row fits in
-shared memory, a warp per row otherwise) and ``interp_eval``
+shared memory, two passes through a scratch above that, a warp per row
+otherwise) and ``interp_eval``
 (``interp_eval_body``: a thread per cell up to ``INTERP_CELL_MAX_F`` entries,
 a block per row above; either body takes every shape).
 The wrappers check a body or path given by the caller with the same rules
@@ -54,6 +56,9 @@ LU_PATHS = {"staged": 0, "global": 1, "wide": 2}
 LU_WIDE_F = 1024  # the wide path's first width
 LU_STAGED_MAX_F = 256  # kStagedMaxF of csrc/linalg.cu: a lane's columns in registers
 FLASH_BODIES = {"wgmma": 0, "ffma": 1}
+# The attention backward's bodies in csrc/flash_attn_bwd.cu, numbered alike:
+# bf16 wgmma (hd <= 128) and float32 FFMA.
+FLASH_BWD_BODIES = {"wgmma": 0, "ffma": 1}
 NEWTON_BODIES = {"panel": 0, "column": 1, "warp": 2}
 WARP_MAX_F = 32  # kWarpMaxF of csrc/linalg.cu: a lane per row
 # The panel body's ring in csrc/linalg_common.cuh: kRingStages tiles of
@@ -71,14 +76,17 @@ POLY_BODIES = {"warp": 0, "row": 1}
 STEP_BODIES = POLY_BODIES
 
 # error_norm's bodies in csrc/solver_kernels.cu: a warp per row,
-# lane-strided (the first design), or a block per row, 16-byte chunks and the
-# scaled errors folded from shared memory, which holds the whole row.  Both
-# fold in the fused step kernels' order, so they give the same bits.  On an
-# H100 the warp body was as fast or faster up to f = 64 and the row body from
-# f = 96 on (b = 1024, float32; PERF.md).
-ERROR_NORM_BODIES = {"warp": 0, "row": 1}
+# lane-strided (the first design); a block per row, 16-byte chunks and the
+# scaled errors folded from shared memory, which holds the whole row; and,
+# for wider rows, two passes: the whole grid writes the scaled errors to a
+# scratch, then a block per row folds them from a ring that bulk copies keep
+# full.  All three fold in the fused step kernels' order, so they give the
+# same bits.  On an H100 the warp body was as fast or faster up to f = 64 and
+# the row body from f = 96 on (b = 1024, float32; PERF.md).
+ERROR_NORM_BODIES = {"warp": 0, "row": 1, "wide": 2}
 NORM_WARP_MAX_F = 64  # the widest row that takes the warp body below the row body
 NORM_ROW_MAX_F = 4096  # the widest row the row body takes (kNormRowMaxF)
+NORM_WIDE_MAX_F = 2**31 - 1  # the widest row the wide body takes (int column indices)
 # interp_eval's bodies: a thread per (row, point) cell, or a block per row
 # (the mask ballotted into shared memory, each thread's coefficient chunks
 # read once); each writes the masked cells only, with the same bits.  The
@@ -87,6 +95,7 @@ INTERP_BODIES = {"cell": 0, "row": 1}
 INTERP_CELL_MAX_F = 32  # the widest row that takes the cell body
 
 body_launches = {"flash_attention_fwd": dict.fromkeys(FLASH_BODIES, 0),
+                 "flash_attention_bwd": dict.fromkeys(FLASH_BWD_BODIES, 0),
                  "batched_lu_factor": dict.fromkeys(LU_PATHS, 0),
                  "batched_linsolve": dict.fromkeys(LU_PATHS, 0),
                  "fused_newton_iter": dict.fromkeys(NEWTON_BODIES, 0),
@@ -210,18 +219,34 @@ def _tolerance(name, tol, b, f, like):
 
 def error_norm_body(f):
     """The body of ``error_norm`` at width ``f``: ``"row"`` above
-    ``NORM_WARP_MAX_F`` entries a row up to ``NORM_ROW_MAX_F``, else
-    ``"warp"`` (which takes every width)."""
-    return "row" if NORM_WARP_MAX_F < f <= NORM_ROW_MAX_F else "warp"
+    ``NORM_WARP_MAX_F`` entries a row up to ``NORM_ROW_MAX_F``, ``"wide"``
+    above that up to ``NORM_WIDE_MAX_F``, else ``"warp"`` (which takes every
+    width)."""
+    if f <= NORM_WARP_MAX_F:
+        return "warp"
+    if f <= NORM_ROW_MAX_F:
+        return "row"
+    return "wide" if f <= NORM_WIDE_MAX_F else "warp"
 
 
 def check_error_norm_body(body, f):
     """Raise ValueError where the C entry would refuse ``body`` at width
-    ``f``: an unknown body, or the row body above ``NORM_ROW_MAX_F``."""
+    ``f``: an unknown body, the row body above ``NORM_ROW_MAX_F`` or the wide
+    body above ``NORM_WIDE_MAX_F``."""
     _known("error_norm", body, ERROR_NORM_BODIES, "body")
     if body == "row" and f > NORM_ROW_MAX_F:
         raise ValueError(f"error_norm: the row body holds a row of at most {NORM_ROW_MAX_F} "
                          f"entries in shared memory, not f = {f}")
+    if body == "wide" and f > NORM_WIDE_MAX_F:
+        raise ValueError(f"error_norm: the wide body indexes a row of at most "
+                         f"{NORM_WIDE_MAX_F} entries, not f = {f}")
+
+
+def norm_scratch_width(f, itemsize):
+    """The row length of the wide body's scratch: ``f`` rounded up to 16
+    bytes, so every row starts 16-byte aligned (as the C entry computes it)."""
+    v = 16 // itemsize
+    return -(-f // v) * v
 
 
 def interp_eval_body(f):
@@ -248,10 +273,13 @@ def error_norm(err, y0, y1, atol, rtol, body=None):
     body = error_norm_body(f) if body is None else body
     check_error_norm_body(body, f)
     out = torch.empty((b,), dtype=err.dtype, device=err.device)
+    scratch = (torch.empty((b, norm_scratch_width(f, err.element_size())), dtype=err.dtype,
+                           device=err.device) if body == "wide" else None)
     lib = _build.load()
     with torch.cuda.device(err.device):
         rc = lib.rt_error_norm(code, ERROR_NORM_BODIES[body], err.data_ptr(), y0.data_ptr(),
                                y1.data_ptr(), ap, av, ars, acs, rp, rv, rrs, rcs,
+                               scratch.data_ptr() if scratch is not None else None,
                                out.data_ptr(), b, f, _stream(err.device))
     _raise_on("error_norm", rc)
     launches["error_norm"] += 1
@@ -930,6 +958,24 @@ def check_flash_body(body, hd, dtype):
                          f"with hd = {hd}")
 
 
+def flash_bwd_body(hd, dtype):
+    """The attention backward's body for head dim ``hd`` and ``dtype``:
+    ``"wgmma"`` (bf16 tensor cores, TMA-fed) for bfloat16 with hd <= 128,
+    else ``"ffma"`` (float32 FFMA; TF32 would miss its tolerance)."""
+    return "wgmma" if dtype == torch.bfloat16 and hd <= 128 else "ffma"
+
+
+def check_flash_bwd_body(body, hd, dtype):
+    """Raise ValueError where the C entry would refuse ``body``: an unknown
+    body, or wgmma outside bfloat16 with hd <= 128.  FFMA takes every shape
+    the wrapper takes."""
+    name = "flash_attention_bwd"
+    _known(name, body, FLASH_BWD_BODIES, "body")
+    if body == "wgmma" and (dtype != torch.bfloat16 or hd > 128):
+        raise ValueError(f"{name}: the wgmma body takes bfloat16 with hd <= 128, got {dtype} "
+                         f"with hd = {hd}")
+
+
 def _check_attention(name, q, k, v, max_hd):
     """The attention wrappers' common checks of q (b, sq, H, hd) and k, v
     (b, sk, KV, hd); returns (b, sq, sk, H, KV, hd)."""
@@ -993,16 +1039,19 @@ def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, body=None, lse=Fals
     return (out, row_lse) if lse else out
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, q_offset=0):
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, q_offset=0, body=None):
     """CUDA ``flash_attention_bwd``: the gradients (dq, dk, dv) of
     ``flash_attention_fwd``'s output ``o`` under the cotangent ``do``, from
     the forward's inputs, ``o`` and its log-sum-exp ``lse`` (b, H, sq)
     (see ``ref.flash_attention_bwd``); dk and dv summed over each KV head's
-    query heads.  float32 or bfloat16, hd a multiple of 8 up to 128.  D =
-    rowsum(do * o) is one plain reduction here; the C entry launches the
-    dK/dV kernel and then the dQ kernel, one count in ``launches``."""
+    query heads.  float32 or bfloat16, hd a multiple of 8 up to 128.
+    ``body`` overrides ``flash_bwd_body``'s choice.  The C entry launches a
+    kernel for D = rowsum(do * o), then the dK/dV kernel and the dQ kernel,
+    one count in ``launches``."""
     name = "flash_attention_bwd"
     b, sq, sk, H, KV, hd = _check_attention(name, q, k, v, 128)
+    body = flash_bwd_body(hd, q.dtype) if body is None else body
+    check_flash_bwd_body(body, hd, q.dtype)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, H, sq):
         raise ValueError(f"{name}: shapes o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} are not q's {tuple(q.shape)} and (b, H, sq)")
@@ -1010,16 +1059,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, q_offset=0):
     _check(name, torch.float32, lse)
     _same_device(name, q, k, v, o, lse, do)
     q_offset = _check_offset(name, q_offset)
-    _check_aligned(name, q, k, v, do)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (b, H, sq)
+    _check_aligned(name, q, k, v, o, do)
+    delta = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)  # rowsum(do * o)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load()
     with torch.cuda.device(q.device):
-        rc = lib.rt_flash_attention_bwd(_ATTN_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                                        v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                        dv.data_ptr(), b, sq, sk, H, KV, hd, int(bool(causal)),
-                                        q_offset, _stream(q.device))
+        rc = lib.rt_flash_attention_bwd(_ATTN_DTYPES[q.dtype], FLASH_BWD_BODIES[body],
+                                        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk,
+                                        H, KV, hd, int(bool(causal)), q_offset,
+                                        _stream(q.device))
     _raise_on(name, rc)
     launches[name] += 1
+    body_launches[name][body] += 1
     return dq, dk, dv

@@ -64,9 +64,10 @@ def rel_errors(got, want):
             for g, w in zip(got, want)]
 
 
-def hold(label, case, dtype, q, k, v, do):
-    """Run the kernel's forward (with ``lse``) and backward on the card
-    tensors, hold them to the plain versions by the rule above, and return
+def hold(label, case, dtype, q, k, v, do, body=None):
+    """Run the kernel's forward (with ``lse``) and backward (``body``, or the
+    one ``cuda_impl.flash_bwd_body`` picks) on the card tensors, hold them to
+    the plain versions by the rule above, and return
     {"rel_err": [...], "plain_rel_err": [...] (bf16), "max_abs_err",
     "lse_rel_err", "out_bitwise_without_lse"}.  Raises AssertionError on a
     violation."""
@@ -82,7 +83,9 @@ def hold(label, case, dtype, q, k, v, do):
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"{label}: lse {lse_err} from the plain forward's, beyond "
                              f"{LSE_TOL}")
-    got = cuda_impl.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, q_offset=q_offset)
+    by_body = {} if body is None else {"body": body}
+    got = cuda_impl.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, q_offset=q_offset,
+                                        **by_body)
     plain = ref.flash_attention_bwd(q, k, v, o_plain, lse_plain.contiguous(), do, causal=causal,
                                     q_offset=q_offset, **chunks)
     res = {"out_bitwise_without_lse": True, "lse_rel_err": lse_err,

@@ -10,6 +10,8 @@ and ``tests/test_torch_update_widths.py`` use them.
   around full_width's 784 (whole 16-byte chunks in both dtypes, or not).  The fused
   step tests' widths lack 16, 17, 31, 33 and 783.  ``interp_eval`` is held
   at the same widths.
+- ``NORM_WIDE_WIDTHS`` x ``NORM_WIDE_ROWS``: the rows of ``error_norm``'s
+  wide body, held bitwise to its warp body on the card.
 - ``TOL_KINDS``: a scalar, a (b,) and a (b, f) tolerance pair.
 - ``MASK_KINDS``: no masked cell, one point a row, every point, three
   consecutive points a row (as a step writes the dense output), and the
@@ -29,6 +31,11 @@ import numpy as np
 from ..core.tableau import TABLEAUS
 
 ERROR_NORM_WIDTHS = (1, 2, 16, 17, 31, 32, 33, 783, 784, 785)
+# error_norm's wide body (rows wider than NORM_ROW_MAX_F): one entry past
+# the row body's widest, whole 16-byte chunks in both dtypes or not, and up
+# to a million entries, at b = 1, 2 and 37 rows.
+NORM_WIDE_WIDTHS = (4097, 8192, 9001, 65537, 1000003, 1000004)
+NORM_WIDE_ROWS = (1, 2, 37)
 TOL_KINDS = ("scalar", "row", "full")
 MASK_KINDS = ("none", "one", "all", "run3", "some_rows")
 UPDATE_SHAPES = ((5, 1), (300, 2), (37, 3), (37, 33), (37, 783), (37, 784), (37, 785),

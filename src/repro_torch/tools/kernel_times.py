@@ -52,6 +52,11 @@ sleep, CUDA events):
   f = 2, n = 200), float32 and float64, and at narrow rows (f = 2 to 128 at
   b = 1024, float32; ``error_norm`` with scalar tolerances), each body where
   the tree has two (``ms_by_body``);
+- ``error_norm`` on the rows its wide body takes (b x f = 2 x 5 242 880,
+  1 x 3 213 072, 37 x 4097, 1024 x 8192), float32 and float64, by every
+  body that takes the width, beside the plain version;
+- ``flash_attention_bwd`` at ``tools/attn_checks.py``'s two training layers
+  in bfloat16, by body, beside SDPA's backward;
 - ``fused_event_detect`` (``tools/event_checks.py``'s inputs) at
   full_width_long_events' shape (b = 1024, E = 2), vdp_marker's (b = 256, E
   = 1) and at E = 64 (b = 1024), float32 and float64;
@@ -280,6 +285,55 @@ def main(argv=None) -> int:
             by_body(lambda **body: cuda_impl.interp_eval(coeffs, xw, mw, out, cursor, **body),
                     interp_bodies, kernel="interp_eval",
                     shape=f"b={b} f={f} n={n} window W={W} mask=3 of W", dtype=dt)
+
+    # error_norm on the rows the wide body takes -- the ODE-depth LM's (2 x
+    # 5 242 880), the joint backsolve's (1 x 3 213 072), one entry past the
+    # row body's widest (37 x 4097) and many rows (1024 x 8192) -- float32
+    # and float64, scalar tolerances, by every body that takes the width,
+    # beside the plain version.
+    wide_shapes = ((2, 5242880), (1, 3213072), (37, 4097), (1024, 8192))
+    for (b, f), dtype in itertools.product(wide_shapes, (torch.float32, torch.float64)):
+        if not want("error_norm") or "wide" not in norm_bodies:
+            break
+        gen = torch.Generator(device=dev).manual_seed(f)
+        err, y0, y1 = (torch.randn(b, f, generator=gen, device=dev, dtype=dtype)
+                       for _ in range(3))
+        err *= 1e-5
+        ms_by_body = {}
+        for body in norm_bodies:
+            try:
+                cuda_impl.check_error_norm_body(body, f)
+            except ValueError:
+                continue
+            ms_by_body[body] = median_ms(lambda body=body: cuda_impl.error_norm(
+                err, y0, y1, 1e-5, 1e-5, body=body))
+        emit(kernel="error_norm", shape=f"b={b} f={f} tol=scalar", dtype=str(dtype)[6:],
+             body=cuda_impl.error_norm_body(f), ms_by_body=ms_by_body,
+             plain_ms=median_ms(lambda: ref.error_norm(err, y0, y1, 1e-5, 1e-5)))
+        del err, y0, y1
+
+    # The attention backward at the two training layers (bf16; attn_checks'
+    # LAYERS) by every body it has, beside SDPA's backward on the same
+    # tensors.
+    from repro_torch.tools import attn_checks
+    bwd_bodies = tuple(getattr(cuda_impl, "FLASH_BWD_BODIES", ()))
+    for name, case in attn_checks.LAYERS.items() if want("flash_attention_bwd") else ():
+        b, sq, sk, H, KV, hd = case[:6]
+        q, k, v, do = attn_checks.inputs(sq + H, case, torch.bfloat16, dev)
+        o, lse = cuda_impl.flash_attention_fwd(q, k, v, lse=True)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        out_t = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+        do_t = do.transpose(1, 2).contiguous()
+        row = dict(kernel="flash_attention_bwd", shape=name, dtype="bfloat16",
+                   ms=median_ms(lambda: cuda_impl.flash_attention_bwd(q, k, v, o, lse, do)),
+                   sdpa_backward_ms=median_ms(lambda: torch.autograd.grad(
+                       out_t, (qt, kt, vt), do_t, retain_graph=True)))
+        if bwd_bodies:
+            row["ms_by_body"] = {body: median_ms(lambda body=body: cuda_impl.flash_attention_bwd(
+                q, k, v, o, lse, do, body=body)) for body in bwd_bodies}
+        emit(**row)
+        del q, k, v, do, o, lse, qt, kt, vt, out_t, do_t
 
     # The fused step kernels: fused_step_poly and fused_step by body where
     # the tree has two (a tree with one times its only body).

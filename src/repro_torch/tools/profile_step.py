@@ -102,7 +102,10 @@ KERNELS = ("stage_accum_kernel", "fused_update_kernel", "error_norm_kernel",
            "linsolve_kernel", "newton_iter_kernel", "newton_iter_panel_kernel",
            "newton_iter_warp_kernel", "newton_update_kernel",
            "lu_pivot_kernel", "lu_update_kernel", "substitute_kernel", "lu_factor_staged_kernel",
-           "linsolve_staged_kernel", "flash_fwd_kernel", "flash_fwd_wgmma_kernel")
+           "linsolve_staged_kernel", "flash_fwd_kernel", "flash_fwd_wgmma_kernel",
+           "error_norm_scaled_kernel", "error_norm_fold_kernel", "flash_bwd_delta_kernel",
+           "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_wgmma_kernel",
+           "flash_bwd_dq_wgmma_kernel")
 
 
 def _sync_ms(fn, reps=1):

@@ -1,12 +1,13 @@
 """The choice of body or path of the kernels that have more than one, on
-the CPU: ``cuda_impl.flash_body`` (the attention's wgmma or FFMA body),
-``cuda_impl.lu_path`` (the elimination staged in shared memory, in device
-memory, or column by column over the card), ``cuda_impl.newton_iter_body``
-(``fused_newton_iter``'s panel or column substitution) and
-``cuda_impl.fused_step_poly_body`` and ``cuda_impl.fused_step_body`` (a
-warp or a block per row), ``cuda_impl.error_norm_body`` (a warp or a block
-per row) and ``cuda_impl.interp_eval_body`` (a thread per cell or a block per
-row), on every
+the CPU: ``cuda_impl.flash_body`` and ``cuda_impl.flash_bwd_body`` (the
+attention's and its backward's wgmma or FFMA body), ``cuda_impl.lu_path``
+(the elimination staged in shared memory, in device memory, or column by
+column over the card), ``cuda_impl.newton_iter_body`` (``fused_newton_iter``'s
+panel or column substitution) and ``cuda_impl.fused_step_poly_body`` and
+``cuda_impl.fused_step_body`` (a warp or a block per row),
+``cuda_impl.error_norm_body`` (a warp or a block per row, or the wide body's
+two passes) and ``cuda_impl.interp_eval_body`` (a thread per cell or a block
+per row), on every
 boundary, and the wrappers' own checks, which raise ``ValueError`` wherever
 the C entries would refuse a body or path -- before any launch, so a refusal
 never reaches the card.  Also ``cuda_impl.direction_masks``, the host's
@@ -20,6 +21,7 @@ bodies.
 """
 
 import math
+import pathlib
 from unittest import mock
 
 import numpy as np
@@ -80,6 +82,61 @@ class TestFlashBody:
         for body in ("wgmma", "ffma", None):
             with pytest.raises(ValueError, match="CUDA tensors"):
                 cuda_impl.flash_attention_fwd(q, k, k, body=body)
+
+
+class TestFlashBwdBody:
+    """The attention backward's body: wgmma for bfloat16 with hd <= 128, FFMA
+    elsewhere and for every shape, as the forward's."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("hd", HEAD_DIMS)
+    def test_selection_and_checks(self, hd, dtype):
+        body = cuda_impl.flash_bwd_body(hd, dtype)
+        want = "wgmma" if dtype == torch.bfloat16 and hd <= 128 else "ffma"
+        assert body == want
+        cuda_impl.check_flash_bwd_body(body, hd, dtype)
+        cuda_impl.check_flash_bwd_body("ffma", hd, dtype)
+        if want == "ffma":
+            with pytest.raises(ValueError, match="wgmma body takes bfloat16 with hd <= 128"):
+                cuda_impl.check_flash_bwd_body("wgmma", hd, dtype)
+        else:
+            cuda_impl.check_flash_bwd_body("wgmma", hd, dtype)
+
+    def test_unknown_body(self):
+        with pytest.raises(ValueError, match="unknown body"):
+            cuda_impl.check_flash_bwd_body("mma", 64, torch.bfloat16)
+
+    def test_bodies_are_numbered_as_the_entry_takes_them(self):
+        assert cuda_impl.FLASH_BWD_BODIES == {"wgmma": 0, "ffma": 1}
+        assert (cuda_impl.body_launches["flash_attention_bwd"].keys()
+                == cuda_impl.FLASH_BWD_BODIES.keys())
+
+    @staticmethod
+    def _args(hd, dtype, b=1, s=8, H=2, KV=1):
+        q = torch.zeros(b, s, H, hd, dtype=dtype)
+        k = torch.zeros(b, s, KV, hd, dtype=dtype)
+        return q, k, k, q, torch.zeros(b, H, s), q
+
+    @pytest.mark.parametrize("body, hd, dtype", [
+        ("wgmma", 64, torch.float32), ("mma", 64, torch.bfloat16), ("wgmma", 80, torch.float32),
+    ])
+    def test_wrapper_refuses_before_the_launch(self, body, hd, dtype):
+        before = dict(cuda_impl.launches)
+        with pytest.raises(ValueError, match="wgmma|unknown body"):
+            cuda_impl.flash_attention_bwd(*self._args(hd, dtype), body=body)
+        assert cuda_impl.launches == before
+
+    def test_wrapper_takes_a_valid_body_to_the_device_check(self):
+        for body in ("wgmma", "ffma", None):
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                cuda_impl.flash_attention_bwd(*self._args(80, torch.bfloat16), body=body)
+
+    def test_no_atomics(self):
+        """Both bodies sum in a fixed order (two launches, no atomics), so
+        every call gives the same bits."""
+        src = (pathlib.Path(cuda_impl.__file__).parent / "csrc" / "flash_attn_bwd.cu").read_text()
+        code = "\n".join(line.split("//")[0] for line in src.splitlines())
+        assert "atomic" not in code and "red." not in code
 
 
 def _staged_max(itemsize, with_rhs, limit):
@@ -429,19 +486,22 @@ class TestFusedStepBody:
 class TestDenseBodies:
     """``error_norm``'s body (the row body above ``NORM_WARP_MAX_F`` entries
     a row up to ``NORM_ROW_MAX_F``, whose row it holds in shared memory, the
-    warp body elsewhere) and ``interp_eval``'s (the cell body up to
+    wide body above that up to ``NORM_WIDE_MAX_F``, the warp body elsewhere)
+    and ``interp_eval``'s (the cell body up to
     ``INTERP_CELL_MAX_F``, the row body above; both take every width)."""
 
     @pytest.mark.parametrize("f", [1, 2, 16, 17, 31, 32, 33, 48, 63, 64, 65, 96, 128, 783,
-                                   784, 785, 4096, 4097, 10**6])
+                                   784, 785, 4096, 4097, 10**6, 5242880, 2**31 - 1, 2**31])
     def test_boundaries(self, f):
-        row = cuda_impl.NORM_WARP_MAX_F < f <= cuda_impl.NORM_ROW_MAX_F
-        assert cuda_impl.error_norm_body(f) == ("row" if row else "warp")
+        want = ("warp" if f <= cuda_impl.NORM_WARP_MAX_F else
+                "row" if f <= cuda_impl.NORM_ROW_MAX_F else
+                "wide" if f <= cuda_impl.NORM_WIDE_MAX_F else "warp")
+        assert cuda_impl.error_norm_body(f) == want
         assert cuda_impl.interp_eval_body(f) == ("cell" if f <= cuda_impl.INTERP_CELL_MAX_F
                                                  else "row")
 
     @pytest.mark.parametrize("f", [1, 64, 65, 4096, 4097, 10**6])
-    @pytest.mark.parametrize("body", ["warp", "row"])
+    @pytest.mark.parametrize("body", ["warp", "row", "wide"])
     def test_row_body_only_where_its_row_fits(self, f, body):
         """The warp body takes every width, the row body up to
         ``NORM_ROW_MAX_F`` entries (32 KB a row in float64, under the 48 KB a
@@ -454,6 +514,24 @@ class TestDenseBodies:
         else:
             cuda_impl.check_error_norm_body(body, f)
 
+    @pytest.mark.parametrize("f", [1, 4097, 2**31 - 1, 2**31, 2**40])
+    def test_wide_body_only_where_its_index_holds(self, f):
+        """The wide body takes every width its 32-bit column index holds; the
+        warp body takes the wider rows."""
+        if f > cuda_impl.NORM_WIDE_MAX_F:
+            with pytest.raises(ValueError, match="wide body"):
+                cuda_impl.check_error_norm_body("wide", f)
+            assert cuda_impl.error_norm_body(f) == "warp"
+        else:
+            cuda_impl.check_error_norm_body("wide", f)
+
+    @pytest.mark.parametrize("f, itemsize, want", [
+        (1, 4, 4), (4097, 4, 4100), (4100, 4, 4100), (4097, 8, 4098), (5242880, 4, 5242880),
+        (3213072, 8, 3213072)])
+    def test_wide_scratch_rows_start_aligned(self, f, itemsize, want):
+        width = cuda_impl.norm_scratch_width(f, itemsize)
+        assert width == want and width * itemsize % 16 == 0 and width >= f
+
     def test_main_shapes(self):
         """vdp_table3's two entries a row take the narrow bodies, full_width's
         784 the row bodies."""
@@ -461,11 +539,14 @@ class TestDenseBodies:
         assert cuda_impl.interp_eval_body(2) == "cell"
         assert cuda_impl.error_norm_body(784) == "row"
         assert cuda_impl.interp_eval_body(784) == "row"
+        # the joint backsolve's row at full_width, the ODE-depth LM's rows
+        assert cuda_impl.error_norm_body(3213072) == "wide"
+        assert cuda_impl.error_norm_body(2048 * 2560) == "wide"
         for limit in (cuda_impl.NORM_WARP_MAX_F, cuda_impl.INTERP_CELL_MAX_F):
             assert 2 <= limit < 784
 
     def test_bodies_are_numbered_as_the_entry_takes_them(self):
-        assert cuda_impl.ERROR_NORM_BODIES == {"warp": 0, "row": 1}
+        assert cuda_impl.ERROR_NORM_BODIES == {"warp": 0, "row": 1, "wide": 2}
         assert cuda_impl.INTERP_BODIES == {"cell": 0, "row": 1}
         for name, table in (("error_norm", cuda_impl.ERROR_NORM_BODIES),
                             ("interp_eval", cuda_impl.INTERP_BODIES)):
@@ -491,7 +572,7 @@ class TestDenseBodies:
             cuda_impl.interp_eval(*self._interp_args(), body=body)
         assert cuda_impl.launches == before
 
-    @pytest.mark.parametrize("body", ["warp", "row", None])
+    @pytest.mark.parametrize("body", ["warp", "row", "wide", None])
     def test_error_norm_takes_a_known_body_to_the_device_check(self, body):
         y = torch.ones(2, 3)
         with pytest.raises(ValueError, match="CUDA tensors"):

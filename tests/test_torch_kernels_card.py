@@ -591,11 +591,13 @@ def _dense_tensors(arrays, device):
 
 
 class TestErrorNormOnCard:
-    """``error_norm``'s two bodies against the plain version, bitwise to each
-    other, and bitwise to the ratio the fused step computes: at the widths
-    around its layout (``dense_checks.ERROR_NORM_WIDTHS``: rows sharing a
-    block, a warp, whole 16-byte chunks or not), every tolerance shape, and
-    with a plane one entry off a 16-byte boundary (entry by entry)."""
+    """``error_norm``'s three bodies against the plain version, bitwise to
+    each other, and bitwise to the ratio the fused step computes: at the
+    widths around its layout (``dense_checks.ERROR_NORM_WIDTHS``: rows
+    sharing a block, a warp, whole 16-byte chunks or not), every tolerance
+    shape, and with a plane one entry off a 16-byte boundary (entry by
+    entry); the wide body also at its own widths
+    (``dense_checks.NORM_WIDE_WIDTHS`` x ``NORM_WIDE_ROWS``)."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
     @pytest.mark.parametrize("f", dense_checks.ERROR_NORM_WIDTHS)
@@ -619,6 +621,7 @@ class TestErrorNormOnCard:
             assert cuda_impl.body_launches["error_norm"][body] == before + 1
             torch.testing.assert_close(got[body], want, rtol=tol, atol=tol)
         assert torch.equal(got["row"], got["warp"])
+        assert torch.equal(got["wide"], got["warp"])
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
     @pytest.mark.parametrize("f", dense_checks.ERROR_NORM_WIDTHS)
@@ -646,12 +649,53 @@ class TestErrorNormOnCard:
                     assert torch.equal(got, ratio), norm_body
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", dense_checks.NORM_WIDE_WIDTHS)
+    @pytest.mark.parametrize("b", dense_checks.NORM_WIDE_ROWS)
+    @pytest.mark.parametrize("tol_kind", dense_checks.TOL_KINDS)
+    def test_wide_body_bitwise(self, cuda_device, dtype, f, b, tol_kind):
+        """The wide body, chosen by ``error_norm_body``, bitwise to the warp
+        body and within rounding of the plain version."""
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        npdt = np.float32 if dtype == torch.float32 else np.float64
+        args = _dense_tensors(dense_checks.norm_inputs(f + b, b, f, npdt, tol_kind),
+                              cuda_device)
+        assert cuda_impl.error_norm_body(f) == "wide"
+        before = cuda_impl.body_launches["error_norm"]["wide"]
+        wide = cuda_impl.error_norm(*args)
+        assert cuda_impl.body_launches["error_norm"]["wide"] == before + 1
+        assert torch.equal(wide, cuda_impl.error_norm(*args, body="warp"))
+        torch.testing.assert_close(wide, tref.error_norm(*args), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("f", [4097, 9001])
+    def test_wide_body_fused_ratio_bitwise(self, cuda_device, dtype, f):
+        """The wide body patched into the unfused card path gives bitwise the
+        err_ratio of both of fused_step's bodies."""
+        b = 37
+        y, K, f1, cols, _, _, kw = _step_case(cuda_device, dtype, b, f, "dopri5", b + f)
+        kw = dict(kw, want_coeffs=False)
+        for atol, rtol in _tol_shapes(b, f, dtype, cuda_device):
+            args = (y, K, f1, *cols, atol, rtol)
+            fused = [cuda_impl.fused_step(*args, body=body, **kw)[1]
+                     for body in cuda_impl.STEP_BODIES]
+
+            def unfused():
+                norm = lambda *a: cuda_impl.error_norm(*a, body="wide")  # noqa: E731
+                with mock.patch.object(tref, "error_norm", norm):
+                    return tref.fused_step(*args, **kw)
+
+            ratio = unfused_card(unfused)[1]
+            for got in fused:
+                assert torch.equal(got, ratio)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
     @pytest.mark.parametrize("tol_kind", dense_checks.TOL_KINDS)
     def test_widest_rows(self, cuda_device, dtype, tol_kind):
         """At ``NORM_ROW_MAX_F`` entries (the widest row the row body holds in
-        shared memory) both bodies give the same bits; one entry wider, and at
-        9001, the warp body runs and the row body is refused, by the wrapper
-        before any launch and by the C entry."""
+        shared memory) the three bodies give the same bits; one entry wider,
+        and at 9001, the wide body runs, bitwise the warp body's, and the row
+        body is refused, by the wrapper before any launch and by the C
+        entry."""
         tol = 1e-5 if dtype == torch.float32 else 1e-12
         npdt = np.float32 if dtype == torch.float32 else np.float64
         for f in (cuda_impl.NORM_ROW_MAX_F, cuda_impl.NORM_ROW_MAX_F + 1, 9001):
@@ -660,6 +704,7 @@ class TestErrorNormOnCard:
             want = tref.error_norm(*args)
             warp = cuda_impl.error_norm(*args, body="warp")
             torch.testing.assert_close(warp, want, rtol=tol, atol=tol)
+            assert torch.equal(cuda_impl.error_norm(*args, body="wide"), warp)
             if f <= cuda_impl.NORM_ROW_MAX_F:
                 assert torch.equal(cuda_impl.error_norm(*args, body="row"), warp)
                 continue
@@ -667,21 +712,27 @@ class TestErrorNormOnCard:
             with pytest.raises(ValueError, match="row body"):
                 cuda_impl.error_norm(*args, body="row")
             assert cuda_impl.launches == before
+            wide = cuda_impl.body_launches["error_norm"]["wide"]
             assert torch.equal(cuda_impl.error_norm(*args), warp)
+            assert cuda_impl.body_launches["error_norm"]["wide"] == wide + 1
         y = torch.ones(2, cuda_impl.NORM_ROW_MAX_F + 1, device=cuda_device)
-        assert _build.load().rt_error_norm(
+        lib, stream = _build.load(), cuda_impl._stream(cuda_device)
+        assert lib.rt_error_norm(
             0, cuda_impl.ERROR_NORM_BODIES["row"], y.data_ptr(), y.data_ptr(), y.data_ptr(),
-            None, 1e-6, 0, 0, None, 1e-3, 0, 0, y.data_ptr(), 2, y.shape[1],
-            cuda_impl._stream(cuda_device)) != 0
+            None, 1e-6, 0, 0, None, 1e-3, 0, 0, None, y.data_ptr(), 2, y.shape[1], stream) != 0
+        # the wide body without its scratch
+        assert lib.rt_error_norm(
+            0, cuda_impl.ERROR_NORM_BODIES["wide"], y.data_ptr(), y.data_ptr(), y.data_ptr(),
+            None, 1e-6, 0, 0, None, 1e-3, 0, 0, None, y.data_ptr(), 2, y.shape[1], stream) != 0
 
     def test_entry_refuses_an_unknown_body(self, cuda_device):
         y = torch.ones(2, 4, device=cuda_device)
         with pytest.raises(ValueError, match="unknown body"):
             cuda_impl.error_norm(y, y, y, 1e-6, 1e-3, body="block")
         lib = _build.load()
-        assert lib.rt_error_norm(0, 2, y.data_ptr(), y.data_ptr(), y.data_ptr(), None, 1e-6,
-                                 0, 0, None, 1e-3, 0, 0, y.data_ptr(), 2, 4,
-                                 cuda_impl._stream(cuda_device)) != 0
+        assert lib.rt_error_norm(0, len(cuda_impl.ERROR_NORM_BODIES), y.data_ptr(),
+                                 y.data_ptr(), y.data_ptr(), None, 1e-6, 0, 0, None, 1e-3, 0, 0,
+                                 None, y.data_ptr(), 2, 4, cuda_impl._stream(cuda_device)) != 0
 
 
 def _interp_case(device, dtype, b, n, f, kind, seed):

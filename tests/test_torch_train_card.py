@@ -4,9 +4,11 @@ train step.
 - ``flash_attention_bwd`` against its plain version on the same card
   tensors by ``tools/attn_checks.hold`` (float32 within 1e-4 of the largest
   entry; bfloat16 within 2x the plain bf16 version's error against a float64
-  oracle) over ``attn_checks.CASES`` and stablelm-3b's layer, the forward's
-  ``lse`` within 1e-5 of the plain forward's and its output bitwise the same
-  with and without ``lse``;
+  oracle) over ``attn_checks.CASES`` and both ``LAYERS``, each dtype on the
+  body ``flash_bwd_body`` picks (bf16: wgmma) and bf16 on the FFMA body too,
+  the forward's ``lse`` within 1e-5 of the plain forward's and its output
+  bitwise the same with and without ``lse``; two wgmma calls at
+  stablelm-3b's layer bitwise equal;
 - ``ops.flash_attention_fwd`` under grad goes through
   ``autograd.FlashAttention``: one forward and one backward launch, the
   gradients those of the plain pair on the card; the raw wrappers refuse
@@ -49,10 +51,29 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", attn_checks.CASES + [attn_checks.LAYERS["stablelm-3b_train"]])
+@pytest.mark.parametrize("case", attn_checks.CASES + list(attn_checks.LAYERS.values()))
 def test_backward_against_plain(cuda_device, dtype, case):
     q, k, v, do = attn_checks.inputs(sum(case[:6]), case, dtype, cuda_device)
+    before = dict(cuda_impl.body_launches["flash_attention_bwd"])
     attn_checks.hold(str(case), case, dtype, q, k, v, do)
+    body = cuda_impl.flash_bwd_body(case[5], dtype)
+    assert cuda_impl.body_launches["flash_attention_bwd"][body] == before[body] + 1
+
+
+@pytest.mark.parametrize("case", attn_checks.CASES + [attn_checks.LAYERS["stablelm-3b_train"]])
+def test_ffma_body_in_bf16(cuda_device, case):
+    q, k, v, do = attn_checks.inputs(sum(case[:6]), case, torch.bfloat16, cuda_device)
+    attn_checks.hold(str(case), case, torch.bfloat16, q, k, v, do, body="ffma")
+
+
+def test_wgmma_backward_is_bitwise_repeatable(cuda_device):
+    """No floating-point atomics: two calls give the same bits."""
+    case = attn_checks.LAYERS["stablelm-3b_train"]
+    q, k, v, do = attn_checks.inputs(5, case, torch.bfloat16, cuda_device)
+    o, lse = cuda_impl.flash_attention_fwd(q, k, v, lse=True)
+    first = cuda_impl.flash_attention_bwd(q, k, v, o, lse, do, body="wgmma")
+    second = cuda_impl.flash_attention_bwd(q, k, v, o, lse, do, body="wgmma")
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_function_on_card(cuda_device):
@@ -82,6 +103,10 @@ def test_bad_inputs_raise(cuda_device):
         cuda_impl.flash_attention_bwd(q, q, q, q, lse.double(), q)
     with pytest.raises(RuntimeError, match="autograd Function"):
         cuda_impl.flash_attention_bwd(q.clone().requires_grad_(), q, q, q, lse, q)
+    before = dict(cuda_impl.launches)
+    with pytest.raises(ValueError, match="wgmma body"):
+        cuda_impl.flash_attention_bwd(q, q, q, q, lse, q, body="wgmma")
+    assert cuda_impl.launches == before
 
 
 def _batches(cfg, n, device):
