@@ -124,7 +124,33 @@ raises, and the script exits non-zero without printing a result:
                    prefill(s) + decode_step against prefill(s + 1) and the
                    kernel's prefill against the plain attention's, each
                    within 0.1 of the logits' RMS.
-11. ``train_lm``   the LM training path (``launch/train``, ``train/steps``,
+11. ``lm_kinds``   the block kinds beyond the dense decoder
+                   (``models/{moe,ssm,xlstm,frontends}.py``): the reduced
+                   deepseek-moe-16b, kimi-k2, jamba, xlstm-350m,
+                   whisper-large-v3 and llava-next-34b in float32 on the
+                   card against the CPU (the same weights and frontend
+                   embeddings; prefill, four decode steps, prefill/decode
+                   consistency, within 1e-4; one flash launch per attention
+                   layer per prefill, the encoder's and the cross
+                   attention's included, none per decode step); then at
+                   full width in bf16, weights drawn on the card from seed
+                   0, each served once through ``serve.run`` (32 tokens):
+                   deepseek-moe-16b (28 layers, 4 x 2048), one period of
+                   jamba (8 of 32 layers, 2 x 2048), xlstm-350m (24 layers,
+                   4 x 2048), whisper-large-v3 (32 + 32 layers, 4 x 1500
+                   audio frames and tokens) and llava-next-34b (4 of 60
+                   layers, 4 x 2048, the first 576 positions image
+                   embeddings): params, init seconds, prefill ms, decode ms
+                   per token, tokens/s, peak memory above start, exact
+                   flash launches (28, 1, 0, 96, 4) all on the wgmma body,
+                   finite logits, prefill(s) + decode against prefill(s + 1)
+                   (xlstm: 256 decode steps, its mLSTM chunk; MoE layers at
+                   capacity_factor = E / k, so that prefill drops nothing)
+                   and the kernel's prefill against the plain attention's,
+                   within 0.1 of the logits' RMS; the share of dropped
+                   (token, expert) assignments per MoE layer at the served
+                   config, sLSTM's seconds and share of the xlstm prefill.
+12. ``train_lm``   the LM training path (``launch/train``, ``train/steps``,
                    ``optim``, ``checkpoint``, ``models/node.py``), after the
                    lm phase's model is freed: the CUDA attention backward
                    (``flash_attention_bwd``) against its plain version by
@@ -157,7 +183,7 @@ raises, and the script exits non-zero without printing a result:
                    at that width.  Then a checkpoint after step 2 restored
                    into a fresh state: steps 3-4 bitwise the uninterrupted
                    run's (reduced stablelm-3b on the card).
-12. ``grad``       gradients on the card (``kernels/autograd.py``,
+13. ``grad``       gradients on the card (``kernels/autograd.py``,
                    ``ScanAdjoint``, ``BacksolveAdjoint``): each of the four
                    Functions' backwards against ``torch.autograd.grad`` of
                    the plain op on the card, on the same inputs
@@ -218,7 +244,7 @@ raises, and the script exits non-zero without printing a result:
                    solve's iterations + 4) unfused and factor-once, two
                    runs each, exact launches, finite, peak memory under
                    16 GB.
-13. ``serve_ode``  request serving (``core/serving.py``: ``SolveService``):
+14. ``serve_ode``  request serving (``core/serving.py``: ``SolveService``):
                    ``serve_checks.make_stream`` (decay, features 2/3/5,
                    every third request dense) in float64 on the card and on
                    the CPU (equal status and counts, ys within 1e-9); the
@@ -241,7 +267,8 @@ raises, and the script exits non-zero without printing a result:
 
 The ``kernels`` phase also holds ``flash_attention_fwd`` to its plain version
 (float32 at 2e-5, bfloat16 at 3e-2) over ragged, ``q_offset``, MQA, hd = 80
-and bidirectional cases -- the wgmma body for bfloat16 with hd <= 128, the
+and bidirectional cases and the lm_kinds heads (20 x 64 with sq != sk, 16 x
+128, 64 / 8 x 112) -- the wgmma body for bfloat16 with hd <= 128, the
 FFMA body otherwise, each counted -- times it at qwen2.5-14b's layer (with
 ``scaled_dot_product_attention`` as the library yardstick), holds the
 elimination staged in shared memory bitwise to the device-memory one (the
@@ -290,6 +317,8 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -359,7 +388,8 @@ MAIN_SHAPE["flash_attention_bwd"] = "stablelm-3b_train"
 MAIN_DTYPE = {"flash_attention_fwd": "bfloat16", "flash_attention_bwd": "bfloat16"}
 # The flash kernel against its plain version (b, sq, sk, H, KV, hd, causal,
 # q_offset): tests/test_flash_kernel.py's CASES, ragged lengths,
-# chunked-prefill continuations, hd = 80 (stablelm-3b), bidirectional.
+# chunked-prefill continuations, hd = 80 (stablelm-3b), bidirectional, and
+# the head shapes of the configs beyond the dense ones.
 FLASH_CASES = [
     (1, 32, 32, 2, 2, 8, True, 0), (2, 64, 64, 4, 2, 16, True, 0),
     (1, 64, 64, 4, 4, 16, False, 0), (2, 128, 128, 8, 2, 32, True, 0),
@@ -367,6 +397,10 @@ FLASH_CASES = [
     (2, 37, 45, 4, 2, 16, True, 8), (1, 13, 45, 4, 2, 16, True, 32),
     (1, 37, 45, 4, 4, 16, False, 0), (1, 100, 300, 8, 2, 128, True, 200),
     (2, 129, 129, 32, 32, 80, True, 0), (1, 77, 77, 4, 4, 80, False, 0),
+    # the lm_kinds phase's heads: whisper's 20 x 64 (bidirectional; its cross
+    # attention has sq != sk), deepseek-moe-16b's 16 x 128, kimi-k2's 64 / 8 x 112
+    (1, 100, 150, 20, 20, 64, False, 0), (1, 130, 130, 16, 16, 128, True, 0),
+    (1, 96, 96, 64, 8, 112, True, 0),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # the reference's own tolerances
 
@@ -2102,7 +2136,8 @@ def main() -> int:
     serve_args = argparse.Namespace(arch="qwen2.5-14b", reduced=False, batch=4,
                                     prompt_len=2048, gen=32, seed=0, model_parallel=1,
                                     device="cuda")
-    serve.run(serve_args, model=lm)  # warm-up: kernels built, cuBLAS plans made
+    # warm-up (kernels built, cuBLAS plans made): one prefill, one decode step
+    serve.run(argparse.Namespace(**{**vars(serve_args), "gen": 2}), model=lm)
     finite = {"all": torch.ones((), dtype=torch.bool, device=dev), "steps": 0}
 
     def record(step, logits):
@@ -2168,17 +2203,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("lm")
-    # ----------------------------------------------------------- 11. train_lm
+    # ---------------------------------------------------------- 11. lm_kinds
+    lm_kinds_phase(dev, reset_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lap("lm_kinds")
+    # ----------------------------------------------------------- 12. train_lm
     train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches)
     torch.cuda.empty_cache()
 
     lap("train_lm")
-    # --------------------------------------------------------------- 12. grad
+    # --------------------------------------------------------------- 13. grad
     grad_phase(dev, median_ms, reset_launches)
     torch.cuda.empty_cache()
 
     lap("grad")
-    # ----------------------------------------------------------- 13. serve_ode
+    # ----------------------------------------------------------- 14. serve_ode
     serve_phase(dev, smi, reset_launches, expected_launches)
     torch.cuda.empty_cache()
 
@@ -2248,8 +2289,245 @@ def main() -> int:
     return 0
 
 
+# The lm_kinds phase: the configs beyond the dense decoder, reduced (card
+# against CPU) and at full width (arch, layers kept or None for all, batch,
+# prompt).  jamba's 32 layers (51.3e9 parameters, 102.6 GB in bf16) do not
+# fit one 80 GB card, nor llava's 60 (67.9 GB) beside a prefill: one period
+# of jamba's 8 and 4 of llava's layers serve.  kimi-k2 runs reduced only.
+KIND_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b", "jamba-v0.1-52b", "xlstm-350m",
+              "whisper-large-v3", "llava-next-34b")
+KIND_SERVES = (("deepseek-moe-16b", None, 4, 2048), ("jamba-v0.1-52b", 8, 2, 2048),
+               ("xlstm-350m", None, 4, 2048), ("whisper-large-v3", None, 4, 1500),
+               ("llava-next-34b", 4, 4, 2048))
+
+
+def flash_layers(cfg):
+    """Flash launches a prefill of ``cfg`` makes: one per attention layer,
+    the encoder's and the cross attention's included."""
+    n = sum(kind.startswith("attn") for kind in cfg.pattern) * cfg.n_periods
+    if cfg.enc_dec:
+        n += cfg.n_periods + sum(kind == "attn_cross_mlp" for kind in cfg.pattern) * cfg.n_periods
+    return n
+
+
+def lm_kinds_phase(dev, reset_launches):
+    """Phase 11, ``lm_kinds``: MoE, Mamba, xLSTM, the encoder-decoder and
+    image tokens (``models/{moe,ssm,xlstm,frontends}.py``) through the
+    serving path (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_impl, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, param_count, transformer
+    from repro_torch.models import attention as model_attention
+    from repro_torch.models.frontends import fake_audio_embeds, fake_img_embeds
+    from repro_torch.models.moe import MoE, expert_capacity, route
+
+    def frontend(cfg, b, s, device):
+        out = {}
+        if cfg.n_img_tokens:
+            out["img_embeds"] = fake_img_embeds(cfg, b, device=device)
+        if cfg.enc_dec:
+            out["audio_embeds"] = fake_audio_embeds(cfg, b, s, device=device)
+        return out
+
+    def want_launches(cfg):
+        want = dict.fromkeys(ops.launches, 0)
+        want["flash_attention_fwd"] = flash_layers(cfg)
+        return want
+
+    # (a) The six reduced configs in float32, the same weights (drawn on the
+    # CPU from seed 0) and frontend embeddings on the card and on the CPU:
+    # prefill logits and four decode steps within 1e-4, prefill(s) + decode
+    # within 1e-4 of prefill(s + 1), one flash launch per attention layer
+    # per prefill (whisper: encoder, decoder and cross) and none per decode
+    # step.  They also warm the full-width runs up.
+    for arch in KIND_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        cpu_lm = LM(cfg, device="cpu", seed=0)
+        card_lm = LM(cfg, device=dev)
+        card_lm.load_state_dict(cpu_lm.state_dict())
+        tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 45)))
+        emb = frontend(cfg, 2, 37, "cpu")
+        card_emb = {k: v.to(dev) for k, v in emb.items()}
+        reset_launches()
+        lg, cache = card_lm.prefill({"tokens": tok[:, :37].to(dev), **card_emb})
+        lg_cpu, cache_cpu = cpu_lm.prefill({"tokens": tok[:, :37], **emb})
+        diffs = [float((lg.cpu() - lg_cpu).abs().max())]
+        cache, cache_cpu = card_lm.pad_cache(cache, 41), cpu_lm.pad_cache(cache_cpu, 41)
+        for i in range(4):
+            pos = torch.full((2,), 37 + i)
+            lg, cache = card_lm.decode_step(tok[:, 37 + i].to(dev), pos.to(dev), cache)
+            lg_cpu, cache_cpu = cpu_lm.decode_step(tok[:, 37 + i], pos, cache_cpu)
+            diffs.append(float((lg.cpu() - lg_cpu).abs().max()))
+        launches = dict(ops.launches)
+        check(launches == want_launches(cfg),
+              f"lm_kinds/{arch}: launches {launches}, want {flash_layers(cfg)} flash launches "
+              "per prefill and none per decode step")
+        full_lg, _ = card_lm.prefill({"tokens": tok[:, :41].to(dev), **card_emb})
+        consistency = float((lg - full_lg).abs().max())
+        check(max(diffs) <= 1e-4 and consistency <= 1e-4,
+              f"lm_kinds/{arch}: card vs cpu {diffs}, prefill/decode consistency {consistency}")
+        emit("lm_kinds", arch=cfg.name, dtype="float32", b=2, prompt=37, decode_steps=4,
+             card_vs_cpu_max_abs_diff=diffs, decode_vs_prefill_max_abs_diff=consistency,
+             flash_launches_per_prefill=flash_layers(cfg))
+        del cpu_lm, card_lm, cache, cache_cpu
+
+    # (b) Full width in bf16, weights drawn on the card from seed 0, each
+    # served once through serve.run (32 tokens) after the previous model is
+    # freed: every logit finite, exact launches, every flash launch on the
+    # wgmma body.  Then prefill(s) + n decode steps against prefill(s + n)
+    # (n = 1; xlstm n = 256, since its mLSTM chunks of 256 must divide s),
+    # the MoE layers at capacity_factor = E / k (C = T: prefill drops no
+    # token, as decode never does), and the prefill with the kernel against
+    # the same prefill with the plain attention, both within 0.1 of the
+    # logits' RMS; the share of (token, expert) assignments dropped per MoE
+    # layer at the served config, and sLSTM's share of the xlstm prefill.
+    def rel(a, c):
+        return float((a.float() - c.float()).norm() / c.float().norm())
+
+    for arch, layers, b, plen in KIND_SERVES:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t_arch = time.perf_counter()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lm = LM(cfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        args = argparse.Namespace(arch=arch, reduced=False, batch=b, prompt_len=plen, gen=32,
+                                  seed=0, model_parallel=1, device="cuda")
+        finite = {"all": torch.ones((), dtype=torch.bool, device=dev), "steps": 0}
+
+        def record(step, logits):
+            finite["all"] &= torch.isfinite(logits).all()
+            finite["steps"] += 1
+
+        reset_launches()
+        out = serve.run(args, model=lm, record=record)
+        launches = dict(ops.launches)
+        bodies = dict(cuda_impl.body_launches["flash_attention_fwd"])
+        peak = torch.cuda.max_memory_allocated() - start
+        check(launches == want_launches(cfg),
+              f"lm_kinds/{arch}: launches {launches}, want {flash_layers(cfg)} flash launches")
+        check(bodies == {"wgmma": flash_layers(cfg), "ffma": 0},
+              f"lm_kinds/{arch}: flash bodies {bodies}, want every launch on the wgmma body")
+        check(bool(finite["all"]) and finite["steps"] == args.gen,
+              f"lm_kinds/{arch}: a logit is not finite")
+        gen = args.gen
+        emit("lm_kinds", arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+             depth_cut=(f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
+                        if layers is not None else None),
+             b=b, prompt=plen, gen=gen, params=param_count(lm), init_s=init_s,
+             prefill_ms=out["prefill_s"] * 1e3,
+             decode_ms_per_token=out["decode_s"] * 1e3 / (gen - 1),
+             tokens_per_s=(gen - 1) * b / out["decode_s"],
+             prefill_tokens_per_s=b * plen / out["prefill_s"], max_memory_above_start=peak,
+             launches=launches, flash_bodies=bodies, logits_finite=True,
+             sample=out["tokens"][0, :8].tolist())
+
+        g = torch.Generator(device=dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (b, plen), device=dev, generator=g)
+        emb = frontend(cfg, b, plen, dev)
+        moes = [m for m in lm.modules() if isinstance(m, MoE)]
+        if moes:
+            no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            check(expert_capacity(no_drop, b * plen) == b * plen, f"{arch}: C != T")
+            for m in moes:
+                m.cfg = no_drop
+        # xlstm: its mLSTM chunks of 256 must divide s, so 256 decode steps;
+        # and its random stack is chaotic in bf16 (its bf16 prefill is ~0.9
+        # of the logits' RMS from the float32 prefill of the same weights,
+        # printed below), so the check runs on a float32 copy.
+        n, check_lm = 1, lm
+        if "mlstm" in cfg.pattern:
+            n, check_lm = 256, LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
+            check_lm.load_state_dict(lm.state_dict())
+        reset_launches()
+        lg_s, cache = check_lm.prefill({"tokens": prompts[:, :plen - n], **emb})
+        cache = check_lm.pad_cache(cache, plen)
+        for i in range(plen - n, plen):
+            lg_dec, cache = check_lm.decode_step(
+                prompts[:, i].to(torch.int32), torch.full((b,), i, dtype=torch.int32, device=dev),
+                cache)
+        check(ops.launches["flash_attention_fwd"] == flash_layers(cfg),
+              f"lm_kinds/{arch}: a decode step launched flash")
+        del cache
+        lg_full, _ = check_lm.prefill({"tokens": prompts[:, :plen], **emb})
+        del check_lm
+        for m in moes:
+            m.cfg = cfg
+        decode_rel = rel(lg_dec, lg_full)
+
+        # The served config again: the drops of each MoE layer, the sLSTM
+        # layers' seconds, then the same prefill with the plain attention.
+        drops = []
+
+        def count_drops(mod, inputs, _out):
+            _, _, topi = route(mod.cfg, mod, inputs[0])
+            counts = torch.bincount(topi.reshape(-1), minlength=mod.cfg.moe.n_experts)
+            C = expert_capacity(mod.cfg, inputs[0].shape[0])
+            drops.append((counts - C).clamp(min=0).sum() / topi.numel())
+
+        hooks = [m.register_forward_hook(count_drops) for m in moes]
+        slstm_s = [0.0]
+        name, weights, slstm_prefill, decode = transformer.RECURRENT["slstm"]
+
+        def timed_slstm(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = slstm_prefill(*a)
+            torch.cuda.synchronize()
+            slstm_s[0] += time.perf_counter() - t
+            return result
+
+        with mock.patch.dict(transformer.RECURRENT, {"slstm": (name, weights, timed_slstm, decode)}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg_served, _ = lm.prefill({"tokens": prompts, **emb})
+            torch.cuda.synchronize()
+            served_s = time.perf_counter() - t0
+        for hook in hooks:
+            hook.remove()
+        plain_rel = None
+        if flash_layers(cfg):
+            with mock.patch.object(model_attention.ops, "flash_attention_fwd",
+                                   side_effect=lambda q, k, v, **kw: ref.flash_attention_fwd(
+                                       q, k, v, **kw)):
+                lg_plain, _ = lm.prefill({"tokens": prompts, **emb})
+            plain_rel = rel(lg_served, lg_plain)
+            check(bool(torch.isfinite(lg_plain).all()), f"lm_kinds/{arch}: non-finite plain")
+        check(all(bool(torch.isfinite(x).all()) for x in (lg_s, lg_dec, lg_full, lg_served)),
+              f"lm_kinds/{arch}: non-finite logits")
+        check(decode_rel <= 0.1 and (plain_rel is None or plain_rel <= 0.1),
+              f"lm_kinds/{arch}: decode vs prefill {decode_rel}, kernel vs plain attention "
+              f"{plain_rel} (> 0.1)")
+        top1 = float((lg_dec.argmax(-1) == lg_full.argmax(-1)).float().mean())
+        emit("lm_kinds", arch=cfg.name,
+             check=f"prefill(s) + {n} decode steps vs prefill(s + {n}) (MoE: C = T; xlstm: "
+             "float32); kernel vs plain attention at the served config", s=plen - n, bound=0.1,
+             decode_vs_prefill_rel=decode_rel, top1_agreement=top1,
+             bf16_vs_float32_prefill_rel=rel(lg_served, lg_full) if n > 1 else None,
+             kernel_vs_plain_prefill_rel=plain_rel,
+             logits_rms=float(lg_full.float().pow(2).mean().sqrt()),
+             moe_dropped_share_by_layer=[float(d) for d in drops] or None,
+             moe_capacity=expert_capacity(cfg, b * plen) if moes else None,
+             prefill_s=served_s, slstm_s=slstm_s[0] if "slstm" in cfg.pattern else None,
+             slstm_share=slstm_s[0] / served_s if "slstm" in cfg.pattern else None,
+             seconds=time.perf_counter() - t_arch)
+        del lm, lg_s, lg_dec, lg_full, lg_served, emb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches):
-    """Phase 11, ``train_lm``: the LM training path on the card (see the
+    """Phase 12, ``train_lm``: the LM training path on the card (see the
     module docstring).  ``median_ms``, ``bound_ms``, ``measure`` and
     ``reset_launches`` are main's; the full-width run's launches go into
     ``main_path_launches["train_lm/a"]``."""
@@ -2714,7 +2992,7 @@ def compiled_phase(dev, smi, reset_launches, expected_launches):
 
 
 def grad_phase(dev, median_ms, reset_launches):
-    """Phase 12, ``grad``: the gradient path on the card (see the module
+    """Phase 13, ``grad``: the gradient path on the card (see the module
     docstring).  ``median_ms`` and ``reset_launches`` are main's."""
     import warnings
 
@@ -2978,7 +3256,7 @@ def grad_phase(dev, median_ms, reset_launches):
 
 
 def grad_paths(dev, median_ms, reset_launches):
-    """Phase 12, ``grad``, the paths that differentiate through the nine
+    """Phase 13, ``grad``, the paths that differentiate through the nine
     backwards of ``fused_step``, ``fused_step_poly``, the event kernels and
     the Newton kernels (see the module docstring).  ``median_ms`` and
     ``reset_launches`` are main's."""
@@ -3305,7 +3583,7 @@ def grad_paths(dev, median_ms, reset_launches):
 
 
 def serve_phase(dev, smi, reset_launches, expected_launches):
-    """Phase 13, ``serve_ode``: the request service on the card (see the
+    """Phase 14, ``serve_ode``: the request service on the card (see the
     module docstring).  ``smi`` is the card's name and power limit;
     ``reset_launches`` and ``expected_launches`` are main's."""
     import numpy as np

@@ -1,9 +1,8 @@
 """Architecture registry: one module per assigned arch, each exporting
 ``CONFIG`` (the exact published geometry) and ``REDUCED`` (a same-family
 small config for CPU smoke tests), copied as data from the JAX package's
-``configs/``.  Of the kinds they use, the port builds ``attn_mlp`` and
-``attn_bidir_mlp`` (``models/transformer.py``); a model of another kind
-raises ``NotImplementedError`` (ROADMAP A-17)."""
+``configs/``.  The port builds every block kind they use
+(``models/transformer.py``)."""
 
 from __future__ import annotations
 

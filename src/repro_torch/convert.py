@@ -50,31 +50,39 @@ def to_numpy(solution: Solution) -> Solution:
 def lm_params_from_numpy(cfg, params_np, device, dtype=None):
     """The ``models.LM`` state (a ``state_dict``) of the reference's
     parameter pytree ``params_np`` -- ``{"embed", "final_norm", "blocks"}``
+    and, for an encoder-decoder config, ``{"enc_blocks", "enc_final_norm"}``,
     as numpy arrays, each block leaf stacked on a leading period axis -- on
     ``device``.  Layer ``p * len(pattern) + i`` takes period ``p`` of block
-    ``b{i}``.  Floating leaves are cast to ``dtype``, or by default to the
-    dtype the LM gives them: ``cfg.dtype`` for weights, float32 for norm
-    parameters, as ``init_params`` makes them.  (bfloat16 leaves come out of
-    JAX as ``ml_dtypes.bfloat16``, which torch does not take: convert them to
-    float32 first; the cast back to bfloat16 is exact.)"""
-    weights = getattr(torch, cfg.dtype)
+    ``b{i}``; encoder layer ``p`` period ``p`` of ``enc_blocks["b0"]``.
+    Floating leaves are cast to ``dtype``, or by default to the dtype of the
+    LM's parameter of that name: ``cfg.dtype`` for weights, float32 for
+    norms and for the reference's float32 leaves (the MoE router, Mamba's
+    ``A_log``, ``D``, ``dt_bias``, mLSTM's ``wi``, ``wf``).  (bfloat16 leaves
+    come out of JAX as ``ml_dtypes.bfloat16``, which torch does not take:
+    convert them to float32 first; the cast back to bfloat16 is exact.)"""
+    from .models import LM
 
-    def conv(x, norm):
+    want = {name: t.dtype for name, t in LM(cfg, device="meta").state_dict().items()}
+    state = {}
+
+    def put(name, x):
         t = torch.as_tensor(np.array(x), device=device)  # a writable copy
-        return t.to(dtype or (torch.float32 if norm else weights))
+        state[name] = t.to(dtype or want[name])
 
-    state = {"embed": conv(params_np["embed"], False)}
-    for name, x in params_np["final_norm"].items():
-        state[f"final_norm.{name}"] = conv(x, True)
-    n = len(cfg.pattern)
-    for i in range(n):
-        block = params_np["blocks"][f"b{i}"]
-        for sub, leaves in block.items():
-            for name, x in leaves.items():
-                x = np.asarray(x)
-                for period in range(cfg.n_periods):
-                    state[f"blocks.{period * n + i}.{sub}.{name}"] = conv(
-                        x[period], sub.startswith("ln"))
+    put("embed", params_np["embed"])
+    for top in ("final_norm", "enc_final_norm"):
+        for name, x in params_np.get(top, {}).items():
+            put(f"{top}.{name}", x)
+    for top, pattern in (("blocks", cfg.pattern), ("enc_blocks", ("attn_bidir_mlp",))):
+        if top not in params_np:
+            continue
+        n = len(pattern)
+        for i in range(n):
+            for sub, leaves in params_np[top][f"b{i}"].items():
+                for name, x in leaves.items():
+                    x = np.asarray(x)
+                    for period in range(cfg.n_periods):
+                        put(f"{top}.{period * n + i}.{sub}.{name}", x[period])
     return state
 
 

@@ -7,11 +7,17 @@ per-token decode loop against the padded KV caches.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b --full \\
         --batch 4 --prompt-len 2048 --gen 32          # on the card, weights from --seed
 
-The weights are drawn on the device from ``--seed`` (``models.init_params``),
-the prompts from a generator of the same seed.  On the card each prefill
-runs the attention of every layer through the CUDA ``flash_attention_fwd``
-kernel; the decode steps attend with plain torch (``decode_attention``), as
-the reference does.  ``--device cuda`` (the default) raises without a card.
+Every config of ``configs/`` serves (``--arch <any>``).  The weights are
+drawn on the device from ``--seed`` (``models.init_params``), the prompts
+from a generator of the same seed; a config with image tokens gets
+``frontends.fake_img_embeds`` in its first positions, an encoder-decoder
+config ``frontends.fake_audio_embeds`` of ``--prompt-len`` frames, as the
+reference's ``run`` builds them.  On the card each prefill runs the
+attention of every attention layer (the encoder's and the cross attention
+too) through the CUDA ``flash_attention_fwd`` kernel; the decode steps
+attend with plain torch (``decode_attention``), as the reference does.
+``--device cuda`` (the default) raises without a card;
+``--model-parallel`` above 1 raises (``distributed/`` is not ported).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from ..configs import get_config
 from ..models import init_params, pad_cache, prefill
+from ..models.frontends import fake_audio_embeds, fake_img_embeds
 from ..train.steps import make_decode_step
 
 
@@ -31,24 +38,25 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run(args, *, model=None, prompts=None, feed=None, record=None):
+def run(args, *, model=None, prompts=None, embeds=None, feed=None, record=None):
     """Serve one batch; returns ``{"prefill_s", "decode_s", "tokens"}``, the
     tokens (b, gen) as numpy.  For tests and measurements: ``model`` serves
-    an existing ``LM`` instead of drawing one, ``prompts`` (b, prompt_len)
-    replaces the random prompts, ``feed`` (b, gen) replaces the greedy
-    token fed to decode step i by ``feed[:, i]`` (teacher forcing), and
-    ``record(step, logits)`` sees the logits of the prefill (step 0) and of
-    each decode step."""
+    an existing ``LM`` (at its own config, a depth cut included) instead of
+    drawing one, ``prompts`` (b, prompt_len)
+    replaces the random prompts, ``embeds`` (``{"img_embeds"}`` or
+    ``{"audio_embeds"}``, numpy or tensors) the drawn frontend embeddings,
+    ``feed`` (b, gen) replaces the greedy token fed to decode step i by
+    ``feed[:, i]`` (teacher forcing), and ``record(step, logits)`` sees the
+    logits of the prefill (step 0) and of each decode step."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve: no CUDA device is available; pass --device cpu")
     if args.model_parallel != 1:
         raise NotImplementedError("serve: one device only (ROADMAP A-17)")
-    cfg = get_config(args.arch, reduced=args.reduced)
-    if cfg.n_img_tokens or cfg.enc_dec:
-        raise NotImplementedError(f"serve: {cfg.name} needs a modality frontend (ROADMAP A-17)")
     if model is None:
+        cfg = get_config(args.arch, reduced=args.reduced)
         model = init_params(cfg, args.seed, device)
+    cfg = model.cfg
 
     b, plen, gen = args.batch, args.prompt_len, args.gen
     if prompts is None:
@@ -56,6 +64,12 @@ def run(args, *, model=None, prompts=None, feed=None, record=None):
         prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g, device=device)
     prompts = torch.as_tensor(prompts, device=device)
     batch = {"tokens": prompts}
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = fake_img_embeds(cfg, b, device=device)
+    if cfg.enc_dec:
+        batch["audio_embeds"] = fake_audio_embeds(cfg, b, plen, device=device)
+    for name, x in (embeds or {}).items():
+        batch[name] = torch.as_tensor(x, device=device)
 
     _sync(device)
     t0 = time.perf_counter()

@@ -1,5 +1,7 @@
-"""The LM substrate of the port (the JAX package's ``repro.models``): the
-dense attention-and-MLP models, prefill and cached decode, on one device."""
+"""The LM substrate of the port (the JAX package's ``repro.models``): every
+block kind of the configs (dense attention and MLP, MoE, Mamba, xLSTM, the
+encoder-decoder's cross attention), the image and audio frontends'
+stand-ins, prefill and cached decode, on one device."""
 
 from .config import SHAPES, ArchConfig, MoECfg
 from .lm import (

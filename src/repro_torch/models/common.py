@@ -1,6 +1,8 @@
 """Shared building blocks: norms, RoPE, initializers (the JAX package's
-``models/common.py``).  Norms and RoPE compute in float32 and cast back to
-the input's dtype, as the reference does."""
+``models/common.py``), the ``jax.nn`` functions whose torch counterparts
+differ (``softplus``, ``log_sigmoid``), and ``Params``, a sub-layer's
+weights by name.  Norms and RoPE compute in float32 and cast back to the
+input's dtype, as the reference does."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import functools
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def rmsnorm(x, scale, eps=1e-6):
@@ -81,3 +84,42 @@ def dense_fill_(t, generator, in_axis=-2):
 def dense_init(generator, shape, in_axis=-2, dtype=torch.float32, device=None):
     """A new tensor of ``shape`` filled by ``dense_fill_``."""
     return dense_fill_(torch.empty(shape, dtype=dtype, device=device), generator, in_axis)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``, with no
+    threshold (``F.softplus`` returns x above 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
+class Params(nn.Module):
+    """A sub-layer's weights, each an ``nn.Parameter`` read by name
+    (``p["w_in"]``, ``"w_in" in p``) as the reference reads its dicts; a
+    module (unlike ``nn.ParameterDict``) so that a subclass can define
+    ``forward``.  ``init_params(generator)`` draws every weight named in
+    ``dense`` by ``dense_fill_``, in that order."""
+
+    dense: tuple = ()
+
+    def __init__(self, tensors):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t))
+
+    def __getitem__(self, name):
+        return self._parameters[name]
+
+    def __contains__(self, name):
+        return name in self._parameters
+
+    @torch.no_grad()
+    def init_params(self, generator):
+        for name in self.dense:
+            if name in self:
+                dense_fill_(self[name], generator)
+        return self

@@ -1,5 +1,6 @@
-"""Top-level LM: embedding, one ``Block`` per layer, tied unembedding (the
-JAX package's ``models/lm.py``).
+"""Top-level LM: embedding, one ``Block`` per layer, tied unembedding, and
+for an encoder-decoder config the encoder stack (the JAX package's
+``models/lm.py``).
 
 Entry points, as the reference's (which are pure functions of (cfg,
 params, ...)); here ``params`` is an ``LM`` module:
@@ -10,15 +11,22 @@ params, ...)); here ``params`` is an ``LM`` module:
   init_cache / pad_cache                -> caches
   decode_step(cfg, params, token, pos, cache) -> (logits, cache)
 
-``batch`` is a dict: tokens (b, s) integer, and img_embeds (b, n_img, d)
-for a config with image tokens.  The caches keep the reference's layout: per
-position ``i`` of the block pattern, ``cache[f"b{i}"] = {"k", "v"}`` of shape
-(n_periods, b, S, KV * hd).  ``decode_step`` writes the new row of each
-cache in place and returns the same cache.  Everything runs on the LM's
-device (``cuda`` unless the caller asks for ``cpu``).  ``forward`` is the
-training forward and differentiates (the attention through its CUDA
-backward on the card); ``prefill`` and ``decode_step`` run without grad.
-With ``cfg.ode_depth`` the forward is ``node.forward_ode``.
+``batch`` is a dict: tokens (b, s) integer, plus the frontends' stand-ins
+(``frontends.py``): img_embeds (b, n_img, d) for a config with image
+tokens, audio_embeds (b, s_enc, d) for an encoder-decoder config.  The
+caches keep the reference's layout: per position ``i`` of the block
+pattern, ``cache[f"b{i}"]`` holds this kind's state stacked on a leading
+period axis: ``{"k", "v"}`` of shape (n_periods, b, S, KV * hd) for
+attention (and ``{"xk", "xv"}`` over the encoder's length for cross
+attention), ``{"h", "conv"}`` for Mamba, ``{"C", "n", "m"}`` for mLSTM,
+``{"c", "n", "h", "m"}`` for sLSTM.  ``decode_step`` updates the cache in
+place (a new KV row, the next recurrent state) and returns the same cache.
+Everything runs on the LM's device (``cuda`` unless the caller asks for
+``cpu``).  ``forward`` is the training forward and differentiates (the
+attention through its CUDA backward on the card) and returns
+``{"moe_balance"}``, the sum over the MoE layers, for a config with a MoE;
+``prefill`` and ``decode_step`` run without grad.  With ``cfg.ode_depth``
+the forward is ``node.forward_ode``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from . import ssm, xlstm
 from .common import apply_norm, dense_fill_, norm_params
 from .config import ArchConfig
 from .node import forward_ode
@@ -46,13 +55,12 @@ class LM(nn.Module):
     left uninitialized, for ``load_state_dict``
     (``convert.lm_params_from_numpy``).  Every weight is a parameter that
     requires grad: ``forward`` trains (``train.steps.make_train_step``),
-    ``prefill`` and ``decode_step`` serve."""
+    ``prefill`` and ``decode_step`` serve.  An encoder-decoder config also
+    has ``enc_blocks`` (one ``attn_bidir_mlp`` a period) and
+    ``enc_final_norm``."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", seed=None):
         super().__init__()
-        if cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP A-17)")
         for kind in cfg.pattern:
             check_kind(kind)
         device = _device(device)
@@ -64,6 +72,11 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, cfg.pattern[i % len(cfg.pattern)], device=device, dtype=dtype)
             for i in range(cfg.n_layers))
+        if cfg.enc_dec:
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, "attn_bidir_mlp", device=device, dtype=dtype)
+                for _ in range(cfg.n_periods))
+            self.enc_final_norm = _params(norm_params(cfg, cfg.d_model, device))
         if seed is not None:
             self.init_params(seed)
 
@@ -72,10 +85,13 @@ class LM(nn.Module):
         """Draw every weight on the LM's device from
         ``torch.Generator(device).manual_seed(seed)`` at the reference's
         ``dense_init`` scale (1/sqrt(fan_in); the embedding's fan-in is
-        d_model): the embedding, then each layer in order.  Returns the LM."""
+        d_model): the embedding, then each layer in order, then the
+        encoder's.  Returns the LM."""
         g = torch.Generator(device=self.device).manual_seed(int(seed))
         dense_fill_(self.embed, g, in_axis=-1)
         for blk in self.blocks:
+            blk.init_params(g)
+        for blk in getattr(self, "enc_blocks", ()):
             blk.init_params(g)
         return self
 
@@ -97,60 +113,80 @@ class LM(nn.Module):
             x = torch.cat([img, x[:, n:, :]], dim=1)
         return x
 
-    def _prefill_stack(self, x):
-        """The layers in prefill mode: (x, the caches stacked by period)."""
+    @staticmethod
+    def _positions(x):
         b, s, _ = x.shape
-        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+    def _run_enc_stack(self, batch):
+        """The encoder over ``batch["audio_embeds"]`` (``_run_enc_stack``),
+        or None for a decoder-only config."""
+        if not self.cfg.enc_dec:
+            return None
+        x = batch["audio_embeds"].to(self.embed.dtype)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None, :]
+        for blk in self.enc_blocks:
+            x, _, _ = blk.apply_seq(x, positions, mode="train")
+        return apply_norm(self.cfg, x, self.enc_final_norm, "")
+
+    def _prefill_stack(self, x, enc_out):
+        """The layers in prefill mode: (x, the caches stacked by period)."""
+        positions = self._positions(x)
         caches = {}
         for period, i, blk in self._layers():
-            x, cache, _ = blk.apply_seq(x, positions, mode="prefill")
-            if cache is not None:
-                c = caches.setdefault(f"b{i}", {
-                    name: torch.empty((self.cfg.n_periods, *t.shape), dtype=t.dtype,
-                                      device=t.device) for name, t in cache.items()})
-                for name, t in cache.items():
-                    c[name][period] = t
+            x, cache, _ = blk.apply_seq(x, positions, mode="prefill", enc_out=enc_out)
+            c = caches.setdefault(f"b{i}", {
+                name: torch.empty((self.cfg.n_periods, *t.shape), dtype=t.dtype, device=t.device)
+                for name, t in cache.items()})
+            for name, t in cache.items():
+                c[name][period] = t
         return x, caches
 
     def forward(self, batch, *, remat=False):
         """Training forward: (logits (b, s, vocab), aux losses dict), under
-        the caller's grad mode.  ``remat`` checkpoints each period
-        (``torch.utils.checkpoint``, non-reentrant): only the period inputs
-        are kept and the period is recomputed in the backward, as the
-        reference wraps each period in ``jax.checkpoint``.  With
-        ``cfg.ode_depth`` the stack is one weight-tied block integrated in
-        depth (``node.forward_ode``)."""
+        the caller's grad mode; aux is ``{"moe_balance"}`` (summed over the
+        layers in order) for a config with a MoE, else empty.  ``remat``
+        checkpoints each period (``torch.utils.checkpoint``, non-reentrant):
+        only the period inputs are kept and the period is recomputed in the
+        backward, as the reference wraps each period in ``jax.checkpoint``.
+        With ``cfg.ode_depth`` the stack is one weight-tied block integrated
+        in depth (``node.forward_ode``)."""
         cfg = self.cfg
         if cfg.ode_depth:
             return forward_ode(cfg, self, batch)
         x = self._embed_tokens(batch)
-        b, s, _ = x.shape
-        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        positions = self._positions(x)
+        enc_out = self._run_enc_stack(batch)
         n = len(cfg.pattern)
 
-        def period(x, p):
+        def period(x, aux, p):
             for blk in self.blocks[p * n:(p + 1) * n]:
-                x, _, _ = blk.apply_seq(x, positions, mode="train")
-            return x
+                x, _, block_aux = blk.apply_seq(x, positions, mode="train", enc_out=enc_out)
+                for key, value in block_aux.items():
+                    aux = {**aux, key: aux[key] + value}
+            return x, aux
 
+        aux = {}
+        if cfg.moe is not None:
+            aux = {"moe_balance": torch.zeros((), dtype=torch.float32, device=x.device)}
         for p in range(cfg.n_periods):
             if remat:
-                x = torch.utils.checkpoint.checkpoint(period, x, p, use_reentrant=False)
+                x, aux = torch.utils.checkpoint.checkpoint(period, x, aux, p, use_reentrant=False)
             else:
-                x = period(x, p)
+                x, aux = period(x, aux, p)
         x = apply_norm(cfg, x, self.final_norm, "")
-        return x @ self.embed.T, {}
+        return x @ self.embed.T, aux
 
     @torch.no_grad()
     def prefill(self, batch):
         """Full-sequence forward that materializes caches: (last_logits, cache)."""
-        x, caches = self._prefill_stack(self._embed_tokens(batch))
+        x, caches = self._prefill_stack(self._embed_tokens(batch), self._run_enc_stack(batch))
         x = apply_norm(self.cfg, x[:, -1:, :], self.final_norm, "")[:, 0]
         return x @ self.embed.T, caches
 
-    def init_cache(self, batch_size: int, cache_len: int):
+    def init_cache(self, batch_size: int, cache_len: int, enc_len: int | None = None):
         """Zero caches for decode-from-scratch, on the LM's device."""
-        return init_cache(self.cfg, batch_size, cache_len, device=self.device)
+        return init_cache(self.cfg, batch_size, cache_len, device=self.device, enc_len=enc_len)
 
     def pad_cache(self, cache, cache_len: int):
         return pad_cache(self.cfg, cache, cache_len)
@@ -192,19 +228,41 @@ def prefill(cfg: ArchConfig, params, batch):
     return _model(cfg, params).prefill(batch)
 
 
-def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, device="cuda"):
-    """Zero caches for decode-from-scratch, in the config's dtype."""
-    shape = (cfg.n_periods, batch_size, cache_len, cfg.n_kv_heads * cfg.hd)
+def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int, device="cuda",
+               enc_len: int | None = None):
+    """Zero caches for decode-from-scratch, as the reference's: KV caches in
+    the config's dtype (the cross attention's of ``enc_len``, by default
+    ``cache_len``), recurrent states in their init states' shapes and
+    dtypes but all zero (the reference zeroes the -1e30 of ``m`` too)."""
     dtype, device = getattr(torch, cfg.dtype), _device(device)
-    return {f"b{i}": {name: torch.zeros(shape, dtype=dtype, device=device)
-                      for name in ("k", "v")}
-            for i in range(len(cfg.pattern))}
+    Dkv = cfg.n_kv_heads * cfg.hd  # flat head dim
+    caches = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind in ("attn_mlp", "attn_moe", "attn_cross_mlp"):
+            kv = torch.empty((batch_size, cache_len, Dkv), dtype=dtype, device="meta")
+            c = {"k": kv, "v": kv}
+            if kind == "attn_cross_mlp":
+                xkv = torch.empty((batch_size, enc_len or cache_len, Dkv), dtype=dtype,
+                                  device="meta")
+                c.update(xk=xkv, xv=xkv)
+        elif kind in ("mamba_mlp", "mamba_moe"):
+            c = ssm.mamba_init_state(cfg, batch_size, dtype, "meta")
+        elif kind == "mlstm":
+            c = xlstm.mlstm_init_state(cfg, batch_size, "meta")
+        elif kind == "slstm":
+            c = xlstm.slstm_init_state(cfg, batch_size, device="meta")
+        else:
+            raise ValueError(kind)
+        caches[f"b{i}"] = {name: torch.zeros((cfg.n_periods, *t.shape), dtype=t.dtype,
+                                             device=device) for name, t in c.items()}
+    return caches
 
 
 def pad_cache(cfg: ArchConfig, cache, cache_len: int):
-    """Grow the KV caches (from prefill, length s) to ``cache_len`` so
-    decode can continue past the prefill length (new tensors; the input is
-    left as it is)."""
+    """Grow the self-attention KV caches (from prefill, length s) to
+    ``cache_len`` so decode can continue past the prefill length (new
+    tensors; the input is left as it is).  The cross attention's and the
+    recurrent states pass through."""
     out = {}
     for key, c in cache.items():
         out[key] = dict(c)

@@ -1,14 +1,18 @@
-"""Transformer blocks (the JAX package's ``models/transformer.py``), for the
-kinds the port builds: ``attn_mlp`` (causal attention + MLP) and
-``attn_bidir_mlp`` (bidirectional attention + MLP, full-sequence only),
-for training, prefill and decode.
+"""Transformer blocks (the JAX package's ``models/transformer.py``), every
+kind the configs use: ``attn_mlp`` and ``attn_moe`` (causal attention, then
+an MLP or a MoE), ``attn_bidir_mlp`` (bidirectional attention + MLP, the
+encoder's, full-sequence only), ``attn_cross_mlp`` (causal self-attention,
+cross attention over the encoder's output, MLP), ``mamba_mlp`` and
+``mamba_moe`` (a Mamba mixer, then an MLP or a MoE), ``mlstm`` and
+``slstm`` (an xLSTM mixer alone), for training, prefill and decode.
 
-Weights keep the reference's (d_in, d_out) layout (``x @ wq``) and names, in
-one ``nn.ParameterDict`` per sub-layer (``attn``, ``ln1``, ``mlp``,
-``ln2``), so weights carry across from the reference as copies.  The large
-projections and the MLP are ``torch.matmul``, as the reference leaves them
-to XLA; the attention goes through ``attention.flash_attention`` (the CUDA
-kernel on the card) when prefilling and ``decode_attention`` when decoding.
+Weights keep the reference's (d_in, d_out) layout (``x @ wq``) and names,
+one sub-layer each (``attn``, ``ln1``, ``xattn``, ``lnx``, ``mamba``,
+``mlstm``, ``slstm``, ``mlp``, ``moe``, ``ln2``), so weights carry across
+from the reference as copies.  The large projections and the MLP are
+``torch.matmul``, as the reference leaves them to XLA; the attention goes
+through ``attention.flash_attention`` (the CUDA kernel on the card) when
+prefilling and ``decode_attention`` when decoding.
 """
 
 from __future__ import annotations
@@ -17,16 +21,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import ssm, xlstm
 from .attention import decode_attention, flash_attention
 from .common import apply_norm, apply_rope, dense_fill_, norm_params
+from .moe import MoE
 
-KINDS = ("attn_mlp", "attn_bidir_mlp")
+ATTN_KINDS = ("attn_mlp", "attn_moe", "attn_bidir_mlp", "attn_cross_mlp")
+# The recurrent kinds: (sub-layer, its weights, prefill, decode).
+RECURRENT = {
+    "mamba_mlp": ("mamba", ssm.Mamba, ssm.mamba_prefill, ssm.mamba_decode),
+    "mamba_moe": ("mamba", ssm.Mamba, ssm.mamba_prefill, ssm.mamba_decode),
+    "mlstm": ("mlstm", xlstm.MLSTM, xlstm.mlstm_prefill, xlstm.mlstm_decode),
+    "slstm": ("slstm", xlstm.SLSTM, xlstm.slstm_prefill, xlstm.slstm_decode),
+}
+KINDS = ATTN_KINDS + tuple(RECURRENT)
 
 
 def check_kind(kind):
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A-17); the port builds {KINDS}")
+        raise ValueError(f"unknown block kind {kind!r}; the kinds are {KINDS}")
 
 
 def _qkv(cfg, p, x):
@@ -50,11 +63,17 @@ def _mlp(cfg, p, x):
 
 
 def _channel_mix(cfg, kind, p, x):
-    """Second half of a block: the MLP over the residual stream.  ``p`` holds
-    the block's ``mlp`` and ``ln2`` parameters.  Returns (x, aux)."""
-    if kind.endswith("_mlp"):
+    """Second half of a block: the MLP or the MoE over the residual stream.
+    ``p`` holds the block's ``mlp`` or ``moe`` and ``ln2``.  Returns (x,
+    aux), aux ``{"moe_balance"}`` for a MoE."""
+    aux = {}
+    if kind.endswith("_moe"):
+        b, s, d = x.shape
+        y, aux = p["moe"](apply_norm(cfg, x, p["ln2"], "").reshape(b * s, d))
+        x = x + y.reshape(b, s, d)
+    elif kind.endswith("_mlp"):
         x = x + _mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln2"], ""))
-    return x, {}
+    return x, aux
 
 
 def _params(tensors):
@@ -62,12 +81,11 @@ def _params(tensors):
 
 
 class Block(nn.Module):
-    """One layer of kind ``attn_mlp`` or ``attn_bidir_mlp``, its weights
-    allocated uninitialized (biases zero, norms ones/zeros): ``init_params``
-    draws them, ``load_state_dict`` loads them
+    """One layer of ``kind``, its weights allocated uninitialized (biases
+    zero, norms ones/zeros, the Mamba constants as the reference makes
+    them): ``init_params`` draws them, ``load_state_dict`` loads them
     (``convert.lm_params_from_numpy``).  Every weight is a parameter that
-    requires grad; ``apply_seq`` differentiates (the attention through
-    ``autograd.FlashAttention``)."""
+    requires grad."""
 
     def __init__(self, cfg, kind, *, device=None, dtype=None):
         super().__init__()
@@ -79,71 +97,142 @@ class Block(nn.Module):
         def w(*shape):
             return torch.empty(shape, dtype=dtype, device=device)
 
-        attn = {"wq": w(d, H * hd), "wk": w(d, KV * hd), "wv": w(d, KV * hd), "wo": w(H * hd, d)}
-        if cfg.qkv_bias:
-            attn.update({name: torch.zeros((n,), dtype=dtype, device=device)
-                         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd))})
-        mlp = {"w_in": w(d, ff), "w_out": w(ff, d)}
-        if cfg.mlp == "swiglu":
-            mlp["w_gate"] = w(d, ff)
-        self.attn = _params(attn)
+        def attn(cross):
+            p = {"wq": w(d, H * hd), "wk": w(d, KV * hd), "wv": w(d, KV * hd), "wo": w(H * hd, d)}
+            if cfg.qkv_bias and not cross:
+                p.update({name: torch.zeros((n,), dtype=dtype, device=device)
+                          for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd))})
+            return _params(p)
+
+        sub = dict(device=device, dtype=dtype)
+        if kind in ATTN_KINDS:
+            self.attn = attn(cross=False)
+            if kind == "attn_cross_mlp":
+                self.xattn = attn(cross=True)
+                self.lnx = _params(norm_params(cfg, d, device))
+        else:
+            name, weights, _, _ = RECURRENT[kind]
+            self.add_module(name, weights(cfg, **sub))
         self.ln1 = _params(norm_params(cfg, d, device))
-        self.mlp = _params(mlp)
-        self.ln2 = _params(norm_params(cfg, d, device))
+        if kind.endswith("_moe"):
+            self.moe = MoE(cfg, **sub)
+        elif kind.endswith("_mlp"):
+            mlp = {"w_in": w(d, ff), "w_out": w(ff, d)}
+            if cfg.mlp == "swiglu":
+                mlp["w_gate"] = w(d, ff)
+            self.mlp = _params(mlp)
+        if kind.endswith(("_moe", "_mlp")):
+            self.ln2 = _params(norm_params(cfg, d, device))
 
     @torch.no_grad()
     def init_params(self, generator):
         """Draw the weights from ``generator`` at the reference's
-        ``dense_init`` scale, in the reference's order (wq, wk, wv, wo,
-        w_in, w_out, w_gate)."""
-        for name in ("wq", "wk", "wv", "wo"):
-            dense_fill_(self.attn[name], generator)
-        for name in ("w_in", "w_out", "w_gate"):
-            if name in self.mlp:
-                dense_fill_(self.mlp[name], generator)
+        ``dense_init`` scale, in the reference's order: the mixer (attn: wq,
+        wk, wv, wo; then xattn's), then the MLP (w_in, w_out, w_gate) or
+        the MoE."""
+        for name in ("attn", "xattn"):
+            if hasattr(self, name):
+                for w in ("wq", "wk", "wv", "wo"):
+                    dense_fill_(getattr(self, name)[w], generator)
+        for name in ("mamba", "mlstm", "slstm", "moe"):
+            if hasattr(self, name):
+                getattr(self, name).init_params(generator)
+        if hasattr(self, "mlp"):
+            for w in ("w_in", "w_out", "w_gate"):
+                if w in self.mlp:
+                    dense_fill_(self.mlp[w], generator)
         return self
 
-    def apply_seq(self, x, positions, *, mode):
+    def _channel(self):
+        return {name: getattr(self, name) for name in ("mlp", "moe", "ln2") if hasattr(self, name)}
+
+    def apply_seq(self, x, positions, *, mode, enc_out=None):
         """Full-sequence path (train/prefill), ``block_apply_seq``.  Returns
-        (x, cache, aux); with ``mode == "prefill"`` the cache holds this
-        layer's keys and values flat, ``{"k", "v"}: (b, s, KV * hd)``."""
-        cfg = self.cfg
-        h = apply_norm(cfg, x, self.ln1, "")
-        q, k, v = _qkv(cfg, self.attn, h)
-        if cfg.rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        o = flash_attention(q, k, v, causal=self.kind != "attn_bidir_mlp", q_chunk=cfg.q_chunk,
-                            kv_chunk=cfg.kv_chunk)
-        x = x + o.reshape(*x.shape[:-1], -1) @ self.attn["wo"]
+        (x, cache, aux).  With ``mode == "prefill"`` the cache holds this
+        layer's state for decode: keys and values flat, ``{"k", "v"}: (b, s,
+        KV * hd)`` (and the cross attention's ``"xk"``, ``"xv"`` over the
+        encoder's length), or the recurrent state after the last token.
+        ``enc_out`` (b, s_enc, d): the encoder's output, for
+        ``attn_cross_mlp``."""
+        cfg, kind = self.cfg, self.kind
         cache = None
-        if mode == "prefill":
+        h = apply_norm(cfg, x, self.ln1, "")
+        if kind in ATTN_KINDS:
+            q, k, v = _qkv(cfg, self.attn, h)
+            if cfg.rope:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+            o = flash_attention(q, k, v, causal=kind != "attn_bidir_mlp", q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+            x = x + o.reshape(*x.shape[:-1], -1) @ self.attn["wo"]
             b_, s_ = x.shape[0], x.shape[1]
-            cache = {"k": k.reshape(b_, s_, -1), "v": v.reshape(b_, s_, -1)}
-        x, aux = _channel_mix(cfg, self.kind, {"mlp": self.mlp, "ln2": self.ln2}, x)
+            if mode == "prefill":
+                cache = {"k": k.reshape(b_, s_, -1), "v": v.reshape(b_, s_, -1)}
+            if kind == "attn_cross_mlp":
+                H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+                hx = apply_norm(cfg, x, self.lnx, "")
+                qx = (hx @ self.xattn["wq"]).reshape(*hx.shape[:-1], H, hd)
+                kx = (enc_out @ self.xattn["wk"]).reshape(*enc_out.shape[:-1], KV, hd)
+                vx = (enc_out @ self.xattn["wv"]).reshape(*enc_out.shape[:-1], KV, hd)
+                ox = flash_attention(qx, kx, vx, causal=False, q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk)
+                x = x + ox.reshape(*x.shape[:-1], -1) @ self.xattn["wo"]
+                if mode == "prefill":
+                    se = enc_out.shape[1]
+                    cache.update(xk=kx.reshape(b_, se, -1), xv=vx.reshape(b_, se, -1))
+        else:
+            name, _, prefill, _ = RECURRENT[kind]
+            y, state = prefill(cfg, getattr(self, name), h)
+            x = x + y
+            if mode == "prefill":
+                cache = state
+        x, aux = _channel_mix(cfg, kind, self._channel(), x)
         return x, cache, aux
 
     def apply_decode(self, x, pos, state):
         """One-token path, ``block_apply_decode``.  x: (b, d); pos: (b,);
-        state: this layer's flat caches ``{"k", "v"}: (b, S, KV * hd)``.  The
-        new key and value are written into the caches at ``pos`` in place
-        (the reference returns updated copies).  Returns (x, state)."""
-        if self.kind != "attn_mlp":
-            raise ValueError(self.kind)  # as the reference: no decode without a causal cache
-        cfg = self.cfg
+        state: this layer's cache.  The state is updated in place: the new
+        key and value are written into the flat caches ``{"k", "v"}: (b, S,
+        KV * hd)`` at ``pos``, and a recurrent state is overwritten by the
+        next one (the reference returns updated copies).  The cross
+        attention attends over all of ``"xk"``/``"xv"``.  Returns (x,
+        state)."""
+        cfg, kind = self.cfg, self.kind
+        if kind == "attn_bidir_mlp":
+            raise ValueError(kind)  # as the reference: no decode without a causal cache
         KV, hd = cfg.n_kv_heads, cfg.hd
-        h = apply_norm(cfg, x[:, None, :], self.ln1, "")[:, 0]
-        q, k, v = _qkv(cfg, self.attn, h)  # (b, H/KV, hd)
-        if cfg.rope:
-            q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-            k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         b = x.shape[0]
-        rows = torch.arange(b, device=x.device)
-        k_cache, v_cache = state["k"], state["v"]
-        k_cache[rows, pos] = k.reshape(b, -1)
-        v_cache[rows, pos] = v.reshape(b, -1)
-        S = k_cache.shape[1]
-        o = decode_attention(q, k_cache.reshape(b, S, KV, hd), v_cache.reshape(b, S, KV, hd), pos)
-        x = x + o.reshape(b, -1) @ self.attn["wo"]
-        x = x + _mlp(cfg, self.mlp, apply_norm(cfg, x[:, None, :], self.ln2, "")[:, 0])
+        h = apply_norm(cfg, x[:, None, :], self.ln1, "")[:, 0]
+        if kind in ATTN_KINDS:
+            q, k, v = _qkv(cfg, self.attn, h)  # (b, H/KV, hd)
+            if cfg.rope:
+                q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+                k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+            rows = torch.arange(b, device=x.device)
+            k_cache, v_cache = state["k"], state["v"]
+            k_cache[rows, pos] = k.reshape(b, -1)
+            v_cache[rows, pos] = v.reshape(b, -1)
+            S = k_cache.shape[1]
+            o = decode_attention(q, k_cache.reshape(b, S, KV, hd), v_cache.reshape(b, S, KV, hd),
+                                 pos)
+            x = x + o.reshape(b, -1) @ self.attn["wo"]
+            if kind == "attn_cross_mlp":
+                hx = apply_norm(cfg, x[:, None, :], self.lnx, "")[:, 0]
+                qx = (hx @ self.xattn["wq"]).reshape(b, cfg.n_heads, hd)
+                s_enc = state["xk"].shape[1]
+                ox = decode_attention(qx, state["xk"].reshape(b, s_enc, KV, hd),
+                                      state["xv"].reshape(b, s_enc, KV, hd),
+                                      torch.full((b,), s_enc - 1, device=x.device))
+                x = x + ox.reshape(b, -1) @ self.xattn["wo"]
+        else:
+            name, _, _, decode = RECURRENT[kind]
+            y, new = decode(cfg, getattr(self, name), h, state)
+            x = x + y
+            for name, t in new.items():
+                state[name].copy_(t)
+        if kind.endswith("_moe"):
+            hm = apply_norm(cfg, x[:, None, :], self.ln2, "")[:, 0]
+            x = x + self.moe(hm, capacity=b)[0]
+        elif kind.endswith("_mlp"):
+            x = x + _mlp(cfg, self.mlp, apply_norm(cfg, x[:, None, :], self.ln2, "")[:, 0])
         return x, state

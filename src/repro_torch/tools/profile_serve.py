@@ -2,10 +2,13 @@
 ``launch/serve`` drives it).
 
     PYTHONPATH=src python -m repro_torch.tools.profile_serve [--arch qwen2.5-14b]
-        [--reduced] [--batch 4] [--prompt-len 2048] [--decode-steps 16] [--seed 0]
+        [--reduced] [--layers N] [--batch 4] [--prompt-len 2048] [--decode-steps 16]
+        [--seed 0]
 
 Draws the model's weights on the card from ``--seed`` (full width unless
-``--reduced``) and prints two JSON lines:
+``--reduced``; the first ``--layers`` layers only, for a model that does not
+fit the card whole), with the frontend embeddings ``launch/serve`` gives a
+config with image tokens or an encoder, and prints two JSON lines:
 
 - ``prefill``: ``prefill_ms`` (host clock around one synchronized prefill of
   ``batch x prompt_len`` tokens) and, from ``torch.profiler`` over one
@@ -23,6 +26,7 @@ CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -31,6 +35,7 @@ import torch
 from ..configs import get_config
 from ..kernels import ops
 from ..models import LM
+from ..models.frontends import fake_audio_embeds, fake_img_embeds
 from .profile_step import _profile, _sync_ms
 
 
@@ -38,6 +43,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--arch", default="qwen2.5-14b")
     parser.add_argument("--reduced", action="store_true")
+    parser.add_argument("--layers", type=int, default=None)
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--prompt-len", type=int, default=2048)
     parser.add_argument("--decode-steps", type=int, default=16)
@@ -48,11 +54,17 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     cfg = get_config(opts.arch, reduced=opts.reduced)
+    if opts.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=opts.layers)
     lm = LM(cfg, device=dev, seed=opts.seed)
     b, plen, steps = opts.batch, opts.prompt_len, opts.decode_steps
     g = torch.Generator(device=dev).manual_seed(opts.seed)
     batch = {"tokens": torch.randint(0, cfg.vocab, (b, plen), generator=g, device=dev)}
-    head = dict(arch=cfg.name, dtype=cfg.dtype, b=b, prompt_len=plen,
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = fake_img_embeds(cfg, b, device=dev)
+    if cfg.enc_dec:
+        batch["audio_embeds"] = fake_audio_embeds(cfg, b, plen, device=dev)
+    head = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers, b=b, prompt_len=plen,
                 device=torch.cuda.get_device_name(0))
 
     lm.prefill(batch)  # warm-up

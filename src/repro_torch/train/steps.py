@@ -81,6 +81,11 @@ def make_train_step(cfg, opt_cfg: AdamWConfig | None = None, *, moe_aux_weight=0
 
 
 def make_prefill_step(cfg):
+    """``prefill_step(params, batch)``: ``models.prefill``; ``batch`` carries
+    the tokens and the frontend embeddings (``img_embeds``,
+    ``audio_embeds``) through.  The decode step needs no frontend: the
+    cross attention's keys and values live in the cache."""
+
     def prefill_step(params, batch):
         return prefill(cfg, params, batch)
 

@@ -4,11 +4,13 @@ inputs.
 - (a) ``ref.flash_attention_fwd`` (the plain version of the CUDA kernel)
   against the Pallas ``flash_attention_fwd`` in interpret mode and the
   quadratic oracle ``flash_attn.ref``, over ``tests/test_flash_kernel.py``'s
-  five ``CASES`` (float32, 2e-5) and its bf16 case (3e-2, bf16 out); the
-  port's oracle ``ref.flash_attention_ref`` against JAX's.
+  five ``CASES`` and the new model kinds' head dims (whisper's 64,
+  kimi-k2's 112; ``HEAD_CASES``) in float32 (2e-5), and its bf16 case (3e-2,
+  bf16 out); the port's oracle ``ref.flash_attention_ref`` against JAX's.
 - (b) ``models.attention.flash_attention`` against JAX's
   ``models.attention.flash_attention`` with ragged lengths, ``q_offset > 0``,
-  bidirectional attention and MQA (2e-5), and the pair schedule
+  bidirectional attention, MQA and whisper's cross attention (hd 64,
+  bidirectional, sq != sk) (2e-5), and the pair schedule
   ``_block_pairs`` against the reference's.
 - (c) ``decode_attention`` against JAX's at a padded cache (1e-6).
 - (d) ``rmsnorm``, ``layernorm`` and ``apply_rope`` against JAX's (1e-6;
@@ -36,6 +38,9 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from test_flash_kernel import CASES  # noqa: E402
 
+# The head dims of the configs beyond the dense ones: whisper-large-v3's 64
+# (MHA, bidirectional in its encoder) and kimi-k2's 112 (GQA 8:1, causal).
+HEAD_CASES = [(2, 32, 4, 4, 64, False, 16, 16), (1, 64, 8, 1, 112, True, 16, 32)]
 TOL32 = 2e-5  # the reference's own kernel-vs-oracle tolerance (float32)
 TOL16 = 3e-2  # and its bf16 one
 
@@ -60,7 +65,7 @@ def _close(got, want, tol):
 
 
 class TestFlashKernelPlain:
-    @pytest.mark.parametrize("b,s,H,KV,hd,causal,qc,kc", CASES)
+    @pytest.mark.parametrize("b,s,H,KV,hd,causal,qc,kc", CASES + HEAD_CASES)
     def test_matches_pallas_interpret_and_oracle(self, b, s, H, KV, hd, causal, qc, kc):
         q, k, v = _qkv(b * s + H, b, s, s, H, KV, hd)
         got = tref.flash_attention_fwd(*map(torch.as_tensor, (q, k, v)), causal=causal,
@@ -93,6 +98,7 @@ MODEL_CASES = [
     (1, 37, 45, 4, 4, 16, False, 0, 16, 32),    # bidirectional, ragged
     (1, 45, 45, 4, 1, 16, True, 0, 32, 16),     # MQA
     (2, 64, 64, 4, 2, 16, True, 0, 16, 16),     # the kernel's function exactly
+    (1, 20, 30, 4, 4, 64, False, 0, 16, 16),    # cross attention (whisper's hd)
 ]
 
 

@@ -1537,6 +1537,48 @@ def test_lm_prefill_on_card_matches_cpu(cuda_device):
     assert ops.launches["flash_attention_fwd"] == before + cfg.n_layers
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
+                                  "xlstm-350m", "whisper-large-v3", "llava-next-34b"])
+def test_lm_kinds_on_card_match_cpu(cuda_device, arch):
+    """The reduced configs beyond the dense decoder in float32, the same
+    weights and frontend embeddings on the card and the CPU: one flash
+    launch per attention layer per prefill (the encoder's and the cross
+    attention's too) and none per decode step; prefill and decode logits and
+    the caches after four decode steps within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.frontends import fake_audio_embeds, fake_img_embeds
+
+    cfg = get_config(arch, reduced=True)
+    cpu = LM(cfg, device="cpu", seed=0)
+    card = LM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    emb = {}
+    if cfg.n_img_tokens:
+        emb["img_embeds"] = fake_img_embeds(cfg, 2, device="cpu")
+    if cfg.enc_dec:
+        emb["audio_embeds"] = fake_audio_embeds(cfg, 2, 37, device="cpu")
+    flash = sum(k.startswith("attn") for k in cfg.pattern) * cfg.n_periods
+    flash += 2 * cfg.n_periods if cfg.enc_dec else 0
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 41)))
+    before = ops.launches["flash_attention_fwd"]
+    lg, cache = card.prefill({"tokens": tok[:, :37].to(cuda_device),
+                              **{k: v.to(cuda_device) for k, v in emb.items()}})
+    assert ops.launches["flash_attention_fwd"] == before + flash
+    lg_cpu, cache_cpu = cpu.prefill({"tokens": tok[:, :37], **emb})
+    torch.testing.assert_close(lg.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    cache, cache_cpu = card.pad_cache(cache, 41), cpu.pad_cache(cache_cpu, 41)
+    for i in range(37, 41):
+        pos = torch.full((2,), i)
+        lg, cache = card.decode_step(tok[:, i].to(cuda_device), pos.to(cuda_device), cache)
+        lg_cpu, cache_cpu = cpu.decode_step(tok[:, i], pos, cache_cpu)
+        torch.testing.assert_close(lg.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    for key, layer in cache_cpu.items():
+        for name, t in layer.items():
+            torch.testing.assert_close(cache[key][name].cpu(), t, rtol=1e-4, atol=1e-4)
+    assert ops.launches["flash_attention_fwd"] == before + flash
+
+
 class TestGradientsOnCard:
     """The thirteen Functions of ``kernels/autograd.py`` on the card against
     ``torch.autograd.grad`` of the plain ops on the card

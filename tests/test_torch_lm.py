@@ -184,13 +184,6 @@ def test_bf16_weights_carry_across_exactly():
     assert lg.dtype == torch.bfloat16 and bool(torch.isfinite(lg).all())
 
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "jamba_v0_1_52b", "xlstm_350m",
-                                  "whisper_large_v3"])
-def test_other_kinds_are_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="A-17"):
-        T.LM(get_config(arch, reduced=True), device="cpu")
-
-
 def test_init_params_is_seeded_and_scaled():
     cfg = get_config("qwen2_5_14b", reduced=True)
     a, b = T.init_params(cfg, 3, "cpu"), T.init_params(cfg, 3, "cpu")
