@@ -264,6 +264,28 @@ raises, and the script exits non-zero without printing a result:
                    (``fused_step`` at capture only); a 64-request float64
                    ``GradRequest`` stream (``ScanAdjoint``) on the card
                    against the CPU within 1e-9.
+15. ``distributed`` the mesh path (``distributed/``, ``launch/mesh.py``) on
+                   one card: an NCCL group of one process (the phase fails
+                   if NCCL or the mesh cannot be set up; there is no
+                   fallback) and ``make_local_mesh(model=1)``, a (1, 1)
+                   ("data", "model") mesh.  The reduced stablelm-3b and
+                   deepseek-moe-16b train three AdamW steps under the mesh
+                   with ``--fsdp`` (``tools/dist_checks.train_case``) against
+                   the same steps without a mesh on the card: loss, cross
+                   entropy and grad norm within 1e-5 relative, the
+                   parameters within 5e-4, 99.9 % within 1e-6 (whether each
+                   is bitwise printed), and the flash forward and backward
+                   kernels launched on the local shards (2 of each a step,
+                   counted by ``cuda_impl``).  Then deepseek-moe-16b at full
+                   width in bf16 (4 of its 28 layers: the time limit), seed
+                   0, b = 4, s = 2048, through ``serve.run`` without the
+                   group and under the mesh, the MoE at capacity factor
+                   E / k (bf16 router flips, ROADMAP C): every prefill takes
+                   the expert-parallel ``local_map`` body and 4 flash
+                   launches on the wgmma body, the mesh's prefill logits
+                   within 0.1 of the logits' RMS of the unsharded ones,
+                   and the prefill ms, decode ms a token and peak memory of
+                   both runs.  The group is destroyed at the end.
 
 The ``kernels`` phase also holds ``flash_attention_fwd`` to its plain version
 (float32 at 2e-5, bfloat16 at 3e-2) over ragged, ``q_offset``, MQA, hd = 80
@@ -2224,6 +2246,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("serve_ode")
+    # ------------------------------------------------------- 15. distributed
+    distributed_phase(dev, smi, reset_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lap("distributed")
     emit("timing", seconds_by_phase=phase_seconds, seconds=sum(phase_seconds.values()))
     # ------------------------------------------- kernel summary, then result
     summary = []
@@ -2524,6 +2552,140 @@ def lm_kinds_phase(dev, reset_launches):
         del lm, lg_s, lg_dec, lg_full, lg_served, emb
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def distributed_phase(dev, smi, reset_launches):
+    """Phase 15, ``distributed``: the mesh path on a mesh of one card (see the
+    module docstring).  The unsharded full-width serve runs first, before
+    the group exists (``serve.run`` shards whenever a group does)."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_impl, ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM
+    from repro_torch.models import moe as model_moe
+    from repro_torch.models.moe import MoE, expert_capacity
+    from repro_torch.tools import dist_checks
+
+    # (b) full-width deepseek-moe-16b in bf16, 4 of 28 layers, the MoE at
+    # capacity factor E / k, served without a mesh here and under it below
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=4)
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    b, plen, gen = 4, 2048, 8
+    check(expert_capacity(no_drop, b * plen) == b * plen, "distributed: C != T")
+    lm = LM(cfg, device=dev, seed=0)
+    for m in lm.modules():
+        if isinstance(m, MoE):
+            m.cfg = no_drop
+    args = argparse.Namespace(arch="deepseek-moe-16b", reduced=False, batch=b, prompt_len=plen,
+                              gen=gen, seed=0, model_parallel=1, device="cuda")
+    runs, expert_parallel = {}, [0]
+    real_ep = model_moe.moe_apply_expert_parallel
+
+    def counted_ep(*a, **kw):
+        expert_parallel[0] += 1
+        return real_ep(*a, **kw)
+
+    def serve_once(label):
+        first = {}
+
+        def record(step, logits):
+            if step == 0:
+                first["logits"] = logits.float().clone()
+
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        expert_parallel[0] = 0
+        with mock.patch.object(model_moe, "moe_apply_expert_parallel", counted_ep):
+            out = serve.run(args, model=lm, record=record)
+        runs[label] = dict(
+            prefill_ms=out["prefill_s"] * 1e3,
+            decode_ms_per_token=out["decode_s"] * 1e3 / (gen - 1),
+            peak_bytes_above_start=torch.cuda.max_memory_allocated() - start,
+            flash_launches=ops.launches["flash_attention_fwd"],
+            flash_bodies=dict(cuda_impl.body_launches["flash_attention_fwd"]),
+            expert_parallel_calls=expert_parallel[0], sharded=out.get("mesh") is not None)
+        return first["logits"]
+
+    t0 = time.perf_counter()
+    plain_logits = serve_once("no_mesh")
+
+    import logging
+
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)  # one rank: no peers to warn of
+    rdv = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_pg_")) / "rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        check(dist.get_backend() == "nccl", f"distributed: backend {dist.get_backend()}")
+        mesh = make_local_mesh(model=1, device="cuda")
+        check(tuple(mesh.mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model"),
+              f"distributed: mesh {mesh}")
+        emit("distributed", backend="nccl", world=dist.get_world_size(),
+             mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), nvidia_smi=smi)
+
+        mesh_logits = serve_once("mesh")
+        layers = flash_layers(cfg)
+        check(runs["mesh"]["sharded"] and not runs["no_mesh"]["sharded"],
+              "distributed: the mesh run did not shard")
+        for label, r in runs.items():
+            check(r["flash_launches"] == layers
+                  and r["flash_bodies"] == {"wgmma": layers, "ffma": 0},
+                  f"distributed/{label}: flash {r['flash_launches']} {r['flash_bodies']}")
+        check(runs["mesh"]["expert_parallel_calls"] == cfg.n_layers
+              and runs["no_mesh"]["expert_parallel_calls"] == 0,
+              f"distributed: expert-parallel calls {runs}")
+        a, c = mesh_logits, plain_logits
+        rel = float((a - c).norm() / c.norm())
+        check(bool(torch.isfinite(a).all()) and rel <= 0.1,
+              f"distributed: mesh vs unsharded prefill logits {rel} of their norm")
+        emit("distributed", check="full-width serve, mesh (1, 1) vs no mesh", arch=cfg.name,
+             dtype=cfg.dtype, layers=cfg.n_layers, depth_cut="4 of 28 layers", b=b,
+             prompt=plen, gen=gen, capacity_factor=no_drop.moe.capacity_factor,
+             logits_rel=rel, logits_max_abs=float((a - c).abs().max()),
+             logits_rms=float(c.pow(2).mean().sqrt()),
+             top1_agreement=float((a.argmax(-1) == c.argmax(-1)).float().mean()),
+             bitwise=bool(torch.equal(a, c)), runs=runs, seconds=time.perf_counter() - t0)
+        del lm, a, c, mesh_logits, plain_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) reduced training under the mesh (fsdp) against no mesh
+        for arch in ("stablelm-3b", "deepseek-moe-16b"):
+            t0 = time.perf_counter()
+            case = (arch, (1, 1), True, False, "adamw")
+            out, _ = dist_checks.train_case(0, 1, None, case, device="cuda",
+                                            on_mesh_start=reset_launches)
+            launches = {k: ops.launches[k] for k in ("flash_attention_fwd",
+                                                     "flash_attention_bwd")}
+            want = dict.fromkeys(launches, flash_layers(get_config(arch, reduced=True))
+                                 * dist_checks.STEPS)
+            check(launches == want and sum(ops.launches.values()) == sum(want.values()),
+                  f"distributed/{arch}: launches {dict(ops.launches)}, want {want}")
+            rel = {k: max(abs(g[k] - r[k]) / abs(r[k]) for g, r in zip(out["got"], out["ref"]))
+                   for k in ("loss", "ce_loss", "grad_norm")}
+            check(all(v <= 1e-5 for v in rel.values()), f"distributed/{arch}: metrics {rel}")
+            got, ref = out["params_got"][-1], out["params_ref"][-1]
+            diff = np.concatenate([np.abs(got[n] - ref[n]).ravel() for n in ref])
+            check(diff.max() <= 5e-4 and np.quantile(diff, 0.999) <= 1e-6,
+                  f"distributed/{arch}: parameters {diff.max()}")
+            emit("distributed", check="train, mesh (1, 1) fsdp vs no mesh", arch=arch, b=4,
+                 s=16, steps=dist_checks.STEPS, max_rel=rel,
+                 metrics_bitwise=out["got"] == out["ref"],
+                 params_max_abs=float(diff.max()), params_bitwise=bool(diff.max() == 0),
+                 launches_on_mesh=launches, seconds=time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
 
 
 def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches):

@@ -17,6 +17,12 @@ renamed into place); leaf i is ``leaf_{i}``, leaves in sorted-key order of
 the nested dicts (as ``jax.tree_util`` flattens them), bfloat16 stored as
 its uint16 bits.  A tree is nested dicts (lists, tuples) of tensors or
 numpy arrays.
+
+Under a mesh the leaves may be DTensors: ``save`` writes global arrays (each
+gathered with ``full_tensor()``, a collective every rank joins; rank 0
+writes), as the reference writes global shapes, and ``restore(...,
+shardings=, mesh=)`` places each leaf onto any target mesh, the
+reference's elastic re-scale.
 """
 
 from __future__ import annotations
@@ -31,6 +37,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import place
 
 
 def _items(tree, prefix=()):
@@ -45,10 +55,22 @@ def _items(tree, prefix=()):
         yield "/".join(prefix), tree
 
 
+def _spec_items(tree, prefix=()):
+    """(path, placement spec) of a shardings tree (nested dicts whose leaves
+    are tuples of placements)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_items(tree[k], prefix + (str(k),))
+    else:
+        yield "/".join(prefix), tree
+
+
 def _to_host(x):
     """A host numpy copy of a leaf and its dtype name; bfloat16 as uint16."""
     if isinstance(x, torch.Tensor):
         t = x.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         dtype = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -93,9 +115,22 @@ def _write(directory, step, leaves):
         raise
 
 
+def _writer():
+    """Whether this process writes: rank 0 of a process group, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(directory: str, step: int, tree) -> str:
-    """Synchronous atomic save of a tree of tensors (or numpy arrays)."""
-    return _write(directory, step, host_copy(tree))
+    """Synchronous atomic save of a tree of tensors (or numpy arrays).  In
+    a process group every rank calls it (the DTensors are gathered), rank 0
+    writes, and every rank returns once the checkpoint is visible."""
+    leaves = host_copy(tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if _writer():
+        final = _write(directory, step, leaves)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
 
 
 def _steps(directory):
@@ -116,12 +151,15 @@ def _leaf(a, dtype):
     return torch.from_numpy(a)
 
 
-def restore(directory: str, step: int, like_tree=None):
+def restore(directory: str, step: int, like_tree=None, shardings=None, mesh=None):
     """The checkpoint of ``step``.  With ``like_tree`` (a tree of the same
     structure), a tree of tensors shaped like it, each on its like leaf's
-    device; without, nested dicts of CPU tensors keyed by the manifest's
-    paths (e.g. the reference's own checkpoints, for
-    ``convert.train_state_from_numpy`` after ``.numpy()``)."""
+    device (a DTensor like leaf: in its mesh and placements); without,
+    nested dicts of CPU tensors keyed by the manifest's paths (e.g. the
+    reference's own checkpoints, for ``convert.train_state_from_numpy``
+    after ``.numpy()``).  With ``shardings`` (the like tree's placement
+    specs, ``distributed.state_shardings``) and ``mesh``, each leaf is
+    placed onto ``mesh`` whatever mesh wrote it."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -139,8 +177,18 @@ def restore(directory: str, step: int, like_tree=None):
     like = list(_items(like_tree))
     if [p for p, _ in like] != manifest["names"]:
         raise ValueError(f"checkpoint {path} does not hold the tree's leaves")
-    by_path = {p: (x.to(t.device) if isinstance(t, torch.Tensor) else x)
-               for (p, t), x in zip(like, leaves)}
+    specs = dict(_spec_items(shardings)) if shardings is not None else {}
+
+    def put(p, t, x):
+        if not isinstance(t, torch.Tensor):
+            return x
+        if isinstance(t, DTensor):
+            return place(x.to(t.to_local().device), mesh or t.device_mesh,
+                         specs.get(p, t.placements))
+        x = x.to(t.device)
+        return place(x, mesh, specs[p]) if p in specs and mesh is not None else x
+
+    by_path = {p: put(p, t, x) for (p, t), x in zip(like, leaves)}
 
     def rebuild(tree, prefix=()):
         if isinstance(tree, dict):
@@ -184,9 +232,11 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree):
         # copy every tensor to host memory NOW: the train loop updates the
-        # card's tensors in place at its next step
+        # card's tensors in place at its next step (in a process group every
+        # rank gathers, rank 0 writes)
         leaves = host_copy(tree)
-        self._q.put((step, leaves))  # blocks while a save is in flight
+        if _writer():
+            self._q.put((step, leaves))  # blocks while a save is in flight
 
     def wait(self):
         self._q.join()

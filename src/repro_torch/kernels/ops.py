@@ -17,12 +17,14 @@ The solver core (``core/stepper.py`` for the stage math, ``core/newton.py``
 for the chord-Newton linear algebra, ``core/step.py`` for the error norm, the
 fused step and dense-output writes, ``core/events.py`` for event detection,
 localization and commit) imports its ops only from here, as does the LM's
-attention (``models/attention.py``, ``flash_attention_fwd``).
+attention (``models/attention.py``, ``flash_attention_fwd``).  They refuse
+a DTensor: under a mesh each rank passes its local shards.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import autograd, cuda_impl, ref
 
@@ -30,6 +32,10 @@ launches = cuda_impl.launches
 
 
 def _on_cuda(name, t):
+    if isinstance(t, DTensor):
+        # a DTensor's device is its local shard's: the kernels take the
+        # local shards (models/attention.py runs them through local_map)
+        raise TypeError(f"{name}: got a DTensor; pass each rank's local shard")
     kind = t.device.type
     if kind == "cpu":
         return False

@@ -1,2 +1,3 @@
-"""Launchers of the port (``repro.launch``): ``serve`` (the LM) and ``serve_ode``
-(``SolveService``), each on one device."""
+"""Launchers of the port (``repro.launch``): ``train`` and ``serve`` (the LM,
+on one device or a mesh), ``serve_ode`` (``SolveService``), and the mesh
+and abstract-spec helpers ``mesh`` and ``specs``."""

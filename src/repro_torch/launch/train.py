@@ -1,7 +1,7 @@
-"""Training launcher on one device (the JAX package's ``launch/train.py``):
-AdamW steps of an LM on synthetic tokens, with async atomic checkpoints,
-resume from the latest one, a step watchdog and restart supervision,
-optional per-period remat and continuous depth (``--ode-depth``).
+"""Training launcher (the JAX package's ``launch/train.py``): AdamW steps of
+an LM on synthetic tokens, with async atomic checkpoints, resume from the
+latest one, a step watchdog and restart supervision, optional per-period
+remat and continuous depth (``--ode-depth``), on one device or on a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --reduced \\
         --steps 30 --batch 8 --seq 64 --device cpu
@@ -10,8 +10,19 @@ optional per-period remat and continuous depth (``--ode-depth``).
 
 The weights are drawn on the device from ``--seed``; the batches come from
 ``data.SyntheticTokens`` (the reference's, bit for bit).  ``--device cuda``
-(the default) raises without a card.  There is no mesh: ``--model-parallel``
-above 1 and ``--fsdp`` raise (``distributed/`` is ROADMAP A-17's item).
+(the default) raises without a card.
+
+The mesh: with ``--model-parallel N``, ``--fsdp`` or a default process
+group of more than one rank, the run is sharded over
+``launch.mesh.make_local_mesh(model=N)`` ("data" x "model" over the group's
+ranks; a group of this process alone is started if there is none, NCCL on
+the card, gloo on the CPU).  The state is placed by
+``distributed.state_shardings(..., fsdp=--fsdp)`` and the steps run inside
+``activation_sharding``; each data rank reads only its rows of the global
+batch (``SyntheticTokens.batch(step, lo=, hi=)``), so the global batch is the
+same for any mesh.  Each rank of a group runs this launcher:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --model-parallel 2 --fsdp
 """
 
 from __future__ import annotations
@@ -20,12 +31,21 @@ import argparse
 import dataclasses
 import time
 
+import contextlib
+import functools
+import os
+
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from ..checkpoint import CheckpointManager, latest_step, restore
 from ..configs import get_config
 from ..data import SyntheticTokens
+from ..distributed.constraints import activation_sharding, assign_
+from ..distributed.sharding import batch_spec, place_module, place_tree, state_shardings
 from ..launch.fault_tolerance import RestartPolicy, Watchdog
+from ..launch.mesh import make_local_mesh
 from ..optim.adamw import AdamWConfig
 from ..train.steps import init_train_state, make_train_step
 
@@ -45,11 +65,46 @@ def load_state(state, tree):
             for k in dst:
                 copy(dst[k], src[k])
         else:
-            dst.copy_(src)
+            assign_(dst, src)
 
     with torch.no_grad():
         copy(state_tree(state), tree)
     return state
+
+
+def wants_mesh(args) -> bool:
+    """Whether a run shards: ``--model-parallel`` above 1, ``--fsdp``, or a
+    process group of more than one rank (started, or set up in the
+    environment by a launcher such as ``torchrun``)."""
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    return getattr(args, "model_parallel", 1) > 1 or getattr(args, "fsdp", False) or world > 1
+
+
+def place_state(state, mesh, *, fsdp):
+    """Place a train state (the same full tensors on every rank) on
+    ``mesh`` in place: the LM's parameters and the moments in
+    ``state_shardings``; the step stays a plain tensor.  Returns it."""
+    sh = state_shardings(mesh, state, fsdp=fsdp)
+    place_module(state["params"], mesh, sh["params"])
+    for k in ("m", "v"):
+        state["opt"][k] = place_tree(state["opt"][k], mesh, sh["opt"][k])
+    return state
+
+
+def local_batch(ds, step, mesh, device):
+    """This rank's rows of the global batch of ``step`` as DTensors of
+    ``batch_spec``: rows [lo, hi) by its flat index over the data dims."""
+    shape = (ds.global_batch, ds.seq_len)
+    spec = batch_spec(mesh, torch.empty(shape, device="meta"))
+    lo, hi, coord = 0, ds.global_batch, mesh.get_coordinate()
+    for i, pl in enumerate(spec):
+        if isinstance(pl, Shard):
+            n = (hi - lo) // mesh.size(i)
+            lo, hi = lo + coord[i] * n, lo + (coord[i] + 1) * n
+    return {k: DTensor.from_local(torch.as_tensor(v, device=device), mesh, spec, run_check=False,
+                                  shape=shape, stride=(ds.seq_len, 1))
+            for k, v in ds.batch(step, lo=lo, hi=hi).items()}
 
 
 class StepTimer:
@@ -88,9 +143,6 @@ def run(args) -> dict:
     ``args.ckpt_dir``).  Returns the losses and grad norms of the steps
     taken, each step's phase times (``step_ms``), the other metrics, the
     wall time, the first step and the final ``state``."""
-    if getattr(args, "model_parallel", 1) > 1 or getattr(args, "fsdp", False):
-        raise NotImplementedError("train: one device, no mesh -- --model-parallel > 1 and "
-                                  "--fsdp wait for the port of distributed/ (ROADMAP A-17)")
     device = torch.device(getattr(args, "device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device is available; pass --device cpu")
@@ -104,7 +156,15 @@ def run(args) -> dict:
     ds = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     mgr = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
 
+    mesh, sharding = None, contextlib.nullcontext
+    own_group = not dist.is_initialized()
+    if wants_mesh(args):
+        mesh = make_local_mesh(model=getattr(args, "model_parallel", 1), device=device)
+        sharding = functools.partial(activation_sharding, dp=("data",), tp="model",
+                                     tp_size=mesh.size(1), mesh=mesh)
     state = init_train_state(cfg, args.seed, optimizer=optimizer, device=device)
+    if mesh is not None:
+        place_state(state, mesh, fsdp=getattr(args, "fsdp", False))
     start = 0
     if args.ckpt_dir and (ls := latest_step(args.ckpt_dir)) is not None:
         load_state(state, restore(args.ckpt_dir, ls, state_tree(state)))
@@ -116,9 +176,13 @@ def run(args) -> dict:
     losses, grad_norms, step_ms, metrics_log = [], [], [], []
     t0 = time.time()
     for step in range(start, args.steps):
-        batch = {k: torch.as_tensor(v, device=device) for k, v in ds.batch(step).items()}
+        if mesh is None:
+            batch = {k: torch.as_tensor(v, device=device) for k, v in ds.batch(step).items()}
+        else:
+            batch = local_batch(ds, step, mesh, device)
         timer.start()
-        state, metrics = wd.run(lambda: step_fn(state, batch, timer=timer))
+        with sharding():
+            state, metrics = wd.run(lambda: step_fn(state, batch, timer=timer))
         step_ms.append(timer.ms())
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics_log.append(metrics)
@@ -134,8 +198,12 @@ def run(args) -> dict:
         mgr.save_async(args.steps - 1, state_tree(state))
         mgr.wait()
         mgr.close()
+    if mesh is not None and own_group:
+        # the group this run started ends with it (its DTensors stay readable
+        # on their own shards, ``to_local()``)
+        dist.destroy_process_group()
     return {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms,
-            "metrics": metrics_log, "wall_s": dt, "start": start, "state": state}
+            "metrics": metrics_log, "wall_s": dt, "start": start, "state": state, "mesh": mesh}
 
 
 def parser():

@@ -27,6 +27,14 @@ attention through its CUDA backward on the card) and returns
 ``{"moe_balance"}``, the sum over the MoE layers, for a config with a MoE;
 ``prefill`` and ``decode_step`` run without grad.  With ``cfg.ode_depth``
 the forward is ``node.forward_ode``.
+
+Under a mesh (the parameters DTensors placed by
+``distributed.sharding.param_shardings``, the batch by ``batch_spec``,
+inside ``distributed.constraints.activation_sharding``) the same code runs
+sharded: the residual stream is anchored batch-on-dp, d_model replicated,
+at the reference's sites (after the embedding, at the top of each period --
+inside the checkpointed period under remat -- and the logits vocab-on-tp),
+and the caches come back as DTensors.
 """
 
 from __future__ import annotations
@@ -35,6 +43,10 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from ..distributed.constraints import as_dtensor, constrain, rows, shard_index
 from . import ssm, xlstm
 from .common import apply_norm, dense_fill_, norm_params
 from .config import ArchConfig
@@ -47,6 +59,37 @@ def _device(device):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def embed_lookup(embed, tokens):
+    """``embed[tokens]``.  Under a mesh (a DTensor table, vocab rows on
+    "model", d on the data dims with FSDP) each rank looks up its own
+    vocab rows in the table gathered over the data dims, zero for a token
+    outside them, and the sum over the vocab's mesh dims is the
+    ``Partial()`` output (the vocab-parallel embedding; DTensor's own
+    index strategy does not hold for every placement in every torch)."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    mesh = embed.device_mesh
+    vocab = [i for i, p in enumerate(embed.placements) if isinstance(p, Shard) and p.dim == 0]
+    table_pl = tuple(p if i in vocab else Replicate() for i, p in enumerate(embed.placements))
+    tok_pl = rows(mesh, tokens.ndim)
+    out_pl = tuple(Partial() if i in vocab else p for i, p in enumerate(tok_pl))
+    # the table's gradient: its vocab rows on "model", partial sums over the
+    # ranks that hold other tokens
+    grad_pl = tuple(p if i in vocab else Partial() if isinstance(tok_pl[i], Shard)
+                    else Replicate() for i, p in enumerate(table_pl))
+    block = shard_index(mesh, vocab)
+
+    def local(table, tok):
+        idx = tok.long() - block * table.shape[0]
+        inside = (idx >= 0) & (idx < table.shape[0])
+        out = table[torch.clamp(idx, 0, table.shape[0] - 1)]
+        return out * inside[..., None].to(out.dtype)
+
+    return local_map(local, out_placements=list(out_pl), in_placements=(table_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(embed, as_dtensor(tokens, mesh))
 
 
 class LM(nn.Module):
@@ -106,8 +149,9 @@ class LM(nn.Module):
 
     def _embed_tokens(self, batch):
         cfg = self.cfg
-        x = self.embed[batch["tokens"]]
+        x = embed_lookup(self.embed, batch["tokens"])
         if cfg.n_img_tokens > 0 and "img_embeds" in batch:
+            x = constrain(x, "dp", None, None)  # a mesh's lookup sums over "model" first
             n = cfg.n_img_tokens
             img = batch["img_embeds"].to(x.dtype)
             x = torch.cat([img, x[:, n:, :]], dim=1)
@@ -134,13 +178,13 @@ class LM(nn.Module):
         positions = self._positions(x)
         caches = {}
         for period, i, blk in self._layers():
+            if i == 0:
+                x = constrain(x, "dp", None, None)
             x, cache, _ = blk.apply_seq(x, positions, mode="prefill", enc_out=enc_out)
-            c = caches.setdefault(f"b{i}", {
-                name: torch.empty((self.cfg.n_periods, *t.shape), dtype=t.dtype, device=t.device)
-                for name, t in cache.items()})
             for name, t in cache.items():
-                c[name][period] = t
-        return x, caches
+                caches.setdefault(f"b{i}", {}).setdefault(name, []).append(t)
+        return x, {key: {name: torch.stack(ts) for name, ts in c.items()}
+                   for key, c in caches.items()}
 
     def forward(self, batch, *, remat=False):
         """Training forward: (logits (b, s, vocab), aux losses dict), under
@@ -154,12 +198,16 @@ class LM(nn.Module):
         cfg = self.cfg
         if cfg.ode_depth:
             return forward_ode(cfg, self, batch)
-        x = self._embed_tokens(batch)
+        x = constrain(self._embed_tokens(batch), "dp", None, None)
         positions = self._positions(x)
         enc_out = self._run_enc_stack(batch)
         n = len(cfg.pattern)
 
         def period(x, aux, p):
+            # anchor the residual stream: batch on dp, d_model replicated (see
+            # distributed/constraints.py -- keeps FSDP weight shardings out of
+            # the activations)
+            x = constrain(x, "dp", None, None)
             for blk in self.blocks[p * n:(p + 1) * n]:
                 x, _, block_aux = blk.apply_seq(x, positions, mode="train", enc_out=enc_out)
                 for key, value in block_aux.items():
@@ -175,14 +223,15 @@ class LM(nn.Module):
             else:
                 x, aux = period(x, aux, p)
         x = apply_norm(cfg, x, self.final_norm, "")
-        return x @ self.embed.T, aux
+        return constrain(x @ self.embed.T, "dp", None, "tp"), aux
 
     @torch.no_grad()
     def prefill(self, batch):
         """Full-sequence forward that materializes caches: (last_logits, cache)."""
-        x, caches = self._prefill_stack(self._embed_tokens(batch), self._run_enc_stack(batch))
+        x = constrain(self._embed_tokens(batch), "dp", None, None)
+        x, caches = self._prefill_stack(x, self._run_enc_stack(batch))
         x = apply_norm(self.cfg, x[:, -1:, :], self.final_norm, "")[:, 0]
-        return x @ self.embed.T, caches
+        return constrain(x @ self.embed.T, "dp", "tp"), caches
 
     def init_cache(self, batch_size: int, cache_len: int, enc_len: int | None = None):
         """Zero caches for decode-from-scratch, on the LM's device."""
@@ -195,12 +244,14 @@ class LM(nn.Module):
     def decode_step(self, token, pos, cache):
         """One decode step.  token: (b,) integer; pos: (b,) positions.
         Returns (logits (b, vocab), cache), the cache updated in place."""
-        x = self.embed[token]  # (b, d)
+        x = constrain(embed_lookup(self.embed, token), "dp", None)  # (b, d)
         for period, i, blk in self._layers():
+            if i == 0:
+                x = constrain(x, "dp", None)
             layer_cache = cache[f"b{i}"]
             x, _ = blk.apply_decode(x, pos, {name: t[period] for name, t in layer_cache.items()})
         x = apply_norm(self.cfg, x[:, None, :], self.final_norm, "")[:, 0]
-        return x @ self.embed.T, cache
+        return constrain(x @ self.embed.T, "dp", "tp"), cache
 
 
 def _model(cfg, params):
@@ -269,8 +320,17 @@ def pad_cache(cfg: ArchConfig, cache, cache_len: int):
         for name in ("k", "v"):
             extra = cache_len - c[name].shape[2] if name in c else 0
             if extra > 0:
-                out[key][name] = torch.nn.functional.pad(c[name], (0, 0, 0, extra))
+                out[key][name] = _pad_dim2(c[name], extra)
     return out
+
+
+def _pad_dim2(t, extra):
+    """``t`` (L, b, S, D) zero-padded to S + extra; a DTensor on its own
+    shards (S is never sharded)."""
+    if isinstance(t, DTensor):
+        return DTensor.from_local(_pad_dim2(t.to_local(), extra), t.device_mesh, t.placements,
+                                  run_check=False)
+    return torch.nn.functional.pad(t, (0, 0, 0, extra))
 
 
 def decode_step(cfg: ArchConfig, params, token, pos, cache):

@@ -20,9 +20,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..distributed.constraints import as_dtensor, assign_, constrain, rows_map, tp_size
 
 from . import ssm, xlstm
-from .attention import decode_attention, flash_attention
+from .attention import decode_attention_flat, flash_attention
 from .common import apply_norm, apply_rope, dense_fill_, norm_params
 from .moe import MoE
 
@@ -49,6 +52,13 @@ def _qkv(cfg, p, x):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if isinstance(q, DTensor):
+        # under a mesh: a flat (heads * hd) dim sharded over "model" in
+        # pieces that are not whole heads is gathered before the split
+        tp = tp_size() or 1
+        rows = ("dp",) + (None,) * (x.ndim - 1)
+        q = q if H % tp == 0 else constrain(q, *rows)
+        k, v = (k, v) if KV % tp == 0 else (constrain(k, *rows), constrain(v, *rows))
     q = q.reshape(*x.shape[:-1], H, hd)
     k = k.reshape(*x.shape[:-1], KV, hd)
     v = v.reshape(*x.shape[:-1], KV, hd)
@@ -74,6 +84,23 @@ def _channel_mix(cfg, kind, p, x):
     elif kind.endswith("_mlp"):
         x = x + _mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln2"], ""))
     return x, aux
+
+
+def write_row_(cache, pos, row):
+    """cache[i, pos[i]] = row[i] for each batch row i, in place; a DTensor
+    cache (b, S, D) is written on its own shards."""
+    if isinstance(cache, DTensor):
+        mesh = cache.device_mesh
+        # the row's placements are the cache's with its S dim (never sharded) dropped
+        pl = tuple(Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) else p
+                   for p in cache.placements)
+        row = as_dtensor(row, mesh).redistribute(mesh, pl).to_local()
+        pos = as_dtensor(pos, mesh).redistribute(mesh, tuple(
+            p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in cache.placements)).to_local()
+        cache = cache.to_local()
+    cache[torch.arange(cache.shape[0], device=cache.device), pos] = row
+    return cache
 
 
 def _params(tensors):
@@ -182,7 +209,11 @@ class Block(nn.Module):
                     cache.update(xk=kx.reshape(b_, se, -1), xv=vx.reshape(b_, se, -1))
         else:
             name, _, prefill, _ = RECURRENT[kind]
-            y, state = prefill(cfg, getattr(self, name), h)
+            mixer = getattr(self, name)
+            if isinstance(h, DTensor):  # each rank's batch rows, the mixer gathered whole
+                y, state = rows_map(lambda hl: prefill(cfg, mixer, hl), mixer, h)
+            else:
+                y, state = prefill(cfg, mixer, h)
             x = x + y
             if mode == "prefill":
                 cache = state
@@ -208,28 +239,27 @@ class Block(nn.Module):
             if cfg.rope:
                 q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
                 k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-            rows = torch.arange(b, device=x.device)
-            k_cache, v_cache = state["k"], state["v"]
-            k_cache[rows, pos] = k.reshape(b, -1)
-            v_cache[rows, pos] = v.reshape(b, -1)
-            S = k_cache.shape[1]
-            o = decode_attention(q, k_cache.reshape(b, S, KV, hd), v_cache.reshape(b, S, KV, hd),
-                                 pos)
+            write_row_(state["k"], pos, k.reshape(b, -1))
+            write_row_(state["v"], pos, v.reshape(b, -1))
+            o = decode_attention_flat(q, state["k"], state["v"], pos)
             x = x + o.reshape(b, -1) @ self.attn["wo"]
             if kind == "attn_cross_mlp":
                 hx = apply_norm(cfg, x[:, None, :], self.lnx, "")[:, 0]
                 qx = (hx @ self.xattn["wq"]).reshape(b, cfg.n_heads, hd)
                 s_enc = state["xk"].shape[1]
-                ox = decode_attention(qx, state["xk"].reshape(b, s_enc, KV, hd),
-                                      state["xv"].reshape(b, s_enc, KV, hd),
-                                      torch.full((b,), s_enc - 1, device=x.device))
+                ox = decode_attention_flat(qx, state["xk"], state["xv"],
+                                           torch.full((b,), s_enc - 1, device=x.device))
                 x = x + ox.reshape(b, -1) @ self.xattn["wo"]
         else:
             name, _, _, decode = RECURRENT[kind]
-            y, new = decode(cfg, getattr(self, name), h, state)
+            mixer = getattr(self, name)
+            if isinstance(h, DTensor):
+                y, new = rows_map(lambda hl, st: decode(cfg, mixer, hl, st), mixer, h, state)
+            else:
+                y, new = decode(cfg, mixer, h, state)
             x = x + y
             for name, t in new.items():
-                state[name].copy_(t)
+                assign_(state[name], t)
         if kind.endswith("_moe"):
             hm = apply_norm(cfg, x[:, None, :], self.ln2, "")[:, 0]
             x = x + self.moe(hm, capacity=b)[0]

@@ -8,6 +8,12 @@ the decoupled weight decay inside ``delta``, and the new parameter cast
 back to the parameter's dtype.  Unlike the reference, which returns new
 trees, it writes the parameters and moments in place (a 3B model's float32
 moments are 21 GB) and returns the same dicts.
+
+Under a mesh the parameters, gradients and moments are DTensors (the
+moments in their parameter's placements, ``distributed.state_shardings``):
+the same loop runs on them, each write keeping its destination's
+placements, and the global norm sums over every shard (its value is a
+replicated DTensor).
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import dataclasses
 import math
 
 import torch
+
+from ..distributed.constraints import assign_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +39,8 @@ class AdamWConfig:
 
 
 def _step0(params):
-    device = next(iter(params.values())).device
+    p = next(iter(params.values()))
+    device = p.to_local().device if hasattr(p, "to_local") else p.device
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
@@ -39,7 +48,7 @@ def adamw_init(params):
     """Zero float32 moments of each parameter's shape on its device, and
     step 0 (int32)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)  # a DTensor keeps its placements
 
     return {"m": {k: zeros(p) for k, p in params.items()},
             "v": {k: zeros(p) for k, p in params.items()},
@@ -87,8 +96,8 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
             vh = v_new / bc2
             delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
             p_new = p.float() - lr * delta
-            p.copy_(p_new.to(p.dtype))
-            m.copy_(m_new)
-            v.copy_(v_new)
+            assign_(p, p_new.to(p.dtype))
+            assign_(m, m_new)
+            assign_(v, v_new)
     state["step"] = step
     return params, state, {"lr": lr}

@@ -276,11 +276,6 @@ def test_every_config_serves_on_the_cpu(arch):
     assert ((0 <= out["tokens"]) & (out["tokens"] < cfg.vocab)).all()
 
 
-def test_serve_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="one device"):
-        serve.run(_args(arch="jamba_v0_1_52b", model_parallel=2))
-
-
 @pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_350m"])
 def test_bf16_weights_carry_across(arch):
     """The converter takes each leaf's dtype from the LM's parameter: the

@@ -23,8 +23,9 @@ inputs.
   and off and both optimizers: loss, grad norm and lr at each step, and the
   parameters after the third (8-bit moments: the first two steps' metrics
   and the parameters after the first; see ``HELD_STEPS``).
-- (d) the launcher: ``launch.train.run(--device cpu)`` lowers the loss, and
-  refuses ``--model-parallel`` and ``--fsdp``.
+- (d) the launcher: ``launch.train.run(--device cpu)`` lowers the loss
+  (``--model-parallel`` and ``--fsdp`` run on a mesh in
+  ``test_torch_distributed_ranks.py``).
 """
 
 import numpy as np
@@ -327,12 +328,6 @@ class TestLauncher:
         assert out["losses"][-1] < out["losses"][0]
         assert all(set(ms) == {"forward", "backward", "optimizer", "step"}
                    for ms in out["step_ms"])
-
-    def test_refuses_a_mesh(self):
-        for flag in (["--model-parallel", "2"], ["--fsdp"]):
-            args = tlaunch.parser().parse_args(["--device", "cpu", *flag])
-            with pytest.raises(NotImplementedError, match="distributed/"):
-                tlaunch.run(args)
 
     def test_cuda_without_a_card_raises(self):
         if torch.cuda.is_available():
