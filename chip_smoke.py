@@ -183,6 +183,44 @@ raises, and the script exits non-zero without printing a result:
                    at that width.  Then a checkpoint after step 2 restored
                    into a fresh state: steps 3-4 bitwise the uninterrupted
                    run's (reduced stablelm-3b on the card).
+12a. ``examples`` the reference's examples through ``repro_torch.examples``
+                   on the card: quickstart and bouncing_ball whole in float32
+                   (their own asserts), and their solves from float64 states;
+                   cnf_density (3 iterations at 512 points, the joint
+                   adjoint) and latent_ode (5 iterations, then 2 through
+                   ``SolveService``'s gradient requests, the served gradients
+                   bitwise the solo solve's) in float64; train_lm three
+                   AdamW steps of the example's reduced qwen2.5-14b and of
+                   the reduced deepseek-moe-16b, kimi-k2, jamba, xlstm-350m,
+                   whisper-large-v3 and llava-next-34b (the backward of the
+                   MoE dispatch, the Mamba scan, mLSTM's chunks, sLSTM's
+                   token loop, the encoder-decoder and the image positions)
+                   and continuous_depth_lm three steps, float32, each from a
+                   state drawn on the CPU.  Each is held to the same run on
+                   the CPU, made by a process of its own started before the
+                   lm phase on half of the host's cores, the main process
+                   kept on the other half until the process ends
+                   (``cpu_side``): float64 equal counts and within
+                   1e-9; the LM runs' first step every metric (loss, cross
+                   entropy, MoE balance loss, grad norm) within 1e-5
+                   relative (continuous depth 1e-4), steps 2-3 the losses
+                   within 1e-4 and the grad norm within 1e-3 (AdamW's
+                   near-eps entries, ROADMAP C), one attention launch for
+                   each call of the plain attention on the CPU.  Each
+                   example's wall seconds and launches by kernel.
+12b. ``dryrun``   ``launch/dryrun.py`` (counted by the same process on fake
+                   tensors on a mesh of one): the reduced stablelm-3b
+                   prefill's FLOPs in the reference's attention convention
+                   equal to the reference's HLO count, and a Shard(1)
+                   matmul and its backward on a fake 2 x 2 group equal to
+                   its count by hand (the counter's patches of DTensor's
+                   private names on this torch) (``tools/cost_checks.py``);
+                   the stablelm-3b AdamW step at
+                   2 x 2048 and the qwen2.5-14b prefill at 4 x 2048: counted
+                   GFLOPs, HBM GB, model GFLOPs, the roofline terms, the ms
+                   the train_lm and lm phases measured, the model-FLOP and
+                   counted-FLOP utilisation against 989 TFLOP/s, and the
+                   counter's peak beside the measured peak.
 13. ``grad``       gradients on the card (``kernels/autograd.py``,
                    ``ScanAdjoint``, ``BacksolveAdjoint``): each of the four
                    Functions' backwards against ``torch.autograd.grad`` of
@@ -230,16 +268,17 @@ raises, and the script exits non-zero without printing a result:
                    against CPU with equal step, event and Newton counts,
                    gradients within 1e-9; and at full width:
                    ``full_width_train`` through ``ScanAdjoint(fused=True)``
-                   and with full_width_long_events' two events, three SGD
-                   steps checkpointed, then two steps checkpointed and not
-                   in turns (median, least and most ms), exact launches (the
-                   no-grad forward's, twice with checkpointing), the fused
+                   and with full_width_long_events' two events, one SGD
+                   step checkpointed (its ms), then one step without
+                   checkpointing, exact launches (the no-grad forward's,
+                   twice with checkpointing), the fused
                    gradient within 1e-4 of the unfused one's largest entry
                    with equal step counts; the events gradient, and the
                    unfused one without events as the control, against the
                    float64 card solve at the same weights (cosine, relative
-                   difference) and the float64 loss along the SGD step
-                   against its linear prediction; ``allen_cahn_full``'s
+                   difference) and the float64 loss 0.01 of the way along
+                   the SGD step against its linear prediction;
+                   ``allen_cahn_full``'s
                    final-state gradient in y0 and lam (max_steps the eager
                    solve's iterations + 4) unfused and factor-once, two
                    runs each, exact launches, finite, peak memory under
@@ -251,7 +290,7 @@ raises, and the script exits non-zero without printing a result:
                    full-width stream (4096 requests of full_width_long's
                    network, half of them dense, coalesced to b = 1024)
                    served with a window of 4 and blocking, a first pass
-                   each and then four timed passes each in turns: async
+                   each and then two timed passes each in turns: async
                    bitwise equal to sync and every pass to its first, kernel launches exactly those of the entries
                    captured (the warm-up step and each captured block's
                    steps) and none for replays, requests/s end to end,
@@ -478,6 +517,9 @@ def main() -> int:
     # the kernel summary: the script has a fixed time limit, and these say
     # where it goes.
     phase_seconds, since = {}, [time.perf_counter()]
+    # What the dryrun phase sets its counts against: the lm phase's prefill
+    # and the train_lm phase's AdamW step, measured in this run.
+    measured = {}
 
     def lap(name):
         now = time.perf_counter()
@@ -2102,6 +2144,10 @@ def main() -> int:
              / ref_cpu["loop_iterations"])
 
     lap("stiff")
+    # The examples phase's CPU runs and the dryrun phase's counts, in a
+    # process of their own from here on (the card's phases leave the host's
+    # other cores idle); read at the examples phase.
+    cpu_started = start_cpu_side()
     # ---------------------------------------------------------------- 10. lm
     # The LM serving path (repro_torch.models, launch/serve).  (a) Reduced
     # qwen2.5-14b and stablelm-3b in float32, the same weights (drawn on the
@@ -2172,6 +2218,8 @@ def main() -> int:
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
     main_path_launches["lm/serve"] = launches
+    measured["lm/serve"] = dict(prefill_ms=out["prefill_s"] * 1e3,
+                                max_memory_allocated=peak)
     want = dict.fromkeys(ops.launches, 0)
     want["flash_attention_fwd"] = cfg.n_layers
     check(launches == want, f"lm/serve: launches {launches} != {want} (48 per prefill, 0 per "
@@ -2232,10 +2280,23 @@ def main() -> int:
 
     lap("lm_kinds")
     # ----------------------------------------------------------- 12. train_lm
-    train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches)
+    train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches,
+                   measured)
     torch.cuda.empty_cache()
 
     lap("train_lm")
+    # -------------------------------------------------------- 12a. examples
+    cpu = cpu_side_result(cpu_started)
+    emit("timing", part="examples/cpu_side_wait", seconds=time.perf_counter() - _SPLIT[0])
+    examples_phase(dev, smi, cpu["examples"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lap("examples")
+    # ---------------------------------------------------------- 12b. dryrun
+    dryrun_phase(smi, measured, cpu["dryrun"])
+
+    lap("dryrun")
     # --------------------------------------------------------------- 13. grad
     grad_phase(dev, median_ms, reset_launches)
     torch.cuda.empty_cache()
@@ -2688,11 +2749,13 @@ def distributed_phase(dev, smi, reset_launches):
         dist.destroy_process_group()
 
 
-def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches):
+def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_path_launches,
+                   measured):
     """Phase 12, ``train_lm``: the LM training path on the card (see the
     module docstring).  ``median_ms``, ``bound_ms``, ``measure`` and
     ``reset_launches`` are main's; the full-width run's launches go into
-    ``main_path_launches["train_lm/a"]``."""
+    ``main_path_launches["train_lm/a"]``, its ms a step and peak memory into
+    ``measured["train_lm/a/adamw"]`` (for the dryrun phase)."""
     import argparse
     import tempfile
 
@@ -2900,6 +2963,8 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
               f"{bodies['flash_attention_bwd']}")
         if label == "a/adamw":
             main_path_launches["train_lm/a"] = launches
+            measured["train_lm/a/adamw"] = dict(step_ms=[ms["step"] for ms in out["step_ms"]],
+                                                peak_bytes_above_start=peak)
         emit("train_lm", path=label, arch=cfg.name, dtype=cfg.dtype, params=params, b=2,
              seq=2048, steps=len(losses), losses=losses,
              batch0_loss_after=out["batch0_loss_after"], grad_norms=out["grad_norms"],
@@ -2985,6 +3050,423 @@ def train_lm_phase(dev, smi, median_ms, bound_ms, measure, reset_launches, main_
     emit("train_lm", check="checkpoint after step 2, restore into a fresh state, steps 3-4 "
          "bitwise equal to the uninterrupted run", arch=rcfg.name, dtype=rcfg.dtype,
          losses=losses, bitwise=True)
+
+
+# The examples phase's LM runs: the example's own config and the other
+# block kinds, through the train_lm example (reduced, three steps each), and
+# continuous_depth_lm.
+EXAMPLE_LM_ARCHS = ("qwen2.5-14b", "deepseek-moe-16b", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
+                    "xlstm-350m", "whisper-large-v3", "llava-next-34b")
+# The dryrun phase's cells: the train_lm phase's AdamW step and the lm
+# phase's prefill, each at the shape it ran.
+DRYRUN_CELLS = {"stablelm-3b/train": ("stablelm-3b", dict(seq_len=2048, global_batch=2,
+                                                          kind="train")),
+                "qwen2.5-14b/prefill": ("qwen2.5-14b", dict(seq_len=2048, global_batch=4,
+                                                            kind="prefill"))}
+
+
+def example_runs(device, tmp, whole=False):
+    """The examples phase's runs of ``repro_torch.examples`` on ``device``:
+    {label: {"out", "seconds", "launches", "lines"}}, ``out`` as CPU tensors,
+    numpy and numbers.  ``whole`` adds quickstart and bouncing_ball as the
+    reference runs them (float32, their own asserts).  The LM runs start
+    from a state drawn on the CPU and moved to ``device``; on the CPU each
+    counts the calls of the plain attention (one kernel launch each on the
+    card)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.examples import (
+        bouncing_ball,
+        cnf_density,
+        continuous_depth_lm,
+        latent_ode,
+        quickstart,
+        train_lm,
+    )
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.tools import cnf
+
+    dev = torch.device(device)
+    runs = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run(label, fn, keep=lambda out: out):
+        for k in ops.launches:
+            ops.launches[k] = 0
+        sync()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        runs[label] = dict(out=keep(out), seconds=seconds, lines=buf.getvalue().splitlines(),
+                           launches={k: v for k, v in ops.launches.items() if v})
+
+    def host(tree):
+        return pytree.tree_map(lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+                               tree)
+
+    def solutions(out):
+        return {name: host(dict(status=sol.status, n_steps=sol.stats["n_steps"],
+                                ys=pytree.tree_leaves(sol.ys))) for name, sol in out.items()}
+
+    if whole:
+        run("quickstart", lambda: quickstart.main(dev), lambda out: None)
+        run("bouncing_ball", lambda: bouncing_ball.main(dev), lambda out: out["max_err"])
+    y64 = torch.randn((5, 2), generator=torch.Generator().manual_seed(0)).double()
+    run("quickstart/float64", lambda: quickstart.main(dev, data=y64), solutions)
+    h0 = bouncing_ball.h0
+    run("bouncing_ball/float64", lambda: bouncing_ball.main(
+        dev, data=torch.tensor(np.stack([h0, np.zeros_like(h0)], 1))))
+    params = {k: v.double() for k, v in cnf.init_mlp(torch.Generator().manual_seed(0)).items()}
+    data = cnf.two_moons(torch.Generator().manual_seed(0), 512).double()
+    run("cnf_density", lambda: cnf_density.main(dev, iters=3, params=params, data=data),
+        lambda out: host({"nll": out["nll"], "first_grads": out["first_grads"]}))
+
+    def latent(seed):
+        p = latent_ode.init_params(torch.Generator().manual_seed(seed))
+        t, x = latent_ode.make_data(torch.Generator().manual_seed(seed))
+        return {k: v.double() for k, v in p.items()}, (t.double(), x.double())
+
+    p0, d0 = latent(0)
+    run("latent_ode", lambda: latent_ode.main(dev, iters=5, params=p0, data=d0),
+        lambda out: out["mse"])
+    p1, d1 = latent(1)
+    run("latent_ode/service", lambda: latent_ode.train_through_service(
+        2, device=dev, params=p1, data=d1), lambda out: host(
+        {k: out[k] for k in ("losses", "served", "solo")}
+        | {"n_grad_solves": out["stats"]["n_grad_solves"]}))
+
+    real_init = train.init_train_state
+
+    def drawn_on_cpu(cfg, seed, *, optimizer="adamw", device="cuda"):
+        state = real_init(cfg, seed, optimizer=optimizer, device="cpu")
+        state["params"].to(device)
+        state["opt"] = pytree.tree_map(lambda t: t.to(device), state["opt"])
+        return state
+
+    def lm_run(label, fn):
+        calls = dict.fromkeys(("flash_attention_fwd", "flash_attention_bwd"), 0)
+
+        def counted(name):
+            real = getattr(ref, name)
+
+            def call(*a, **k):
+                calls[name] += 1
+                return real(*a, **k)
+            return mock.patch.object(ref, name, call)
+
+        with mock.patch.object(train, "init_train_state", drawn_on_cpu), \
+                counted("flash_attention_fwd"), counted("flash_attention_bwd"):
+            run(label, fn, lambda out: dict(losses=out["losses"], metrics=out["metrics"],
+                                            step_ms=[ms["step"] for ms in out["step_ms"]]))
+        runs[label]["plain_attention_calls"] = calls
+
+    for arch in EXAMPLE_LM_ARCHS:
+        lm_run(f"train_lm/{arch}", lambda arch=arch: train_lm.main(
+            arch, 3, dev, f"{tmp}/{arch}/{dev.type}"))
+    lm_run("continuous_depth_lm", lambda: continuous_depth_lm.main(dev, iters=3))
+    return runs
+
+
+def dryrun_counts():
+    """The dryrun phase's counts (``launch/dryrun.py``, fake tensors on a
+    mesh of one): the reduced prefill's FLOPs against the reference's, and
+    ``lower_cell``'s record of each of ``DRYRUN_CELLS``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tools import cost_checks
+
+    counted, as_reference = cost_checks.prefill_flops()
+    got, want = cost_checks.sharded_matmul()
+    out = {"prefill": dict(counted=counted, as_reference=as_reference),
+           "sharded": dict(got=got, want=want)}
+    for name, (arch, shape) in DRYRUN_CELLS.items():
+        t0 = time.perf_counter()
+        _, info = dryrun.lower_cell(arch, shape, mesh_shape=(1, 1), remat="off")
+        out[name] = dict(info, count_s=time.perf_counter() - t0)
+    return out
+
+
+def cpu_side(path, cores):
+    """``python3 chip_smoke.py --cpu-side PATH CORES``: the examples phase's
+    CPU runs and the dryrun phase's counts, written to PATH
+    (``torch.save``), on the host cores CORES (comma separated).  ``main``
+    runs it in a process of its own beside the card's phases, so that the
+    host's share of those phases overlaps them."""
+    import tempfile
+
+    cores = [int(c) for c in cores.split(",")]
+    pin(cores)  # before torch starts a thread
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(len(cores))
+    with tempfile.TemporaryDirectory(dir=pathlib.Path(path).parent) as tmp:
+        out = {"examples": example_runs("cpu", tmp), "dryrun": dryrun_counts()}
+    torch.save(out, path)
+    return 0
+
+
+def pin(cores):
+    """Pin every thread of this process to the host cores ``cores``."""
+    import os
+
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except ProcessLookupError:  # a thread that has ended meanwhile
+            pass
+
+
+def start_cpu_side():
+    """Start ``cpu_side`` in a process of its own, on the upper half of this
+    process's host cores, and keep this process (every thread, and torch's
+    thread count) on the lower half until ``cpu_side_result``: the card's
+    phases that run meanwhile then share no core with it.  Returns (the
+    process, its output path, its log path, the split).  ``main`` stops it
+    on any exit."""
+    import os
+    import tempfile
+
+    import torch
+
+    cores = sorted(os.sched_getaffinity(0))
+    half = len(cores) // 2
+    mine, its = (cores[:half], cores[half:]) if half else (cores, cores)
+    split = dict(host_cores=os.cpu_count(), main_cores=mine, cpu_side_cores=its,
+                 main_threads=torch.get_num_threads())
+    work = pathlib.Path(tempfile.mkdtemp(prefix="cpu_side_", dir=ROOT / "build"))
+    log = open(work / "log.txt", "w")
+    proc = subprocess.Popen([sys.executable, str(pathlib.Path(__file__).resolve()),
+                             "--cpu-side", str(work / "out.pt"), ",".join(map(str, its))],
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    _CHILDREN.append(proc)
+    if half:
+        pin(mine)
+        torch.set_num_threads(len(mine))
+    emit("timing", part="cpu_side_cores", **split)
+    return proc, work / "out.pt", work / "log.txt", split
+
+
+_CHILDREN = []
+
+
+def cpu_side_result(started, timeout=600):
+    """Wait for ``start_cpu_side``'s process, give this process its cores
+    and threads back, and load what the process wrote."""
+    import torch
+
+    proc, out, log, split = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise RuntimeError(f"the CPU side did not end in {timeout} s")
+    finally:
+        pin(sorted({*split["main_cores"], *split["cpu_side_cores"]}))
+        torch.set_num_threads(split["main_threads"])
+    if rc != 0:
+        sys.stderr.write(log.read_text()[-4000:])
+        raise RuntimeError(f"the CPU side exited {rc}")
+    return torch.load(out, weights_only=False)
+
+
+def examples_phase(dev, smi, cpu):
+    """Phase 12a, ``examples``: the reference's examples through
+    ``repro_torch.examples`` on the card, held to ``cpu``, the same runs on
+    the CPU (``cpu_side``) (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        card = example_runs(dev, tmp, whole=True)
+
+    def rel(got, want):
+        """Largest |got - want| over max(1, |want|)."""
+        got = np.asarray(got.numpy() if isinstance(got, torch.Tensor) else got, np.float64)
+        want = np.asarray(want.numpy() if isinstance(want, torch.Tensor) else want, np.float64)
+        check(got.shape == want.shape, f"examples: shapes {got.shape} != {want.shape}")
+        return float(np.abs(got - want).max() / max(1.0, float(np.abs(want).max())))
+
+    def held(label, diffs, tol):
+        worst = max(diffs)
+        check(worst <= tol, f"examples/{label}: card vs CPU {worst} > {tol}")
+        return worst
+
+    def launched(label, names):
+        got = card[label]["launches"]
+        check(all(got.get(k, 0) > 0 for k in names),
+              f"examples/{label}: {[k for k in names if not got.get(k)]} not launched: {got}")
+        return got
+
+    def common(label):
+        r = card[label]
+        return dict(seconds=r["seconds"], launches=r["launches"], nvidia_smi=smi,
+                    cpu_seconds=cpu[label]["seconds"] if label in cpu else None)
+
+    solver = ("stage_accum", "fused_update", "error_norm")
+    events = ("fused_event_detect", "fused_event_commit", "masked_bisect_refine")
+    # (a) quickstart and bouncing_ball whole, float32 (their own asserts);
+    # their solves from float64 states card against CPU: equal status and
+    # n_steps, ys and impacts within 1e-9.
+    launched("quickstart", (*solver, "interp_eval"))
+    launched("bouncing_ball", events)
+    diffs = []
+    for name, want in cpu["quickstart/float64"]["out"].items():
+        got = card["quickstart/float64"]["out"][name]
+        check(torch.equal(got["status"], want["status"])
+              and torch.equal(got["n_steps"], want["n_steps"]),
+              f"examples/quickstart/{name}: status or n_steps differ from the CPU's")
+        diffs += [rel(a, b) for a, b in zip(got["ys"], want["ys"])]
+    emit("examples", example="quickstart", dtype="float32", output=card["quickstart"]["lines"][-1],
+         float64_card_vs_cpu=held("quickstart", diffs, 1e-9), tol=1e-9, **common("quickstart"))
+    got, want = card["bouncing_ball/float64"]["out"], cpu["bouncing_ball/float64"]["out"]
+    emit("examples", example="bouncing_ball", dtype="float32",
+         max_err_vs_closed_form=card["bouncing_ball"]["out"],
+         output=card["bouncing_ball"]["lines"][-1],
+         float64_card_vs_cpu=held("bouncing_ball", [rel(got[k], want[k]) for k in
+                                                    ("impacts", "states")], 1e-9),
+         tol=1e-9, **common("bouncing_ball"))
+
+    # (b) cnf_density: 3 iterations at the reference's 512 points, float64
+    # (seed 0's MLP and points, cast): every NLL and the first gradient
+    # within 1e-9 of the CPU's.
+    launched("cnf_density", solver)
+    got, want = card["cnf_density"]["out"], cpu["cnf_density"]["out"]
+    emit("examples", example="cnf_density", dtype="float64", iters=3, points=512, nll=got["nll"],
+         card_vs_cpu=held("cnf_density", [rel(got["nll"], want["nll"])] + [
+             rel(got["first_grads"][k], want["first_grads"][k]) for k in want["first_grads"]],
+             1e-9), tol=1e-9, **common("cnf_density"))
+
+    # (c) latent_ode: main, 5 iterations, and the service loop, 2, float64
+    # (seed 0's and seed 1's draws, cast): the losses and the first served
+    # gradients within 1e-9 of the CPU's (the example asserts them bitwise
+    # the solo ScanAdjoint solve's on each device).
+    launched("latent_ode", (*solver, "interp_eval"))
+    launched("latent_ode/service", solver)
+    got, want = card["latent_ode/service"]["out"], cpu["latent_ode/service"]["out"]
+    check(got["n_grad_solves"] == want["n_grad_solves"] == 3 * 16,
+          f"examples/latent_ode/service: {got['n_grad_solves']} gradient solves")
+    emit("examples", example="latent_ode", dtype="float64", iters=5,
+         mse=card["latent_ode"]["out"], service_iters=2, service_losses=got["losses"],
+         n_grad_solves=got["n_grad_solves"], service=common("latent_ode/service"),
+         card_vs_cpu=held("latent_ode", [rel(card["latent_ode"]["out"],
+                                             cpu["latent_ode"]["out"]),
+                                         rel(got["losses"], want["losses"])] + [
+             rel(got[key][k], want[key][k]) for key in ("served", "solo")
+             for k in want[key]], 1e-9), tol=1e-9, **common("latent_ode"))
+
+    # (d) train_lm: the example's reduced qwen2.5-14b and the other block
+    # kinds (MoE, Mamba, mLSTM / sLSTM, the encoder-decoder's and the vision
+    # config's frontends), three AdamW steps from the same state, float32,
+    # against the CPU's: step 1 (the same state and batch) every metric
+    # within 1e-5 relative (tests/test_torch_train_kinds.py's rule: loss,
+    # cross entropy, MoE balance loss, grad norm); steps 2-3 start from
+    # parameters the first update moved apart where a gradient is near
+    # AdamW's eps (up to half a step; ROADMAP C's AdamW rule): the losses
+    # within 1e-4, the grad norm, which feels it first, within 1e-3 (jamba's
+    # third step read 8.7e-6 and 1.07e-4 on an H100).  One attention launch
+    # for each call of the plain attention on the CPU.  continuous_depth_lm
+    # the same, its 1e-5 widened to 1e-4 (its float32 depth solve's
+    # controller, C-5), the solver kernels launched.
+    for label in [f"train_lm/{arch}" for arch in EXAMPLE_LM_ARCHS] + ["continuous_depth_lm"]:
+        got, want = card[label], cpu[label]
+        calls = want["plain_attention_calls"]
+        check(all(got["launches"].get(k, 0) == n for k, n in calls.items()),
+              f"examples/{label}: attention launches {got['launches']}, the CPU's calls {calls}")
+        tol = 1e-4 if label == "continuous_depth_lm" else 1e-5
+        rules = {"loss": (tol, 1e-4), "ce_loss": (tol, 1e-4), "moe_balance": (tol, 1e-4),
+                 "grad_norm": (tol, 1e-3)}
+        diffs = {}
+        for key, (first, later) in rules.items():
+            if key not in want["out"]["metrics"][0]:
+                continue
+            d = [abs(a[key] - b[key]) / abs(b[key])
+                 for a, b in zip(got["out"]["metrics"], want["out"]["metrics"])]
+            diffs[key] = d
+            check(d[0] <= first and max(d[1:]) <= later,
+                  f"examples/{label}: {key} card vs CPU {d} (step 1 <= {first}, later <= "
+                  f"{later}): {[m[key] for m in got['out']['metrics']]} vs "
+                  f"{[m[key] for m in want['out']['metrics']]}")
+        if label == "continuous_depth_lm":
+            launched(label, solver)
+            check(all(m["ode_steps"] > 0 for m in got["out"]["metrics"]),
+                  "examples/continuous_depth_lm: no depth step")
+        emit("examples", example=label, dtype="float32", steps=len(got["out"]["losses"]),
+             losses=got["out"]["losses"], card_vs_cpu_rel_by_step=diffs,
+             tol={k: dict(step1=a, later=b) for k, (a, b) in rules.items() if k in diffs},
+             ms_per_step=got["out"]["step_ms"], plain_attention_calls_on_cpu=calls,
+             **common(label))
+
+
+def dryrun_phase(smi, measured, counts):
+    """Phase 12b, ``dryrun``: ``launch/dryrun.py``'s counts (``counts``, from
+    ``cpu_side``) of two steps measured in this run (see the module
+    docstring).  ``measured`` holds the lm and train_lm phases' times and
+    peaks."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tools import cost_checks
+
+    # The counter on this machine's torch against the reference's HLO count
+    # of the reduced prefill (tests/test_torch_dryrun.py holds the number).
+    pre = counts["prefill"]
+    check(pre["as_reference"] == cost_checks.REFERENCE_PREFILL_FLOPS,
+          f"dryrun: the reduced prefill counts {pre['as_reference']} flops in the reference's "
+          f"convention, the reference {cost_checks.REFERENCE_PREFILL_FLOPS}")
+    emit("dryrun", check="reduced stablelm-3b prefill vs the reference's hlocost",
+         case=cost_checks.PREFILL_CASE, counted_flops=pre["counted"],
+         in_reference_convention=pre["as_reference"],
+         reference_flops=cost_checks.REFERENCE_PREFILL_FLOPS)
+    # The counter's patches of DTensor's private names on this machine's
+    # torch: a matmul on a fake 2 x 2 group against its count by hand.
+    sharded = counts["sharded"]
+    check(sharded["got"] == sharded["want"],
+          f"dryrun: the fake 2 x 2 DTensor matmul counts {sharded['got']}, by hand "
+          f"{sharded['want']}")
+    emit("dryrun", check="Shard(1) matmul and its backward on a fake 2 x 2 group vs the count "
+         "by hand", **sharded["got"])
+    train = measured["train_lm/a/adamw"]
+    serve = measured["lm/serve"]
+    against = {"stablelm-3b/train": (statistics.median(train["step_ms"][1:]),
+                                     train["peak_bytes_above_start"],
+                                     "train_lm a/adamw: median of steps 2-3; peak memory "
+                                     "above the run's start"),
+               "qwen2.5-14b/prefill": (serve["prefill_ms"], serve["max_memory_allocated"],
+                                       "lm serve: the timed prefill; the whole serve's peak, "
+                                       "every allocation")}
+    for name, (arch, shape) in DRYRUN_CELLS.items():
+        info, (ms, peak, source) = counts[name], against[name]
+        r = info["roofline"]
+        check(all(math.isfinite(r[k]) for k in ("compute_s", "memory_s", "collective_s")),
+              f"dryrun/{name}: roofline {r}")
+        s = ms / 1e3
+        emit("dryrun", cell=name, **shape, mesh="1x1, fake tensors", count_s=info["count_s"],
+             counted_gflops=info["per_device"]["gflops"],
+             hbm_gbytes=info["per_device"]["hbm_gbytes"],
+             model_gflops=info["model_gflops_global"],
+             useful_flops_ratio=info["useful_flops_ratio"], roofline=r,
+             roofline_bound_ms=1e3 * max(r["compute_s"], r["memory_s"], r["collective_s"]),
+             measured_ms=ms, measured_source=source,
+             model_flop_utilisation=info["model_gflops_global"] * 1e9 / (s * dryrun.PEAK_FLOPS),
+             counted_flop_utilisation=info["per_device"]["gflops"] * 1e9
+             / (s * dryrun.PEAK_FLOPS),
+             peak_flops=dryrun.PEAK_FLOPS, hbm_bytes_per_s=dryrun.HBM_BW,
+             argument_bytes=info["per_device_bytes"]["argument"],
+             peak_estimate_bytes=info["per_device_bytes"]["peak"], measured_peak_bytes=peak,
+             nvidia_smi=smi)
 
 
 def compiled_phase(dev, smi, reset_launches, expected_launches):
@@ -3518,11 +4000,10 @@ def grad_paths(dev, median_ms, reset_launches):
         """12h/12i, float64: a training step's first gradient (at the
         weights w0) against the same solve in float64 on the card at w0 --
         the same y0, grid, target and events, cast -- and the float64 loss
-        along the SGD step (fractions 0.01, 0.1 and 1 of lr x the gradient,
-        the float32 gradient's and the float64 one's) against its linear
-        prediction -lr frac g64 . g: a ratio near 1 at a small fraction
-        says the gradient is the loss's slope there.  The unfused path
-        without events is the control."""
+        along the SGD step (0.01 of lr x the gradient, the float32
+        gradient's and the float64 one's) against its linear prediction
+        -lr 0.01 g64 . g: a ratio near 1 says the gradient is the loss's
+        slope there.  The unfused path without events is the control."""
         tols = dict(rtol=data["kw"]["rtol"], atol=data["kw"]["atol"])
         y0d = torch.as_tensor(data["y0"], device=dev).double()
         te = np.asarray(data["t_eval"], dtype=np.float64)
@@ -3549,7 +4030,7 @@ def grad_paths(dev, median_ms, reset_launches):
             base = float(loss)
             for label, g in (("float32", g32), ("float64", g64)):
                 slope = float(sum((x * y).sum() for x, y in zip(g, g64)))
-                for frac in (0.01, 0.1, 1.0):
+                for frac in (0.01,):
                     step = frac * tr["lr"]
                     moved = {k: W[k].detach() - step * gk for k, gk in zip(W, g)}
                     change = float(solve(moved)[0]) - base
@@ -3568,7 +4049,7 @@ def grad_paths(dev, median_ms, reset_launches):
 
     split("grad/12g")
     # 12h. fused=True at full width: full_width_train through
-    # ScanAdjoint(fused=True), three SGD steps checkpointed and one step
+    # ScanAdjoint(fused=True), one SGD step checkpointed and one step
     # without; exact launches (per loop iteration one fused_step, six
     # stage_accum, one interp_eval; twice with checkpointing).  Then the
     # fused gradient at the first weights against the unfused one.
@@ -3631,37 +4112,25 @@ def grad_paths(dev, median_ms, reset_launches):
         first = step(tr["checkpoint_every"], sgd=False)
         runs = [step(tr["checkpoint_every"]) for _ in range(steps)]
         check(all(bool(np.isfinite(r["loss"])) for r in runs), "grad/train: a loss is not finite")
-        # The time of a training step: TIME_REPS steps at the last weights,
-        # checkpointed and not in turns, no SGD, each on the host's clock.
-        timed = {"checkpointed": [], "without": []}
-        for _ in range(TIME_REPS if steps else 0):
-            timed["checkpointed"].append(step(tr["checkpoint_every"], sgd=False))
-            timed["without"].append(step(0, sgd=False))
+        # One step without checkpointing at the last weights, no SGD: its
+        # launches are the no-grad forward's.  (The ms of a training step
+        # with and without checkpointing, repeated, is profile_step.py
+        # --grad's measurement.)
+        without = step(0, sgd=False) if steps else None
         data = dict(vf=vfx, y0=y0x, t_eval=tex, kw=kwx, target=tgt, w0=w0)
-        return first, runs, timed, data
+        return first, runs, without, data
 
     def public(run):
         return {k: v for k, v in run.items() if k not in ("grads", "n_steps")}
 
-    def timing(timed):
-        """Median, least and most of each timed setting, its launches and
-        peak once (every step's launches were checked)."""
-        out = {}
-        for setting, rs in timed.items():
-            ms = [r["ms"] for r in rs]
-            out[setting] = dict(
-                reps=len(rs), ms_median=statistics.median(ms), ms_min=min(ms), ms_max=max(ms),
-                forward_ms_median=statistics.median(r["forward_ms"] for r in rs),
-                backward_ms_median=statistics.median(r["backward_ms"] for r in rs),
-                peak_bytes_above_start=max(r["peak_bytes_above_start"] for r in rs),
-                launches=rs[0]["launches"])
-        return out
-
-    TIME_REPS = 2  # 2 keeps the whole script within its time (433 s)
     unfused_first, _, _, unfused_data = train(steps=0)
     in_float64("unfused", unfused_first, unfused_data)
     del unfused_data
-    first, runs, timed, _ = train(fused=True)
+    # One SGD step each for the fused and events paths: 12c's three steps
+    # show the loss along training, and more steps here would repeat the
+    # same exact-launch and finiteness checks (``without`` makes them at the
+    # weights after the step).
+    first, runs, without, _ = train(fused=True, steps=1)
     check(np.array_equal(first["n_steps"], unfused_first["n_steps"]),
           "grad/fused: step counts differ from the unfused training step")
     # The float32 rule (C-5's floor): each fused gradient within 1e-4 of the
@@ -3675,18 +4144,18 @@ def grad_paths(dev, median_ms, reset_launches):
     emit("grad", workload="full_width_train", path="fused", dtype="float32",
          max_steps=tr["max_steps"], checkpoint_every=tr["checkpoint_every"],
          losses=[r["loss"] for r in runs], steps=[public(r) for r in runs],
-         timing=timing(timed), fused_vs_unfused_rel=fused_vs, bound=1e-4)
+         without_checkpoint=public(without), fused_vs_unfused_rel=fused_vs, bound=1e-4)
 
     split("grad/12h")
     # 12i. events= at full width: full_width_long_events' RMS stop and marker
     # on the training solve, the same loss and SGD; exact launches (a no-grad
     # forward's at the same weights, twice with checkpointing).
-    first, runs, timed, data = train(events=True)
+    first, runs, without, data = train(events=True, steps=1)
     check(first["rows_stopped"] > 0 and first["events_recorded"] > 0,
           "grad/events: no event fired in the training solve")
     emit("grad", workload="full_width_train", path="events", dtype="float32",
          events=["rms_stop", "marker"], losses=[r["loss"] for r in runs],
-         steps=[public(r) for r in runs], timing=timing(timed),
+         steps=[public(r) for r in runs], without_checkpoint=public(without),
          rows_stopped=first["rows_stopped"], events_recorded=first["events_recorded"])
     in_float64("events", first, data)
     del data
@@ -3890,7 +4359,7 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
         full[mode], run = one_pass(f"serve_ode/full_width/{mode} pass 1", svc, reqs, "unfused")
         runs[mode].append(run)
     bitwise("serve_ode/full_width async vs sync", full["async"], full["sync"])
-    for n, mode in enumerate(["async", "sync", "sync", "async"] * 2):
+    for n, mode in enumerate(["async", "sync", "sync", "async"]):
         _, run = one_pass(f"serve_ode/full_width/{mode} timed pass {n}", services[mode], reqs,
                           "unfused", ref=full[mode])
         runs[mode].append(run)
@@ -4004,4 +4473,13 @@ def serve_phase(dev, smi, reset_launches, expected_launches):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--cpu-side"]:
+        sys.exit(cpu_side(sys.argv[2], sys.argv[3]))
+    try:
+        code = main()
+    finally:
+        for child in _CHILDREN:  # a phase failed before the CPU side was read
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    sys.exit(code)

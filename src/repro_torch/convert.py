@@ -5,7 +5,9 @@ tensors on a device, so one numpy seed can feed both the JAX package and the
 port; ``to_numpy`` brings a ``Solution`` back to the host;
 ``lm_params_from_numpy`` turns the JAX package's LM parameter pytree into the
 state of the port's ``models.LM``, and ``train_state_from_numpy`` its train
-state (parameters and AdamW moments) into the port's.
+state (parameters and AdamW moments) into the port's;
+``example_params_from_numpy`` carries the parameters of the reference's
+examples (the CNF's MLP, the latent ODE's weights).
 """
 
 from __future__ import annotations
@@ -124,3 +126,18 @@ def train_state_from_numpy(cfg, state_np, device, dtype=None):
     step = torch.as_tensor(np.array(opt["step"]), device=device).to(torch.int32)
     return {"params": model,
             "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]), "step": step}}
+
+
+def example_params_from_numpy(example, params_np, device, dtype=None):
+    """The parameter dict of an example from the reference's numpy tree of
+    the same keys: ``"cnf"`` (``benchmarks/cnf_bench.init_mlp``'s, for
+    ``tools.cnf`` and ``examples.cnf_density``) or ``"latent_ode"``
+    (``examples/latent_ode.init_params``'s), each leaf a tensor on
+    ``device`` (cast to ``dtype`` if given)."""
+    from .examples import latent_ode
+    from .tools import cnf
+
+    keys = {"cnf": cnf.KEYS, "latent_ode": latent_ode.KEYS}[example]
+    if set(params_np) != set(keys):
+        raise ValueError(f"{example}: keys {sorted(params_np)} are not {sorted(keys)}")
+    return {k: from_numpy(np.asarray(params_np[k]), device, dtype) for k in keys}

@@ -23,7 +23,7 @@ import torch.utils._pytree as pytree
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from .sharding import mesh_axes, to_placements
+from .sharding import guard, mesh_axes, to_placements
 
 _state = threading.local()
 
@@ -75,9 +75,11 @@ def logical_axes():
     return m["dp"], m["tp"]
 
 
-def resolve(mesh, *spec):
+def resolve(mesh, *spec, shape=None):
     """The placement spec, on ``mesh``, of a logical spec under the active
-    mapping (mesh dims the mesh lacks are dropped)."""
+    mapping (mesh dims the mesh lacks are dropped).  With the tensor's
+    ``shape``, a dim its axes do not divide is replicated instead, as the
+    sharding rules guard every dim (a batch of one on two data ranks)."""
     m = _mapping()
     names = mesh_axes(mesh)
 
@@ -87,19 +89,41 @@ def resolve(mesh, *spec):
             axis = tuple(a for a in axis if a in names) or None
         return axis if axis is None or isinstance(axis, tuple) or axis in names else None
 
-    return to_placements(mesh, tuple(one(s) for s in spec))
+    logical = tuple(one(s) for s in spec)
+    return to_placements(mesh, logical if shape is None else guard(mesh, shape, logical))
+
+
+class _Constrain(torch.autograd.Function):
+    """``x.redistribute(mesh, placements)``.  Its backward puts the gradient
+    in the input's placements, as DTensor's own does, except on a mesh dim
+    where the input was a partial sum: there DTensor's own leaves a partial
+    gradient partial, and the row-parallel product that made the input
+    would then run its backward whole on every model rank; this reduces the
+    gradient to ``placements`` (the residual stream's anchor: replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements, ctx.inputs = placements, tuple(x.placements)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pl = tuple((want if g.is_partial() else g) if inp.is_partial() else inp
+                   for inp, g, want in zip(ctx.inputs, grad.placements, ctx.placements))
+        return grad.redistribute(grad.device_mesh, pl), None
 
 
 def constrain(x, *spec):
-    """Redistribute a DTensor to the logical ``spec``; the input itself
-    outside launchers or for a plain tensor."""
+    """Redistribute a DTensor, and its gradient, to the logical ``spec``;
+    the input itself outside launchers or for a plain tensor."""
     m = _mapping()
     if m is None or not isinstance(x, DTensor):
         return x
-    placements = resolve(x.device_mesh, *spec)
-    if tuple(x.placements) == placements:
-        return x
-    return x.redistribute(x.device_mesh, placements)
+    placements = resolve(x.device_mesh, *spec, shape=x.shape)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return x if tuple(x.placements) == placements else x.redistribute(x.device_mesh,
+                                                                          placements)
+    return _Constrain.apply(x, placements)
 
 
 # ---------------------------------------------------------------- local maps
@@ -108,10 +132,11 @@ def constrain(x, *spec):
 # kernel never sees a DTensor.
 
 
-def rows(mesh, ndim: int) -> tuple:
-    """Placements of a batch-leading activation: batch on dp, the rest
-    replicated (the residual stream's anchor)."""
-    return resolve(mesh, "dp", *([None] * (ndim - 1)))
+def rows(mesh, shape) -> tuple:
+    """Placements of a batch-leading activation of ``shape``: batch on dp
+    (replicated where dp does not divide it), the rest replicated (the
+    residual stream's anchor)."""
+    return resolve(mesh, "dp", *([None] * (len(shape) - 1)), shape=shape)
 
 
 def replicated(mesh) -> tuple:
@@ -165,11 +190,13 @@ def rows_map(fn, module, *xs):
     local_w = {f"m.{n}": w.redistribute(mesh, replicated(mesh)).to_local(grad_placements=grad_pl)
                for n, w in module.named_parameters() if isinstance(w, DTensor)}
     local_x = pytree.tree_map(
-        lambda x: as_dtensor(x, mesh).redistribute(mesh, rows(mesh, x.ndim)).to_local()
+        lambda x: as_dtensor(x, mesh).redistribute(mesh, rows(mesh, x.shape)).to_local()
         if isinstance(x, torch.Tensor) else x, xs)
     out = torch.func.functional_call(_Call(module, fn), local_w, tuple(local_x))
+    # the outputs' rows are split as the inputs' were (by the global batch)
+    batch = next(x.shape[0] for x in pytree.tree_leaves(xs) if isinstance(x, torch.Tensor))
     return pytree.tree_map(
-        lambda t: DTensor.from_local(t, mesh, rows(mesh, t.ndim), run_check=False)
+        lambda t: DTensor.from_local(t, mesh, rows(mesh, (batch, *t.shape[1:])), run_check=False)
         if isinstance(t, torch.Tensor) else t, out)
 
 

@@ -58,7 +58,7 @@ def _axis_size(mesh, axis):
     return names[axis]
 
 
-def _guard(mesh, shape, spec):
+def guard(mesh, shape, spec):
     """Replace any axis assignment whose shard count does not divide the dim."""
     return tuple(axis if dim % _axis_size(mesh, axis) == 0 else None
                  for dim, axis in zip(shape, spec))
@@ -180,7 +180,7 @@ def param_logical(mesh, name: str, shape, *, fsdp: bool = True) -> tuple:
     ndim = len(shape)
     rule = _weight_rule(leaf, parts, ndim, fs)
     rule = (tuple(rule) + (None,) * ndim)[:ndim]
-    return _guard(mesh, shape, rule)
+    return guard(mesh, shape, rule)
 
 
 def param_shardings(mesh, abstract_params, *, fsdp: bool = True):
@@ -208,7 +208,7 @@ def batch_logical(mesh, x) -> tuple:
     dp = dp_axes(mesh)
     if isinstance(x, int):
         return (dp,) + (None,) * (x - 1)
-    return _guard(mesh, x.shape, (dp,) + (None,) * (x.ndim - 1))
+    return guard(mesh, x.shape, (dp,) + (None,) * (x.ndim - 1))
 
 
 def batch_spec(mesh, x):
@@ -236,7 +236,7 @@ def cache_logical(mesh, name: str, shape) -> tuple:
         s = (None, dp, None, "model")
     else:  # slstm (L, b, d) / mlstm m (L, b, H)
         s = (None, dp, "model") if nd == 3 else (None, dp) + (None,) * (nd - 2)
-    return _guard(mesh, shape, s[:nd])
+    return guard(mesh, shape, s[:nd])
 
 
 def cache_shardings(mesh, abstract_cache):

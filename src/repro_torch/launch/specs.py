@@ -42,9 +42,15 @@ def sds(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def batch_specs(cfg: ArchConfig, shape_name: str, *, with_labels: bool):
-    """Token/label/frontend-embedding specs for full-sequence steps."""
-    sh = SHAPES[shape_name]
+def shape_of(shape_name):
+    """A ``SHAPES`` entry by name, or a dict of the same keys itself."""
+    return SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+
+
+def batch_specs(cfg: ArchConfig, shape_name, *, with_labels: bool):
+    """Token/label/frontend-embedding specs for full-sequence steps
+    (``shape_name``: a ``SHAPES`` name, or a dict of its keys)."""
+    sh = shape_of(shape_name)
     b, s = sh["global_batch"], sh["seq_len"]
     dtype = getattr(torch, cfg.dtype)
     batch = {"tokens": sds((b, s), torch.int32)}
@@ -58,9 +64,9 @@ def batch_specs(cfg: ArchConfig, shape_name: str, *, with_labels: bool):
     return batch
 
 
-def decode_specs(cfg: ArchConfig, shape_name: str, *, enc_len: int = 1500):
+def decode_specs(cfg: ArchConfig, shape_name, *, enc_len: int = 1500):
     """(token, pos, cache) specs for one-token decode with a seq_len cache."""
-    sh = SHAPES[shape_name]
+    sh = shape_of(shape_name)
     b, s = sh["global_batch"], sh["seq_len"]
     cache = init_cache(cfg, b, s, device="meta", enc_len=enc_len if cfg.enc_dec else None)
     return sds((b,), torch.int32), sds((b,), torch.int32), cache

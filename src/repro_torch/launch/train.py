@@ -9,8 +9,9 @@ remat and continuous depth (``--ode-depth``), on one device or on a mesh.
         --steps 3 --batch 2 --seq 2048 [--remat] [--optimizer adamw8bit] [--ode-depth]
 
 The weights are drawn on the device from ``--seed``; the batches come from
-``data.SyntheticTokens`` (the reference's, bit for bit).  ``--device cuda``
-(the default) raises without a card.
+``data.SyntheticTokens`` (the reference's, bit for bit), with the frontend
+embeddings of a vision or encoder-decoder config (``frontend_batch``).
+``--device cuda`` (the default) raises without a card.
 
 The mesh: with ``--model-parallel N``, ``--fsdp`` or a default process
 group of more than one rank, the run is sharded over
@@ -46,6 +47,7 @@ from ..distributed.constraints import activation_sharding, assign_
 from ..distributed.sharding import batch_spec, place_module, place_tree, state_shardings
 from ..launch.fault_tolerance import RestartPolicy, Watchdog
 from ..launch.mesh import make_local_mesh
+from ..models.frontends import fake_audio_embeds, fake_img_embeds
 from ..optim.adamw import AdamWConfig
 from ..train.steps import init_train_state, make_train_step
 
@@ -92,8 +94,26 @@ def place_state(state, mesh, *, fsdp):
     return state
 
 
-def local_batch(ds, step, mesh, device):
-    """This rank's rows of the global batch of ``step`` as DTensors of
+def frontend_batch(cfg, batch_size, seq, step, seed):
+    """The frontend embeddings a step of ``cfg`` takes, on the CPU (none for
+    a text-only config): ``img_embeds`` for a config with image tokens,
+    ``audio_embeds`` of ``seq`` frames for an encoder-decoder one (the
+    encoder's frame count mirrors the sequence length, as in
+    ``launch.specs.batch_specs``), drawn by ``models.frontends`` from a CPU
+    generator seeded ``seed + step``, so every device and mesh sees the same
+    embeddings."""
+    g = torch.Generator().manual_seed(seed + step)
+    out = {}
+    if cfg.n_img_tokens > 0:
+        out["img_embeds"] = fake_img_embeds(cfg, batch_size, generator=g, device="cpu")
+    if cfg.enc_dec:
+        out["audio_embeds"] = fake_audio_embeds(cfg, batch_size, seq, generator=g, device="cpu")
+    return out
+
+
+def local_batch(ds, step, mesh, device, extra=None):
+    """This rank's rows of the global batch of ``step`` (and of ``extra``'s
+    full CPU tensors, the frontend embeddings) as DTensors of
     ``batch_spec``: rows [lo, hi) by its flat index over the data dims."""
     shape = (ds.global_batch, ds.seq_len)
     spec = batch_spec(mesh, torch.empty(shape, device="meta"))
@@ -102,9 +122,13 @@ def local_batch(ds, step, mesh, device):
         if isinstance(pl, Shard):
             n = (hi - lo) // mesh.size(i)
             lo, hi = lo + coord[i] * n, lo + (coord[i] + 1) * n
-    return {k: DTensor.from_local(torch.as_tensor(v, device=device), mesh, spec, run_check=False,
-                                  shape=shape, stride=(ds.seq_len, 1))
-            for k, v in ds.batch(step, lo=lo, hi=hi).items()}
+    out = {k: DTensor.from_local(torch.as_tensor(v, device=device), mesh, spec, run_check=False,
+                                 shape=shape, stride=(ds.seq_len, 1))
+           for k, v in ds.batch(step, lo=lo, hi=hi).items()}
+    for k, v in (extra or {}).items():
+        out[k] = DTensor.from_local(v[lo:hi].to(device), mesh, spec, run_check=False,
+                                    shape=v.shape, stride=v.stride())
+    return out
 
 
 class StepTimer:
@@ -176,10 +200,12 @@ def run(args) -> dict:
     losses, grad_norms, step_ms, metrics_log = [], [], [], []
     t0 = time.time()
     for step in range(start, args.steps):
+        extra = frontend_batch(cfg, args.batch, args.seq, step, args.seed)
         if mesh is None:
             batch = {k: torch.as_tensor(v, device=device) for k, v in ds.batch(step).items()}
+            batch.update({k: v.to(device) for k, v in extra.items()})
         else:
-            batch = local_batch(ds, step, mesh, device)
+            batch = local_batch(ds, step, mesh, device, extra)
         timer.start()
         with sharding():
             state, metrics = wd.run(lambda: step_fn(state, batch, timer=timer))

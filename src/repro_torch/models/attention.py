@@ -60,8 +60,8 @@ def _flash_on_shards(q, k, v, **kw):
     sq = q.shape[1]
     how = attention_strategy(k.shape[2], sq)
     qpl = resolve(mesh, "dp", "tp" if how == "rows" else None, "tp" if how == "heads" else None,
-                  None)
-    kvpl = resolve(mesh, "dp", None, "tp" if how == "heads" else None, None)
+                  None, shape=q.shape)
+    kvpl = resolve(mesh, "dp", None, "tp" if how == "heads" else None, None, shape=k.shape)
     # in "rows", each model rank's rows see all keys: its k/v gradients are
     # partial sums over the model dim
     kv_grad = tuple(Partial() if how == "rows" and isinstance(a, Replicate) and name == "model"
@@ -117,8 +117,9 @@ def _decode_on_shards(q, k_flat, v_flat, pos):
 
     mesh = q.device_mesh
     heads = attention_strategy(k_flat.shape[2] // q.shape[-1], 1) == "heads"
-    qpl = resolve(mesh, "dp", "tp" if heads else None, None)
-    cpl = resolve(mesh, "dp", None, "tp" if heads else None)
+    qpl = resolve(mesh, "dp", "tp" if heads else None, None, shape=q.shape)
+    cpl = resolve(mesh, "dp", None, "tp" if heads else None, shape=k_flat.shape)
     return local_map(decode_attention_flat, out_placements=list(qpl),
-                     in_placements=(qpl, cpl, cpl, resolve(mesh, "dp")), device_mesh=mesh,
+                     in_placements=(qpl, cpl, cpl, resolve(mesh, "dp", shape=pos.shape)),
+                     device_mesh=mesh,
                      redistribute_inputs=True)(q, k_flat, v_flat, as_dtensor(pos, mesh))

@@ -62,7 +62,10 @@ def apply_rope(x, positions, theta):
     """x: (..., s, n_heads, hd); positions: (..., s) integer.  The
     split-halves rotation, in float32."""
     hd = x.shape[-1]
-    freqs = _device_freqs(hd, float(theta), x.device)  # (hd/2,)
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is None:
+        freqs = _device_freqs(hd, float(theta), x.device)  # (hd/2,)
+    else:  # fake tensors (the dry run's) stay out of the cache
+        freqs = torch.as_tensor(rope_freqs(hd, float(theta)), device=x.device)
     angles = positions[..., None].float() * freqs  # (..., s, hd/2)
     sin = torch.sin(angles)[..., None, :]  # (..., s, 1, hd/2)
     cos = torch.cos(angles)[..., None, :]

@@ -73,7 +73,7 @@ def embed_lookup(embed, tokens):
     mesh = embed.device_mesh
     vocab = [i for i, p in enumerate(embed.placements) if isinstance(p, Shard) and p.dim == 0]
     table_pl = tuple(p if i in vocab else Replicate() for i, p in enumerate(embed.placements))
-    tok_pl = rows(mesh, tokens.ndim)
+    tok_pl = rows(mesh, tokens.shape)
     out_pl = tuple(Partial() if i in vocab else p for i, p in enumerate(tok_pl))
     # the table's gradient: its vocab rows on "model", partial sums over the
     # ranks that hold other tokens

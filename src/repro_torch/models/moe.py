@@ -178,7 +178,7 @@ def moe_apply_expert_parallel(cfg, p, x, mesh):
         return part, aux
 
     names = mesh.mesh_dim_names
-    tok = resolve(mesh, "dp", None)
+    tok = resolve(mesh, "dp", None, shape=x.shape)
     tok_grad = tuple(Partial() if n == "model" else pl for n, pl in zip(names, tok))
     experts = tuple(Shard(0) if n == "model" else Replicate() for n in names)
     summed = tuple(Partial() if n != "model" else pl for n, pl in zip(names, experts))

@@ -45,6 +45,15 @@ def check_kind(kind):
         raise ValueError(f"unknown block kind {kind!r}; the kinds are {KINDS}")
 
 
+def _heads(t, n, hd):
+    """``t`` (..., n * hd) viewed as (..., n, hd).  Under a mesh whose
+    "model" dim does not divide ``n``, gathered on rows first: a flat dim
+    sharded over "model" in pieces that are not whole heads does not view."""
+    if isinstance(t, DTensor) and n % (tp_size() or 1):
+        t = constrain(t, "dp", *(None,) * (t.ndim - 1))
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def _qkv(cfg, p, x):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
@@ -52,17 +61,23 @@ def _qkv(cfg, p, x):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if isinstance(q, DTensor):
-        # under a mesh: a flat (heads * hd) dim sharded over "model" in
-        # pieces that are not whole heads is gathered before the split
-        tp = tp_size() or 1
-        rows = ("dp",) + (None,) * (x.ndim - 1)
-        q = q if H % tp == 0 else constrain(q, *rows)
-        k, v = (k, v) if KV % tp == 0 else (constrain(k, *rows), constrain(v, *rows))
-    q = q.reshape(*x.shape[:-1], H, hd)
-    k = k.reshape(*x.shape[:-1], KV, hd)
-    v = v.reshape(*x.shape[:-1], KV, hd)
-    return q, k, v
+    return _heads(q, H, hd), _heads(k, KV, hd), _heads(v, KV, hd)
+
+
+def _flat_heads(cfg, o):
+    """The attention's output (..., H, hd) flattened to (..., H * hd) for the
+    row-parallel output projection.  Under a mesh it is anchored with whole
+    heads a model rank, or, where "model" does not divide H, every head on
+    every rank (as ``_heads`` anchors q).  Otherwise the attention by rows
+    leaves the sequence sharded over "model", which torch 2.11's matmul
+    cannot flatten with the batch, and the projection's backward gives the
+    gradient in pieces that are not whole heads, which do not view back to
+    (H, hd)."""
+    flat = o.reshape(*o.shape[:-2], -1)
+    if isinstance(flat, DTensor):
+        heads = None if cfg.n_heads % (tp_size() or 1) else "tp"
+        flat = constrain(flat, "dp", *(None,) * (flat.ndim - 2), heads)
+    return flat
 
 
 def _mlp(cfg, p, x):
@@ -80,7 +95,9 @@ def _channel_mix(cfg, kind, p, x):
     if kind.endswith("_moe"):
         b, s, d = x.shape
         y, aux = p["moe"](apply_norm(cfg, x, p["ln2"], "").reshape(b * s, d))
-        x = x + y.reshape(b, s, d)
+        # tokens back on the data dims alone before the rows are split again
+        # (a token dim sharded over every mesh dim does not view as (b, s))
+        x = x + constrain(y, "dp", None).reshape(b, s, d)
     elif kind.endswith("_mlp"):
         x = x + _mlp(cfg, p["mlp"], apply_norm(cfg, x, p["ln2"], ""))
     return x, aux
@@ -183,6 +200,13 @@ class Block(nn.Module):
         ``attn_cross_mlp``."""
         cfg, kind = self.cfg, self.kind
         cache = None
+        # Under a mesh the residual stream is anchored (batch on dp, d_model
+        # replicated) after each row-parallel output projection: where the
+        # cross attention and the channel mix read it and where the block
+        # returns it (the caller anchors the stack's input).  The projection
+        # leaves it a partial sum over "model", which a norm keeps partial,
+        # and DTensor would then gather the next projection's weights and
+        # run the product whole on every model rank.
         h = apply_norm(cfg, x, self.ln1, "")
         if kind in ATTN_KINDS:
             q, k, v = _qkv(cfg, self.attn, h)
@@ -191,19 +215,20 @@ class Block(nn.Module):
                 k = apply_rope(k, positions, cfg.rope_theta)
             o = flash_attention(q, k, v, causal=kind != "attn_bidir_mlp", q_chunk=cfg.q_chunk,
                                 kv_chunk=cfg.kv_chunk)
-            x = x + o.reshape(*x.shape[:-1], -1) @ self.attn["wo"]
+            x = x + _flat_heads(cfg, o) @ self.attn["wo"]
             b_, s_ = x.shape[0], x.shape[1]
             if mode == "prefill":
                 cache = {"k": k.reshape(b_, s_, -1), "v": v.reshape(b_, s_, -1)}
             if kind == "attn_cross_mlp":
                 H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+                x = constrain(x, "dp", None, None)
                 hx = apply_norm(cfg, x, self.lnx, "")
-                qx = (hx @ self.xattn["wq"]).reshape(*hx.shape[:-1], H, hd)
-                kx = (enc_out @ self.xattn["wk"]).reshape(*enc_out.shape[:-1], KV, hd)
-                vx = (enc_out @ self.xattn["wv"]).reshape(*enc_out.shape[:-1], KV, hd)
+                qx = _heads(hx @ self.xattn["wq"], H, hd)
+                kx = _heads(enc_out @ self.xattn["wk"], KV, hd)
+                vx = _heads(enc_out @ self.xattn["wv"], KV, hd)
                 ox = flash_attention(qx, kx, vx, causal=False, q_chunk=cfg.q_chunk,
                                      kv_chunk=cfg.kv_chunk)
-                x = x + ox.reshape(*x.shape[:-1], -1) @ self.xattn["wo"]
+                x = x + _flat_heads(cfg, ox) @ self.xattn["wo"]
                 if mode == "prefill":
                     se = enc_out.shape[1]
                     cache.update(xk=kx.reshape(b_, se, -1), xv=vx.reshape(b_, se, -1))
@@ -217,8 +242,8 @@ class Block(nn.Module):
             x = x + y
             if mode == "prefill":
                 cache = state
-        x, aux = _channel_mix(cfg, kind, self._channel(), x)
-        return x, cache, aux
+        x, aux = _channel_mix(cfg, kind, self._channel(), constrain(x, "dp", None, None))
+        return constrain(x, "dp", None, None), cache, aux
 
     def apply_decode(self, x, pos, state):
         """One-token path, ``block_apply_decode``.  x: (b, d); pos: (b,);
@@ -244,8 +269,9 @@ class Block(nn.Module):
             o = decode_attention_flat(q, state["k"], state["v"], pos)
             x = x + o.reshape(b, -1) @ self.attn["wo"]
             if kind == "attn_cross_mlp":
+                x = constrain(x, "dp", None)
                 hx = apply_norm(cfg, x[:, None, :], self.lnx, "")[:, 0]
-                qx = (hx @ self.xattn["wq"]).reshape(b, cfg.n_heads, hd)
+                qx = _heads(hx @ self.xattn["wq"], cfg.n_heads, hd)
                 s_enc = state["xk"].shape[1]
                 ox = decode_attention_flat(qx, state["xk"], state["xv"],
                                            torch.full((b,), s_enc - 1, device=x.device))
@@ -260,9 +286,10 @@ class Block(nn.Module):
             x = x + y
             for name, t in new.items():
                 assign_(state[name], t)
+        x = constrain(x, "dp", None)  # the anchors of apply_seq
         if kind.endswith("_moe"):
             hm = apply_norm(cfg, x[:, None, :], self.ln2, "")[:, 0]
             x = x + self.moe(hm, capacity=b)[0]
         elif kind.endswith("_mlp"):
             x = x + _mlp(cfg, self.mlp, apply_norm(cfg, x[:, None, :], self.ln2, "")[:, 0])
-        return x, state
+        return constrain(x, "dp", None), state

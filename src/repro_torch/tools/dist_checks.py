@@ -50,6 +50,11 @@ GROUP_TIMEOUT_S = 60
 B, S, STEPS = 4, 16, 3
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 MOE_AUX = 0.01
+# Served one row on the 2-rank group's (2, 1) mesh: a batch its data ranks
+# do not divide (the recurrent mixers' rows_map and the attention's local
+# maps keep the row whole on every rank).  No MoE config: on two data ranks
+# its capacity is per shard (ROADMAP C), not one process's.
+ROW_SERVE_ARCHS = ("qwen2.5-14b", "xlstm-350m")
 
 
 # ------------------------------------------------------------------- spawn
@@ -250,15 +255,15 @@ def restore_on(rank, world, workdir, ckpt_dir, arch, shape, fsdp, optimizer="ada
     return gathered(state_tree(state)), placements_of(state_tree(state)), want
 
 
-def serve_tokens(rank, world, workdir, arch, model_parallel, gen=4):
+def serve_tokens(rank, world, workdir, arch, model_parallel, gen=4, batch=2):
     """``launch.serve.run`` of a reduced config on the group's mesh: (the
     greedy tokens, the cache's placements, ``cache_shardings``)."""
     import argparse
 
     from ..launch import serve
 
-    args = argparse.Namespace(arch=arch, reduced=True, batch=2, prompt_len=16, gen=gen, seed=0,
-                              model_parallel=model_parallel, device="cpu")
+    args = argparse.Namespace(arch=arch, reduced=True, batch=batch, prompt_len=16, gen=gen,
+                              seed=0, model_parallel=model_parallel, device="cpu")
     out = serve.run(args)
     cache = out["cache"]
     return out["tokens"], placements_of(cache), cache_shardings(out["mesh"], cache)
@@ -276,6 +281,8 @@ def two_ranks(rank, world, workdir, cases, ckpt_dir, ckpt_case, serve_archs, lau
         out[case], _ = train_case(rank, world, workdir, case)
     for arch in serve_archs:
         out[("serve", arch)] = serve_tokens(rank, world, workdir, arch, 2)
+    for arch in ROW_SERVE_ARCHS:
+        out[("serve_row", arch)] = serve_tokens(rank, world, workdir, arch, 1, batch=1)
     x = torch.as_tensor(np.random.default_rng(rank).standard_normal((3, 300)), dtype=torch.float32)
     out["psum"] = (x.numpy(), compress_roundtrip(x).numpy(), psum_compressed(x).numpy())
     res = train.run(train.parser().parse_args(launcher_argv))

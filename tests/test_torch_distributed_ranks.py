@@ -270,6 +270,22 @@ def test_serve_model_parallel_tokens_equal_one_process(two, arch):
         assert placements == rules
 
 
+@pytest.mark.parametrize("arch", dc.ROW_SERVE_ARCHS)
+def test_serve_one_row_on_two_data_ranks_equals_one_process(two, arch):
+    """One row served on a (2, 1) mesh, a batch its data ranks do not
+    divide: the batch placements fall back to replication (the sharding
+    rules' guard), and the tokens are one process's."""
+    import argparse
+
+    args = argparse.Namespace(arch=arch, reduced=True, batch=1, prompt_len=16, gen=4, seed=0,
+                              model_parallel=1, device="cpu")
+    want = serve.run(args)["tokens"]
+    for rank in range(2):
+        tokens, placements, rules = two[rank][("serve_row", arch)]
+        np.testing.assert_array_equal(tokens, want)
+        assert placements == rules
+
+
 def test_psum_compressed_is_the_sum_of_round_trips(two):
     (_, rt0, s0), (_, rt1, s1) = (r["psum"] for r in two)
     np.testing.assert_array_equal(s0, s1)
