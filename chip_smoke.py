@@ -282,7 +282,47 @@ raises, and the script exits non-zero without printing a result:
                    final-state gradient in y0 and lam (max_steps the eager
                    solve's iterations + 4) unfused and factor-once, two
                    runs each, exact launches, finite, peak memory under
-                   16 GB.
+                   16 GB.  (Each full-width training path's first step is
+                   its warm-up, the stiff gradient one timed run, and the
+                   four backwards at full_width's shape one tolerance shape
+                   and mask kind, ``FULL_WIDTH_KINDS``: the ``jvp`` phase's
+                   time came out of here.)
+13a. ``jvp``       forward mode on the card (``torch.func.jvp``; each
+                   Function's ``jvp`` in ``kernels/autograd.py``): each of
+                   the thirteen against ``torch.func.jvp`` of the plain op
+                   on the card, same inputs and tangents
+                   (``tools/jvp_checks.py`` on ``grad_checks``' cases; the
+                   fused steps against ``jvp_checks.card_plain_jvp``, the
+                   plain composition valued at the kernel's bits): every
+                   case at vdp_table3's shape in both dtypes, at
+                   full_width's one tolerance shape and mask kind (the
+                   explicit ops in both dtypes, the fused and event ops in
+                   float32), the Newton ops at allen_cahn_full's width in
+                   float32, by ``grad_checks``' rules (entry by entry; the
+                   fused steps and Newton ops row by row in float64, against
+                   the float64 plain op in float32), each call exactly its
+                   forward's launch and its tangent's (``TANGENT_LAUNCHES``:
+                   the ops linear in the tangent launch their kernel again),
+                   each jvp's time at its main shape beside the plain op's
+                   and the forward's; whole float64 solves
+                   (``jvp_checks.PATHS``: dopri5 with a tangent in t_eval
+                   too, fused, a terminal event, kvaerno5 unfused and
+                   factor-once, a non-terminal event through forward_ad
+                   duals) card against the CPU side's
+                   (``jvp_cpu_half``), equal counts, tangents within 1e-9
+                   of their largest entry; <J v, w> = <v, J^T w> on the card
+                   (dopri5, kvaerno5 factor-once); then full_width_long in
+                   float32 (tangent in y0 and every weight) and
+                   allen_cahn_full factor-once in float32 and unfused in
+                   float64 (y0 and lam), a primal and a jvp solve each: ms
+                   a step of both, launches by kernel (the tangent's
+                   exactly ``TANGENT_LAUNCHES`` times the primal's), rows
+                   0-7 held to the CPU's: full_width_long's float32 tangent
+                   within twice the CPU's own float32 global error (C-5's
+                   rule, against the float64 tangent at tol 1e-7),
+                   allen_cahn_full's float64 one within 1e-9 with equal
+                   per-row counts.  The kernel summary gives each solver
+                   kernel its tangent launches.
 14. ``serve_ode``  request serving (``core/serving.py``: ``SolveService``):
                    ``serve_checks.make_stream`` (decay, features 2/3/5,
                    every third request dense) in float64 on the card and on
@@ -434,10 +474,15 @@ REPLACES = {
     # No Pallas kernel: the reference differentiates its jnp attention here.
     "flash_attention_bwd": "src/repro/models/attention.py:39",
 }
+# The thirteen solver kernels: each has a jvp (kernels/autograd.py).
+SOLVER_KERNELS = tuple(k for k in SOURCES if not k.startswith("flash_attention"))
 # fused_update is timed at each stage count of the repo's tableaus (one
 # tableau each); the main path's is dopri5's s = 7.
 UPDATE_TABLEAUS = {1: "euler", 2: "heun", 3: "trbdf2", 4: "bosh3", 7: "dopri5"}
 MAIN_CASE = {"fused_update": "s=7 dopri5"}
+# The tolerance shape and mask kind the grad and jvp phases hold the explicit
+# ops at full_width's shape (every kind at vdp_table3's): the ones timed.
+FULL_WIDTH_KINDS = dict(tol_kinds=("scalar",), mask_kinds=("run3",))
 # The stiff path's kernels are timed and counted at allen_cahn_full's shapes.
 MAIN_SHAPE = dict.fromkeys(("batched_linsolve", "batched_lu_factor", "fused_newton_iter",
                             "masked_newton_update"), "allen_cahn_full")
@@ -2298,10 +2343,17 @@ def main() -> int:
 
     lap("dryrun")
     # --------------------------------------------------------------- 13. grad
-    grad_phase(dev, median_ms, reset_launches)
+    full_cases = grad_phase(dev, median_ms, reset_launches)
     torch.cuda.empty_cache()
 
     lap("grad")
+    # --------------------------------------------------------------- 13a. jvp
+    tangent_launches = jvp_phase(dev, median_ms, reset_launches, cpu_side_jvp(cpu_started),
+                                 full_cases)
+    del full_cases
+    torch.cuda.empty_cache()
+
+    lap("jvp")
     # ----------------------------------------------------------- 14. serve_ode
     serve_phase(dev, smi, reset_launches, expected_launches)
     torch.cuda.empty_cache()
@@ -2356,6 +2408,9 @@ def main() -> int:
             "library_ms": (statistics.fmean(r["library_ms"] for r in main)
                            if main[0]["library_ms"] is not None else None),
         })
+        if name in SOLVER_KERNELS:  # forward mode: the jvp phase's solves
+            n, run = tangent_launches.get(name, (0, "every jvp solve of the phase"))
+            summary[-1].update(tangent_launches=n, tangent_launches_on=run)
         if len(at_main) > 1:  # each case its own time and bound (error_norm's tolerances)
             summary[-1]["by_case"] = {r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                                                       bound_ms=r["bound_ms"]) for r in at_main}
@@ -3199,10 +3254,14 @@ def dryrun_counts():
 
 def cpu_side(path, cores):
     """``python3 chip_smoke.py --cpu-side PATH CORES``: the examples phase's
-    CPU runs and the dryrun phase's counts, written to PATH
-    (``torch.save``), on the host cores CORES (comma separated).  ``main``
-    runs it in a process of its own beside the card's phases, so that the
-    host's share of those phases overlaps them."""
+    CPU runs and the dryrun phase's counts, written to PATH, then the jvp
+    phase's CPU tangents (``jvp_cpu_half``), written to PATH + ".jvp"
+    (``torch.save``, each file renamed into place whole), on the host cores
+    CORES (comma separated).  ``main`` runs it in a process of its own
+    beside the card's phases, so that the host's share of those phases
+    overlaps them: it reads PATH at the examples phase, while the jvp half
+    still runs, and PATH + ".jvp" at the jvp phase."""
+    import os
     import tempfile
 
     cores = [int(c) for c in cores.split(",")]
@@ -3211,9 +3270,13 @@ def cpu_side(path, cores):
 
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(len(cores))
+    def save(obj, to):
+        torch.save(obj, to + ".part")
+        os.replace(to + ".part", to)
+
     with tempfile.TemporaryDirectory(dir=pathlib.Path(path).parent) as tmp:
-        out = {"examples": example_runs("cpu", tmp), "dryrun": dryrun_counts()}
-    torch.save(out, path)
+        save({"examples": example_runs("cpu", tmp), "dryrun": dryrun_counts()}, path)
+    save(jvp_cpu_half(), path + ".jvp")
     return 0
 
 
@@ -3263,23 +3326,46 @@ _CHILDREN = []
 
 
 def cpu_side_result(started, timeout=600):
-    """Wait for ``start_cpu_side``'s process, give this process its cores
-    and threads back, and load what the process wrote."""
+    """Wait for ``start_cpu_side``'s process to write its first file (or to
+    end), give this process its cores and threads back, and load the file.
+    The process goes on with the jvp half (``cpu_side_jvp``)."""
     import torch
 
     proc, out, log, split = started
+    deadline = time.monotonic() + timeout
     try:
-        rc = proc.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        raise RuntimeError(f"the CPU side did not end in {timeout} s")
+        while not out.exists() and proc.poll() is None:
+            if time.monotonic() > deadline:
+                proc.kill()
+                raise RuntimeError(f"the CPU side wrote nothing in {timeout} s")
+            time.sleep(0.05)
     finally:
         pin(sorted({*split["main_cores"], *split["cpu_side_cores"]}))
         torch.set_num_threads(split["main_threads"])
-    if rc != 0:
-        sys.stderr.write(log.read_text()[-4000:])
-        raise RuntimeError(f"the CPU side exited {rc}")
+    if not out.exists():
+        _cpu_side_failed(proc, log)
     return torch.load(out, weights_only=False)
+
+
+def cpu_side_jvp(started, timeout=600):
+    """Wait for ``start_cpu_side``'s process to end and load its jvp half."""
+    import torch
+
+    proc, out, log, _ = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise RuntimeError(f"the CPU side did not end in {timeout} s")
+    if proc.returncode != 0:
+        _cpu_side_failed(proc, log)
+    return torch.load(f"{out}.jvp", weights_only=False)
+
+
+def _cpu_side_failed(proc, log):
+    proc.wait()
+    sys.stderr.write(log.read_text()[-4000:])
+    raise RuntimeError(f"the CPU side exited {proc.returncode}")
 
 
 def examples_phase(dev, smi, cpu):
@@ -3637,7 +3723,9 @@ def compiled_phase(dev, smi, reset_launches, expected_launches):
 
 def grad_phase(dev, median_ms, reset_launches):
     """Phase 13, ``grad``: the gradient path on the card (see the module
-    docstring).  ``median_ms`` and ``reset_launches`` are main's."""
+    docstring).  ``median_ms`` and ``reset_launches`` are main's.  Returns
+    the explicit ops' cases at full_width's shape by numpy dtype, which the
+    jvp phase holds again rather than draw them anew."""
     import warnings
 
     import numpy as np
@@ -3652,14 +3740,21 @@ def grad_phase(dev, median_ms, reset_launches):
 
     # 12a. Each backward on the card against torch.autograd.grad of the plain
     # op on the card, same inputs: vdp_table3's and full_width's shapes, both
-    # dtypes, every case of grad_checks (its window included); then each
-    # backward's time at full_width float32 beside the plain op's.
+    # dtypes, every case of grad_checks (its window included) at vdp_table3's
+    # and one tolerance shape and one mask kind at full_width's (the numpy
+    # draws of the others outlasted their checks: the jvp phase's time came
+    # from here); then each backward's time at full_width float32 beside the
+    # plain op's.
     worst = dict.fromkeys(FOUR, 0.0)
-    timed = {}
-    for shape_name, shp in (("vdp_table3", workloads.VDP), ("full_width", workloads.FULL)):
+    timed, full_cases = {}, {}
+    for shape_name, shp, kinds in (("vdp_table3", workloads.VDP, {}),
+                                   ("full_width", workloads.FULL, FULL_WIDTH_KINDS)):
         for dtype in (np.float32, np.float64):
             tdtype = torch.float32 if dtype == np.float32 else torch.float64
-            for case in grad_checks.cases(shp["b"], shp["f"], shp["n"], dtype):
+            shape_cases = grad_checks.cases(shp["b"], shp["f"], shp["n"], dtype, **kinds)
+            if shape_name == "full_width":
+                full_cases[dtype] = shape_cases
+            for case in shape_cases:
                 op = case["op"]
                 want = grad_checks.case_grads(case, grad_checks.plain(op), dev)
                 got = grad_checks.case_grads(case, grad_checks.function(op), dev)
@@ -3897,6 +3992,7 @@ def grad_phase(dev, median_ms, reset_launches):
          wide_row_kernels_ms=wide)
 
     grad_paths(dev, median_ms, reset_launches)
+    return full_cases
 
 
 def grad_paths(dev, median_ms, reset_launches):
@@ -4107,7 +4203,8 @@ def grad_paths(dev, median_ms, reset_launches):
                 opt.step()
             return out
 
-        step(tr["checkpoint_every"], sgd=False)  # warm-up
+        # The first step is the warm-up too: its ms is not reported, and the
+        # later steps' times are warm.
         w0 = {k: w.detach().clone() for k, w in weights.items()}
         first = step(tr["checkpoint_every"], sgd=False)
         runs = [step(tr["checkpoint_every"]) for _ in range(steps)]
@@ -4168,7 +4265,7 @@ def grad_paths(dev, median_ms, reset_launches):
     # solve's iterations + 4; unfused Newton and factor-once; exact launches
     # (the no-grad forward's), finite gradients, ms and peak memory (under
     # 16 GB: batched_linsolve saves no factor).
-    STIFF_REPS = 2  # likewise
+    STIFF_REPS = 1  # one timed run after the warm-up (the jvp phase's time came from here)
     vfs, y0s, _, kws = workloads.allen_cahn_full(np.float32)
     with torch.no_grad():
         eager = solve_ivp(vfs, y0s, None, device=dev, **kws)
@@ -4211,6 +4308,226 @@ def grad_paths(dev, median_ms, reset_launches):
          max_steps=max_steps, max_steps_rule="eager card solve's iterations + 4",
          eager_iterations=max_steps - 4, runs=stiff)
 
+
+
+# The jvp phase's whole float64 solves, card against CPU (jvp_checks.PATHS).
+JVP_PATHS = ("dopri5", "dopri5_fused", "events_terminal", "kvaerno5", "kvaerno5_factor_once")
+JVP_ROWS = 8  # rows of the full-width tangents held to the CPU's
+
+
+def jvp_wrt(path):
+    return ("y0", "args", "t_eval") if path == "dopri5" else ("y0", "args")
+
+
+def jvp_cpu_half():
+    """The jvp phase's CPU runs (``cpu_side``): every ``JVP_PATHS`` tangent;
+    the tangent of full_width_long's rows 0-7 in float32 and, at tol 1e-7,
+    in float64 (the float32 tangent's global error is measured against
+    it); and allen_cahn_full's rows 0-7 unfused in float64, with their
+    per-row counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tools import jvp_checks, workloads
+
+    paths = {p: jvp_checks.solve_tangents("cpu", p, wrt=jvp_wrt(p))
+             for p in (*JVP_PATHS, "events_marker")}
+    vf, y0, te, kw = workloads.full_width_long("cpu")
+    _, rows, _ = jvp_checks.jvp_solve(vf, y0, te, kw, "cpu", rows=JVP_ROWS)
+    _, truth, _ = jvp_checks.jvp_solve(vf, y0.astype(np.float64), te.astype(np.float64),
+                                       dict(kw, rtol=1e-7, atol=1e-7), "cpu", rows=JVP_ROWS,
+                                       dtype=torch.float64)
+    vfs, y0s, _, kws = workloads.allen_cahn_full(np.float64)
+    _, stiff, stiff_counts = jvp_checks.jvp_solve(vfs, y0s, None, kws, "cpu", rows=JVP_ROWS)
+    return {"paths": paths, "full_width_long_rows": rows.double().numpy(),
+            "full_width_long_rows_float64": truth.numpy(),
+            "allen_cahn_rows_float64": (stiff.numpy(), stiff_counts)}
+
+
+def jvp_phase(dev, median_ms, reset_launches, cpu, full_cases):
+    """Phase 13a, ``jvp``: forward mode on the card (see the module
+    docstring).  ``median_ms`` and ``reset_launches`` are main's, ``cpu``
+    the CPU side's ``jvp_cpu_half()``, ``full_cases`` the grad phase's
+    explicit cases at full_width's shape by numpy dtype.  Returns the tangent launches by
+    kernel of the phase's main-path jvp solves, for the kernel summary:
+    name -> (launches, the solve they come from)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import solve_ivp
+    from repro_torch.kernels import ops
+    from repro_torch.tools import grad_checks, jvp_checks, workloads
+
+    TL = jvp_checks.TANGENT_LAUNCHES
+
+    # (a) Each Function's jvp on the card against torch.func.jvp of the
+    # plain op on the card, same inputs and tangents: every case of every op
+    # at vdp_table3's shape, both dtypes; at full_width's the explicit ops
+    # in both dtypes and the fused and event ops in float32, at one
+    # tolerance shape and mask kind (the numpy draws of a full-width case
+    # outlast its checks); the Newton ops at allen_cahn_full's width in
+    # float32, one case each (jvp_checks.stiff_main_cases).  Each call's
+    # launches exactly the forward's one and its tangent's.  The explicit
+    # cases at full_width's shape are the grad phase's; the tangents are
+    # drawn on the card (numpy's draws at full width outlast the checks).
+    def shape_cases(shp, names, dtype, kinds):
+        return lambda: grad_checks.cases(shp["b"], shp["f"], shp["n"], dtype, ops=names,
+                                         **kinds)
+
+    vdp, full = workloads.VDP, workloads.FULL
+    shapes = [("vdp_table3", dt, shape_cases(vdp, grad_checks.OPS, dt, {}))
+              for dt in (np.float32, np.float64)]
+    fused_events = shape_cases(full, grad_checks.FUSED + grad_checks.EVENTS, np.float32,
+                               FULL_WIDTH_KINDS)
+    shapes += [("full_width", np.float32, lambda: full_cases[np.float32] + fused_events()),
+               ("full_width", np.float64, lambda: full_cases[np.float64]),
+               ("allen_cahn_full", np.float32, lambda: jvp_checks.stiff_main_cases(
+                   workloads.STIFF["b"], workloads.ALLEN_CAHN["f"], np.float32))]
+    worst, margins, rules, timed = {}, {}, {}, {}
+    for shape_name, dtype, make_cases in shapes:
+        tdtype = torch.float32 if dtype == np.float32 else torch.float64
+        for case in make_cases():
+            op = case["op"]
+            tans = jvp_checks.tangents(case, 0, device=dev)
+            _, want = (jvp_checks.card_plain_jvp(case, dev, tans) if op in grad_checks.FUSED
+                       else jvp_checks.case_jvp(case, grad_checks.plain(op), dev, tans))
+            reset_launches()
+            _, got = jvp_checks.case_jvp(case, grad_checks.function(op), dev, tans)
+            check(ops.launches[op] == 1 + TL.get(op, 0),
+                  f"jvp/{op}: {ops.launches[op]} launches, want {1 + TL.get(op, 0)}")
+            rule, err, margin = jvp_checks.hold_on_card(
+                f"jvp/{op}[{case['label']}]", case, got, want, tdtype, dev, tans)
+            worst[op] = max(worst.get(op, 0.0), err)
+            if margin is not None:
+                margins[op] = max(margins.get(op, 0.0), margin)
+            rules.setdefault(op, set()).add(rule)
+            main = "allen_cahn_full" if op in grad_checks.STIFF else "full_width"
+            if shape_name == main and dtype == np.float32 and op not in timed:
+                timed[op] = dict(case=case["label"])
+                for label, fn in (("jvp_ms", grad_checks.function(op)),
+                                  ("plain_jvp_ms", grad_checks.plain(op))):
+                    call, primals, dirs = jvp_checks.jvp_call(case, fn, dev, tans)
+                    timed[op][label] = median_ms(
+                        lambda: torch.func.jvp(call, primals, dirs), reps=10)
+                call, primals, _ = jvp_checks.jvp_call(case, grad_checks.function(op),
+                                                       dev, tans)
+                timed[op]["forward_ms"] = median_ms(lambda: call(*primals), reps=10)
+            del want, got
+        torch.cuda.empty_cache()
+        split(f"jvp/a/{shape_name}/{dtype.__name__}")
+    # The timed rows are CUDA-event times of a whole torch.func.jvp call
+    # (inputs made, forward and tangent); where its dispatch outlasts the
+    # 0.5 ms the device sleeps first, they hold host time.
+    emit("jvp", check="each Function's jvp vs torch.func.jvp of the plain op on the card",
+         tol={"float32": 1e-5, "float64": 1e-12}, max_abs_err=worst,
+         row_rule_margin=margins, rules={k: sorted(v) for k, v in rules.items()},
+         tangent_launches_a_call=TL, jvp_ms_full_width_float32=timed)
+
+    # (b) Whole forward-mode solves, float64, card against CPU
+    # (jvp_checks.PATHS, reduced): equal counts, tangents within 1e-9 of
+    # their largest entry; the non-terminal event's path through forward_ad
+    # dual tensors.  The CPU's tangents come from the CPU side
+    # (jvp_cpu_half).
+    held = {}
+    for path in JVP_PATHS:
+        reset_launches()
+        card = jvp_checks.solve_tangents(dev, path, wrt=jvp_wrt(path))
+        check(any(ops.launches.values()), f"jvp/{path}: no kernel launched")
+        held[path] = jvp_checks.hold_card_to_cpu(f"jvp/{path}", card, cpu["paths"][path])
+        split(f"jvp/b/{path}")
+    card = jvp_checks.solve_tangents(dev, "events_marker", mode="forward_ad")
+    held["events_marker/forward_ad"] = jvp_checks.hold_card_to_cpu(
+        "jvp/events_marker/forward_ad", card, cpu["paths"]["events_marker"])
+    split("jvp/b/events_marker/forward_ad")
+    # The forward tangent against the reverse gradient on the card:
+    # <J v, w> = <v, J^T w> for (y0, args) -> ys.
+    dots = {}
+    for path in ("dopri5", "kvaerno5_factor_once"):
+        vf, y0, te, args, kw, _ = jvp_checks.PATHS[path](np.float64)
+        rng = np.random.default_rng(5)
+        prim = [torch.as_tensor(x, device=dev) for x in (y0, args)]
+        v = [torch.as_tensor(rng.standard_normal(np.shape(x)), device=dev) for x in (y0, args)]
+        _, jv = torch.func.jvp(lambda y, a: solve_ivp(vf, y, te, args=a, device=dev, **kw).ys,
+                               tuple(prim), tuple(v))
+        w = torch.as_tensor(rng.standard_normal(tuple(jv.shape)), device=dev)
+        req = [p.clone().requires_grad_() for p in prim]
+        jw = torch.autograd.grad(solve_ivp(vf, *req[:1], te, args=req[1], device=dev,
+                                           **kw).ys, req, w)
+        lhs = float((jv * w).sum())
+        rhs = float(sum((g * t).sum() for g, t in zip(jw, v)))
+        dots[path] = dict(jv_w=lhs, v_jtw=rhs, rel=abs(lhs - rhs) / max(abs(lhs), 1.0))
+        check(dots[path]["rel"] <= jvp_checks.CARD_VS_CPU,
+              f"jvp/{path}: <Jv, w> {lhs} != <v, J^T w> {rhs}")
+    emit("jvp", check="whole solves card vs CPU, float64", rule=jvp_checks.CARD_VS_CPU,
+         max_rel_diff=held, forward_vs_reverse=dots)
+
+    split("jvp/b/forward_vs_reverse")
+    # (c) At full width: full_width_long (float32, b = 1024, f = 784),
+    # the tangent in y0 and every weight, and allen_cahn_full (kvaerno5,
+    # b = 1024, f = 128) factor-once in float32 and unfused in float64, in
+    # y0 and lam: a primal solve and a jvp solve each, ms a step of both,
+    # launches by kernel (the jvp's less the primal's are the tangent's:
+    # TANGENT_LAUNCHES times the primal's).  Held to the CPU side's rows
+    # 0-7: full_width_long's float32 tangent within twice the CPU's own
+    # float32 global error (C-5's rule, as the grad phase holds dL/dy0: the
+    # CPU's float32 tangent against its float64 one at tol 1e-7, which no
+    # card number enters); allen_cahn_full's float64 tangent within
+    # CARD_VS_CPU of its largest entry, with equal per-row counts.
+    def held_launches(label, run):
+        for k, n in run["primal_launches"].items():
+            check(run["tangent_launches"][k] == n * TL.get(k, 0),
+                  f"jvp/{label}: {k} tangent launches {run['tangent_launches'][k]}, "
+                  f"want {n} x {TL.get(k, 0)}")
+
+    rows = JVP_ROWS
+    vfl, y0l, tel, kwl = workloads.full_width_long(dev)
+    long32, tan32, _ = jvp_checks.jvp_solve(vfl, y0l, tel, kwl, dev,
+                                            reset_launches=reset_launches)
+    held_launches("full_width_long", long32)
+    split("jvp/c/full_width_long")
+    card_rows = tan32[:rows].double().cpu()
+    truth = torch.as_tensor(cpu["full_width_long_rows_float64"])
+    cpu_rows = torch.as_tensor(cpu["full_width_long_rows"])
+    d32 = float((card_rows - cpu_rows).abs().max())
+    cpu_err = float((cpu_rows - truth).abs().max())
+    check(d32 <= 2.0 * cpu_err,
+          f"jvp/full_width_long: rows 0-{rows - 1} card vs CPU {d32} > 2 x the CPU's float32 "
+          f"global error {cpu_err}")
+    long32["rows_0_7_card_vs_cpu"] = dict(
+        max_abs_diff=d32, cpu_global_err_vs_tol1e7=cpu_err, bound=2.0 * cpu_err,
+        card_global_err_vs_tol1e7=float((card_rows - truth).abs().max()),
+        scale=float(truth.abs().max()))
+    emit("jvp", workload="full_width_long", dtype="float32", wrt=["y0", "weights"], **long32)
+    del tan32
+    torch.cuda.empty_cache()
+
+    stiff = {}
+    for path, dtype in (("factor_once", np.float32), ("unfused", np.float64)):
+        vfs, y0s, _, kws = workloads.allen_cahn_full(dtype)
+        run, tan_s, counts = jvp_checks.jvp_solve(vfs, y0s, None,
+                                                  dict(kws, fused=path == "factor_once"), dev,
+                                                  reset_launches=reset_launches)
+        held_launches(f"allen_cahn_full/{path}", run)
+        if path == "unfused":
+            want, want_counts = cpu["allen_cahn_rows_float64"]
+            run["rows_0_7_card_vs_cpu"] = jvp_checks.hold_card_to_cpu(
+                "jvp/allen_cahn_full/unfused rows 0-7",
+                (None, [tan_s[:rows].cpu().numpy()], {k: v[:rows] for k, v in counts.items()}),
+                (None, [want], want_counts))
+        stiff[path] = run
+        emit("jvp", workload="allen_cahn_full", path=path, dtype=np.dtype(dtype).name,
+             wrt=["y0", "lam"], **run)
+        del tan_s
+        torch.cuda.empty_cache()
+        split(f"jvp/c/allen_cahn_full/{path}")
+    tangent = {}
+    for label, launches in (("allen_cahn_full/unfused (float64)",
+                             stiff["unfused"]["tangent_launches"]),
+                            ("allen_cahn_full/factor_once",
+                             stiff["factor_once"]["tangent_launches"]),
+                            ("full_width_long", long32["tangent_launches"])):
+        tangent.update({k: (n, label) for k, n in launches.items()})
+    return tangent
 
 
 def serve_phase(dev, smi, reset_launches, expected_launches):

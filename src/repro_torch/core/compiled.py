@@ -34,9 +34,12 @@ vary per call) is ``core/static.py``'s contract.  Tolerances are dynamic: a
 captured entry reads them from device buffers.
 
 Entries that are not captured.  ``BacksolveAdjoint``, ``events=``, the
-implicit steppers and gradient entries (``cotangent=``) run the driver's
-eager loop through the cache: their loops read the device every step or
-every Newton iteration, or autograd records them.  ``CompiledSolve.captured``
+implicit steppers, gradient entries (``cotangent=``) and forward-mode
+entries (a ``y0``, ``args`` or ``t_eval`` that carries a tangent:
+``torch.autograd.forward_ad`` or ``torch.func.jvp``) run the driver's eager
+loop through the cache: their loops read the device every step or every
+Newton iteration, or autograd records them, or a graph's static buffers
+would drop the tangent.  ``CompiledSolve.captured``
 is False for them and ``CompiledSolve.why`` says which read holds them.
 Whether an entry is captured follows from its static config alone; a capture
 that fails raises and never runs the eager loop in its place.  On the CPU a
@@ -75,6 +78,7 @@ from .solution import Grads, Solution, map_tensors
 from .static import Spec, freeze, frozen_setattr, tree_key
 from .stepper import AbstractStepper, DiagonallyImplicitRK
 from .terms import ODETerm, _is_number
+from ..kernels.ops import carries_tangent
 
 # Steps a captured block runs between two reads of the termination flag.
 DEFAULT_K = 16
@@ -125,11 +129,14 @@ def _tol_shape(x) -> tuple:
     return tuple(x.shape) if hasattr(x, "shape") else tuple(np.shape(x))
 
 
-def _uncaptured(driver, grad: bool) -> str | None:
+def _uncaptured(driver, grad: bool, forward: bool = False) -> str | None:
     """Why an entry of this static config runs the eager loop, or None when
     its loop is captured."""
     if grad:
         return "gradient entry: autograd records the loop, which a graph does not replay"
+    if forward:
+        return ("forward mode: a tangent rides on an input (a forward_ad dual or a "
+                "torch.func wrapper), which a graph's static buffers would drop")
     if isinstance(driver, BacksolveAdjoint):
         return ("BacksolveAdjoint: its forward and adjoint solves run their own loops "
                 "(core/adjoint.py)")
@@ -192,7 +199,10 @@ class _Config(NamedTuple):
 
     def key(self, f, y0, t_eval, t_start, t_end, dt0, args, rtol=None, atol=None,
             cotangent=None, *, device) -> tuple:
-        return (
+        # Forward mode is a class of its own: its entry runs the eager loop.
+        forward = ("forward mode",) if carries_tangent(
+            (y0, t_eval, t_start, t_end, dt0, args, rtol, atol)) else ()
+        return forward + (
             self.driver_key,
             _f_key(f),
             tree_key(y0),
@@ -266,8 +276,9 @@ class _CacheEntry:
         self.key = key
         self.device = device
         self.grad = grad
-        self.donate = donate and not grad
-        self.why = _uncaptured(config.driver, grad)
+        forward = key[0] == "forward mode"
+        self.donate = donate and not grad and not forward
+        self.why = _uncaptured(config.driver, grad, forward)
         self.runner: BlockRunner | None = None
 
     @property

@@ -10,9 +10,9 @@ Table 5 axis):
     ``running.any()`` for the loop condition synchronizes host and device once
     per step; through ``CompiledSolver`` (``core/compiled.py``) the loop runs
     as CUDA graphs of k steps and reads once per block.  It is
-    reverse-differentiable through torch autograd: on the CPU through the
-    plain ops, on the card through the kernels' autograd Functions
-    (``kernels/autograd.py``).
+    reverse-differentiable through torch autograd, and forward-differentiable
+    (see below): on the CPU through the plain ops, on the card through the
+    kernels' autograd Functions (``kernels/autograd.py``).
 ``ScanAdjoint``
     Exactly ``max_steps`` steps, masked no-ops once an instance has stopped
     (the JAX package's bounded ``lax.scan``; discretize-then-optimize).  The
@@ -27,8 +27,15 @@ Table 5 axis):
 
 On the card every solver kernel has its autograd Function, so the explicit
 path, ``fused=True``, ``events=`` and the implicit steppers differentiate
-there as on the CPU, where the plain ops differentiate themselves (reverse
-mode only: forward mode is ROADMAP A-18's remainder).
+there as on the CPU, where the plain ops differentiate themselves -- in
+reverse mode and in forward mode.  ``AutoDiffAdjoint`` and ``ScanAdjoint``
+(``checkpoint_every`` included) are differentiable in forward mode, as the
+JAX package's are under ``jax.jvp``: ``torch.func.jvp`` of a solve is the
+counterpart, and ``torch.autograd.forward_ad`` dual tensors work too but on
+the implicit steppers' default Jacobian (``ODETerm.vf_jac``), which cannot
+nest there.  Each Function's ``jvp`` launches its kernel again on the
+tangents where the op is linear in them.  ``BacksolveAdjoint`` refuses
+forward mode with ``TypeError``.
 
 All drivers accept structured initial states: ravel/unravel happens at the
 term boundary (``terms.ravel_state`` / ``terms.ravel_term``), and the
@@ -51,6 +58,7 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.ops import carries_tangent
 from .events import Event, normalize_events
 from .solution import Solution
 from .static import static_items
@@ -256,8 +264,13 @@ class ScanAdjoint(_Driver):
 def _checkpointed(run, state, n):
     """``run(state, n)`` under non-reentrant ``torch.utils.checkpoint`` over
     the flattened state: the block's saved tensors are dropped after its
-    forward and recomputed from its input state in the backward pass."""
+    forward and recomputed from its input state in the backward pass.  A
+    state that carries a forward-mode tangent runs the block as it is:
+    forward mode keeps nothing for a backward, and the checkpoint's own
+    autograd Function has no jvp rule on every torch (2.11's)."""
     leaves, spec = pytree.tree_flatten(state)
+    if carries_tangent(leaves):
+        return run(state, n)
 
     def block(*leaves):
         return tuple(pytree.tree_leaves(run(pytree.tree_unflatten(list(leaves), spec), n)))
@@ -356,6 +369,12 @@ class BacksolveAdjoint:
         return solve_fn
 
     def solve(self, f, y0, *, t_start, t_end, args: Any = None, device=None):
+        if carries_tangent((y0, t_start, t_end, args)):
+            raise TypeError(
+                "BacksolveAdjoint has no forward mode: its adjoint-ODE backward is a custom "
+                "reverse rule, as the JAX package's custom_vjp refuses jax.jvp.  Take "
+                "forward mode (torch.func.jvp or forward_ad) through AutoDiffAdjoint or "
+                "ScanAdjoint")
         device = resolve_device(device)
         y0_flat, raveled = ravel_state(to_device(y0, device))
         # None for flat states; the structure otherwise.

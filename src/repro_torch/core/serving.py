@@ -124,6 +124,7 @@ from .solution import Solution, map_tensors
 from .static import Spec, tree_key
 from .stepper import AbstractStepper
 from .terms import ODETerm
+from ..kernels.ops import carries_tangent
 
 
 def next_pow2(n: int) -> int:
@@ -636,6 +637,12 @@ class SolveService:
         flush-on-deadline, everything on backlog overflow.  Starts do not
         wait for the device (unless ``max_inflight`` forces a backpressure
         wait); batches in flight are advanced and harvested on the way in."""
+        if carries_tangent((req.y0, req.t0, req.t1, req.t_eval, req.args, req.rtol, req.atol,
+                            req.dt0, req.cotangent)):
+            raise TypeError(
+                "a request tensor carries a forward-mode tangent (a forward_ad dual or a "
+                "torch.func wrapper), which the service's packed batch buffers would drop: "
+                "solve it with solve_ivp or AutoDiffAdjoint under torch.func.jvp instead")
         self.poll()
         if self._queue_depth >= self.max_queue:
             self.flush()

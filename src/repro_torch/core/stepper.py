@@ -46,11 +46,20 @@ class StepResult(NamedTuple):
     stats_aux: dict | None = None  # extra per-step stats (n_newton_iters, ...)
 
 
+# The numpy dtype of each state dtype: read from a table, not off a tensor,
+# which under a torch.func transform is a wrapper with no memory.
+_NP_DTYPES = {torch.float16: np.float16, torch.float32: np.float32,
+              torch.float64: np.float64, torch.complex64: np.complex64,
+              torch.complex128: np.complex128}
+
+
 def _tableau_arrays(tab: ButcherTableau, dtype):
     """Tableau coefficients as host-side numpy (a, c, b_sol, b_err) in the
     state's dtype: the kernels take them by value at launch.  Fixed-step
     tableaus (b_err is None) get zero error weights."""
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    if dtype not in _NP_DTYPES:
+        raise TypeError(f"no numpy dtype for a state of {dtype}")
+    np_dtype = _NP_DTYPES[dtype]
     a = np.asarray(tab.a, dtype=np_dtype)
     c = np.asarray(tab.c, dtype=np_dtype)
     b_sol = np.asarray(tab.b_sol, dtype=np_dtype)

@@ -21,6 +21,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
+from torch._C import _functorch
+from torch.autograd import forward_ad as _fwad
 from torch.func import vmap
 
 from ..kernels import ops
@@ -78,6 +80,12 @@ class ODETerm:
         batch recovers every instance's Jacobian column in one pass, and
         per-instance ``args`` flow through untouched.  Supply ``f_jac`` for an
         analytic or structured Jacobian.
+
+        Forward mode: under ``torch.func.jvp`` the Jacobian's jvp nests in
+        the solve's, so the chord matrix carries its own tangent, as
+        ``jax.jvp`` of ``jax.jacfwd`` does in the JAX package; inside a
+        ``torch.autograd.forward_ad`` level the nested jvp cannot run, and
+        this raises ``RuntimeError`` (an ``f_jac`` is called as given).
         """
         if self.f_jac is not None:
             if self.batched:
@@ -91,6 +99,15 @@ class ODETerm:
                 else:
                     out = vmap(self.f_jac)(t, y)
             return torch.as_tensor(out, dtype=y.dtype, device=y.device)
+
+        if _fwad._current_level >= 0 and _functorch.maybe_current_level() is None:
+            # torch.func.jvp nests inside torch.func.jvp, so the chord matrix
+            # carries its own tangent there; inside a forward_ad dual level
+            # torch refuses the nested jvp.
+            raise RuntimeError(
+                "the implicit steppers' default Jacobian is a forward-mode jvp of the vector "
+                "field, which cannot nest inside torch.autograd.forward_ad: take forward mode "
+                "through the solve with torch.func.jvp, or give the ODETerm an f_jac")
 
         def column(e):  # e: (f,) basis vector -> (b, f) = J @ e per instance
             return torch.func.jvp(lambda yy: self.vf(t, yy, args), (y,), (e.expand_as(y),))[1]

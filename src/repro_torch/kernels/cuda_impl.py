@@ -41,6 +41,8 @@ import functools
 
 import numpy as np
 import torch
+from torch._C import _functorch
+from torch.autograd import forward_ad as _fwad
 
 from . import _build
 
@@ -112,9 +114,35 @@ _DTYPES = {torch.float32: 0, torch.float64: 1}
 _WITH_FUNCTION = ("the CUDA kernel has no backward of its own: differentiate through "
                   "repro_torch.kernels.ops, whose autograd Function holds it")
 _NO_BACKWARD = dict.fromkeys(launches, _WITH_FUNCTION)
+# Why a wrapper refuses an input in forward mode: the kernel reads the
+# primal's memory only, and would drop the tangent.
+_NO_TANGENT = ("the CUDA kernel would drop a forward-mode tangent (or cannot read a torch.func "
+               "transform's wrapper): go through repro_torch.kernels.ops, whose autograd "
+               "Function holds the jvp")
+
+
+def forward_mode():
+    """Whether forward mode may be on: a ``torch.autograd.forward_ad``
+    level is open (``torch.func.jvp`` opens one too) or a ``torch.func``
+    transform runs.  False, and cheap, on the primal path."""
+    return _fwad._current_level >= 0 or _functorch.maybe_current_level() is not None
+
+
+def transformed(t):
+    """Whether ``t`` carries a forward-mode tangent -- a ``forward_ad``
+    dual tensor at the open level -- or is a ``torch.func`` transform's
+    wrapper, whose data no kernel can read."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    if _functorch.is_functorch_wrapped_tensor(t):
+        return True
+    level = _fwad._current_level
+    return level >= 0 and _fwad.unpack_dual(t, level=level).tangent is not None
 
 
 def _check(name, dtype, *tensors):
+    if forward_mode() and any(map(transformed, tensors)):
+        raise RuntimeError(f"{name}: {_NO_TANGENT}")
     for t in tensors:
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "

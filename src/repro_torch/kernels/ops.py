@@ -9,9 +9,16 @@ on the card.  ``launches`` counts the CUDA launches of each kernel.
 Gradients: on a CUDA tensor, with grad mode on and an input that requires
 grad, every solver op goes through its ``torch.autograd.Function`` in
 ``autograd.py`` (the kernel forward, a plain-torch backward), and the
-attention through ``FlashAttention`` (the CUDA forward and backward).  CPU
-tensors take the plain ops and their own autograd; the attention there
-takes ``FlashAttention`` too, with the plain forward and backward.
+attention through ``FlashAttention`` (the CUDA forward and backward).  So
+does forward mode: an input that carries a tangent (a
+``torch.autograd.forward_ad`` dual tensor, a ``torch.func.jvp`` wrapper)
+takes the Function, whose ``jvp`` launches the kernel again on the
+tangents where the op is linear in them; a raw ``cuda_impl`` wrapper
+refuses such an input rather than drop its tangent.  Without a dual level
+or a transform the test costs two reads of global state.  CPU tensors take
+the plain ops and their own autograd; the attention there takes
+``FlashAttention`` too, with the plain forward and backward (it has no
+``jvp`` yet).
 
 The solver core (``core/stepper.py`` for the stage math, ``core/newton.py``
 for the chord-Newton linear algebra, ``core/step.py`` for the error norm, the
@@ -24,6 +31,7 @@ a DTensor: under a mesh each rank passes its local shards.
 from __future__ import annotations
 
 import torch
+import torch.utils._pytree as pytree
 from torch.distributed.tensor import DTensor
 
 from . import autograd, cuda_impl, ref
@@ -45,10 +53,22 @@ def _on_cuda(name, t):
 
 
 def _taped(*tensors):
-    """Whether autograd records this call: grad mode is on and a tensor
-    input requires grad."""
-    return torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+    """Whether this call goes through the autograd Function: autograd
+    records it (grad mode is on and a tensor input requires grad), or an
+    input carries a forward-mode tangent or is a ``torch.func`` wrapper
+    (``cuda_impl.transformed``; only looked at in forward mode)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        return True
+    return cuda_impl.forward_mode() and any(cuda_impl.transformed(t) for t in tensors)
+
+
+def carries_tangent(tree) -> bool:
+    """Whether a leaf of ``tree`` carries a forward-mode tangent or is a
+    ``torch.func`` wrapper (``cuda_impl.transformed``): what a captured
+    graph, a packed buffer or a raw kernel would drop."""
+    return cuda_impl.forward_mode() and any(
+        cuda_impl.transformed(x) for x in pytree.tree_leaves(tree))
 
 
 def stage_accum(y, dt, K, coeffs):
@@ -82,7 +102,7 @@ def interp_eval(coeffs, x, mask, out, cursor=None):
     (b, W) window starting at each row's cursor (``ref.interp_eval_window``).
     Under autograd the card writes into a copy of ``out`` instead."""
     if _on_cuda("interp_eval", out):
-        if _taped(x, out, *coeffs):
+        if _taped(x, mask, out, cursor, *coeffs):
             return autograd.interp_eval(coeffs, x, mask, out, cursor)
         return cuda_impl.interp_eval(coeffs, x, mask, out, cursor)
     if cursor is None:
@@ -97,7 +117,7 @@ def fused_step(y, K, f1, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_inv
     kw = dict(b_sol=b_sol, b_err=b_err, ctrl=ctrl, want_coeffs=want_coeffs,
               ctrl_mode=ctrl_mode, failed=failed, f0=f0)
     if _on_cuda("fused_step", y):
-        if _taped(y, K, f1, t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv, atol, rtol, f0):
+        if _taped(*args, failed, f0):
             return autograd.fused_step(*args, **kw)
         return cuda_impl.fused_step(*args, **kw)
     return ref.fused_step(*args, **kw)
@@ -110,7 +130,7 @@ def fused_step_poly(y, f0, t, t_new, dt_cur, safe_dt, running, prev_inv, prev2_i
     kw = dict(a=a, c=c, b_sol=b_sol, b_err=b_err, poly=poly, ctrl=ctrl,
               want_coeffs=want_coeffs, fsal=fsal, ctrl_mode=ctrl_mode)
     if _on_cuda("fused_step_poly", y):
-        if _taped(y, f0, t, t_new, dt_cur, safe_dt, prev_inv, prev2_inv, atol, rtol):
+        if _taped(*args):
             return autograd.fused_step_poly(*args, **kw)
         return cuda_impl.fused_step_poly(*args, **kw)
     return ref.fused_step_poly(*args, **kw)
@@ -134,7 +154,7 @@ def batched_lu_factor(A):
 
 def fused_newton_iter(lu, perm, k, fk, active, scale):
     if _on_cuda("fused_newton_iter", k):
-        if _taped(lu, k, fk, scale):
+        if _taped(lu, perm, k, fk, active, scale):
             return autograd.fused_newton_iter(lu, perm, k, fk, active, scale)
         return cuda_impl.fused_newton_iter(lu, perm, k, fk, active, scale)
     return ref.fused_newton_iter(lu, perm, k, fk, active, scale)
@@ -142,7 +162,7 @@ def fused_newton_iter(lu, perm, k, fk, active, scale):
 
 def masked_newton_update(k, delta, active, scale):
     if _on_cuda("masked_newton_update", k):
-        if _taped(k, delta, scale):
+        if _taped(k, delta, active, scale):
             return autograd.masked_newton_update(k, delta, active, scale)
         return cuda_impl.masked_newton_update(k, delta, active, scale)
     return ref.masked_newton_update(k, delta, active, scale)
@@ -150,7 +170,7 @@ def masked_newton_update(k, delta, active, scale):
 
 def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
     if _on_cuda("masked_bisect_refine", lo):
-        if _taped(lo, hi, v_lo, v_mid, *coeffs):
+        if _taped(lo, hi, v_lo, v_mid, active, *coeffs):
             return autograd.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
         return cuda_impl.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
     return ref.masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active)
@@ -158,7 +178,7 @@ def masked_bisect_refine(coeffs, lo, hi, v_lo, v_mid, active):
 
 def fused_event_detect(v_prev, v_new, fired, accept, *, directions):
     if _on_cuda("fused_event_detect", v_prev):
-        if _taped(v_prev, v_new):
+        if _taped(v_prev, v_new, fired, accept):
             return autograd.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
         return cuda_impl.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
     return ref.fused_event_detect(v_prev, v_new, fired, accept, directions=directions)
@@ -171,7 +191,7 @@ def fused_event_commit(x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y, *, term
     copy of ``ev_y`` instead."""
     args = (x, y_ev, newly, y_new, t0, dt, fired, ev_t, ev_y)
     if _on_cuda("fused_event_commit", y_new):
-        if _taped(x, y_ev, y_new, t0, dt, ev_t, ev_y):
+        if _taped(*args):
             return autograd.fused_event_commit(*args, terminal=terminal)
         return cuda_impl.fused_event_commit(*args, terminal=terminal)
     return ref.fused_event_commit(*args, terminal=terminal)

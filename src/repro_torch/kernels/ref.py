@@ -142,8 +142,11 @@ def batched_lu_factor(A):
         lu, pivots = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     else:
         lu, pivots, _ = torch.linalg.lu_factor_ex(A)
-    # A = P L U, so (P^T A)[i] = A[perm[i]] with P[perm[i], i] == 1.
-    P, _, _ = torch.lu_unpack(lu, pivots, unpack_data=False)
+    # A = P L U, so (P^T A)[i] = A[perm[i]] with P[perm[i], i] == 1.  P is
+    # read off the pivots alone: unpacked from a copy of the factors with no
+    # tangent, as ``lu_unpack``'s forward-mode rule is for the unpacked
+    # factors, and under ``torch.func.jvp`` it fails on ``lu`` itself.
+    P, _, _ = torch.lu_unpack(torch.zeros_like(lu), pivots, unpack_data=False)
     # LAPACK hands back column-major factors; the op's are row-major.
     return lu.contiguous(), P.argmax(dim=-2).to(torch.int32)
 

@@ -233,12 +233,8 @@ def _stiff_cases(seed, b, f, dtype):
     return out
 
 
-def cases(b, f, n, dtype, seed=0, tol_kinds=TOL_KINDS, mask_kinds=MASK_KINDS, ops=EXPLICIT,
-          E=EVENTS_E):
-    """Every case of ``ops`` at one (b, f), n eval points and E events,
-    numpy ``dtype``."""
-    rng = np.random.default_rng(seed)
-
+def _explicit_cases(rng, b, f, n, dtype, seed, tol_kinds, mask_kinds):
+    """The explicit ops' cases, drawn from ``cases``' generator ``rng``."""
     def r(*shape):
         return rng.standard_normal(shape).astype(dtype)
 
@@ -270,6 +266,18 @@ def cases(b, f, n, dtype, seed=0, tol_kinds=TOL_KINDS, mask_kinds=MASK_KINDS, op
     out.append(dict(op="interp_eval", label=f"window={W}", args=dict(
         coeffs=coeffs, x=x[:, :W].copy(), mask=np.asarray(rng.random((b, W)) < 0.5),
         out=buf, cursor=cursor), cot=(r(b, n, f),)))
+    return out
+
+
+def cases(b, f, n, dtype, seed=0, tol_kinds=TOL_KINDS, mask_kinds=MASK_KINDS, ops=EXPLICIT,
+          E=EVENTS_E):
+    """Every case of ``ops`` at one (b, f), n eval points and E events,
+    numpy ``dtype``."""
+    out = []
+    if any(op in ops for op in EXPLICIT):
+        out += _explicit_cases(np.random.default_rng(seed), b, f, n, dtype, seed, tol_kinds,
+                               mask_kinds)
+    # The other kinds draw from seeds of their own.
     if any(op in ops for op in FUSED):
         out += _step_cases(np.random.default_rng(seed + 40), b, f, dtype)
     if any(op in ops for op in EVENTS):
@@ -333,8 +341,32 @@ def stand_in(name):
             else:
                 res = getattr(ref, name)(*a, **kw)
         cuda_impl.launches[name] += 1
-        return res
+        return _fresh_outputs(name, res, a)
     return launch
+
+
+def _fresh_outputs(name, res, inputs):
+    """A stand-in's outputs as the kernel's: where the plain op hands an
+    input back as an output (the fixed controller's history, a row with no
+    terminal event's y_stop), a copy of it -- the kernel writes every output
+    into a buffer of its own, but for the buffers it writes in place
+    (``interp_eval``'s ``out``, ``fused_event_commit``'s ``ev_y``) and the
+    fused steps' c0, which is the input y."""
+    if not isinstance(res, tuple):
+        return res
+    given = [x for x in inputs if isinstance(x, torch.Tensor)]
+    out = []
+    for i, r in enumerate(res):
+        if isinstance(r, tuple):  # the fused steps' coefficients: c0 is y
+            r = (r[0], *(_copy_if_given(c, given) for c in r[1:]))
+        elif not (name == "fused_event_commit" and i == 2):
+            r = _copy_if_given(r, given)
+        out.append(r)
+    return tuple(out)
+
+
+def _copy_if_given(r, given):
+    return r.clone() if isinstance(r, torch.Tensor) and any(r is g for g in given) else r
 
 
 def _tensor(x, device, grad):
@@ -481,7 +513,7 @@ def hold_to_row_max(name, got, want, dtype):
     return worst
 
 
-def hold_to_float64(name, got, want, want64, dtype):
+def hold_to_float64(name, got, want, want64, dtype, check=True):
     """The float32 rule of the fused and Newton backwards on the card,
     against ``want64``, autograd of the same plain op in float64 on the
     same inputs: the non-finite entries of ``got`` and ``want`` equal, and
@@ -491,7 +523,7 @@ def hold_to_float64(name, got, want, want64, dtype):
     Function is as accurate as autograd of the plain op, whose error where
     a gradient cancels (an error estimate's dt, a polynomial's stages) is
     far above the tolerance.  Returns the largest ratio of a row's error
-    to its bound."""
+    to its bound (``check=False``: without refusing one above 1)."""
     tol = tolerance(dtype)
     worst = 0.0
     for k, g, w in _pairs(name, got, want):
@@ -504,7 +536,7 @@ def hold_to_float64(name, got, want, want64, dtype):
         err, floor = rows((g64 - w64).abs()), rows((wd - w64).abs())
         bound = 2.0 * floor + tol * (1.0 + rows(w64.abs()))
         over = fin & (err > bound)
-        assert not bool(over.any()), (
+        assert not (check and bool(over.any())), (
             f"{name}: d/d{k}: a row's error against float64 beyond 2 x the plain op's + tol x "
             f"(1 + the row's largest); worst {float((err / bound)[fin].max())} x the bound")
         if bool(fin.any()):

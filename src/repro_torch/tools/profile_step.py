@@ -7,6 +7,7 @@
                     vdp_stiff_mixed|robertson_sweep|allen_cahn_full|all]
     PYTHONPATH=src python -m repro_torch.tools.profile_step --grad [explicit|fused|events|stiff]
     PYTHONPATH=src python -m repro_torch.tools.profile_step --compiled 16 [...]
+    PYTHONPATH=src python -m repro_torch.tools.profile_step --jvp
     python src/repro_torch/tools/profile_step.py --src <another tree>/src [...]
 
 ``--src`` profiles the ``repro_torch`` of another tree (run as a file; it
@@ -67,6 +68,15 @@ step the device operations per training step and per loop iteration, the
 device busy time, the idle share, the port's kernels by name, and each
 backward of ``kernels/autograd.py`` (``backward_ms``: calls, device time and
 host time of its autograd node, the kernels it launches included).
+
+``--jvp`` profiles forward mode instead: full_width_long (float32, the
+tangent in y0 and every weight) and allen_cahn_full factor-once (y0 and
+lam), a primal solve and a ``torch.func.jvp`` solve of each.  One JSON line
+each: the loop iterations, ``ms_per_step`` of both (host clock,
+synchronized), and from ``torch.profiler`` over each (its ``profile``:
+device operations, busy ms and idle share a step, the port's kernels by
+name); ``tangent_device_ms_per_step`` is the jvp's less the primal's, kernel
+by kernel: what the tangents' launches add.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -320,6 +330,37 @@ def _bind(src):
     from repro_torch.tools import workloads
 
 
+def profile_jvp(device, name):
+    """A primal and a ``torch.func.jvp`` solve of ``name`` (see ``--jvp`` in
+    the module docstring), each timed and profiled once after a warm-up."""
+    from repro_torch.tools import jvp_checks
+
+    if name == "full_width_long":
+        vf, y0, te, kw = workloads.full_width_long(device)
+    else:
+        vf, y0, te, kw = workloads.allen_cahn_full(np.float32)
+        kw = dict(kw, fused=True)
+    solve, primals, dirs = jvp_checks.workload_jvp(vf, y0, te, kw, device)
+
+    def primal():
+        with torch.no_grad():
+            return solve(*primals)
+
+    def jvp():
+        return torch.func.jvp(lambda yy, aa: solve(yy, aa).ys, primals, dirs)
+
+    iters = int(primal().stats["n_steps"].max())
+    out = dict(workload=name, iterations=iters)
+    for label, run in (("primal", primal), ("jvp", jvp)):
+        run()  # warm-up
+        wall, _ = _sync_ms(run)
+        out[label] = dict(ms_per_step=wall / iters, profile=_profile(run, iters))
+    p, j = (out[k]["profile"] or {} for k in ("primal", "jvp"))
+    pk, jk = p.get("port_kernels_ms_per_step", {}), j.get("port_kernels_ms_per_step", {})
+    out["tangent_device_ms_per_step"] = {k: jk[k] - pk.get(k, 0.0) for k in jk}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--fused", action="store_true", help="profile fused=True")
@@ -329,6 +370,8 @@ def main(argv=None) -> int:
     parser.add_argument("--workload", choices=[*WORKLOADS, "all"], default="all")
     parser.add_argument("--compiled", type=int, default=0, metavar="K",
                         help="also profile the solve through CompiledSolver(k=K)")
+    parser.add_argument("--jvp", action="store_true",
+                        help="profile a primal and a torch.func.jvp solve instead")
     parser.add_argument("--src", default=None,
                         help="the src/ directory whose repro_torch to profile (run as a file)")
     opts = parser.parse_args(argv)
@@ -341,6 +384,11 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
+    if opts.jvp:
+        for name in ("full_width_long", "allen_cahn_full"):
+            print(json.dumps({"src": str(pathlib.Path(ops.__file__).parents[2]),
+                              **profile_jvp(device, name)}), flush=True)
+        return 0
     if opts.grad:
         runs = ([(0, False), (0, True)] if opts.grad == "stiff"
                 else [(workloads.TRAIN["checkpoint_every"], False), (0, False)])
